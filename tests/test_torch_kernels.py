@@ -1,0 +1,188 @@
+"""Parity of the port's kernel wrappers (``xmtpu_torch.kernels``) with
+the JAX package's Pallas kernels, run in interpret mode on the CPU.
+
+On a CPU tensor each wrapper runs its kernel's plain torch twin; the
+CUDA kernels themselves are compared with the twins on the card
+(``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+
+One shape: 2 rows x 8000 samples (the flagship chain's bus signal for
+0.5 s clips), the chain's 4093-tap combined EQ+reverb IR. At 2 rows and
+8000 samples ``pick_segments`` is 1, so the JAX limiter takes the
+unsegmented in-kernel-curve path (K2) the port replaces.
+
+Tolerances:
+- fftconv twin against the Pallas kernel: -95 dB. The gate is set by
+  the reference, not the port: the Pallas kernel's 3-pass bf16 DFT
+  matmuls read -99.2 dB against a float64 direct convolution at this
+  shape (block 32768), while the twin reads -135 dB. The twin is
+  therefore also gated at -120 dB against the float64 convolution;
+- limiter twin against the Pallas kernel and the float64 oracle:
+  -100 dB (float32 on both sides; association order and exp/log vs
+  log10/pow rounding only).
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xmtpu import batch as xbatch
+from xmtpu.kernels.envelope import limiter_pallas
+from xmtpu.kernels.fftconv import fir_convolve_os_pallas
+from xmtpu.kernels.iir import pick_segments
+from xmtpu.ops import reverb as xreverb
+from xmtpu_torch.kernels import _build, envelope, fftconv
+from xmtpu_torch.ops import reverb
+from xmtpu_torch.ops.limiter import _attack_coeff, _release_coeff
+from xmtpu_torch.utils.errors import NotPortedError
+
+from .conftest import rms_db
+
+R, N, SR_BUS = 2, 8000, 16000
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(7)
+    x = (0.3 * rng.standard_normal((R, N))).astype(np.float32)
+    pre_row = np.array([0.8, 1.7], np.float32)
+    pre_col = xbatch._mix.fade_ramp_np(N, 4000, 4000, N).astype(np.float32)
+    sos = xbatch._biquad.eq_sos(list(xbatch.DEFAULT_BANDS), SR_BUS)
+    ir = xbatch._combined_ir(
+        sos, xreverb.synthetic_ir(0.25, SR_BUS).astype(np.float32),
+        0.25, 0.75)
+    return x, pre_row, pre_col, ir
+
+
+def _t(*arrs):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrs)
+
+
+# ---------------------------------------------------------------- fftconv
+
+
+def test_fftconv_twin_vs_pallas(data):
+    x, pre_row, pre_col, ir = data
+    blk, gp = xbatch._reverb_block(ir.shape[-1])
+    y_j = np.asarray(fir_convolve_os_pallas(
+        jnp.asarray(x), ir, blk, gp=gp, interpret=True,
+        pre_row=jnp.asarray(pre_row), pre_col=jnp.asarray(pre_col)))[..., :N]
+    y_t = fftconv.fir_convolve(*_t(x, ir, pre_row, pre_col)).numpy()
+    db = rms_db(y_t - y_j, y_j)
+    print(f"fftconv twin vs Pallas (interpret): {db:.1f} dB")
+    assert y_t.shape == (R, N) and db <= -95.0
+
+
+@pytest.mark.parametrize("m", [4093, 50])  # one block; many 1024 blocks
+def test_fftconv_twin_vs_direct_f64(data, m):
+    x, pre_row, pre_col, ir = data
+    h = np.ascontiguousarray(ir[:m])
+    y_t = fftconv.fir_convolve_plain(*_t(x, h, pre_row, pre_col)).numpy()
+    xin = (x.astype(np.float64) * pre_row[:, None]) * pre_col
+    ref = np.stack([np.convolve(r, h.astype(np.float64))[:N] for r in xin])
+    assert rms_db(y_t - ref, ref) <= -120.0
+
+
+def test_reverb_op_vs_jax(data):
+    """ops.reverb's chain form (dry=0, in-kernel gains, output
+    prescale) against the JAX op on its Pallas backend."""
+    x, pre_row, pre_col, ir = data
+    blk, gp = xbatch._reverb_block(ir.shape[-1])
+    kw = dict(wet=0.5, dry=0.0, pre_row=pre_row, pre_col=pre_col)
+    y_j = np.asarray(xreverb.reverb(
+        jnp.asarray(x), ir, block=blk, gp=gp, backend="pallas",
+        interpret=True, prescale=jnp.asarray([[1.5], [0.5]], jnp.float32),
+        **kw))
+    y_t = reverb.reverb(torch.from_numpy(x), ir,
+                        prescale=torch.tensor([[1.5], [0.5]]), **kw).numpy()
+    assert rms_db(y_t - y_j, y_j) <= -95.0  # the Pallas kernel's own floor
+    with pytest.raises(NotPortedError):
+        reverb.reverb(torch.from_numpy(x), ir, wet=0.25, dry=0.75)
+
+
+# --------------------------------------------------------------- envelope
+
+
+@pytest.mark.parametrize("init", [None, (0.4, 0.2)])
+def test_limiter_twin_vs_pallas(data, init):
+    assert pick_segments(R, N, lanes=256) == 1  # unsegmented JAX path
+    x = 3.0 * data[0]  # drive well into the knee and the ceiling
+    k_rel = _release_coeff(100.0, SR_BUS)
+    c_att = _attack_coeff(1.0, SR_BUS)
+    init_j = None if init is None else tuple(
+        jnp.full((R,), v, jnp.float32) for v in init)
+    y_j, st_j = limiter_pallas(jnp.asarray(x), k_rel, c_att, -3.0,
+                               init=init_j, interpret=True)
+    y_j = np.asarray(y_j)
+    init_t = None if init is None else torch.tensor(
+        [[init[0]] * R, [init[1]] * R], dtype=torch.float32)
+    y_t, zf_t = envelope.limiter(torch.from_numpy(x), k_rel, c_att,
+                                 envelope.curve_of(-3.0), init=init_t)
+    db = rms_db(y_t.numpy() - y_j, y_j)
+    print(f"limiter twin vs Pallas (interpret): {db:.1f} dB")
+    assert db <= -100.0
+    assert np.abs(y_t.numpy()).max() <= 1.0
+    np.testing.assert_allclose(zf_t.numpy(), np.stack(
+        [np.asarray(s) for s in st_j]), rtol=1e-5)
+
+
+def test_limiter_twin_vs_oracle(data):
+    """The twin against the float64 oracle of ops.limiter."""
+    from xmtpu_torch.ops.limiter import limiter_np
+
+    x = 3.0 * data[0]
+    y_ref, _ = limiter_np(x[:, None, :], SR_BUS, threshold_db=-3.0)
+    y_t, _ = envelope.limiter(torch.from_numpy(x),
+                              _release_coeff(100.0, SR_BUS),
+                              _attack_coeff(1.0, SR_BUS),
+                              envelope.curve_of(-3.0))
+    assert rms_db(y_t.numpy() - y_ref[:, 0], y_ref[:, 0]) <= -100.0
+
+
+# ------------------------------------------------------- wrapper contract
+
+
+def test_wrappers_refuse_bad_operands(data):
+    x, pre_row, pre_col, ir = _t(*data)
+    with pytest.raises(ValueError):
+        fftconv.fir_convolve(x.double(), ir, pre_row, pre_col)
+    with pytest.raises(ValueError):
+        fftconv.fir_convolve(x.T, ir, pre_row, pre_col[:R])  # strided
+    with pytest.raises(ValueError):
+        fftconv.fir_convolve(x, ir, pre_row[:1], pre_col)
+    with pytest.raises(ValueError, match="taps"):  # beyond a 16384 block
+        fftconv.fir_convolve(x, torch.ones(8194), pre_row, pre_col)
+    assert fftconv.fft_log_size(4093) == 13  # the chain: 8192-point blocks
+    with pytest.raises(ValueError):
+        envelope.limiter(x[None], 0.9, 0.1, envelope.curve_of(-3.0))
+    with pytest.raises(ValueError):
+        envelope.limiter(x, 0.9, 0.1, envelope.curve_of(-3.0),
+                         init=torch.zeros(2, R + 1))
+
+
+def test_wrappers_launch_only_on_cuda(data):
+    """A CPU tensor runs the twin and counts no launch; a tensor on any
+    other non-CUDA device raises instead of falling back."""
+    x, pre_row, pre_col, ir = _t(*data)
+    before = (fftconv.launches, envelope.launches)
+    fftconv.fir_convolve(x, ir, pre_row, pre_col)
+    envelope.limiter(x, 0.9, 0.1, envelope.curve_of(-3.0))
+    assert (fftconv.launches, envelope.launches) == before
+    meta = [t.to("meta") for t in (x, ir, pre_row, pre_col)]
+    with pytest.raises(ValueError, match="no fftconv kernel"):
+        fftconv.fir_convolve(*meta)
+    with pytest.raises(ValueError, match="no envelope kernel"):
+        envelope.limiter(meta[0], 0.9, 0.1, envelope.curve_of(-3.0))
+
+
+def test_build_key_covers_sources():
+    """The build is keyed by the flags and every CUDA source, for
+    Hopper's sm_90a; the library lands in the ignored build dir."""
+    names = [p.name for p in _build.sources()]
+    assert {"fftconv.cu", "envelope.cu"} <= set(names)
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    key = _build.source_key()
+    assert len(key) == 16 and key == _build.source_key()
+    assert _build.library_path().parent.parent == _build.BUILD_DIR

@@ -1,0 +1,114 @@
+"""Throughput benchmark of the flagship chain on one CUDA GPU
+(counterpart of the root ``bench.py``; same JSON keys).
+
+    python -m xmtpu_torch.bench [--batch=256] [--clip_seconds=10] [--iters=20]
+
+Prints one JSON line: ``metric``, ``value`` (audio-seconds per second
+per GPU), ``unit``, ``vs_baseline`` (ratio to the 500x-realtime
+target), ``accuracy_db`` (clip 0 against the float64 oracle) and
+``device`` (the GPU's name). Time is taken with CUDA events around
+``iters`` back-to-back steps after one warm-up step, so it includes any
+gap the host leaves between kernels. There is no CPU fallback: without
+a CUDA device the command fails.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+import numpy as np
+import torch
+
+TARGET_RT = 500.0  # x realtime per GPU
+SR_IN = 44100
+
+
+def make_inputs(batch: int, clip_seconds: float):
+    """int16 voice (noise) and BGM (tone) clips, as the root bench.py
+    makes them (numpy ``default_rng(0)``)."""
+    n = int(SR_IN * clip_seconds)
+    rng = np.random.default_rng(0)
+    voice = (rng.standard_normal((batch, n)) * 9000).astype(np.int16)
+    bgm = (np.sin(np.arange(n) / 50.0)[None].repeat(batch, 0) * 12000).astype(
+        np.int16)
+    return voice, bgm
+
+
+def median_ms(fn, warmup: int = 2, runs: int = 7) -> float:
+    """Median CUDA-event time of ``fn()`` in milliseconds."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def rms_db(err: np.ndarray, ref: np.ndarray) -> float:
+    """RMS error in dB relative to the reference signal power."""
+    p_err = float(np.mean(np.asarray(err, np.float64) ** 2))
+    p_ref = float(np.mean(np.asarray(ref, np.float64) ** 2))
+    return -np.inf if p_err == 0 else 10.0 * np.log10(p_err / max(p_ref, 1e-300))
+
+
+def step_seconds(step, v, b, iters: int):
+    """(seconds per step, last output) over ``iters`` back-to-back
+    steps, timed with CUDA events after one warm-up step."""
+    y = step(v, b)
+    a = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        y = step(v, b)
+    e.record()
+    e.synchronize()
+    return a.elapsed_time(e) / 1000.0 / iters, y
+
+
+def main(batch: int = 256, clip_seconds: float = 10.0,
+         iters: int = 20) -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("xmtpu_torch.bench: no CUDA device")
+    from xmtpu_torch import batch as tbatch
+
+    dev = torch.device("cuda")
+    voice, bgm = make_inputs(batch, clip_seconds)
+    step = tbatch.make_flagship_step(sr_in=SR_IN, sr_bus=16000, fused=True,
+                                     device=dev)
+    v = torch.from_numpy(voice).to(dev)
+    b = torch.from_numpy(bgm).to(dev)
+    sec, y = step_seconds(step, v, b, iters)
+    value = batch * clip_seconds / sec
+    ref = tbatch.flagship_oracle_np(voice[0], bgm[0])
+    y0 = y[0].cpu().numpy().astype(np.float64)
+    return {
+        "metric": "audio_sec_per_sec_per_chip_full_chain",
+        "value": round(value, 2),
+        "unit": "audio-sec/sec/chip",
+        "vs_baseline": round(value / TARGET_RT, 3),
+        "accuracy_db": round(rms_db(y0 - ref, ref), 1),
+        "device": torch.cuda.get_device_name(dev),
+    }
+
+
+if __name__ == "__main__":
+    kw = {}
+    for arg in sys.argv[1:]:
+        k, _, val = arg.lstrip("-").partition("=")
+        if k in ("batch", "iters"):
+            kw[k] = int(val)
+        elif k == "clip_seconds":
+            kw[k] = float(val)
+        else:
+            sys.exit(f"xmtpu_torch.bench: unknown argument {arg!r} "
+                     "(known: batch, iters, clip_seconds)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps(main(**kw)))

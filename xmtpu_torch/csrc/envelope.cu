@@ -1,0 +1,241 @@
+// Fused soft-knee limiter over rows of a signal: detector |x|, the two
+// envelope recurrences, the soft-knee gain and the ceiling clamp in one
+// pass.
+//
+//   env[t] = max(|x[t]|, k_rel * env[t-1])
+//   e2[t]  = (1 - c_att) * e2[t-1] + c_att * env[t]
+//   y[t]   = clip(x[t] * gain(e2[t]), -ceil, ceil)
+//
+// Replaces the TPU kernel xmtpu/kernels/envelope.py:_env_blk_kernel with
+// its in-kernel curve (_curve_gain / _curve_apply), reached through
+// limiter_pallas on its unsegmented path. The gain follows _curve_gain
+// operation for operation: level_db = (20/ln10) * log(max(e2, eps)), the
+// knee branch, exp((makeup - red) * ln10/20).
+//
+// What bounds it on the H100: the recurrence is sequential in time, one
+// dependent chain per row (a multiply and a max per sample, about 160000
+// steps per row at the flagship shape), so a row costs 160000 times the
+// time of one step however many SMs are free. The bytes (x and y,
+// 0.33 GB at 256 rows) are not the limit, and neither should be the
+// exp/log of the curve, which is independent per sample. Splitting rows
+// into time segments with exact cross-segment corrections (the TPU's
+// segmented path) is the follow-up listed in ROADMAP.md.
+//
+// Design: one block per kRows rows. Warp 0 runs the recurrence, one row
+// per lane, on time chunks staged in shared memory. The other warps keep
+// everything else off that chain: in iteration c, while warp 0 computes
+// e2 for chunk c, they start the asynchronous copy (cp.async) of chunk
+// c+kAhead and apply the curve to chunk c-1 and store it. Copies run
+// kAhead chunks ahead, so a device-memory round trip (about a
+// microsecond) overlaps several iterations instead of stalling one. Both
+// directions move the row-major signal with coalesced accesses, so the
+// TPU's time-major transpose is not needed.
+//
+// A single warp is issue-bound long before its chain is latency-bound
+// (measured: a loop with one 4-byte shared load and store per sample ran
+// 27 cycles per sample). So warp 0 moves four samples per shared-memory
+// instruction: rows are padded to kChunk+4 floats, which keeps each row
+// 16-byte aligned and puts the float4 of lane r in banks 4r..4r+3, so
+// the 8 lanes' loads and stores are conflict-free; the next 8 samples
+// are loaded before the current 8 steps run. kRows is 8 for that reason,
+// and it keeps the copy warps' curve work per chunk below the chain's
+// time; at 256 rows the blocks fill 32 SMs. The TPU kernel's block-8
+// lookahead is not used: it shortened the chain per vector op on the
+// TPU; here the recurrence steps per sample, the same function in exact
+// arithmetic.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kRows = 8;          // rows per block (lanes of warp 0)
+constexpr int kChunk = 128;       // time samples per chunk
+constexpr int kLd = kChunk + 4;   // row stride: 16-byte rows, float4 banks
+constexpr int kCopyWarps = 16;    // warps that copy and apply
+constexpr int kThreads = 32 * (1 + kCopyWarps);
+constexpr int kRowsPerPass = 32 * kCopyWarps / kChunk;  // 4
+constexpr int kAhead = 3;         // chunks in flight ahead of the recurrence
+constexpr int kXBufs = kAhead + 2;  // + chunk c (recur) and c-1 (apply)
+constexpr int kEBufs = 2;         // e2 of chunks c (written), c-1 (applied)
+static_assert(32 * kCopyWarps % kChunk == 0, "copy threads tile a row");
+static_assert(kRows % kRowsPerPass == 0, "copy passes tile the rows");
+static_assert(kRows * 4 == 32 && kLd % 4 == 0, "float4 rows hit all banks");
+static_assert(kChunk % 8 == 0, "warp 0 steps 8 samples per iteration");
+
+struct Curve {
+  float lvl_scale;  // 20 / ln 10
+  float eps;        // level floor
+  float thr;        // threshold_db
+  float half_w;     // knee_db / 2
+  float two_w;      // 2 * knee_db
+  float slope;      // reduction slope from the ratio
+  float makeup;     // makeup_db
+  float exp_scale;  // ln 10 / 20
+  float ceil_amp;   // ceiling amplitude
+};
+
+__device__ __forceinline__ float curve_apply(float x, float e2,
+                                             const Curve& c) {
+  const float level = c.lvl_scale * logf(fmaxf(e2, c.eps));
+  const float over = level - c.thr;
+  float red;
+  if (over <= -c.half_w) {
+    red = 0.f;
+  } else if (over >= c.half_w) {
+    red = c.slope * over;
+  } else {
+    const float s = over + c.half_w;
+    red = c.slope * (s * s) / c.two_w;
+  }
+  const float g = expf((c.makeup - red) * c.exp_scale);
+  return fminf(fmaxf(x * g, -c.ceil_amp), c.ceil_amp);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Copy thread j (of 32*kCopyWarps) owns column j % kChunk of rows
+// j / kChunk, + kRowsPerPass, ... of one chunk.
+__device__ __forceinline__ void stage(const float* __restrict__ x,
+                                      float* buf, int r0, int rows, int n,
+                                      int t0, int len, int j) {
+  const int t = j % kChunk;
+  if (t >= len) return;
+  for (int r = j / kChunk; r < rows; r += kRowsPerPass)
+    cp_async4(buf + r * kLd + t,
+              x + static_cast<size_t>(r0 + r) * n + t0 + t);
+}
+
+struct Chain {
+  float env, e2;
+  float k_rel, a_att, c_att;
+
+  __device__ __forceinline__ float step(float x) {
+    env = fmaxf(fabsf(x), k_rel * env);
+    e2 = a_att * e2 + c_att * env;
+    return e2;
+  }
+
+  __device__ __forceinline__ float4 step4(float4 x) {
+    float4 o;
+    o.x = step(x.x);
+    o.y = step(x.y);
+    o.z = step(x.z);
+    o.w = step(x.w);
+    return o;
+  }
+
+  // One staged chunk of one row: xr -> e2 into er.
+  __device__ __forceinline__ void run(const float* __restrict__ xr,
+                                      float* __restrict__ er, int len) {
+    if (len < kChunk) {  // the ragged last chunk
+      for (int t = 0; t < len; ++t) er[t] = step(xr[t]);
+      return;
+    }
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    float4* e4 = reinterpret_cast<float4*>(er);
+    constexpr int kQ = kChunk / 4;
+    float4 a0 = x4[0], a1 = x4[1];
+#pragma unroll 4
+    for (int q = 0; q < kQ; q += 2) {
+      const int qn = q + 2 < kQ ? q + 2 : q;  // last pair reloads itself
+      const float4 b0 = x4[qn], b1 = x4[qn + 1];
+      e4[q] = step4(a0);
+      e4[q + 1] = step4(a1);
+      a0 = b0;
+      a1 = b1;
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+limiter_kernel(const float* __restrict__ x, const float* __restrict__ init,
+               float* __restrict__ y, float* __restrict__ zf, int R, int n,
+               float k_rel, float c_att, Curve cv) {
+  __shared__ __align__(16) float xs[kXBufs * kRows * kLd];
+  __shared__ __align__(16) float es[kEBufs * kRows * kLd];
+  const int r0 = blockIdx.x * kRows;
+  const int rows = min(kRows, R - r0);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int j = threadIdx.x - 32;  // copy-thread index
+  const int nch = (n + kChunk - 1) / kChunk;
+  auto xbuf = [&](int c) { return xs + (c % kXBufs) * kRows * kLd; };
+  auto ebuf = [&](int c) { return es + (c % kEBufs) * kRows * kLd; };
+  auto clen = [&](int c) { return min(kChunk, n - c * kChunk); };
+
+  Chain ch{0.f, 0.f, k_rel, 1.f - c_att, c_att};
+  if (warp == 0 && lane < rows) {
+    ch.env = init[r0 + lane];
+    ch.e2 = init[R + r0 + lane];
+  }
+  if (warp > 0) {  // prologue: chunks 0 .. kAhead-1 landed
+    for (int c = 0; c < min(kAhead, nch); ++c)
+      stage(x, xbuf(c), r0, rows, n, c * kChunk, clen(c), j);
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+
+  for (int c = 0; c <= nch; ++c) {
+    if (warp == 0) {
+      if (c < nch && lane < rows)
+        ch.run(xbuf(c) + lane * kLd, ebuf(c) + lane * kLd, clen(c));
+    } else {
+      if (c + kAhead < nch)
+        stage(x, xbuf(c + kAhead), r0, rows, n, (c + kAhead) * kChunk,
+              clen(c + kAhead), j);
+      cp_async_commit();  // one group per iteration, possibly empty
+      if (c >= 1) {
+        const int t = j % kChunk;
+        const int tp = (c - 1) * kChunk;
+        if (t < clen(c - 1)) {
+          const float* xb = xbuf(c - 1);
+          const float* eb = ebuf(c - 1);
+          for (int r = j / kChunk; r < rows; r += kRowsPerPass)
+            y[static_cast<size_t>(r0 + r) * n + tp + t] =
+                curve_apply(xb[r * kLd + t], eb[r * kLd + t], cv);
+        }
+      }
+      // all but the newest kAhead-1 groups done: chunk c+1 has landed
+      cp_async_wait<kAhead - 1>();
+    }
+    __syncthreads();
+  }
+  if (warp == 0 && lane < rows) {
+    zf[r0 + lane] = ch.env;
+    zf[R + r0 + lane] = ch.e2;
+  }
+}
+
+}  // namespace
+
+// x, y: (R, n) row-major; init, zf: (2, R) = (env, e2) state in / out.
+// Launches on `stream` and returns cudaGetLastError() of the launch.
+extern "C" int xm_limiter_f32(const float* x, const float* init, float* y,
+                              float* zf, int R, int n, float k_rel,
+                              float c_att, float lvl_scale, float eps,
+                              float thr, float half_w, float two_w,
+                              float slope, float makeup, float exp_scale,
+                              float ceil_amp, void* stream) {
+  const Curve cv{lvl_scale, eps, thr, half_w, two_w,
+                 slope, makeup, exp_scale, ceil_amp};
+  const int blocks = (R + kRows - 1) / kRows;
+  limiter_kernel<<<blocks, kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      x, init, y, zf, R, n, k_rel, c_att, cv);
+  return static_cast<int>(cudaGetLastError());
+}

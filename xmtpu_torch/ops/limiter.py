@@ -1,0 +1,116 @@
+"""Soft-knee limiter math (counterpart of ``xmtpu.ops.limiter``).
+
+Pinned semantics, mirrored exactly by :func:`limiter_np`:
+
+1. detector ``d[n] = max_ch |x[n]|`` (channels linked);
+2. peak envelope ``env[n] = max(d[n], k_rel * env[n-1])``,
+   ``k_rel = exp(-1/(release_ms * sr / 1000))``;
+3. attack smoothing ``e2[n] = (1-c) e2[n-1] + c env[n]``;
+4. soft-knee static curve in dB: reduction 0 below ``T - W/2``,
+   ``(over + W/2)^2 / (2W)`` inside the knee, ``over`` above;
+5. safety clamp at ``ceiling_db``.
+
+The sequential steps 1-3 and the fused 4-5 of the flagship chain run in
+the envelope kernel (``xmtpu_torch.kernels.envelope``); this module
+holds the coefficient helpers, the elementwise curve in torch and the
+float64 oracle.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+_EPS = 1e-12
+
+
+def _release_coeff(release_ms: float, sr: int) -> float:
+    if release_ms <= 0:
+        return 0.0
+    return math.exp(-1.0 / (release_ms * sr / 1000.0))
+
+
+def _attack_coeff(attack_ms: float, sr: int) -> float:
+    if attack_ms <= 0:
+        return 1.0  # identity smoothing
+    return 1.0 - math.exp(-1.0 / (attack_ms * sr / 1000.0))
+
+
+def _knee_slope(ratio) -> float:
+    """Reduction slope from a compression ratio (inf = limiter)."""
+    if not float(ratio) >= 1.0:  # also rejects NaN
+        raise ValueError(f"ratio must be >= 1 (inf = limiter), got {ratio}")
+    return 1.0 if ratio == float("inf") else 1.0 - 1.0 / float(ratio)
+
+
+def soft_knee_gain_db(level_db: torch.Tensor, threshold_db: float,
+                      knee_db: float, ratio: float = float("inf")):
+    """Gain (<= 0 dB) from the soft-knee static curve. Elementwise."""
+    slope = _knee_slope(ratio)
+    over = level_db - threshold_db
+    w = max(float(knee_db), 1e-6)
+    in_knee = slope * (over + 0.5 * w) ** 2 / (2.0 * w)
+    red = torch.where(
+        over <= -0.5 * w, 0.0,
+        torch.where(over >= 0.5 * w, slope * over, in_knee))
+    return -red
+
+
+def apply_gain_curve(x: torch.Tensor, e2: torch.Tensor, threshold_db: float,
+                     knee_db: float = 6.0, ceiling_db: float = 0.0,
+                     ratio: float = float("inf"), makeup_db: float = 0.0):
+    """Steps 4-5: soft-knee curve on the smoothed envelope ``e2``
+    (..., n), gain applied to ``x`` (..., ch, n), safety clamp."""
+    level_db = 20.0 * torch.log10(torch.clamp_min(e2, _EPS))
+    g = torch.pow(
+        10.0,
+        (soft_knee_gain_db(level_db, threshold_db, knee_db, ratio) + makeup_db)
+        / 20.0,
+    )
+    ceil_amp = 10.0 ** (ceiling_db / 20.0)
+    return torch.clamp(x * g[..., None, :], -ceil_amp, ceil_amp)
+
+
+def limiter_np(
+    x,
+    sr,
+    threshold_db=-3.0,
+    knee_db=6.0,
+    attack_ms=1.0,
+    release_ms=100.0,
+    ceiling_db=0.0,
+    state=(0.0, 0.0),
+    ratio=float("inf"),
+    makeup_db=0.0,
+):
+    """Float64 sequential oracle of steps 1-5 for ``x`` (..., ch, n).
+    Returns (y, (env_last, e2_last))."""
+    x = np.asarray(x, np.float64)
+    k_rel = _release_coeff(release_ms, sr)
+    c_att = _attack_coeff(attack_ms, sr)
+    d = np.max(np.abs(x), axis=-2)  # (..., n): channels linked, batch free
+    env_prev = np.broadcast_to(np.asarray(state[0], np.float64), d.shape[:-1]).copy()
+    sm_prev = np.broadcast_to(np.asarray(state[1], np.float64), d.shape[:-1]).copy()
+    n = d.shape[-1]
+    env = np.empty_like(d)
+    e2 = np.empty_like(d)
+    for i in range(n):
+        env_prev = np.maximum(d[..., i], k_rel * env_prev)
+        env[..., i] = env_prev
+        sm_prev = (1.0 - c_att) * sm_prev + c_att * env_prev if c_att < 1.0 else env_prev
+        e2[..., i] = sm_prev
+    level_db = 20.0 * np.log10(np.maximum(e2, _EPS))
+    slope = _knee_slope(ratio)
+    over = level_db - threshold_db
+    w = max(float(knee_db), 1e-6)
+    red = np.where(
+        over <= -0.5 * w, 0.0,
+        np.where(over >= 0.5 * w, slope * over,
+                 slope * (over + 0.5 * w) ** 2 / (2 * w))
+    )
+    g = 10.0 ** ((-red + makeup_db) / 20.0)
+    ceil_amp = 10.0 ** (ceiling_db / 20.0)
+    y = np.clip(x * g[..., None, :], -ceil_amp, ceil_amp)
+    return y, (env_prev, sm_prev)

@@ -1,0 +1,308 @@
+"""Polyphase-FIR sample-rate conversion (counterpart of
+``xmtpu.ops.resample``).
+
+The host tables (filter design, polyphase plan, aligned banded tables)
+are re-implemented here in numpy and are bit-exact with the JAX
+package's. The device part is two plain float32 matmuls, as in the JAX
+package, which leaves them to XLA outside any kernel:
+
+* output frame ``c = A[c] @ H1`` for the framed input ``A`` (..., nc, M);
+* two narrow edge corrections against the neighbour frames: ``A[c-1]``'s
+  last ``|lo|`` samples patch output phases [0, r0) through ``H0``, and
+  ``A[c+1]``'s first ``hi`` samples patch phases [r2, L) through ``H2``.
+
+Pinned semantics: odd-length symmetric Kaiser filter, output sample
+``j`` is the upsampled-domain convolution at ``t = j*M + (ntaps-1)//2``,
+``out_len = ceil(n * L / M)`` (``scipy.signal.resample_poly``'s rule for
+odd-length filters).
+
+Precision: every DSP matmul runs in full float32. A TF32 matmul keeps
+10 mantissa bits, which costs the chain its -80 dB margin, so on CUDA
+:func:`require_fp32_matmul` refuses to run while TF32 is enabled.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from functools import lru_cache
+
+import numpy as np
+import torch
+from scipy import signal as _sig
+
+from xmtpu_torch.utils.errors import ConfigError, NotPortedError
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@lru_cache(maxsize=64)
+def design_polyphase_filter(
+    L: int, M: int, taps_per_phase: int = 24, beta: float = 9.0
+) -> np.ndarray:
+    """Odd-length Kaiser-window lowpass for L/M resampling: cutoff
+    min(pi/L, pi/M) in the L-upsampled domain, gain L. Float64, length
+    ``taps_per_phase * L`` (+1 to make it odd)."""
+    nt = taps_per_phase * L
+    if nt % 2 == 0:
+        nt += 1
+    cutoff = 1.0 / max(L, M)  # fraction of the upsampled Nyquist
+    h = _sig.firwin(nt, cutoff, window=("kaiser", beta))
+    return (L * h).astype(np.float64)
+
+
+@dataclass(frozen=True, eq=False)
+class ResamplePlan:
+    """Static host tables for one (L, M, filter) combination."""
+
+    L: int
+    M: int
+    taps: np.ndarray  # full filter, float64, odd length
+    K2: int  # taps per phase (padded)
+    base: int  # min window start (folded into the left pad)
+    width: int  # frame width needed to cover all phases
+    col_start: np.ndarray  # [L] window start inside a frame, per residue
+    hsel: np.ndarray  # [L, K2] reversed taps for residue r's phase
+    hbank: np.ndarray  # [width, L] dense filter bank (hsel placed at col_start)
+    pad_left: int
+
+    @property
+    def ntaps(self) -> int:
+        return len(self.taps)
+
+
+@lru_cache(maxsize=64)
+def make_plan(L: int, M: int, taps_per_phase: int = 24,
+              beta: float = 9.0) -> ResamplePlan:
+    h = design_polyphase_filter(L, M, taps_per_phase, beta)
+    nt = len(h)
+    offset = (nt - 1) // 2  # integer group delay in upsampled samples
+    K2 = _cdiv(nt, L)
+    hpad = np.zeros(K2 * L, np.float64)
+    hpad[:nt] = h
+    hpoly = hpad.reshape(K2, L).T  # [L, K2]: hpoly[p, q] = h[p + q*L]
+    # output j = c*L + r: t = j*M + offset; phase p(r) = t mod L and
+    # window base B(r) = (t - p)/L - c*M depend only on r
+    r = np.arange(L)
+    t0 = r * M + offset
+    p = t0 % L
+    B = (t0 - p) // L
+    pad_left = K2  # start indices are >= 0 after padding
+    S = B - K2 + 1 + pad_left
+    base = int(S.min())
+    width = int(S.max()) - base + K2
+    hsel = hpoly[p][:, ::-1]  # window ends at c*M + B[r]: taps reversed
+    col_start = (S - base).astype(np.int64)
+    hbank = np.zeros((width, L), np.float64)
+    for rr in range(L):
+        hbank[col_start[rr]: col_start[rr] + K2, rr] = hsel[rr]
+    return ResamplePlan(
+        L=L, M=M, taps=h, K2=K2, base=base, width=width,
+        col_start=col_start,
+        hsel=np.ascontiguousarray(hsel, dtype=np.float64),
+        hbank=hbank, pad_left=pad_left,
+    )
+
+
+def resample_output_len(n: int, L: int, M: int) -> int:
+    """Pinned output-length rule: ceil(n * L / M)."""
+    return _cdiv(n * L, M)
+
+
+def check_rates(sr_in: int, sr_out: int) -> None:
+    """Both rates in [4000, 192000], neither side of the reduced ratio
+    above 2048 phases; raises :class:`ConfigError` otherwise."""
+    for rate, nm in ((sr_in, "input rate"), (sr_out, "output rate")):
+        if not (4000 <= int(rate) <= 192000):
+            raise ConfigError(
+                f"unreasonable {nm} {rate}: must be in [4000, 192000]")
+    g = math.gcd(int(sr_in), int(sr_out))
+    if sr_in // g > 2048 or sr_out // g > 2048:
+        raise ConfigError(
+            f"unreasonable polyphase ratio {sr_out // g}/{sr_in // g} "
+            f"for {sr_in} -> {sr_out} Hz")
+
+
+def _ratio(sr_in: int, sr_out: int) -> tuple[int, int]:
+    g = math.gcd(int(sr_in), int(sr_out))
+    return sr_out // g, sr_in // g
+
+
+@dataclass(frozen=True, eq=False)
+class AlignedTables:
+    """Filter tables of the frame-aligned banded formulation (n % M ==
+    0); see the module docstring."""
+
+    H1: np.ndarray  # (M, L) f64
+    H0: np.ndarray  # (-lo, r0) f64 (empty-dim if lo == 0)
+    H2: np.ndarray  # (hi, L - r2) f64 (empty-dim if hi == 0)
+    lo: int
+    hi: int
+    r0: int
+    r2: int
+
+
+def aligned_tables(plan: ResamplePlan) -> AlignedTables:
+    delta = plan.base - plan.pad_left
+    s = delta + plan.col_start  # [L] window start relative to c*M
+    K2 = plan.K2
+    M = plan.M
+    lo = int(s.min())  # < 0: first |lo| taps live in row c-1
+    hi = int(s.max()) + K2 - M  # > 0: last hi taps live in row c+1
+    Hfull = np.zeros((M + max(hi, 0) - min(lo, 0), plan.L), np.float64)
+    for r in range(plan.L):
+        Hfull[int(s[r]) - min(lo, 0): int(s[r]) - min(lo, 0) + K2, r] \
+            = plan.hsel[r]
+    off = -min(lo, 0)
+    r0 = int(np.sum(s < 0))  # s monotone: phases [0, r0)
+    r2 = int(np.argmax(s + K2 > M)) if np.any(s + K2 > M) else plan.L
+    return AlignedTables(H1=Hfull[off: off + M], H0=Hfull[:off, :r0],
+                         H2=Hfull[off + M:, r2:], lo=lo, hi=hi, r0=r0, r2=r2)
+
+
+def aligned_supported(n: int, sr_in: int, sr_out: int,
+                      taps_per_phase: int = 24, beta: float = 9.0) -> bool:
+    """True if the aligned banded path applies to length n."""
+    L, M = _ratio(sr_in, sr_out)
+    if L == M or n % M or n < 2 * M:
+        return False
+    plan = make_plan(L, M, taps_per_phase, beta)
+    out_len = resample_output_len(n, L, M)
+    return plan.width <= 2 * M and _cdiv(out_len, L) * L == out_len
+
+
+def require_fp32_matmul(device: torch.device) -> None:
+    """Refuse to run DSP matmuls on CUDA while TF32 is enabled.
+
+    The port does not flip global flags itself: the caller sets
+    ``torch.backends.cuda.matmul.allow_tf32 = False`` (and keeps
+    ``torch.get_float32_matmul_precision() == "highest"``)."""
+    if torch.device(device).type != "cuda":
+        return
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise ConfigError(
+            "TF32 matmuls are enabled (torch.backends.cuda.matmul."
+            "allow_tf32 / set_float32_matmul_precision); the DSP matmuls "
+            "need full float32 — TF32's 10 mantissa bits cost the chain "
+            "its -80 dB accuracy margin")
+
+
+def apply_aligned(A: torch.Tensor, H1: torch.Tensor, H0: torch.Tensor,
+                  H2: torch.Tensor, lo: int, hi: int, r0: int,
+                  r2: int) -> torch.Tensor:
+    """Aligned banded resample of framed float32 ``A`` (..., nc, M) ->
+    (..., nc, L) output frames, with the tables already on A's device.
+    The two edge corrections add in place into the main product."""
+    require_fp32_matmul(A.device)
+    M = H1.shape[0]
+    out = torch.matmul(A, H1)
+    if lo < 0:
+        C0 = torch.matmul(A[..., M + lo: M], H0)
+        out[..., 1:, :r0] += C0[..., :-1, :]
+    if hi > 0:
+        C2 = torch.matmul(A[..., :hi], H2)
+        out[..., :-1, r2:] += C2[..., 1:, :]
+    return out
+
+
+def device_tables(t: AlignedTables, device=None) -> tuple[torch.Tensor, ...]:
+    """(H1, H0, H2) as float32 tensors on ``device``."""
+    return tuple(torch.as_tensor(h, dtype=torch.float32, device=device)
+                 for h in (t.H1, t.H0, t.H2))
+
+
+def polyphase_resample_framed(A: torch.Tensor, sr_in: int, sr_out: int,
+                              taps_per_phase: int = 24,
+                              beta: float = 9.0) -> torch.Tensor:
+    """Aligned banded resample of pre-framed input (..., nc, M) ->
+    (..., nc, L) frames. Check applicability with
+    :func:`aligned_supported` on n = nc*M first. The JAX package's lane
+    padding (last axis > M) belongs to the ``mixfirst_pad`` probe, which
+    is not ported: the last axis must be exactly M."""
+    L, M = _ratio(sr_in, sr_out)
+    if A.shape[-1] != M:
+        raise ValueError(f"framed input last axis {A.shape[-1]} != M={M}")
+    plan = make_plan(L, M, taps_per_phase, beta)
+    if plan.width > 2 * M:
+        raise ValueError(
+            f"rate pair {sr_in}->{sr_out} (L={L}, M={M}, filter width "
+            f"{plan.width} > 2*M) is outside the aligned banded "
+            "formulation; use polyphase_resample() instead")
+    t = aligned_tables(plan)
+    H1, H0, H2 = device_tables(t, A.device)
+    return apply_aligned(A.to(torch.float32), H1, H0, H2,
+                         t.lo, t.hi, t.r0, t.r2)
+
+
+def polyphase_resample(x: torch.Tensor, sr_in: int, sr_out: int,
+                       taps_per_phase: int = 24,
+                       beta: float = 9.0) -> torch.Tensor:
+    """Resample the last axis of float ``x`` (..., n) from sr_in to
+    sr_out -> (..., ceil(n*L/M)) float32, by the banded two-matmul
+    form: the filter band spans u in [0, width) with width <= 2M, so
+    frame c is ``[A[c] | A[c+1, :width-M]]``. Rate pairs whose band is
+    wider (upsampling by a large factor) take the JAX package's strided
+    conv, which is not ported."""
+    L, M = _ratio(sr_in, sr_out)
+    x = x.to(torch.float32)
+    if L == M:
+        return x
+    plan = make_plan(L, M, taps_per_phase, beta)
+    if plan.width > 2 * M:
+        raise NotPortedError(
+            f"rate pair {sr_in}->{sr_out} needs the strided-conv resample "
+            "(filter band wider than 2*M); ROADMAP.md Queue 1 item 5")
+    require_fp32_matmul(x.device)
+    n = x.shape[-1]
+    bshape = x.shape[:-1]
+    out_len = resample_output_len(n, L, M)
+    nj = _cdiv(out_len, L)  # number of L-sample output blocks
+    if n % M == 0 and n >= 2 * M and nj * L == out_len:
+        # aligned: the frame matrix is a free reshape of x
+        A = x.reshape(*bshape, n // M, M)
+        t = aligned_tables(plan)
+        H1, H0, H2 = device_tables(t, x.device)
+        out = apply_aligned(A, H1, H0, H2, t.lo, t.hi, t.r0, t.r2)
+        return out.reshape(*bshape, nj * L)
+    # window xs[k] = x[k + base - pad_left], zeros outside [0, n)
+    need = (nj + _cdiv(plan.width, M) + 1) * M
+    pad_r = max(0, plan.base + need - (n + plan.pad_left))
+    xpad = torch.nn.functional.pad(x, (plan.pad_left, pad_r))
+    xs = xpad[..., plan.base: plan.base + need]
+    hbank = torch.as_tensor(plan.hbank, dtype=torch.float32, device=x.device)
+    A = xs[..., : nj * M].reshape(*bshape, nj, M)
+    out = torch.matmul(A, hbank[:M])
+    if plan.width > M:
+        k2 = plan.width - M
+        A1 = xs[..., M: (nj + 1) * M].reshape(*bshape, nj, M)[..., :k2]
+        out = out + torch.matmul(A1, hbank[M:])
+    return out.reshape(*bshape, nj * L)[..., :out_len]
+
+
+def resample_oracle_np(
+    x: np.ndarray, sr_in: int, sr_out: int, taps_per_phase: int = 24,
+    beta: float = 9.0
+) -> np.ndarray:
+    """Float64 host implementation of the pinned semantics through
+    ``scipy.signal.upfirdn``; the group-delay offset is folded into the
+    filter by pre-padding zeros so the M-strided output lands on
+    ``t = j*M + offset``."""
+    L, M = _ratio(sr_in, sr_out)
+    if L == M:
+        return x.astype(np.float64)
+    h = design_polyphase_filter(L, M, taps_per_phase, beta)
+    nt = len(h)
+    offset = (nt - 1) // 2
+    out_len = resample_output_len(x.shape[-1], L, M)
+    s = (-offset) % M
+    d = (offset + s) // M
+    h2 = np.concatenate([np.zeros(s), h])
+    z = _sig.upfirdn(h2, x.astype(np.float64), up=L, down=M, axis=-1)
+    y = z[..., d: d + out_len]
+    if y.shape[-1] < out_len:  # upfirdn's conv can end before the last sample
+        padw = [(0, 0)] * (y.ndim - 1) + [(0, out_len - y.shape[-1])]
+        y = np.pad(y, padw)
+    return y

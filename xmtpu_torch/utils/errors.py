@@ -1,0 +1,25 @@
+"""Typed exceptions of the PyTorch port (counterpart of
+``xmtpu.utils.errors``; own classes, so the port never imports the JAX
+package)."""
+
+
+class XmtpuError(Exception):
+    """Base class for all errors of the port."""
+
+
+class ConfigError(XmtpuError, ValueError):
+    """Invalid or inconsistent pipeline configuration.
+
+    Also a ValueError, as in the JAX package: a bad config is bad input
+    data, and callers that catch ValueError keep working."""
+
+
+class NotPortedError(XmtpuError, NotImplementedError):
+    """A configuration the JAX package supports whose path is not
+    ported yet. The message names the ROADMAP.md item that ports it;
+    the port never substitutes another path silently."""
+
+
+class KernelBuildError(XmtpuError, RuntimeError):
+    """A CUDA kernel source failed to build, or no CUDA compiler was
+    found."""

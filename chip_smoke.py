@@ -3,23 +3,49 @@
 
     python3 chip_smoke.py
 
-Phases, one printed line each; any failure raises and the process exits
-non-zero:
+Phases, one printed line each or more; any failure raises and the
+process exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``); both TF32
    flags set to False;
-2. build: the CUDA kernels built from ``xmtpu_torch/csrc`` (seconds);
+2. build: the CUDA kernels built from ``xmtpu_torch/csrc`` (one ``nvcc``
+   per source, in parallel; seconds);
 3. K1, the fftconv kernel, against its plain torch twin at the flagship
    shape (256 x 160000 bus samples, the 4093-tap combined EQ+reverb IR,
    the real normalize gains and fade ramp): gate RMS error <= -100 dB;
-   both times (CUDA events, median of 7 runs after 2 warm-ups);
-4. K2, the envelope kernel, against its plain twin on the K1 output:
-   same gate; both times (the twin's time loop: median of 5 runs);
-5. the flagship step on 256 clips of 10 s (the root bench.py's inputs):
-   both launch counters must rise during one step; clip 0 must read
-   <= -80 dB against the float64 oracle; throughput in audio-sec/sec;
-6. a JSON line of the kernels, then the contract line
-   ``{"ok": true, "device": {...}}`` last.
+   both times (CUDA events, median of 7 runs after 2 warm-ups) and a
+   ``conv1d`` of the gained input as the library yardstick;
+4. K2, the fused limiter kernel, against its plain twin on the K1
+   output: same gate; both times (the twin's time loop: median of 5);
+5. the fused flagship step on 256 clips of 10 s (the root bench.py's
+   inputs), launch counters set to 0 just before: K1 and K2 must launch;
+   clip 0 must read <= -80 dB against the float64 oracle; throughput;
+6. K5, the IIR kernel, on the small-batch branch's real EQ input (32
+   clips: 128 segment rows of 40000 samples): kernel and twin at that
+   shape (gate -100 dB, both times), and the segmented ``sosfilt`` path
+   on a 1 s prefix (32 x 16000, 2 segments) against the same path on
+   the twin;
+7. K1 at the small-batch branch's own operands (the EQ output, 32 x
+   160000, the raw 4000-tap reverb IR, unit gains: what ``reverb()``
+   passes it there) against its twin (gate -100 dB, both times,
+   ``conv1d``); then the envelope-only kernel through the segmented
+   ``envelope()`` at the small-batch shape (32 x 160000, 8 segments:
+   two launches) against the same path on the twin (gate -100 dB);
+   each launch's time against its twin's;
+8. the unfused small-batch step on 32 clips of 10 s, counters set to 0
+   just before: K1, K5 and the envelope-only kernel must launch; clip 0
+   <= -80 dB against the float64 oracle; throughput; a per-stage
+   breakdown (CUDA events);
+9. a JSON line of the kernels (times, bounds, launches; K1 once per
+   branch), then the contract line ``{"ok": true, "device": {...}}``
+   last.
+
+``bound_ms`` is the roofline bound: the larger of the bytes each kernel
+must move (inputs read once, outputs written once) over 3.35 TB/s and
+its operations over the 67 TFLOP/s float32 peak (H100 SXM data sheet).
+The recurrence kernels' text lines also print their chain bound: the
+longest chain's steps times the loop-carried latency of a step (4
+cycles per dependent float32 operation) at the card's maximum SM clock.
 
 Without a CUDA device it fails before printing any result. It imports
 neither ``jax`` nor ``xmtpu``.
@@ -37,7 +63,16 @@ import numpy as np
 
 GATE_KERNEL_DB = -100.0
 GATE_CHAIN_DB = -80.0
-BATCH, CLIP_SECONDS = 256, 10.0
+BATCH, SMALL_BATCH, CLIP_SECONDS = 256, 32, 10.0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+OP_LATENCY_CYCLES = 4  # one dependent float32 add / multiply / max
+
+
+def roofline_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def main() -> None:
@@ -48,21 +83,28 @@ def main() -> None:
     from xmtpu_torch import batch as tbatch
     from xmtpu_torch.bench import (make_inputs, median_ms, rms_db,
                                    step_seconds)
-    from xmtpu_torch.kernels import _build, envelope, fftconv
+    from xmtpu_torch.kernels import _build, envelope, fftconv, iir
+    from xmtpu_torch.ops import convert, limiter
+    from xmtpu_torch.ops import reverb as treverb
     from xmtpu_torch.ops.resample import resample_output_len
 
     # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    card = smi.splitlines()[0]
+    def smi(query: str) -> str:
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.splitlines()[0]
+
+    card = smi("name,power.limit").strip()
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"device: {card}")
+    print(f"device: {card}; max SM clock {clock_hz / 1e6:.0f} MHz")
     print(f"tf32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda")
+
+    def chain_ms(steps: int, ops_per_step: int) -> float:
+        return steps * ops_per_step * OP_LATENCY_CYCLES / clock_hz * 1e3
 
     # 2. build
     t0 = time.perf_counter()
@@ -70,43 +112,68 @@ def main() -> None:
     lib = _build.library_path().relative_to(_build.BUILD_DIR.parent.parent)
     print(f"build: {time.perf_counter() - t0:.1f} s ({lib})")
 
+    kernels = []
+
+    def compare(name, route, source, replaces, yk, yp):
+        torch.cuda.synchronize()
+        err = (yk - yp).double()
+        db = rms_db(err.cpu().numpy(), yp.double().cpu().numpy())
+        ok = bool(torch.isfinite(yk).all()) and db <= GATE_KERNEL_DB
+        k = dict(name=name, route=route, source=source, replaces=replaces,
+                 max_abs_err=float(err.abs().max()), rms_db=db, ok=ok,
+                 library_ms=None)
+        kernels.append(k)
+        if not ok:
+            raise SystemExit(f"chip_smoke: kernel {name} failed its check: "
+                             f"{k}")
+        return k
+
+    def bound(k, n_bytes, n_ops):
+        k["bound_ms"], k["bound_by"] = roofline_ms(n_bytes, n_ops)
+
+    def check_k1(name, x, h, pre_row, pre_col):
+        """K1 against its twin on these operands; times; conv1d of the
+        gained input as the library yardstick; roofline bound."""
+        R, n = x.shape
+        taps = h.shape[0]
+        k = compare(name, "cuda", "xmtpu_torch/csrc/fftconv.cu",
+                    "xmtpu/kernels/fftconv.py:164",
+                    fftconv.fir_convolve(x, h, pre_row, pre_col),
+                    fftconv.fir_convolve_plain(x, h, pre_row, pre_col))
+        k["ms"] = median_ms(
+            lambda: fftconv.fir_convolve(x, h, pre_row, pre_col))
+        k["plain_ms"] = median_ms(
+            lambda: fftconv.fir_convolve_plain(x, h, pre_row, pre_col))
+        xin = (x * pre_row[:, None] * pre_col)[:, None, :]
+        w = h.flip(0)[None, None, :].contiguous()
+        k["library_ms"] = median_ms(lambda: torch.nn.functional.conv1d(
+            xin, w, padding=taps - 1), warmup=1, runs=3)
+        del xin
+        n_fft = 1 << fftconv.fft_log_size(taps)
+        frames = -(-n // (n_fft - (taps - 1))) * -(-R // 2)
+        bound(k, 4 * (2 * R * n + taps + R + n),
+              frames * (2 * 5 * n_fft * math.log2(n_fft) + 6 * n_fft))
+        print(f"K1 {name} {tuple(x.shape)} x {taps} taps: "
+              f"{k['rms_db']:.1f} dB vs plain (gate {GATE_KERNEL_DB}), "
+              f"max abs {k['max_abs_err']:.3g}; kernel {k['ms']:.3f} ms, "
+              f"plain {k['plain_ms']:.3f} ms, conv1d {k['library_ms']:.3f} "
+              f"ms, bound {k['bound_ms']:.3f} ms ({k['bound_by']}) [{card}]")
+        return k
+
     step = tbatch.make_flagship_step(fused=True, device=dev)
     voice, bgm = make_inputs(BATCH, CLIP_SECONDS)
     v = torch.from_numpy(voice).to(dev)
     b = torch.from_numpy(bgm).to(dev)
     m, scale, ramp = step.front(v, b)
-    kernels = []
-
-    def compare(name, route, source, replaces, kern, plain, rows):
-        yk, yp = kern(), plain()
-        torch.cuda.synchronize()
-        err = (yk - yp).double()
-        db = rms_db(err.cpu().numpy(), yp.double().cpu().numpy())
-        max_abs = float(err.abs().max())
-        ok = bool(torch.isfinite(yk).all()) and db <= GATE_KERNEL_DB
-        return dict(name=name, route=route, source=source,
-                    replaces=replaces, max_abs_err=max_abs, rms_db=db,
-                    rows=rows, ok=ok)
 
     # 3. K1: fftconv kernel vs its plain twin
     ir = step.ir
-    k1 = compare("fftconv", "cuda", "xmtpu_torch/csrc/fftconv.cu",
-                 "xmtpu/kernels/fftconv.py:164",
-                 lambda: fftconv.fir_convolve(m, ir, scale, ramp),
-                 lambda: fftconv.fir_convolve_plain(m, ir, scale, ramp),
-                 f"all {m.shape[0]}")
-    k1["ms"] = median_ms(lambda: fftconv.fir_convolve(m, ir, scale, ramp))
-    k1["plain_ms"] = median_ms(
-        lambda: fftconv.fir_convolve_plain(m, ir, scale, ramp))
-    print(f"K1 fftconv {tuple(m.shape)} x {ir.shape[0]} taps: "
-          f"{k1['rms_db']:.1f} dB vs plain (gate {GATE_KERNEL_DB}), "
-          f"max abs {k1['max_abs_err']:.3g}; kernel {k1['ms']:.3f} ms, "
-          f"plain {k1['plain_ms']:.3f} ms [{card}]")
-    kernels.append(k1)
+    R, n = m.shape
+    k1 = check_k1("fftconv", m, ir, scale, ramp)
 
-    # 4. K2: envelope kernel vs its plain twin, on the K1 output
+    # 4. K2: fused limiter kernel vs its plain twin, on the K1 output
     x = fftconv.fir_convolve_plain(m, ir, scale, ramp)
-    init = torch.zeros((2, x.shape[0]), dtype=torch.float32, device=dev)
+    init = torch.zeros((2, R), dtype=torch.float32, device=dev)
     consts = envelope.curve_consts(step.curve)
 
     def k2_kern():
@@ -117,33 +184,30 @@ def main() -> None:
                                       init)[0]
 
     k2 = compare("envelope", "cuda", "xmtpu_torch/csrc/envelope.cu",
-                 "xmtpu/kernels/envelope.py:188", k2_kern, k2_plain,
-                 f"all {x.shape[0]}")
+                 "xmtpu/kernels/envelope.py:188", k2_kern(), k2_plain())
     k2["ms"] = median_ms(k2_kern)
     k2["plain_ms"] = median_ms(k2_plain, warmup=1, runs=5)
-    print(f"K2 envelope {tuple(x.shape)}, plain twin on {k2['rows']} "
-          f"rows: {k2['rms_db']:.1f} dB vs plain "
-          f"(gate {GATE_KERNEL_DB}), max abs {k2['max_abs_err']:.3g}; "
-          f"kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.1f} ms "
-          f"[{card}]")
-    kernels.append(k2)
+    # per sample: abs, mul, max, mul, fma and about a dozen curve ops
+    bound(k2, 4 * (2 * R * n + 4 * R), 18 * R * n)
+    print(f"K2 envelope (fused limiter) {tuple(x.shape)}: "
+          f"{k2['rms_db']:.1f} dB vs plain (gate {GATE_KERNEL_DB}), "
+          f"max abs {k2['max_abs_err']:.3g}; kernel {k2['ms']:.3f} ms, "
+          f"plain {k2['plain_ms']:.1f} ms, bound {k2['bound_ms']:.3f} ms "
+          f"({k2['bound_by']}), chain {chain_ms(n, 2):.3f} ms [{card}]")
     del m, scale, ramp, x
-    for k in kernels:
-        if not k["ok"]:
-            raise SystemExit(f"chip_smoke: kernel {k['name']} failed its "
-                             f"check: {k}")
 
-    # 5. the flagship step, driven once with fresh launch counters
-    fftconv.launches = 0
-    envelope.launches = 0
+    # 5. the fused flagship step, driven once with fresh launch counters
+    fftconv.launches = envelope.launches = 0
+    iir.launches = envelope.envelope_launches = 0
     y = step(v, b)
     torch.cuda.synchronize()
-    launches = {"fftconv": fftconv.launches, "envelope": envelope.launches}
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-    if min(launches.values()) < 1:
+    fused_launches = {"fftconv": fftconv.launches,
+                      "envelope": envelope.launches}
+    if min(fused_launches.values()) < 1:
         raise SystemExit(f"chip_smoke: a kernel did not launch in the "
-                         f"step: {launches}")
+                         f"fused step: {fused_launches}")
+    k1["launches"], k2["launches"] = (fused_launches["fftconv"],
+                                      fused_launches["envelope"])
     g = math.gcd(step.sr_in, step.sr_bus)
     n_bus = resample_output_len(voice.shape[1], step.sr_bus // g, step.M)
     if tuple(y.shape) != (BATCH, n_bus) or y.dtype != torch.int16:
@@ -151,18 +215,149 @@ def main() -> None:
                          f"{y.dtype}, expected ({BATCH}, {n_bus}) int16")
     ref = tbatch.flagship_oracle_np(voice[0], bgm[0])
     acc = rms_db(y[0].cpu().numpy().astype(np.float64) - ref, ref)
-    print(f"step: launches {launches}; clip 0 {acc:.1f} dB vs float64 "
-          f"oracle (gate {GATE_CHAIN_DB})")
+    print(f"fused step: launches {fused_launches}; clip 0 {acc:.1f} dB vs "
+          f"float64 oracle (gate {GATE_CHAIN_DB})")
     if not acc <= GATE_CHAIN_DB:
-        raise SystemExit("chip_smoke: chain accuracy gate failed")
+        raise SystemExit("chip_smoke: fused chain accuracy gate failed")
     sec, _ = step_seconds(step, v, b, iters=10)
-    print(f"step: {BATCH}x{CLIP_SECONDS:g} s in {sec * 1e3:.2f} ms = "
+    print(f"fused step: {BATCH}x{CLIP_SECONDS:g} s in {sec * 1e3:.2f} ms = "
           f"{BATCH * CLIP_SECONDS / sec:.1f} audio-sec/sec [{card}]; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del step, v, b, y
 
-    # 6. kernels line, then the contract line last
+    # the small-batch branch's real inputs: 32 clips, the fused=None rule
+    small = tbatch.make_flagship_step(device=dev)
+    voice, bgm = voice[:SMALL_BATCH], bgm[:SMALL_BATCH]
+    v = torch.from_numpy(voice).to(dev)
+    b = torch.from_numpy(bgm).to(dev)
+    m, scale, ramp = small.front(v, b)
+    x_eq = m * ramp * scale[:, None]
+    R, n = x_eq.shape
+
+    # 6. K5: the IIR kernel vs its plain twin
+    S = iir.pick_segments(R, n)
+    sos32 = torch.as_tensor(small.sos, dtype=torch.float32, device=dev)
+    ns = sos32.shape[0]
+    xs = x_eq.reshape(R * S, n // S)
+    zi0 = torch.zeros((ns, 2, R * S), dtype=torch.float32, device=dev)
+    yk, zk = iir.sosfilt_pass(xs, sos32, zi0)
+    t0 = time.perf_counter()
+    yp, zp = iir.sosfilt_plain(xs, sos32, zi0)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    k5 = compare("iir", "cuda", "xmtpu_torch/csrc/iir.cu",
+                 "xmtpu/kernels/iir.py:37", yk, yp)
+    zf_err = float((zk - zp).abs().max())
+    k5["ms"] = median_ms(lambda: iir.sosfilt_pass(xs, sos32, zi0))
+    k5["plain_ms"] = plain_s * 1e3
+    bound(k5, 4 * (2 * xs.numel() + 6 * ns + 4 * ns * R * S),
+          9 * ns * xs.numel())
+    pre =x_eq[:, :16000].contiguous()
+    S_pre = iir.pick_segments(R, pre.shape[1])
+    y_pre, _ = iir.sosfilt(small.sos, pre)
+    y_pre_p, _ = iir.sosfilt(small.sos, pre, run=iir.sosfilt_plain)
+    torch.cuda.synchronize()
+    db_pre = rms_db((y_pre - y_pre_p).double().cpu().numpy(),
+                    y_pre_p.double().cpu().numpy())
+    print(f"K5 iir {tuple(xs.shape)} ({R} rows x {S} segments), {ns} "
+          f"sections: {k5['rms_db']:.1f} dB vs plain (gate "
+          f"{GATE_KERNEL_DB}), max abs {k5['max_abs_err']:.3g}, zf max abs "
+          f"{zf_err:.3g}; segmented sosfilt on {tuple(pre.shape)} (S = "
+          f"{S_pre}) {db_pre:.1f} dB vs its twin path; kernel "
+          f"{k5['ms']:.3f} ms, plain {k5['plain_ms']:.1f} ms (one run), "
+          f"bound {k5['bound_ms']:.4f} ms ({k5['bound_by']}), chain "
+          f"{chain_ms(n // S, 4):.3f} ms [{card}]")
+    if not (db_pre <= GATE_KERNEL_DB and zf_err <= 1e-4):
+        raise SystemExit("chip_smoke: the segmented IIR path failed its "
+                         "check")
+    del xs, yk, yp, pre
+
+    # 7. K1 on the operands reverb() gives it on this branch, then the
+    # envelope-only kernel through the segmented envelope()
+    y_eq = iir.sosfilt(small.sos, x_eq)[0]
+    k1s = check_k1("fftconv_unfused", y_eq, small.reverb_ir,
+                   torch.ones(R, device=dev), torch.ones(n, device=dev))
+    y_rev = treverb.reverb(y_eq, small.reverb_ir, wet=small.wet,
+                           dry=small.dry)
+    d = y_rev.abs()
+    passes = []
+
+    def recording(*args):
+        passes.append(args)
+        return envelope.envelope_pass(*args)
+
+    e2k, _ = envelope.envelope(d, small.k_rel, small.c_att, run=recording)
+    e2p, _ = envelope.envelope(d, small.k_rel, small.c_att,
+                               run=envelope.envelope_plain)
+    ke = compare("envelope_seg", "cuda", "xmtpu_torch/csrc/envelope.cu",
+                 "xmtpu/kernels/envelope.py:108", e2k, e2p)
+    S_env = passes[0][0].shape[0] // R
+    pass_ms = [median_ms(lambda a=a: envelope.envelope_pass(*a))
+               for a in passes]
+    ke["ms"] = sum(pass_ms)
+    ke["plain_ms"] = sum(median_ms(lambda a=a: envelope.envelope_plain(*a),
+                                   warmup=0, runs=3) for a in passes)
+    call_ms = median_ms(lambda: envelope.envelope(d, small.k_rel,
+                                                  small.c_att))
+    rows_e, seg_e = passes[0][0].shape
+    # per pass: d (or env0) in, e2 out, the correction's ktab and E
+    bound(ke, 4 * (len(passes) * 2 * rows_e * seg_e + seg_e + rows_e),
+          len(passes) * 5 * rows_e * seg_e)
+    print(f"envelope_seg {tuple(d.shape)} as {rows_e} x {seg_e} (S = "
+          f"{S_env}), {len(passes)} launches: {ke['rms_db']:.1f} dB vs the "
+          f"twin path (gate {GATE_KERNEL_DB}), max abs "
+          f"{ke['max_abs_err']:.3g}; kernel "
+          + " + ".join(f"{t:.3f}" for t in pass_ms)
+          + f" = {ke['ms']:.3f} ms for the launches, envelope() call "
+          f"{call_ms:.3f} ms, plain "
+          f"{ke['plain_ms']:.1f} ms, bound {ke['bound_ms']:.4f} ms "
+          f"({ke['bound_by']}), chain "
+          f"{chain_ms(seg_e, 2) * len(passes):.3f} ms [{card}]")
+    del d, e2p, passes
+
+    # 8. the unfused small-batch step, driven once with fresh counters
+    fftconv.launches = envelope.launches = 0
+    iir.launches = envelope.envelope_launches = 0
+    y = small(v, b)
+    torch.cuda.synchronize()
+    small_launches = {"fftconv": fftconv.launches, "iir": iir.launches,
+                      "envelope_seg": envelope.envelope_launches,
+                      "envelope": envelope.launches}
+    if min(small_launches[k] for k in ("fftconv", "iir", "envelope_seg")) < 1:
+        raise SystemExit(f"chip_smoke: a kernel did not launch in the "
+                         f"small-batch step: {small_launches}")
+    k1s["launches"] = small_launches["fftconv"]
+    k5["launches"] = small_launches["iir"]
+    ke["launches"] = small_launches["envelope_seg"]
+    if tuple(y.shape) != (SMALL_BATCH, n_bus) or y.dtype != torch.int16:
+        raise SystemExit(f"chip_smoke: small step output {tuple(y.shape)}")
+    acc = rms_db(y[0].cpu().numpy().astype(np.float64) - ref, ref)
+    print(f"small-batch step: launches {small_launches}; clip 0 {acc:.1f} "
+          f"dB vs float64 oracle (gate {GATE_CHAIN_DB})")
+    if not acc <= GATE_CHAIN_DB:
+        raise SystemExit("chip_smoke: small-batch accuracy gate failed")
+    sec, _ = step_seconds(small, v, b, iters=10)
+    stages = {  # the unfused forward's stages, on their real inputs
+        "front": median_ms(lambda: small.front(v, b)),
+        "fade+gain": median_ms(lambda: m * ramp * scale[:, None]),
+        "eq": median_ms(lambda: iir.sosfilt(small.sos, x_eq)),
+        "reverb": median_ms(lambda: treverb.reverb(
+            y_eq, small.reverb_ir, wet=small.wet, dry=small.dry)),
+        "envelope": median_ms(lambda: envelope.envelope(
+            y_rev.abs(), small.k_rel, small.c_att)),
+        "curve": median_ms(lambda: limiter.apply_gain_curve(
+            y_rev[:, None, :], e2k, small.curve[0])),
+        "convert": median_ms(lambda: convert.f32_to_pcm16(y_rev)),
+    }
+    print(f"small-batch step: {SMALL_BATCH}x{CLIP_SECONDS:g} s in "
+          f"{sec * 1e3:.2f} ms = {SMALL_BATCH * CLIP_SECONDS / sec:.1f} "
+          f"audio-sec/sec [{card}]; stages (ms, each alone): "
+          + ", ".join(f"{k} {t:.3f}" for k, t in stages.items()))
+
+    # 9. kernels line, then the contract line last
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms")
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{k: kk[k] for k in keys}
                                   for kk in kernels]}))
     print(json.dumps({"ok": True, "device": {

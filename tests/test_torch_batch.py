@@ -1,11 +1,16 @@
 """Parity of the port's flagship step (``xmtpu_torch.batch``) with the
-JAX package's (``xmtpu.batch``), on the CPU.
+JAX package's (``xmtpu.batch``), on the CPU (``device="cpu"``: the
+kernels' plain twins).
 
-One shape: 2 clips of 22050 int16 samples (0.5 s at 44.1 kHz, 50
-frames of 441) -> 8000 bus samples. At 2 rows x 8000 samples
-``pick_segments`` is 1, so the JAX chain with ``fused=True`` runs the
-same kernels the port replaces: the fftconv convolution and the
-unsegmented fused limiter (Pallas in interpret mode).
+Two shapes, one per branch:
+- fused: 2 clips of 22050 int16 samples (0.5 s at 44.1 kHz, 50 frames
+  of 441) -> 8000 bus samples with ``fused=True``. At 2 rows x 8000
+  samples ``pick_segments`` is 1, so the JAX chain runs the same
+  kernels the port replaces: the fftconv convolution and the
+  unsegmented fused limiter (Pallas in interpret mode);
+- unfused (the auto rule below 128 rows): 2 clips of 88200 samples
+  (2 s) -> 32000 bus samples, where both the IIR and the envelope
+  split each row into 4 segments, as in the JAX chain.
 
 Tolerances: the step's int16 output against the JAX step and against
 both float64 oracles, -80 dB (the chain's accuracy gate; the margin is
@@ -28,12 +33,13 @@ from xmtpu import batch as xbatch
 from xmtpu.ops import limiter as xlimiter
 from xmtpu.ops import resample as xresample
 from xmtpu_torch import batch as tbatch
-from xmtpu_torch.utils.errors import NotPortedError
+from xmtpu_torch.utils.errors import DeviceError, NotPortedError
 
 from .conftest import rms_db
 
 SR_IN, SR_BUS = 44100, 16000
 B, N_IN = 2, 22050
+N_IN_UNFUSED = 88200  # 2 s -> 32000 bus samples
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -56,8 +62,18 @@ def y_jax(clips):
 @pytest.fixture(scope="module")
 def y_port(clips):
     v, b = clips
-    step = tbatch.make_flagship_step(sr_in=SR_IN, sr_bus=SR_BUS, fused=True)
+    step = tbatch.make_flagship_step(sr_in=SR_IN, sr_bus=SR_BUS, fused=True,
+                                     device="cpu")
     return step(torch.from_numpy(v), torch.from_numpy(b)).numpy()
+
+
+@pytest.fixture(scope="module")
+def clips_unfused():
+    rng = np.random.default_rng(20261017)
+    v = (rng.standard_normal((B, N_IN_UNFUSED)) * 8000).astype(np.int16)
+    b = (np.sin(np.arange(N_IN_UNFUSED) / 40.0)[None].repeat(B, 0)
+         * 9000).astype(np.int16)
+    return v, b
 
 
 def _jax_tables() -> dict:
@@ -67,6 +83,7 @@ def _jax_tables() -> dict:
     t = xresample.aligned_tables(xresample._make_plan(160, 441, 24, 9.0))
     return {
         "sos": sos, "ir": xbatch._combined_ir(sos, ir, 0.25, 0.75),
+        "reverb_ir": ir, "wet": 0.25, "dry": 0.75,
         "H1": t.H1, "H0": t.H0, "H2": t.H2,
         "lo": t.lo, "hi": t.hi, "r0": t.r0, "r2": t.r2,
         "k_rel": xlimiter._release_coeff(xbatch.LIM_RELEASE_MS, SR_BUS),
@@ -120,7 +137,8 @@ def test_from_tables_matches_own_tables(clips, y_port):
     """A step built from the JAX package's tables computes the same
     output as the port's own make_flagship_step."""
     v, b = clips
-    step = tbatch.FlagshipStep.from_tables(_jax_tables(), device="cpu")
+    step = tbatch.FlagshipStep.from_tables(_jax_tables(), device="cpu",
+                                           fused=True)
     y = step(torch.from_numpy(v), torch.from_numpy(b)).numpy()
     assert np.array_equal(y, y_port)
     assert step.ir.dtype == torch.float32 and step.ir.shape == (4093,)
@@ -137,7 +155,7 @@ def test_front_matches_jax_operation_order(clips):
     m_ref = resample.polyphase_resample_framed(
         convert.pcm16_to_f32(v) + 0.4 * convert.pcm16_to_f32(b),
         SR_IN, SR_BUS).reshape(B, -1)
-    step = tbatch.make_flagship_step(fused=True)
+    step = tbatch.make_flagship_step(fused=True, device="cpu")
     m, _, _ = step.front(*(torch.from_numpy(a) for a in clips))
     assert m.dtype == torch.float32 and torch.equal(m, m_ref)
 
@@ -147,26 +165,112 @@ def test_front_matches_jax_operation_order(clips):
     {"resample_backend": "pallas"},
     {"resample_backend": "rsmix"},
     {"resample_backend": "mixfirst_pad"},
-    {"fused": False},
-    {"lti_fold": False},
-    {"limiter_fuse": False},
+    {"fused": True, "lti_fold": False},
+    {"iir_backend": "scan", "fused": False},
+    {"limiter_fuse": False, "envelope_block": 2},
     {"envelope_block": 8},
 ])
 def test_unported_options_refused(kw):
     with pytest.raises(NotPortedError, match="ROADMAP"):
-        tbatch.make_flagship_step(**kw)
+        tbatch.make_flagship_step(device="cpu", **kw)
 
 
 def test_auto_fused_small_batch_refused(clips):
-    """fused=None follows the JAX auto rule, which picks the unported
-    unfused chain below 128 rows: refused, not silently fused."""
-    v, b = clips
-    step = tbatch.make_flagship_step()
-    with pytest.raises(NotPortedError, match="128"):
-        step(torch.from_numpy(v), torch.from_numpy(b))
+    """fused=None follows the JAX auto rule: below 128 rows it runs the
+    unfused chain, the same computation as fused=False, and not the
+    fused one. Clip lengths that are not a multiple of 441 are still
+    refused."""
+    v, b = (torch.from_numpy(a) for a in clips)
+    auto = tbatch.make_flagship_step(device="cpu")
+    assert auto.fused is None
+    y = auto(v, b)
+    assert torch.equal(y, tbatch.make_flagship_step(fused=False,
+                                                    device="cpu")(v, b))
+    assert not torch.equal(y, tbatch.make_flagship_step(fused=True,
+                                                        device="cpu")(v, b))
     unaligned = torch.zeros((B, N_IN - 1), dtype=torch.int16)
     with pytest.raises(NotPortedError, match="multiple of 441"):
-        tbatch.make_flagship_step(fused=True)(unaligned, unaligned)
+        tbatch.make_flagship_step(fused=True, device="cpu")(unaligned,
+                                                            unaligned)
+
+
+def test_lti_fold_off_refused_only_on_fused_branch(clips):
+    """As in the JAX step, lti_fold only changes the fused branch:
+    with fused=False it builds and runs the unfused chain, with
+    fused=None it runs below 128 rows and is refused from 128 rows up
+    (before any work), with fused=True it is refused at build."""
+    v, b = (torch.from_numpy(a) for a in clips)
+    y = tbatch.make_flagship_step(fused=False, lti_fold=False,
+                                  device="cpu")(v, b)
+    assert torch.equal(y, tbatch.make_flagship_step(fused=False,
+                                                    device="cpu")(v, b))
+    auto = tbatch.make_flagship_step(lti_fold=False, device="cpu")
+    assert torch.equal(auto(v, b), y)
+    wide = torch.zeros((128, 441), dtype=torch.int16)
+    with pytest.raises(NotPortedError, match="K6"):
+        auto(wide, wide)
+    with pytest.raises(NotPortedError, match="K6"):
+        tbatch.FlagshipStep.from_tables(_jax_tables(), device="cpu",
+                                        fused=True, lti_fold=False)
+
+
+def test_builds_on_cuda_unless_asked(monkeypatch):
+    """Without a device argument the step builds on CUDA; with no CUDA
+    device it raises the typed error naming device="cpu", never
+    building silently on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceError, match='device="cpu"'):
+        tbatch.make_flagship_step()
+    with pytest.raises(DeviceError, match='device="cpu"'):
+        tbatch.FlagshipStep.from_tables(_jax_tables())
+    step = tbatch.make_flagship_step(device="cpu")
+    assert step.ir.device.type == "cpu"
+
+
+def test_unfused_step_vs_jax_step(clips_unfused):
+    """The small-batch branch (fused=None below 128 rows): the port's
+    CPU step against the JAX step (Pallas interpret mode), both with
+    4 IIR and 4 envelope segments per row, and each clip against the
+    float64 oracle."""
+    from xmtpu.kernels.iir import pick_segments
+
+    v, b = clips_unfused
+    assert pick_segments(B, 32000) == 4
+    assert pick_segments(B, 32000, lanes=256) == 4
+    step_j = jax.jit(xbatch.make_flagship_step(sr_in=SR_IN, sr_bus=SR_BUS,
+                                               interpret=True))
+    y_j = np.asarray(step_j(jnp.asarray(v), jnp.asarray(b)))
+    y_t = tbatch.make_flagship_step(device="cpu")(
+        torch.from_numpy(v), torch.from_numpy(b)).numpy()
+    assert y_t.shape == y_j.shape == (B, 32000) and y_t.dtype == np.int16
+    db = rms_db((y_t - y_j.astype(np.float64)) / 32768.0,
+                y_j.astype(np.float64) / 32768.0)
+    print(f"unfused port step vs JAX step: {db:.1f} dB (gate -80, margin "
+          f"{-80 - db:.1f} dB)")
+    assert db <= -80.0
+    ref = tbatch.flagship_oracle_np(v, b, sr_in=SR_IN, sr_bus=SR_BUS)
+    for i in range(B):
+        dbi = rms_db((y_t[i] - ref[i].astype(np.float64)) / 32768.0,
+                     ref[i].astype(np.float64) / 32768.0)
+        print(f"unfused clip {i}: {dbi:.1f} dB vs float64 oracle")
+        assert dbi <= -80.0
+
+
+def test_unfused_limiter_on_fused_branch_vs_jax(clips):
+    """fused=True, limiter_fuse=False: the envelope kernel plus the
+    torch curve after the folded convolution."""
+    v, b = clips
+    step_j = jax.jit(xbatch.make_flagship_step(
+        sr_in=SR_IN, sr_bus=SR_BUS, interpret=True, fused=True,
+        limiter_fuse=False))
+    y_j = np.asarray(step_j(jnp.asarray(v), jnp.asarray(b)))
+    y_t = tbatch.make_flagship_step(fused=True, limiter_fuse=False,
+                                    device="cpu")(
+        torch.from_numpy(v), torch.from_numpy(b)).numpy()
+    db = rms_db((y_t - y_j.astype(np.float64)) / 32768.0,
+                y_j.astype(np.float64) / 32768.0)
+    print(f"limiter_fuse=False step vs JAX step: {db:.1f} dB (gate -80)")
+    assert db <= -80.0
 
 
 def test_port_imports_no_jax():
@@ -177,9 +281,33 @@ def test_port_imports_no_jax():
         "from xmtpu_torch import batch, bench\n"
         "import xmtpu_torch.kernels.envelope, xmtpu_torch.kernels.fftconv\n"
         "v = np.zeros((2, 22050), np.int16); v[:, ::7] = 3000\n"
-        "y = batch.make_flagship_step(fused=True)(torch.from_numpy(v),"
-        " torch.from_numpy(v))\n"
+        "y = batch.make_flagship_step(fused=True, device='cpu')("
+        "torch.from_numpy(v), torch.from_numpy(v))\n"
         "assert y.shape == (2, 8000), y.shape\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'xmtpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_unfused_step_imports_no_jax():
+    """A fresh interpreter runs the segmented small-batch step on the
+    CPU without loading jax, jaxlib or the JAX package."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from xmtpu_torch import batch\n"
+        "from xmtpu_torch.kernels import envelope, iir\n"
+        "v = np.zeros((2, 88200), np.int16); v[:, ::5] = 2000\n"
+        "step = batch.make_flagship_step(device='cpu')\n"
+        "y = step(torch.from_numpy(v), torch.from_numpy(v))\n"
+        "assert y.shape == (2, 32000), y.shape\n"
+        "assert iir.pick_segments(2, 32000) == 4\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'xmtpu'))\n"
         "assert not bad, bad\n"

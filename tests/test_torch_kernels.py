@@ -36,7 +36,6 @@ from xmtpu.ops import reverb as xreverb
 from xmtpu_torch.kernels import _build, envelope, fftconv
 from xmtpu_torch.ops import reverb
 from xmtpu_torch.ops.limiter import _attack_coeff, _release_coeff
-from xmtpu_torch.utils.errors import NotPortedError
 
 from .conftest import rms_db
 
@@ -86,8 +85,9 @@ def test_fftconv_twin_vs_direct_f64(data, m):
 
 
 def test_reverb_op_vs_jax(data):
-    """ops.reverb's chain form (dry=0, in-kernel gains, output
-    prescale) against the JAX op on its Pallas backend."""
+    """ops.reverb's folded-chain form (dry=0, in-kernel gains, output
+    prescale) and its wet/dry form against the JAX op on its Pallas
+    backend."""
     x, pre_row, pre_col, ir = data
     blk, gp = xbatch._reverb_block(ir.shape[-1])
     kw = dict(wet=0.5, dry=0.0, pre_row=pre_row, pre_col=pre_col)
@@ -98,8 +98,37 @@ def test_reverb_op_vs_jax(data):
     y_t = reverb.reverb(torch.from_numpy(x), ir,
                         prescale=torch.tensor([[1.5], [0.5]]), **kw).numpy()
     assert rms_db(y_t - y_j, y_j) <= -95.0  # the Pallas kernel's own floor
-    with pytest.raises(NotPortedError):
-        reverb.reverb(torch.from_numpy(x), ir, wet=0.25, dry=0.75)
+    y_j = np.asarray(xreverb.reverb(jnp.asarray(x), ir, wet=0.25, dry=0.75,
+                                    block=blk, gp=gp, backend="pallas",
+                                    interpret=True))
+    y_t = reverb.reverb(torch.from_numpy(x), ir, wet=0.25, dry=0.75).numpy()
+    assert rms_db(y_t - y_j, y_j) <= -95.0
+
+
+def test_reverb_wet_dry_vs_jax():
+    """The unfused chain's reverb: the raw 4000-tap IR, wet 0.25 and
+    dry 0.75, with and without a prescale, against the JAX op on its
+    Pallas backend (interpret mode); the gate is the Pallas kernel's own
+    floor, as above."""
+    rng = np.random.default_rng(29)
+    x = (0.3 * rng.standard_normal((R, N))).astype(np.float32)
+    ir = xreverb.synthetic_ir(0.25, SR_BUS).astype(np.float32)
+    assert ir.shape == (4000,)
+    blk = xbatch._reverb_block(ir.shape[-1])[0]
+    s = np.array([[0.6], [1.4]], np.float32)
+    for prescale in (None, s):
+        y_j = np.asarray(xreverb.reverb(
+            jnp.asarray(x), ir, wet=0.25, dry=0.75, block=blk,
+            backend="pallas", interpret=True,
+            prescale=None if prescale is None else jnp.asarray(prescale)))
+        y_t = reverb.reverb(
+            torch.from_numpy(x), ir, wet=0.25, dry=0.75,
+            prescale=None if prescale is None else torch.from_numpy(
+                prescale)).numpy()
+        db = rms_db(y_t - y_j, y_j)
+        print(f"wet/dry reverb vs Pallas (prescale "
+              f"{prescale is not None}): {db:.1f} dB (gate -95)")
+        assert db <= -95.0
 
 
 # --------------------------------------------------------------- envelope

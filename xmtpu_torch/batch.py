@@ -2,22 +2,29 @@
 ``xmtpu.batch``).
 
 A [B, n] batch of int16 voice and BGM clips runs the whole decode-side
-chain as one module call:
+chain as one module call. The front is shared:
 
     frame + convert + mix (int16 -> f32)  ->  banded polyphase resample
-    (two FP32 matmuls)  ->  fade ramp + per-clip peak normalize gain  ->
-    EQ + reverb as ONE convolution (the EQ impulse response folds into
-    the reverb IR on the host)  ->  fused soft-knee limiter  ->  int16
+    (two FP32 matmuls)  ->  fade ramp + per-clip peak normalize gain
 
-Two hand-written CUDA kernels carry it: the fftconv kernel, which also
-applies the normalize gain (per row) and the fade ramp (per sample) as
-the input loads, and the envelope kernel, which applies the limiter's
-curve and clamp in the same pass as its recurrences. Everything else is
-plain torch.
+and then one of the JAX package's two branches, picked as it picks
+them (``fused=None``: fused from 128 rows up):
 
-``make_flagship_step`` ports the JAX package's default branch (mixfirst
-front, LTI fold, fused limiter); other options raise
-:class:`NotPortedError` naming the ROADMAP item that ports them.
+- fused: EQ + reverb as ONE convolution (the EQ impulse response folds
+  into the reverb IR on the host) on the fftconv kernel, which also
+  applies the normalize gain (per row) and the fade ramp (per sample)
+  as the input loads, then the fused limiter kernel (envelope, curve
+  and clamp in one pass);
+- unfused (small batches): the EQ as an IIR cascade on the biquad
+  kernel, time-segmented; the reverb with its wet/dry mix on the
+  fftconv kernel; the limiter's envelope on the envelope kernel,
+  time-segmented, and its curve in torch.
+
+Everything else is plain torch. ``make_flagship_step`` refuses the
+options whose paths are not ported with :class:`NotPortedError` naming
+the ROADMAP item that ports them. The step builds on ``cuda`` unless
+``device=`` names another device; ``device="cpu"`` runs the kernels'
+plain twins.
 """
 
 from __future__ import annotations
@@ -29,13 +36,14 @@ import torch
 from torch import nn
 
 from xmtpu_torch.kernels.envelope import curve_of, limiter
+from xmtpu_torch.kernels.iir import sosfilt
 from xmtpu_torch.ops import biquad as _biquad
 from xmtpu_torch.ops import convert as _convert
 from xmtpu_torch.ops import limiter as _limiter
 from xmtpu_torch.ops import mix as _mix
 from xmtpu_torch.ops import resample as _resample
 from xmtpu_torch.ops import reverb as _reverb
-from xmtpu_torch.utils.errors import NotPortedError
+from xmtpu_torch.utils.errors import DeviceError, NotPortedError
 from xmtpu_torch.utils.profiling import stage
 
 DEFAULT_BANDS = (
@@ -101,11 +109,13 @@ def flagship_tables(sr_in: int = 44100, sr_bus: int = 16000,
                     bgm_gain: float = 0.4, fade_ms: float = 250.0,
                     threshold_db: float = -3.0) -> dict:
     """Every host table the step needs (the chain has no learned
-    weights): EQ ``sos``, combined EQ+reverb ``ir`` (float32), the
-    aligned resample tables ``H1``/``H0``/``H2`` with ``lo``/``hi``/
-    ``r0``/``r2``, the limiter coefficients ``k_rel``/``c_att``, the
-    ``curve`` (threshold, knee, ceiling, slope, makeup), the ``fade``
-    length and the rates and mix gain."""
+    weights): EQ ``sos``, combined EQ+reverb ``ir`` (float32) for the
+    fused branch, the raw reverb IR ``reverb_ir`` (float32) and its
+    ``wet``/``dry`` gains for the unfused one, the aligned resample
+    tables ``H1``/``H0``/``H2`` with ``lo``/``hi``/``r0``/``r2``, the
+    limiter coefficients ``k_rel``/``c_att``, the ``curve`` (threshold,
+    knee, ceiling, slope, makeup), the ``fade`` length and the rates and
+    mix gain."""
     _resample.check_rates(sr_in, sr_bus)
     sos = _biquad.eq_sos(list(bands), sr_bus)
     ir = _reverb.synthetic_ir(ir_seconds, sr_bus).astype(np.float32)
@@ -119,7 +129,7 @@ def flagship_tables(sr_in: int = 44100, sr_bus: int = 16000,
     t = _resample.aligned_tables(
         _resample.make_plan(sr_bus // g, sr_in // g, 24, 9.0))
     return {
-        "sos": sos, "ir": ir_comb,
+        "sos": sos, "ir": ir_comb, "reverb_ir": ir, "wet": wet, "dry": dry,
         "H1": t.H1, "H0": t.H0, "H2": t.H2,
         "lo": t.lo, "hi": t.hi, "r0": t.r0, "r2": t.r2,
         "k_rel": _limiter._release_coeff(LIM_RELEASE_MS, sr_bus),
@@ -130,28 +140,60 @@ def flagship_tables(sr_in: int = 44100, sr_bus: int = 16000,
     }
 
 
+_UNFOLDED = ("lti_fold=False on the fused branch needs the eq_env kernel "
+             "(ROADMAP.md Queue 2, K6); the unfused branch (fused=False, "
+             "or fewer than 128 rows) does not fold and runs")
+
+
+def _resolve_device(device) -> torch.device:
+    """``device`` as given, else ``cuda``; never the CPU unless asked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise DeviceError(
+            "no CUDA device: the step builds on cuda unless a device is "
+            "given; pass device=\"cpu\" to run the kernels' plain torch "
+            "twins on the CPU")
+    return torch.device("cuda")
+
+
 class FlagshipStep(nn.Module):
     """The flagship chain: forward(voice_i16 (B, n), bgm_i16 (B, n)) ->
-    int16 (B, ceil(n*L/M)). Host tables are buffers on ``device``."""
+    int16 (B, ceil(n*L/M)). Host tables are buffers on ``device``
+    (None = ``cuda``; without a CUDA device that raises
+    :class:`DeviceError`). ``fused``: True = the fused branch, False =
+    the unfused one, None = the JAX package's rule (fused from 128 rows
+    up). ``limiter_fuse=False`` runs the fused branch's limiter as the
+    envelope kernel plus the torch curve. ``lti_fold=False`` only
+    changes the fused branch, which it refuses (:class:`NotPortedError`,
+    at build for ``fused=True``, at the call for ``fused=None`` from 128
+    rows up); the unfused branch runs as with the fold."""
 
-    def __init__(self, tables: dict, device=None, auto_fused: bool = False):
+    def __init__(self, tables: dict, device=None, fused: bool | None = None,
+                 limiter_fuse: bool = True, lti_fold: bool = True):
         super().__init__()
-        dev = torch.device(device) if device is not None else None
+        if fused and not lti_fold:
+            raise NotPortedError(_UNFOLDED)
+        dev = _resolve_device(device)
         f32 = torch.float32
-        self.register_buffer("ir", torch.as_tensor(
-            np.asarray(tables["ir"]), dtype=f32, device=dev).contiguous())
+        for name in ("ir", "reverb_ir"):
+            self.register_buffer(name, torch.as_tensor(
+                np.asarray(tables[name]), dtype=f32, device=dev).contiguous())
         # the resample tables carry pcm16_to_f32's 1/32768 (see front)
         for name in ("H1", "H0", "H2"):
             h = np.asarray(tables[name], np.float64) / _convert.PCM16_SCALE
             self.register_buffer(name, torch.as_tensor(
                 h, dtype=f32, device=dev).contiguous())
-        self.register_buffer("sos", torch.as_tensor(
-            np.asarray(tables["sos"], np.float64), device=dev))
+        # host copy: the IIR's segment corrections are built from it
+        self.sos = np.asarray(tables["sos"], np.float64)
         self.lo, self.hi = int(tables["lo"]), int(tables["hi"])
         self.r0, self.r2 = int(tables["r0"]), int(tables["r2"])
         self.k_rel = float(tables["k_rel"])
         self.c_att = float(tables["c_att"])
+        # the unfused limiter, like the JAX step's, reads the threshold
+        # and keeps the op's default knee, ceiling, ratio and makeup
         self.curve = tuple(float(v) for v in tables["curve"])
+        self.wet, self.dry = float(tables["wet"]), float(tables["dry"])
         self.fade = int(tables["fade"])
         self.sr_in, self.sr_bus = int(tables["sr_in"]), int(tables["sr_bus"])
         self.bgm_gain = float(tables["bgm_gain"])
@@ -159,30 +201,28 @@ class FlagshipStep(nn.Module):
                                                   device=dev))
         g = math.gcd(self.sr_in, self.sr_bus)
         self.M = self.sr_in // g
-        # fused=None in make_flagship_step: the JAX package's auto rule
-        # takes the unfused chain below 128 rows, which is not ported
-        self.auto_fused = auto_fused
+        self.fused = fused
+        self.limiter_fuse = limiter_fuse
+        self.lti_fold = lti_fold
 
     @classmethod
-    def from_tables(cls, tables: dict, device=None) -> "FlagshipStep":
+    def from_tables(cls, tables: dict, device=None, fused: bool | None = None,
+                    limiter_fuse: bool = True,
+                    lti_fold: bool = True) -> "FlagshipStep":
         """Step from host tables built elsewhere (keys as
         :func:`flagship_tables` returns them)."""
-        return cls(tables, device=device)
+        return cls(tables, device=device, fused=fused,
+                   limiter_fuse=limiter_fuse, lti_fold=lti_fold)
 
     @torch.no_grad()
     def front(self, voice_i16: torch.Tensor, bgm_i16: torch.Tensor):
         """Mix, resample and normalize stages -> (m (B, nb) bus signal,
-        scale (B,) normalize gain, ramp (nb,) fade): the inputs of the
-        fftconv kernel, which applies scale and ramp as it loads m."""
+        scale (B,) normalize gain, ramp (nb,) fade). The fused branch's
+        fftconv kernel applies scale and ramp as it loads m."""
         B, n_in = voice_i16.shape
         if bgm_i16.shape != voice_i16.shape:
             raise ValueError(f"voice {tuple(voice_i16.shape)} and bgm "
                              f"{tuple(bgm_i16.shape)} differ")
-        if self.auto_fused and B < 128:
-            raise NotPortedError(
-                f"fused=None picks the unfused chain for {B} < 128 rows, "
-                "which needs the IIR kernel (ROADMAP.md Queue 2, K5); "
-                "pass fused=True to run the fused chain")
         if not _resample.aligned_supported(n_in, self.sr_in, self.sr_bus):
             raise NotPortedError(
                 f"clip length {n_in} is not a multiple of {self.M} input "
@@ -219,12 +259,43 @@ class FlagshipStep(nn.Module):
     @torch.no_grad()
     def forward(self, voice_i16: torch.Tensor,
                 bgm_i16: torch.Tensor) -> torch.Tensor:
+        fused = (self.fused if self.fused is not None
+                 else voice_i16.shape[0] >= 128)
+        if fused and not self.lti_fold:
+            raise NotPortedError(_UNFOLDED)
         m, scale, ramp = self.front(voice_i16, bgm_i16)
+        if not fused:
+            return self._unfused(m, scale, ramp)
         with stage("eq+reverb"):
             out = _reverb.reverb(m, self.ir, wet=1.0, dry=0.0,
                                  pre_row=scale, pre_col=ramp)
         with stage("limiter"):
-            out, _ = limiter(out, self.k_rel, self.c_att, self.curve)
+            if self.limiter_fuse:
+                out, _ = limiter(out, self.k_rel, self.c_att, self.curve)
+            else:
+                out = self._limiter(out)
+        return _convert.f32_to_pcm16(out)
+
+    def _limiter(self, out: torch.Tensor) -> torch.Tensor:
+        """The unfused limiter: the envelope kernel, then the curve in
+        torch (the JAX ``ops.limiter.limiter`` on its Pallas backend)."""
+        y, _ = _limiter.limiter(
+            out[:, None, :], self.sr_bus, threshold_db=self.curve[0],
+            release_ms=LIM_RELEASE_MS, attack_ms=LIM_ATTACK_MS)
+        return y[:, 0, :]
+
+    def _unfused(self, m, scale, ramp) -> torch.Tensor:
+        """The small-batch branch in the JAX step's operation order: EQ
+        on the faded, normalized signal, reverb with its wet/dry mix,
+        limiter, int16."""
+        out = m * ramp
+        with stage("eq"):
+            out, _ = sosfilt(self.sos, out * scale[:, None])
+        with stage("reverb"):
+            out = _reverb.reverb(out, self.reverb_ir, wet=self.wet,
+                                 dry=self.dry)
+        with stage("limiter"):
+            out = self._limiter(out)
         return _convert.f32_to_pcm16(out)
 
 
@@ -246,14 +317,16 @@ def make_flagship_step(
     limiter_fuse: bool = True,
     device=None,
 ) -> FlagshipStep:
-    """Build the flagship step on ``device`` with the port's own host
-    tables. The arguments mirror ``xmtpu.batch.make_flagship_step``;
+    """Build the flagship step on ``device`` (None = ``cuda``;
+    ``device="cpu"`` runs the kernels' plain twins) with the port's own
+    host tables. The arguments mirror ``xmtpu.batch.make_flagship_step``;
     ``iir_backend="pallas"`` names the JAX package's kernel branch,
     whose kernels this port replaces. ``fused=None`` is the JAX
-    package's auto rule, which picks the fused branch only for >= 128
-    rows; the port has only that branch, so pass ``fused=True`` for
-    smaller batches. ``envelope_block``: the kernel steps per sample,
-    which is ``envelope_block=1``; None is accepted as the default."""
+    package's auto rule: the fused branch from 128 rows up, the unfused
+    one below. ``lti_fold=False`` is refused where the fused branch
+    runs (see :class:`FlagshipStep`). ``envelope_block``: the kernels
+    step per sample, which is ``envelope_block=1``; None is accepted as
+    the default."""
     refuse = {
         "iir_backend": (iir_backend != "pallas",
                         "the scan backend needs the float64 twins "
@@ -262,15 +335,6 @@ def make_flagship_step(
                              "resample_backend values other than "
                              "'mixfirst' need their own kernels (ROADMAP.md "
                              "Queue 2, K7 'pallas' and K8 'rsmix')"),
-        "fused": (fused is False,
-                  "the unfused chain needs the IIR kernel (ROADMAP.md "
-                  "Queue 2, K5)"),
-        "lti_fold": (not lti_fold,
-                     "the unfolded chain needs the eq_env kernel "
-                     "(ROADMAP.md Queue 2, K6)"),
-        "limiter_fuse": (not limiter_fuse,
-                         "the unfused limiter needs the envelope-only "
-                         "kernel (ROADMAP.md Queue 2, K3)"),
         "envelope_block": (envelope_block not in (None, 1),
                            "block lookahead is not ported; the envelope "
                            "kernel steps per sample (ROADMAP.md Queue 2, "
@@ -282,4 +346,4 @@ def make_flagship_step(
     return FlagshipStep(
         flagship_tables(sr_in, sr_bus, bands, ir_seconds, wet, dry,
                         bgm_gain, fade_ms, threshold_db), device=device,
-        auto_fused=fused is None)
+        fused=fused, limiter_fuse=limiter_fuse, lti_fold=lti_fold)

@@ -3,6 +3,10 @@
 
     python -m xmtpu_torch.bench [--batch=256] [--clip_seconds=10] [--iters=20]
 
+The step takes the branch the JAX package's auto rule picks: fused at
+the default 256 clips, unfused (segmented IIR and envelope) below 128,
+e.g. ``--batch=32`` (the JAX harness's config 4).
+
 Prints one JSON line: ``metric``, ``value`` (audio-seconds per second
 per GPU), ``unit``, ``vs_baseline`` (ratio to the 500x-realtime
 target), ``accuracy_db`` (clip 0 against the float64 oracle) and
@@ -80,8 +84,8 @@ def main(batch: int = 256, clip_seconds: float = 10.0,
 
     dev = torch.device("cuda")
     voice, bgm = make_inputs(batch, clip_seconds)
-    step = tbatch.make_flagship_step(sr_in=SR_IN, sr_bus=16000, fused=True,
-                                     device=dev)
+    # the JAX auto rule, as the root bench.py: fused from 128 rows up
+    step = tbatch.make_flagship_step(sr_in=SR_IN, sr_bus=16000, device=dev)
     v = torch.from_numpy(voice).to(dev)
     b = torch.from_numpy(bgm).to(dev)
     sec, y = step_seconds(step, v, b, iters)

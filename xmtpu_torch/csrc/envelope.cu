@@ -1,35 +1,49 @@
-// Fused soft-knee limiter over rows of a signal: detector |x|, the two
-// envelope recurrences, the soft-knee gain and the ceiling clamp in one
-// pass.
+// Limiter envelope over rows of a signal, in two forms that share one
+// kernel template:
 //
-//   env[t] = max(|x[t]|, k_rel * env[t-1])
+//   env[t] = max(d[t], k_rel * env[t-1])
 //   e2[t]  = (1 - c_att) * e2[t-1] + c_att * env[t]
-//   y[t]   = clip(x[t] * gain(e2[t]), -ceil, ceil)
 //
-// Replaces the TPU kernel xmtpu/kernels/envelope.py:_env_blk_kernel with
-// its in-kernel curve (_curve_gain / _curve_apply), reached through
-// limiter_pallas on its unsegmented path. The gain follows _curve_gain
-// operation for operation: level_db = (20/ln10) * log(max(e2, eps)), the
-// knee branch, exp((makeup - red) * ln10/20).
+// 1. The fused soft-knee limiter (xm_limiter_f32): detector d = |x|, the
+//    recurrences, then y[t] = clip(x[t] * gain(e2[t]), -ceil, ceil).
+//    Replaces the TPU kernel xmtpu/kernels/envelope.py:_env_blk_kernel
+//    with its in-kernel curve (_curve_gain / _curve_apply), reached
+//    through limiter_pallas on its unsegmented path. The gain follows
+//    _curve_gain operation for operation: level_db = (20/ln10) *
+//    log(max(e2, eps)), the knee branch, exp((makeup - red) * ln10/20).
+// 2. The envelope alone (xm_envelope_f32): writes e2, with an optional
+//    inline segment correction d[t] -> max(d[t], E[r] * ktab[t]).
+//    Replaces xmtpu/kernels/envelope.py:_env_kernel and _env_blk_kernel
+//    with curve=None, as the time-segmented passes _seg_pass_a (c_att =
+//    1, no correction) and _envelope_seg (k_rel = 0, corrected) drive
+//    them, and the unsegmented envelope_pallas call. Its arithmetic is
+//    not contracted: __fmul_rn/__fadd_rn in the order of the JAX
+//    kernel's `update`, so it computes bit for bit what the plain torch
+//    twin (separate elementwise ops) computes. Form 1 keeps the FMA
+//    nvcc contracts a_att*e2 + c_att*env into, as it was measured.
 //
 // What bounds it on the H100: the recurrence is sequential in time, one
 // dependent chain per row (a multiply and a max per sample, about 160000
 // steps per row at the flagship shape), so a row costs 160000 times the
 // time of one step however many SMs are free. The bytes (x and y,
 // 0.33 GB at 256 rows) are not the limit, and neither should be the
-// exp/log of the curve, which is independent per sample. Splitting rows
-// into time segments with exact cross-segment corrections (the TPU's
-// segmented path) is the follow-up listed in ROADMAP.md.
+// exp/log of the curve, which is independent per sample. The segmented
+// form shortens the chain: S segments of a row run as S rows from zero
+// state, and exact cross-segment corrections (outside this kernel and
+// in its corrected pass) restore the unsegmented result.
 //
 // Design: one block per kRows rows. Warp 0 runs the recurrence, one row
 // per lane, on time chunks staged in shared memory. The other warps keep
 // everything else off that chain: in iteration c, while warp 0 computes
 // e2 for chunk c, they start the asynchronous copy (cp.async) of chunk
-// c+kAhead and apply the curve to chunk c-1 and store it. Copies run
-// kAhead chunks ahead, so a device-memory round trip (about a
-// microsecond) overlaps several iterations instead of stalling one. Both
-// directions move the row-major signal with coalesced accesses, so the
-// TPU's time-major transpose is not needed.
+// c+kAhead, apply the curve to chunk c-1 (or copy its e2 out) and store
+// it, and in the corrected form apply the correction to chunk c+1 as it
+// lands (each copy thread to the elements it copied itself, so its own
+// cp.async wait orders the two). Copies run kAhead chunks ahead, so a
+// device-memory round trip (about a microsecond) overlaps several
+// iterations instead of stalling one. Both directions move the
+// row-major signal with coalesced accesses, so the TPU's time-major
+// transpose is not needed.
 //
 // A single warp is issue-bound long before its chain is latency-bound
 // (measured: a loop with one 4-byte shared load and store per sample ran
@@ -46,7 +60,13 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
+
+using xm::cp_async4;
+using xm::cp_async_commit;
+using xm::cp_async_wait;
 
 constexpr int kRows = 8;          // rows per block (lanes of warp 0)
 constexpr int kChunk = 128;       // time samples per chunk
@@ -91,22 +111,6 @@ __device__ __forceinline__ float curve_apply(float x, float e2,
   return fminf(fmaxf(x * g, -c.ceil_amp), c.ceil_amp);
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
 // Copy thread j (of 32*kCopyWarps) owns column j % kChunk of rows
 // j / kChunk, + kRowsPerPass, ... of one chunk.
 __device__ __forceinline__ void stage(const float* __restrict__ x,
@@ -119,13 +123,36 @@ __device__ __forceinline__ void stage(const float* __restrict__ x,
               x + static_cast<size_t>(r0 + r) * n + t0 + t);
 }
 
+// The inline segment correction on the elements copy thread j staged.
+__device__ __forceinline__ void correct(float* buf,
+                                        const float* __restrict__ ecorr,
+                                        const float* __restrict__ ktab,
+                                        int r0, int rows, int t0, int len,
+                                        int j) {
+  const int t = j % kChunk;
+  if (t >= len) return;
+  const float kt = ktab[t0 + t];
+  for (int r = j / kChunk; r < rows; r += kRowsPerPass) {
+    float* p = buf + r * kLd + t;
+    *p = fmaxf(*p, __fmul_rn(ecorr[r0 + r], kt));
+  }
+}
+
+// kFused: detector |x| and contracted arithmetic (the fused limiter);
+// otherwise the input is the detector and every operation rounds alone.
+template <bool kFused>
 struct Chain {
   float env, e2;
   float k_rel, a_att, c_att;
 
   __device__ __forceinline__ float step(float x) {
-    env = fmaxf(fabsf(x), k_rel * env);
-    e2 = a_att * e2 + c_att * env;
+    if constexpr (kFused) {
+      env = fmaxf(fabsf(x), k_rel * env);
+      e2 = a_att * e2 + c_att * env;
+    } else {
+      env = fmaxf(x, __fmul_rn(k_rel, env));
+      e2 = __fadd_rn(__fmul_rn(a_att, e2), __fmul_rn(c_att, env));
+    }
     return e2;
   }
 
@@ -161,10 +188,17 @@ struct Chain {
   }
 };
 
+// kCurve: the fused limiter (y = curve(x, e2)); otherwise y = e2.
+// kCorr (envelope only): the inline correction from ecorr (R,) and
+// ktab (n,).
+template <bool kCurve, bool kCorr>
 __global__ void __launch_bounds__(kThreads)
-limiter_kernel(const float* __restrict__ x, const float* __restrict__ init,
-               float* __restrict__ y, float* __restrict__ zf, int R, int n,
-               float k_rel, float c_att, Curve cv) {
+envelope_kernel(const float* __restrict__ x, const float* __restrict__ init,
+                const float* __restrict__ ktab,
+                const float* __restrict__ ecorr, float* __restrict__ y,
+                float* __restrict__ zf, int R, int n, float k_rel,
+                float c_att, Curve cv) {
+  static_assert(!(kCurve && kCorr), "the curve reads the raw signal");
   __shared__ __align__(16) float xs[kXBufs * kRows * kLd];
   __shared__ __align__(16) float es[kEBufs * kRows * kLd];
   const int r0 = blockIdx.x * kRows;
@@ -177,7 +211,7 @@ limiter_kernel(const float* __restrict__ x, const float* __restrict__ init,
   auto ebuf = [&](int c) { return es + (c % kEBufs) * kRows * kLd; };
   auto clen = [&](int c) { return min(kChunk, n - c * kChunk); };
 
-  Chain ch{0.f, 0.f, k_rel, 1.f - c_att, c_att};
+  Chain<kCurve> ch{0.f, 0.f, k_rel, 1.f - c_att, c_att};
   if (warp == 0 && lane < rows) {
     ch.env = init[r0 + lane];
     ch.e2 = init[R + r0 + lane];
@@ -187,6 +221,8 @@ limiter_kernel(const float* __restrict__ x, const float* __restrict__ init,
       stage(x, xbuf(c), r0, rows, n, c * kChunk, clen(c), j);
     cp_async_commit();
     cp_async_wait<0>();
+    if constexpr (kCorr)
+      correct(xbuf(0), ecorr, ktab, r0, rows, 0, clen(0), j);
   }
   __syncthreads();
 
@@ -205,13 +241,22 @@ limiter_kernel(const float* __restrict__ x, const float* __restrict__ init,
         if (t < clen(c - 1)) {
           const float* xb = xbuf(c - 1);
           const float* eb = ebuf(c - 1);
-          for (int r = j / kChunk; r < rows; r += kRowsPerPass)
-            y[static_cast<size_t>(r0 + r) * n + tp + t] =
-                curve_apply(xb[r * kLd + t], eb[r * kLd + t], cv);
+          for (int r = j / kChunk; r < rows; r += kRowsPerPass) {
+            float* yp = y + static_cast<size_t>(r0 + r) * n + tp + t;
+            if constexpr (kCurve)
+              *yp = curve_apply(xb[r * kLd + t], eb[r * kLd + t], cv);
+            else
+              *yp = eb[r * kLd + t];
+          }
         }
       }
       // all but the newest kAhead-1 groups done: chunk c+1 has landed
       cp_async_wait<kAhead - 1>();
+      if constexpr (kCorr) {
+        if (c + 1 < nch)
+          correct(xbuf(c + 1), ecorr, ktab, r0, rows, (c + 1) * kChunk,
+                  clen(c + 1), j);
+      }
     }
     __syncthreads();
   }
@@ -234,8 +279,28 @@ extern "C" int xm_limiter_f32(const float* x, const float* init, float* y,
   const Curve cv{lvl_scale, eps, thr, half_w, two_w,
                  slope, makeup, exp_scale, ceil_amp};
   const int blocks = (R + kRows - 1) / kRows;
-  limiter_kernel<<<blocks, kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      x, init, y, zf, R, n, k_rel, c_att, cv);
+  envelope_kernel<true, false><<<blocks, kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      x, init, nullptr, nullptr, y, zf, R, n, k_rel, c_att, cv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// d, e2: (R, n) row-major detector in, smoothed envelope out; init, zf:
+// (2, R). ktab (n,) and ecorr (R,) both null (no correction) or both
+// set. Launches on `stream` and returns cudaGetLastError() of the launch.
+extern "C" int xm_envelope_f32(const float* d, const float* init,
+                               const float* ktab, const float* ecorr,
+                               float* e2, float* zf, int R, int n,
+                               float k_rel, float c_att, void* stream) {
+  const int blocks = (R + kRows - 1) / kRows;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ktab != nullptr && ecorr != nullptr)
+    envelope_kernel<false, true><<<blocks, kThreads, 0, s>>>(
+        d, init, ktab, ecorr, e2, zf, R, n, k_rel, c_att, Curve{});
+  else if (ktab == nullptr && ecorr == nullptr)
+    envelope_kernel<false, false><<<blocks, kThreads, 0, s>>>(
+        d, init, nullptr, nullptr, e2, zf, R, n, k_rel, c_att, Curve{});
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

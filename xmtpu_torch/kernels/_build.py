@@ -1,11 +1,12 @@
 """Lazy build of the port's CUDA kernels (the role ``xmtpu.native``'s
 lazy g++ build plays for the JAX package's C++).
 
-At first use, ``nvcc`` compiles every ``xmtpu_torch/csrc/*.cu`` into one
-shared library with a plain C interface for Hopper (``sm_90a``), which
-:func:`load` binds with ``ctypes``. The library lands in
-``xmtpu_torch/_build/<key>/`` where ``key`` hashes the sources and the
-flags, so a second run reuses it and an edited source rebuilds. No
+At first use, ``nvcc`` compiles every ``xmtpu_torch/csrc/*.cu`` for
+Hopper (``sm_90a``), one compiler process per source, all started
+together, and links the objects into one shared library with a plain C
+interface, which :func:`load` binds with ``ctypes``. The library lands
+in ``xmtpu_torch/_build/<key>/`` where ``key`` hashes the sources and
+the flags, so a second run reuses it and an edited source rebuilds. No
 PyTorch header is compiled: a plain C build takes seconds, where a
 ``torch.utils.cpp_extension`` build takes minutes.
 
@@ -30,9 +31,10 @@ BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libxmtpu_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",  # registers / shared memory / spills into build.log
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+# registers / shared memory / spills of every kernel into build.log
+_COMPILE_FLAGS = ("-Xptxas", "-v", "-c")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +43,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "xm_fir_convolve_f32": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "xm_limiter_f32": ([_P, _P, _P, _P, _I, _I] + [_F] * 11 + [_P], _I),
+    "xm_envelope_f32": ([_P] * 6 + [_I, _I, _F, _F, _P], _I),
+    "xm_sosfilt_f32": ([_P] * 5 + [_I] * 3 + [_P], _I),
     "xm_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -51,7 +55,7 @@ def sources() -> list[Path]:
 
 def source_key() -> str:
     """Hash of the flags and every source file (name and bytes)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + _COMPILE_FLAGS).encode())
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -77,21 +81,41 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the kernels unless the library for the current sources
-    exists; return its path. The compiler output goes to ``build.log``
-    beside the library. Concurrent builds each write a private file
-    and rename it into place."""
+    exists; return its path. Every ``.cu`` compiles in its own ``nvcc``
+    process, all at once; the compiler output goes to ``build.log``
+    beside the library. Concurrent builds each write private files and
+    rename the library into place."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    nvcc, pid = _nvcc(), os.getpid()
+    jobs = []
+    for src in sorted(SRC_DIR.glob("*.cu")):
+        obj = out.parent / f"{src.stem}.{pid}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *_COMPILE_FLAGS, "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        so, se = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + so + se)
+        if proc.returncode != 0:
+            failed.append(f"{Path(cmd[-1]).name} ({proc.returncode}):\n"
+                          f"{se[-3000:]}")
+    tmp = out.with_name(f"{LIB_NAME}.{pid}.tmp")
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr[-3000:]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    (out.parent / "build.log").write_text("\n".join(log))
+    if failed:
+        raise KernelBuildError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 

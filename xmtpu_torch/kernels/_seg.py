@@ -1,0 +1,38 @@
+"""What the time-segmented kernels share: the segment-count rule and a
+per-device cache of their host tables (``kernels.iir`` and
+``kernels.envelope``)."""
+
+from __future__ import annotations
+
+import torch
+
+LANES = 128  # the JAX IIR kernel's lane tile, pick_segments' default
+
+_DEVICE_CACHE: dict = {}
+
+
+def pick_segments(R: int, n: int, min_seglen: int = 4096,
+                  lanes: int = LANES) -> int:
+    """Segment count that (a) keeps R*S <= lanes, (b) divides n exactly
+    (exact state math needs equal segments), and (c) leaves segments of
+    at least ``min_seglen`` samples. The JAX package's rule, kept so
+    both packages segment alike; the GPU's own rule is open work."""
+    s = 1
+    while (R * s * 2 <= lanes and n % (s * 2) == 0
+           and n // (s * 2) >= min_seglen):
+        s *= 2
+    return s
+
+
+def on_device(key, device, make) -> dict:
+    """Tensors from ``make()`` cached per (key, device), so a step does
+    not copy its host tables to the card on every call."""
+    k = (key, str(device))
+    hit = _DEVICE_CACHE.get(k)
+    if hit is None:
+        hit = {name: torch.as_tensor(a, device=device)
+               for name, a in make().items()}
+        _DEVICE_CACHE[k] = hit
+        if len(_DEVICE_CACHE) > 32:
+            _DEVICE_CACHE.pop(next(iter(_DEVICE_CACHE)))
+    return hit

@@ -1,22 +1,31 @@
-"""Fused soft-knee limiter of signed rows (counterpart of
-``xmtpu.kernels.envelope.limiter_pallas`` on its unsegmented path).
+"""Limiter envelope kernels (counterparts of ``xmtpu.kernels.envelope``).
 
-Detector ``|x|``, the envelope recurrences
+Both run the envelope recurrences over rows of a detector signal
 
-    env[t] = max(|x[t]|, k_rel * env[t-1])
+    env[t] = max(d[t], k_rel * env[t-1])
     e2[t]  = (1 - c_att) * e2[t-1] + c_att * env[t]
 
-from ``init`` = (env, e2), the soft-knee gain evaluated exactly as the
-JAX kernel's ``_curve_gain`` (exp/log in float32) and the ceiling clamp.
+from ``init`` = (env, e2), in the hand-written kernel template of
+``csrc/envelope.cu``:
 
-On a CUDA tensor :func:`limiter` launches the hand-written kernel
-``csrc/envelope.cu``. On a CPU tensor it runs :func:`limiter_plain`, a
-torch loop over time on (R,) vectors with the same curve, which the CPU
-tests and the on-card comparison use.
+- :func:`limiter`, the fused soft-knee limiter of signed rows (the JAX
+  ``limiter_pallas`` on its unsegmented path): detector ``|x|``, the
+  recurrences, the gain evaluated exactly as the JAX kernel's
+  ``_curve_gain`` (exp/log in float32) and the ceiling clamp;
+- :func:`envelope`, the smoothed envelope alone (the JAX
+  ``envelope_pallas``), time-segmented for small batches: each row's S
+  segments run from zero state as R*S rows in two passes of
+  :func:`envelope_pass` (pass A, the decaying max with c_att = 1; pass
+  B, the one-pole with k_rel = 0 over the inline-corrected envelope
+  ``max(env0[t], E * k^(t+1))``), with the exact max chain and sum chain
+  over the segments and the one-pole correction ``s_in * a^(t+1)`` on
+  the first ``_decay_cut(a)`` samples in plain torch.
 
-The JAX package's time-segmented path (taken for small batches) is not
-ported, and this limiter has no ``segments=`` knob: it always runs the
-unsegmented recurrence.
+On a CUDA tensor the wrappers launch the kernel; on a CPU tensor they
+run the plain twins (:func:`limiter_plain`, :func:`envelope_plain`),
+torch loops over time, which the CPU tests and the on-card comparison
+use. The TPU kernels' block-8 lookahead is not used: the kernel steps
+per sample, the same function in exact arithmetic.
 """
 
 from __future__ import annotations
@@ -27,12 +36,26 @@ import numpy as np
 import torch
 
 from xmtpu_torch.kernels import _build
-from xmtpu_torch.ops.limiter import _EPS, _knee_slope
+from xmtpu_torch.kernels._seg import on_device, pick_segments
 
-# Launches of the CUDA kernel in this process; callers may reset it.
+# Launches of the CUDA kernel in this process, by wrapper (limiter:
+# the fused form; envelope_pass: the envelope alone); callers may reset
+# them.
 launches = 0
+envelope_launches = 0
+
+# the JAX envelope's lane target, which pick_segments fills
+_LANES_TARGET = 256
 
 _LN10 = math.log(10.0)
+_EPS = 1e-12  # level-meter floor of the curve (and of ops.limiter's)
+
+
+def _knee_slope(ratio) -> float:
+    """Reduction slope from a compression ratio (inf = limiter)."""
+    if not float(ratio) >= 1.0:  # also rejects NaN
+        raise ValueError(f"ratio must be >= 1 (inf = limiter), got {ratio}")
+    return 1.0 if ratio == float("inf") else 1.0 - 1.0 / float(ratio)
 
 
 def curve_of(threshold_db: float, knee_db: float = 6.0,
@@ -131,3 +154,179 @@ def limiter(x: torch.Tensor, k_rel: float, c_att: float, curve,
     _build.check(rc, "envelope")
     launches += 1
     return y, zf
+
+
+# ------------------------------------------------ the envelope alone
+
+
+def _decay_cut(r: float, n: int) -> int:
+    """Samples until r^t < 1e-40 (below any f32 signal's resolution):
+    the correction window is the filter's memory, not the segment."""
+    if r <= 0.0:
+        return 1
+    if r >= 1.0:
+        return n
+    return min(n, int(np.ceil(np.log(1e-40) / np.log(r))))
+
+
+def seg_ktab(k_rel: float, seglen: int) -> np.ndarray:
+    """Pass B's correction column k^(t+1), t < seglen, float32 (the JAX
+    ``_seg_pass_a``'s ``ktab``; underflow to 0 is exact)."""
+    t1k = np.arange(1, seglen + 1, dtype=np.float64)
+    with np.errstate(under="ignore"):
+        return (float(k_rel) ** t1k).astype(np.float32)
+
+
+def seg_atab(c_att: float, seglen: int) -> np.ndarray:
+    """The one-pole correction a^(t+1), a = 1 - c_att, for the first
+    ``_decay_cut(a, seglen)`` samples, float32 (the JAX
+    ``_envelope_seg``'s ``atab``)."""
+    a = 1.0 - float(c_att)
+    t1a = np.arange(1, _decay_cut(a, seglen) + 1, dtype=np.float64)
+    return (a ** t1a).astype(np.float32)
+
+
+def _check_corr(ktab, ecorr, d) -> None:
+    if (ktab is None) != (ecorr is None):
+        raise ValueError("ktab and ecorr go together")
+    if ktab is None:
+        return
+    R, n = d.shape
+    for name, t, size in (("ktab", ktab, n), ("ecorr", ecorr, R)):
+        if (not torch.is_tensor(t) or t.dtype != torch.float32
+                or tuple(t.shape) != (size,) or not t.is_contiguous()
+                or t.device != d.device):
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"({size},) tensor on {d.device}")
+
+
+def envelope_plain(d: torch.Tensor, k_rel: float, c_att: float,
+                   init: torch.Tensor, ktab=None, ecorr=None):
+    """Plain twin of one envelope pass: a torch loop over time, float32
+    coefficients as the kernel receives them and one elementwise op per
+    operation, so it matches the kernel bit for bit."""
+    k = float(np.float32(k_rel))
+    c = float(np.float32(c_att))
+    a = float(np.float32(1.0) - np.float32(c_att))
+    dt = d.T.contiguous()  # (n, R): one contiguous row per step
+    if ktab is not None:
+        dt = torch.maximum(dt, ecorr[None, :] * ktab[:, None])
+    env = init[0].clone()
+    e2 = init[1].clone()
+    e2_t = torch.empty_like(dt)
+    for t in range(dt.shape[0]):
+        env = torch.maximum(dt[t], k * env)
+        e2 = a * e2 + c * env
+        e2_t[t] = e2
+    return e2_t.T.contiguous(), torch.stack([env, e2])
+
+
+def envelope_pass(d: torch.Tensor, k_rel: float, c_att: float,
+                  init: torch.Tensor, ktab=None, ecorr=None):
+    """One pass of the recurrences over independent rows: d (R, n),
+    init (2, R), and optionally the inline correction ``d[t] ->
+    max(d[t], ecorr[r] * ktab[t])`` (ktab (n,), ecorr (R,)); contiguous
+    float32 on one device -> (e2 (R, n), zf (2, R) = (env, e2)). The
+    kernel on CUDA, the twin on the CPU."""
+    global envelope_launches
+    _check_x(d)
+    _check_init(init, d)
+    _check_corr(ktab, ecorr, d)
+    if d.device.type == "cpu":
+        return envelope_plain(d, k_rel, c_att, init, ktab, ecorr)
+    if d.device.type != "cuda":
+        raise ValueError(f"no envelope kernel for device {d.device}")
+    R, n = d.shape
+    lib = _build.load()
+    e2 = torch.empty_like(d)
+    zf = torch.empty_like(init)
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        rc = lib.xm_envelope_f32(
+            d.data_ptr(), init.data_ptr(),
+            None if ktab is None else ktab.data_ptr(),
+            None if ecorr is None else ecorr.data_ptr(),
+            e2.data_ptr(), zf.data_ptr(), R, n, k_rel, c_att, stream)
+    _build.check(rc, "envelope")
+    envelope_launches += 1
+    return e2, zf
+
+
+def _envelope_seg(d2d, k_rel, c_att, init2, S, run):
+    """Segmented exact envelope: d2d (R, n) -> (e2 (R, n), zf (2, R))."""
+    R, n = d2d.shape
+    seglen = n // S
+    RS = R * S
+    zeros = d2d.new_zeros((2, RS))
+    tabs = on_device(("envelope", float(k_rel), float(c_att), seglen),
+                      d2d.device, lambda: {
+                          "ktab": seg_ktab(k_rel, seglen),
+                          "atab": seg_atab(c_att, seglen)})
+    # pass A: decaying max only (c_att = 1 -> e2 == env), zero init
+    env0, zf_a = run(d2d.reshape(RS, seglen), k_rel, 1.0, zeros)
+    envf = zf_a[0].reshape(R, S)
+    kp = float(np.float32(float(k_rel) ** seglen))
+    e = init2[0]
+    e_ins = []
+    for k in range(S):  # envelope entering each segment: (max, *) chain
+        e_ins.append(e)
+        e = torch.maximum(envf[:, k], kp * e)
+    e_in = torch.stack(e_ins, 1).reshape(RS)
+    # pass B: one-pole only (k_rel = 0 passes the input through) over
+    # the envelope corrected inline, max(env0[t], E * k^(t+1))
+    e2, zf_b = run(env0, 0.0, c_att, zeros, tabs["ktab"], e_in)
+    e2f = zf_b[1].reshape(R, S)
+    a = 1.0 - float(c_att)
+    ap = float(np.float32(a ** seglen))
+    s = init2[1]
+    s_ins = []
+    for k in range(S):  # e2 entering each segment: (+, *) chain
+        s_ins.append(s)
+        s = e2f[:, k] + ap * s
+    s_in = torch.stack(s_ins, 1).reshape(RS)
+    atab = tabs["atab"]
+    e2[:, :atab.shape[0]] += s_in[:, None] * atab
+    return e2.reshape(R, n), torch.stack([e, s])
+
+
+def envelope(d: torch.Tensor, k_rel: float, c_att: float, init=None,
+             segments=None, n_valid=None, run=None):
+    """Smoothed limiter envelope of the detector ``d`` (..., n) float32
+    -> (e2 (..., n), (env_last, e2_last) each (...,)).
+
+    ``init``: (env, e2), each (...,), or None (zeros). ``segments``:
+    time segmentation, None = ``pick_segments(R, n, lanes=256)`` as the
+    JAX package picks it (exact; 1 = one pass with (k_rel, c_att)).
+    ``n_valid``: only the first n_valid samples are signal. ``run``: the
+    one-pass function, :func:`envelope_pass` by default; passing
+    :func:`envelope_plain` runs the same path on the twin.
+
+    ``d`` and ``init`` must be nonnegative (the limiter's ``|x|``
+    detector): the max-chain corrections compose with the zero-init
+    pass, which floors the envelope at 0."""
+    if not torch.is_tensor(d) or d.dtype != torch.float32 or d.dim() < 1:
+        raise ValueError("d must be a float32 tensor (..., n)")
+    batch = d.shape[:-1]
+    n = d.shape[-1] if n_valid is None else int(n_valid)
+    if not 1 <= n <= d.shape[-1]:
+        raise ValueError(f"n_valid={n} outside [1, {d.shape[-1]}]")
+    R = int(np.prod(batch)) if batch else 1
+    d2d = d.reshape(R, d.shape[-1])[:, :n].contiguous()
+    if init is None:
+        init2 = d.new_zeros((2, R))
+    else:
+        init2 = torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                             device=d.device).reshape(R)
+                             for v in init]).contiguous()
+    S = (pick_segments(R, n, lanes=_LANES_TARGET) if segments is None
+         else int(segments))
+    if S < 1 or n % S:
+        raise ValueError(f"segments={S} does not divide n={n} (exact state "
+                         "corrections need equal segments)")
+    run = envelope_pass if run is None else run
+    if S > 1:
+        e2, zf = _envelope_seg(d2d, k_rel, c_att, init2, S, run)
+    else:
+        e2, zf = run(d2d, k_rel, c_att, init2)
+    return e2.reshape(*batch, n), (zf[0].reshape(batch),
+                                   zf[1].reshape(batch))

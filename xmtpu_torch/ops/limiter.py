@@ -10,10 +10,12 @@ Pinned semantics, mirrored exactly by :func:`limiter_np`:
    ``(over + W/2)^2 / (2W)`` inside the knee, ``over`` above;
 5. safety clamp at ``ceiling_db``.
 
-The sequential steps 1-3 and the fused 4-5 of the flagship chain run in
-the envelope kernel (``xmtpu_torch.kernels.envelope``); this module
-holds the coefficient helpers, the elementwise curve in torch and the
-float64 oracle.
+Steps 1-3 run in the envelope kernels (``xmtpu_torch.kernels.envelope``):
+:func:`limiter` here is the JAX package's ``limiter`` on its Pallas
+backend (the detector, the time-segmented envelope kernel, then the
+elementwise curve in torch); the flagship chain's fused branch runs
+steps 1-5 in one kernel instead. This module also holds the coefficient
+helpers and the float64 oracle.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ import math
 import numpy as np
 import torch
 
-_EPS = 1e-12
+from xmtpu_torch.kernels.envelope import _EPS, _knee_slope, envelope
+from xmtpu_torch.utils.errors import NotPortedError
+from xmtpu_torch.utils.profiling import stage
 
 
 def _release_coeff(release_ms: float, sr: int) -> float:
@@ -36,13 +40,6 @@ def _attack_coeff(attack_ms: float, sr: int) -> float:
     if attack_ms <= 0:
         return 1.0  # identity smoothing
     return 1.0 - math.exp(-1.0 / (attack_ms * sr / 1000.0))
-
-
-def _knee_slope(ratio) -> float:
-    """Reduction slope from a compression ratio (inf = limiter)."""
-    if not float(ratio) >= 1.0:  # also rejects NaN
-        raise ValueError(f"ratio must be >= 1 (inf = limiter), got {ratio}")
-    return 1.0 if ratio == float("inf") else 1.0 - 1.0 / float(ratio)
 
 
 def soft_knee_gain_db(level_db: torch.Tensor, threshold_db: float,
@@ -71,6 +68,50 @@ def apply_gain_curve(x: torch.Tensor, e2: torch.Tensor, threshold_db: float,
     )
     ceil_amp = 10.0 ** (ceiling_db / 20.0)
     return torch.clamp(x * g[..., None, :], -ceil_amp, ceil_amp)
+
+
+def limiter(x: torch.Tensor, sr: int, threshold_db: float = -3.0,
+            knee_db: float = 6.0, attack_ms: float = 1.0,
+            release_ms: float = 100.0, ceiling_db: float = 0.0, state=None,
+            ratio: float = float("inf"), makeup_db: float = 0.0,
+            envelope_block: int | None = None, n_valid: int | None = None,
+            linked_fuse: bool = False):
+    """Soft-knee limit ``x`` (..., channels, n) float32 -> (y (...,
+    channels, n_valid or n), (env_last, e2_last) each (...,)).
+
+    Channels (axis -2) are linked; leading axes are independent rows.
+    ``state``: (env, e2) carried from a previous block, or None.
+    ``n_valid``: only the first n_valid samples of x are signal. The
+    envelope runs on the envelope kernel (time-segmented for small
+    batches, as the JAX package's Pallas backend picks it), the curve in
+    torch. ``envelope_block``: None or 1 (the kernel steps per sample);
+    ``linked_fuse=True`` (the in-kernel curve on the linked envelope) is
+    not ported."""
+    if linked_fuse:
+        raise NotPortedError(
+            "linked_fuse=True needs the segmented linked-gain kernel "
+            "(ROADMAP.md Queue 2, K4 _linked_seg_gain; Queue 3)")
+    if envelope_block not in (None, 1):
+        raise NotPortedError(
+            f"envelope_block={envelope_block}: block lookahead is not "
+            "ported; the envelope kernel steps per sample (ROADMAP.md "
+            "Queue 2, K2 follow-up)")
+    if not torch.is_tensor(x) or x.dtype != torch.float32 or x.dim() < 2:
+        raise ValueError("x must be a float32 tensor (..., channels, n)")
+    if n_valid is not None:
+        nv = int(n_valid)
+        if not 1 <= nv <= x.shape[-1]:
+            raise ValueError(f"n_valid={nv} outside [1, {x.shape[-1]}]")
+        x = x[..., :nv]
+    k_rel = _release_coeff(release_ms, sr)
+    c_att = _attack_coeff(attack_ms, sr)
+    with stage("envelope"):
+        d = torch.amax(x.abs(), dim=-2)  # linked channels: (..., n)
+        e2, st = envelope(d, k_rel, c_att, init=state)
+    with stage("curve"):
+        y = apply_gain_curve(x, e2, threshold_db, knee_db, ceiling_db, ratio,
+                             makeup_db)
+    return y, st
 
 
 def limiter_np(

@@ -2,10 +2,11 @@
 
 Reverb is FIR convolution with an impulse response. The IR synthesis,
 the tail trim and the float64 oracle are host numpy, bit-exact with the
-JAX package. :func:`reverb` is the device op; it covers the one form
-the flagship chain uses: a pure convolution (``dry=0``) of the input
-scaled per row (``pre_row``) and per sample (``pre_col``), with an
-optional output gain (``prescale``). It runs on the fftconv kernel
+JAX package. :func:`reverb` is the device op, the JAX ``reverb`` on its
+Pallas backend: the wet/dry mix ``dry*x + wet*conv(x, ir)``, or a pure
+convolution (``dry=0``, the folded EQ+reverb IR) of the input scaled
+per row (``pre_row``) and per sample (``pre_col``), with an optional
+gain (``prescale``). The convolution runs on the fftconv kernel
 (``xmtpu_torch.kernels.fftconv``).
 """
 
@@ -15,7 +16,6 @@ import numpy as np
 import torch
 
 from xmtpu_torch.kernels.fftconv import fir_convolve
-from xmtpu_torch.utils.errors import NotPortedError
 
 
 def trim_ir_tail(h: np.ndarray, rel: float = 1e-6) -> np.ndarray:
@@ -59,15 +59,13 @@ def reverb_np(x, ir, wet=0.3, dry=0.7):
 def reverb(x: torch.Tensor, ir, wet: float = 0.3, dry: float = 0.7,
            prescale=None, pre_row=None, pre_col=None) -> torch.Tensor:
     """Same-length causal reverb of ``x`` (..., n) float32:
-    ``wet * prescale * conv(pre_row[..., None] * pre_col * x, ir)``.
+    ``prescale * (dry * x + wet * conv(pre_row[..., None] * pre_col * x,
+    ir))``, in the JAX package's operation order.
 
     ``ir`` is a host array or a 1-D tensor. ``pre_row`` is batch-shaped,
-    ``pre_col`` is (n,); either may be None (1). Only ``dry=0`` is
-    ported: the wet/dry mix belongs to the effects chain."""
-    if dry != 0.0:
-        raise NotPortedError(
-            "reverb with dry != 0 (the effects-chain wet/dry mix) is not "
-            "ported; ROADMAP.md Queue 1 item 5")
+    ``pre_col`` is (n,); either may be None (1). They scale only the
+    convolution's input; ``prescale`` (broadcastable) scales both
+    terms. ``dry=0`` emits no dry term."""
     n = x.shape[-1]
     batch = x.shape[:-1]
     R = int(np.prod(batch)) if batch else 1
@@ -80,6 +78,12 @@ def reverb(x: torch.Tensor, ir, wet: float = 0.3, dry: float = 0.7,
           else torch.as_tensor(pre_col, dtype=f32, device=dev).reshape(n))
     w = fir_convolve(x.reshape(R, n).to(f32).contiguous(), h,
                      pr.contiguous(), pc.contiguous()).reshape(*batch, n)
-    if prescale is not None:
-        return (torch.as_tensor(prescale, dtype=f32, device=dev) * wet) * w
-    return wet * w if wet != 1.0 else w
+    s = (None if prescale is None
+         else torch.as_tensor(prescale, dtype=f32, device=dev))
+    if dry == 0.0:
+        if s is not None:
+            return (s * wet) * w
+        return wet * w if wet != 1.0 else w
+    if s is not None:
+        return (s * dry) * x + (s * wet) * w
+    return dry * x + wet * w

@@ -20,6 +20,12 @@ class NotPortedError(XmtpuError, NotImplementedError):
     the port never substitutes another path silently."""
 
 
+class DeviceError(XmtpuError, RuntimeError):
+    """No CUDA device for an entry point that builds on ``cuda`` unless
+    the caller names a device; ``device="cpu"`` asks for the plain
+    torch twins on the CPU."""
+
+
 class KernelBuildError(XmtpuError, RuntimeError):
     """A CUDA kernel source failed to build, or no CUDA compiler was
     found."""

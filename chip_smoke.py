@@ -36,9 +36,38 @@ process exits non-zero:
    just before: K1, K5 and the envelope-only kernel must launch; clip 0
    <= -80 dB against the float64 oracle; throughput; a per-stage
    breakdown (CUDA events);
-9. a JSON line of the kernels (times, bounds, launches; K1 once per
+9. K6, the eq_env kernel, on the unfolded fused branch's real input
+   (the K1 output with the raw 4000-tap IR and the normalize gain as
+   ``prescale``, 256 x 160000): kernel and twin on a 256 x 16000 prefix
+   (the twin's time loop is too slow at full length; y, e2 and both
+   final states must read max abs 0), the kernel's time at full length;
+   then ``make_flagship_step(fused=True, lti_fold=False)`` with fresh
+   counters: K1 and K6 must launch; clip 0 <= -80 dB; throughput; a
+   per-stage breakdown (CUDA events);
+10. K7, the resample kernel, on the two-track front's real input (512 x
+   441000 float32): gate -100 dB against its twin, both times, and the
+   dense banded ``torch.matmul`` (the TPU kernel's form) as the library
+   yardstick; then the ``resample_backend="pallas"`` step: K7, K1 and
+   K2 must launch; clip 0 <= -80 dB; throughput;
+11. K8, the fused int16 front, on the real int16 tracks (256 x 441000):
+   gate -100 dB against its twin, both times; then the
+   ``resample_backend="rsmix"`` step: K8, K1 and K2 must launch; clip 0
+   <= -80 dB; throughput; the fused step's three fronts (mixfirst,
+   pallas, rsmix) each timed alone on the same clips;
+12. the ragged ``make_batch_step`` at 64 clips (the file runner's
+   default) with lengths of 5-10 s padded to 10 s, on each of its three
+   branches: the unfused one the auto rule picks at 64 rows (K5, K1 and
+   the envelope-only kernel must launch), then ``fused=True`` folded
+   (K1 and the envelope-only kernel) and unfolded (``lti_fold=False``:
+   K1 and K6); each: clip 0 <= -80 dB against the float64 oracle on its
+   own length; every sample past each clip's length must be 0;
+   throughput in audio-seconds of the true lengths;
+13. a JSON line of the kernels (times, bounds, launches; K1 once per
    branch), then the contract line ``{"ok": true, "device": {...}}``
    last.
+
+Every step run with fresh counters sets all seven launch counters to 0
+just before it and reads them just after.
 
 ``bound_ms`` is the roofline bound: the larger of the bytes each kernel
 must move (inputs read once, outputs written once) over 3.35 TB/s and
@@ -63,7 +92,7 @@ import numpy as np
 
 GATE_KERNEL_DB = -100.0
 GATE_CHAIN_DB = -80.0
-BATCH, SMALL_BATCH, CLIP_SECONDS = 256, 32, 10.0
+BATCH, SMALL_BATCH, RAGGED_BATCH, CLIP_SECONDS = 256, 32, 64, 10.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 OP_LATENCY_CYCLES = 4  # one dependent float32 add / multiply / max
@@ -83,8 +112,11 @@ def main() -> None:
     from xmtpu_torch import batch as tbatch
     from xmtpu_torch.bench import (make_inputs, median_ms, rms_db,
                                    step_seconds)
-    from xmtpu_torch.kernels import _build, envelope, fftconv, iir
+    from xmtpu_torch.kernels import _build, envelope, eq_env, fftconv, iir
+    from xmtpu_torch.kernels import resample as kresample
+    from xmtpu_torch.kernels import rsmix
     from xmtpu_torch.ops import convert, limiter
+    from xmtpu_torch.ops import resample as tresample
     from xmtpu_torch.ops import reverb as treverb
     from xmtpu_torch.ops.resample import resample_output_len
 
@@ -105,6 +137,18 @@ def main() -> None:
 
     def chain_ms(steps: int, ops_per_step: int) -> float:
         return steps * ops_per_step * OP_LATENCY_CYCLES / clock_hz * 1e3
+
+    def reset_counts() -> None:
+        fftconv.launches = envelope.launches = 0
+        iir.launches = envelope.envelope_launches = 0
+        eq_env.launches = kresample.launches = rsmix.launches = 0
+
+    def counts() -> dict:
+        return {"fftconv": fftconv.launches, "envelope": envelope.launches,
+                "iir": iir.launches,
+                "envelope_seg": envelope.envelope_launches,
+                "eq_env": eq_env.launches, "resample": kresample.launches,
+                "rsmix": rsmix.launches}
 
     # 2. build
     t0 = time.perf_counter()
@@ -197,13 +241,11 @@ def main() -> None:
     del m, scale, ramp, x
 
     # 5. the fused flagship step, driven once with fresh launch counters
-    fftconv.launches = envelope.launches = 0
-    iir.launches = envelope.envelope_launches = 0
+    reset_counts()
     y = step(v, b)
     torch.cuda.synchronize()
-    fused_launches = {"fftconv": fftconv.launches,
-                      "envelope": envelope.launches}
-    if min(fused_launches.values()) < 1:
+    fused_launches = counts()
+    if min(fused_launches[k] for k in ("fftconv", "envelope")) < 1:
         raise SystemExit(f"chip_smoke: a kernel did not launch in the "
                          f"fused step: {fused_launches}")
     k1["launches"], k2["launches"] = (fused_launches["fftconv"],
@@ -316,13 +358,10 @@ def main() -> None:
     del d, e2p, passes
 
     # 8. the unfused small-batch step, driven once with fresh counters
-    fftconv.launches = envelope.launches = 0
-    iir.launches = envelope.envelope_launches = 0
+    reset_counts()
     y = small(v, b)
     torch.cuda.synchronize()
-    small_launches = {"fftconv": fftconv.launches, "iir": iir.launches,
-                      "envelope_seg": envelope.envelope_launches,
-                      "envelope": envelope.launches}
+    small_launches = counts()
     if min(small_launches[k] for k in ("fftconv", "iir", "envelope_seg")) < 1:
         raise SystemExit(f"chip_smoke: a kernel did not launch in the "
                          f"small-batch step: {small_launches}")
@@ -354,7 +393,205 @@ def main() -> None:
           f"audio-sec/sec [{card}]; stages (ms, each alone): "
           + ", ".join(f"{k} {t:.3f}" for k, t in stages.items()))
 
-    # 9. kernels line, then the contract line last
+    del small, m, scale, ramp, x_eq, y_eq, y_rev, e2k, v, b, y
+
+    def drive(label, run, args, need, clip0_ref, audio_s):
+        """One run of a step with fresh counters: the kernels in
+        ``need`` must launch; clip 0's first len(clip0_ref) samples
+        against the oracle; then throughput."""
+        reset_counts()
+        out = run(*args)
+        torch.cuda.synchronize()
+        got = counts()
+        if min(got[k] for k in need) < 1:
+            raise SystemExit(f"chip_smoke: a kernel did not launch in the "
+                             f"{label}: {got}")
+        y0 = out[0, :len(clip0_ref)].cpu().numpy().astype(np.float64)
+        db = rms_db(y0 - clip0_ref, clip0_ref)
+        print(f"{label}: launches {got}; clip 0 {db:.1f} dB vs float64 "
+              f"oracle (gate {GATE_CHAIN_DB})")
+        if not db <= GATE_CHAIN_DB:
+            raise SystemExit(f"chip_smoke: {label} accuracy gate failed")
+        sec, _ = step_seconds(run, *args, iters=10)
+        print(f"{label}: {tuple(out.shape)} in {sec * 1e3:.2f} ms = "
+              f"{audio_s / sec:.1f} audio-sec/sec [{card}]")
+        return out, got
+
+    voice, bgm = make_inputs(BATCH, CLIP_SECONDS)
+    v = torch.from_numpy(voice).to(dev)
+    b = torch.from_numpy(bgm).to(dev)
+    audio_s = BATCH * CLIP_SECONDS
+
+    # 9. K6 on the unfolded fused branch's real input, then that step
+    nf = tbatch.make_flagship_step(fused=True, lti_fold=False, device=dev)
+    m, scale, ramp = nf.front(v, b)
+    x6 = treverb.reverb(m * ramp, nf.reverb_ir, wet=nf.wet, dry=nf.dry,
+                        prescale=scale[:, None])
+    R, n = x6.shape
+    sos32 = torch.as_tensor(nf.sos, dtype=torch.float32, device=dev)
+    ns = sos32.shape[0]
+    zi0 = torch.zeros((ns, 2, R), dtype=torch.float32, device=dev)
+    ei0 = torch.zeros((2, R), dtype=torch.float32, device=dev)
+    pre = x6[:, :16000].contiguous()
+    out_k = eq_env.eq_env_pass(pre, sos32, zi0, ei0, nf.k_rel, nf.c_att)
+    t0 = time.perf_counter()
+    out_p = eq_env.eq_env_plain(pre, sos32, zi0, ei0, nf.k_rel, nf.c_att)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    k6 = compare("eq_env", "cuda", "xmtpu_torch/csrc/eq_env.cu",
+                 "xmtpu/kernels/eq_env.py:48", out_k[0], out_p[0])
+    errs = [float((a - c).abs().max()) for a, c in zip(out_k, out_p)]
+    k6["max_abs_err"] = max(errs)
+    if k6["max_abs_err"] != 0.0:
+        raise SystemExit(f"chip_smoke: eq_env kernel differs from its twin "
+                         f"(max abs y, e2, zf, ef: {errs})")
+    k6["ms"] = median_ms(lambda: eq_env.eq_env_pass(x6, sos32, zi0, ei0,
+                                                    nf.k_rel, nf.c_att))
+    k6["plain_ms"] = plain_s * 1e3
+    # x in, y and e2 out; per sample 9 operations per section and 4 of
+    # the envelope
+    bound(k6, 4 * (3 * R * n + 6 * ns + 2 * (2 * ns + 2) * R),
+          (9 * ns + 4) * R * n)
+    print(f"K6 eq_env {tuple(x6.shape)}, {ns} sections: on the "
+          f"{tuple(pre.shape)} prefix max abs (y, e2, zf, ef) {errs} vs "
+          f"plain; kernel {k6['ms']:.3f} ms at full length, plain "
+          f"{k6['plain_ms']:.1f} ms on the prefix (one run), bound "
+          f"{k6['bound_ms']:.4f} ms ({k6['bound_by']}), chain "
+          f"{chain_ms(n, 4):.3f} ms [{card}]")
+    y6, e26, _, _ = eq_env.eq_env_pass(x6, sos32, zi0, ei0, nf.k_rel,
+                                       nf.c_att)
+    del pre, out_k, out_p
+    y, got = drive("unfolded fused step (lti_fold=False)", nf, (v, b),
+                   ("fftconv", "eq_env"), ref, audio_s)
+    k6["launches"] = got["eq_env"]
+    stages = {  # the unfolded branch's stages, on their real inputs
+        "front": median_ms(lambda: nf.front(v, b)),
+        "fade": median_ms(lambda: m * ramp),
+        "reverb": median_ms(lambda: treverb.reverb(
+            m * ramp, nf.reverb_ir, wet=nf.wet, dry=nf.dry,
+            prescale=scale[:, None])),
+        "eq_env": k6["ms"],
+        "curve": median_ms(lambda: limiter.apply_gain_curve(
+            y6[:, None, :], e26, nf.curve[0])),
+        "convert": median_ms(lambda: convert.f32_to_pcm16(y6)),
+    }
+    print("unfolded fused step: stages (ms, each alone): "
+          + ", ".join(f"{k} {t:.3f}" for k, t in stages.items()))
+    del nf, y, x6, y6, e26, m, scale, ramp
+
+    # 10. K7 on the two-track front's real input, then the "pallas" step
+    pal = tbatch.make_flagship_step(fused=True, resample_backend="pallas",
+                                    device=dev)
+    x7 = convert.pcm16_to_f32(torch.cat([v, b], 0))
+    R, n = x7.shape
+    plan = tresample.make_plan(pal.L, pal.M, 24, 9.0)
+    n_out = resample_output_len(n, plan.L, plan.M)
+    k7 = compare("resample", "cuda", "xmtpu_torch/csrc/resample.cu",
+                 "xmtpu/kernels/resample.py:37",
+                 kresample.resample(x7, pal.sr_in, pal.sr_bus),
+                 tresample.polyphase_resample(x7, pal.sr_in, pal.sr_bus))
+    k7["ms"] = median_ms(lambda: kresample.resample(x7, pal.sr_in,
+                                                    pal.sr_bus))
+    k7["plain_ms"] = median_ms(lambda: tresample.polyphase_resample(
+        x7, pal.sr_in, pal.sr_bus))
+    # the library yardstick: frames (R, nj, width) as a strided view of
+    # the padded input times the dense band (width, L), one matmul
+    nj = -(-n_out // plan.L)
+    need = (nj + 2) * plan.M + plan.width
+    xs = torch.nn.functional.pad(x7, (plan.pad_left, need))[
+        :, plan.base:plan.base + need].contiguous()
+    frames = xs.as_strided((R, nj, plan.width), (xs.stride(0), plan.M, 1))
+    hbank = torch.as_tensor(plan.hbank, dtype=torch.float32, device=dev)
+    k7["library_ms"] = median_ms(lambda: torch.matmul(frames, hbank),
+                                 warmup=1, runs=3)
+    bound(k7, 4 * (R * n + R * n_out + plan.L * plan.K2),
+          2 * plan.K2 * R * n_out)
+    print(f"K7 resample {tuple(x7.shape)} -> ({R}, {n_out}): "
+          f"{k7['rms_db']:.1f} dB vs plain (gate {GATE_KERNEL_DB}), max abs "
+          f"{k7['max_abs_err']:.3g}; kernel {k7['ms']:.3f} ms, plain "
+          f"{k7['plain_ms']:.3f} ms, dense banded matmul "
+          f"{k7['library_ms']:.3f} ms, bound {k7['bound_ms']:.4f} ms "
+          f"({k7['bound_by']}) [{card}]")
+    del x7, xs, frames
+    y, got = drive("pallas-front fused step", pal, (v, b),
+                   ("resample", "fftconv", "envelope"), ref, audio_s)
+    k7["launches"] = got["resample"]
+    front_ms = {"pallas": median_ms(lambda: pal.front(v, b))}
+    del pal, y
+
+    # 11. K8 on the real int16 tracks, then the "rsmix" step
+    rsm = tbatch.make_flagship_step(fused=True, resample_backend="rsmix",
+                                    device=dev)
+    R, n = v.shape
+    n_out = (n // plan.M) * plan.L
+    k8 = compare("rsmix", "cuda", "xmtpu_torch/csrc/rsmix.cu",
+                 "xmtpu/kernels/rsmix.py:52",
+                 rsmix.resample_mix(v, b, rsm.sr_in, rsm.sr_bus,
+                                    rsm.bgm_gain, rsm.fade),
+                 rsmix.resample_mix_plain(v, b, plan, rsm.bgm_gain,
+                                          rsm.fade))
+    k8["ms"] = median_ms(lambda: rsmix.resample_mix(
+        v, b, rsm.sr_in, rsm.sr_bus, rsm.bgm_gain, rsm.fade))
+    k8["plain_ms"] = median_ms(lambda: rsmix.resample_mix_plain(
+        v, b, plan, rsm.bgm_gain, rsm.fade))
+    # two int16 tracks in, the float32 mix out; 2 FIRs of K2 taps and
+    # the ramp and mix per output
+    bound(k8, 2 * 2 * R * n + 4 * R * n_out + 4 * plan.L * plan.K2,
+          (4 * plan.K2 + 8) * R * n_out)
+    print(f"K8 rsmix 2 x {tuple(v.shape)} int16 -> ({R}, {n_out}): "
+          f"{k8['rms_db']:.1f} dB vs plain (gate {GATE_KERNEL_DB}), max abs "
+          f"{k8['max_abs_err']:.3g}; kernel {k8['ms']:.3f} ms, plain "
+          f"{k8['plain_ms']:.3f} ms, no single library call, bound "
+          f"{k8['bound_ms']:.4f} ms ({k8['bound_by']}) [{card}]")
+    y, got = drive("rsmix-front fused step", rsm, (v, b),
+                   ("rsmix", "fftconv", "envelope"), ref, audio_s)
+    k8["launches"] = got["rsmix"]
+    # the three fronts of the fused step (mix, resample, fade, normalize),
+    # each alone on the same 256 clips, in one call
+    front_ms["rsmix"] = median_ms(lambda: rsm.front(v, b))
+    mix1st = tbatch.make_flagship_step(fused=True, device=dev)
+    front_ms["mixfirst"] = median_ms(lambda: mix1st.front(v, b))
+    print("fused step fronts (ms, each alone, 256 x 10 s): "
+          + ", ".join(f"{k} {t:.3f}" for k, t in front_ms.items())
+          + f" [{card}]")
+    del rsm, mix1st, y, v, b
+
+    # 12. the ragged batch step: 64 clips of 5-10 s padded to 10 s
+    voice, bgm = make_inputs(RAGGED_BATCH, CLIP_SECONDS)
+    n_in = voice.shape[1]
+    lengths = np.random.default_rng(64).integers(n_in // 2, n_in + 1,
+                                                 RAGGED_BATCH)
+    for i, ln in enumerate(lengths):
+        voice[i, ln:] = 0
+        bgm[i, ln:] = 0
+    args = (torch.from_numpy(voice).to(dev), torch.from_numpy(bgm).to(dev),
+            torch.from_numpy(lengths).to(dev))
+    ln0 = int(lengths[0])
+    ref0 = tbatch.flagship_oracle_np(voice[0, :ln0], bgm[0, :ln0])
+    # the branch the auto rule picks at 64 rows, then both fused branches
+    for kw, need in (({}, ("iir", "fftconv", "envelope_seg")),
+                     ({"fused": True}, ("fftconv", "envelope_seg")),
+                     ({"fused": True, "lti_fold": False},
+                      ("fftconv", "eq_env"))):
+        rag = tbatch.make_batch_step(device=dev, **kw)
+        opts = "".join(f", {k}={val}" for k, val in kw.items())
+        label = f"ragged batch step ({RAGGED_BATCH} clips{opts})"
+        y, got = drive(label, rag, args, need, ref0,
+                       float(lengths.sum()) / rag.sr_in)
+        out_len = torch.from_numpy(-(-lengths * rag.L // rag.M)).to(dev)
+        past = (torch.arange(y.shape[1], device=dev)[None, :]
+                >= out_len[:, None])
+        n_past = int(past.sum())
+        if bool((y[past] != 0).any()):
+            raise SystemExit(f"chip_smoke: the {label} wrote past a clip's "
+                             "length")
+        print(f"{label}: lengths {int(lengths.min())}-"
+              f"{int(lengths.max())} samples; all {n_past} samples past the "
+              "clips' lengths are 0")
+        del rag, y
+    del args
+
+    # 13. kernels line, then the contract line last
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -33,7 +33,7 @@ from xmtpu import batch as xbatch
 from xmtpu.ops import limiter as xlimiter
 from xmtpu.ops import resample as xresample
 from xmtpu_torch import batch as tbatch
-from xmtpu_torch.utils.errors import DeviceError, NotPortedError
+from xmtpu_torch.utils.errors import ConfigError, DeviceError, NotPortedError
 
 from .conftest import rms_db
 
@@ -162,24 +162,40 @@ def test_front_matches_jax_operation_order(clips):
 
 @pytest.mark.parametrize("kw", [
     {"iir_backend": "scan"},
-    {"resample_backend": "pallas"},
-    {"resample_backend": "rsmix"},
+    {"resample_backend": "mixfirst_pad", "fused": True},
+    {"iir_backend": "scan", "resample_backend": "pallas"},
     {"resample_backend": "mixfirst_pad"},
-    {"fused": True, "lti_fold": False},
+    {"envelope_block": 2, "lti_fold": False},
     {"iir_backend": "scan", "fused": False},
     {"limiter_fuse": False, "envelope_block": 2},
     {"envelope_block": 8},
 ])
 def test_unported_options_refused(kw):
+    """What stays refused, each naming its ROADMAP item: the scan IIR
+    backend, block lookahead and the mixfirst_pad probe. lti_fold=False
+    and the "pallas"/"rsmix" fronts run (tests/test_torch_fronts.py,
+    tests/test_torch_unfolded.py)."""
     with pytest.raises(NotPortedError, match="ROADMAP"):
         tbatch.make_flagship_step(device="cpu", **kw)
+
+
+def test_unknown_resample_backend_is_a_config_error():
+    """The JAX step runs any string other than its three named fronts
+    as the two-track front; the port names the accepted values."""
+    for bad in ("mixfrist", "xla", ""):
+        with pytest.raises(ConfigError, match="'mixfirst', 'pallas', "
+                                              "'rsmix'"):
+            tbatch.make_flagship_step(device="cpu", resample_backend=bad)
+        with pytest.raises(ConfigError):
+            tbatch.FlagshipStep.from_tables(_jax_tables(), device="cpu",
+                                            resample_backend=bad)
 
 
 def test_auto_fused_small_batch_refused(clips):
     """fused=None follows the JAX auto rule: below 128 rows it runs the
     unfused chain, the same computation as fused=False, and not the
-    fused one. Clip lengths that are not a multiple of 441 are still
-    refused."""
+    fused one. A clip length that is not a multiple of 441 runs, as in
+    the JAX step, through the general banded resample."""
     v, b = (torch.from_numpy(a) for a in clips)
     auto = tbatch.make_flagship_step(device="cpu")
     assert auto.fused is None
@@ -188,30 +204,91 @@ def test_auto_fused_small_batch_refused(clips):
                                                     device="cpu")(v, b))
     assert not torch.equal(y, tbatch.make_flagship_step(fused=True,
                                                         device="cpu")(v, b))
-    unaligned = torch.zeros((B, N_IN - 1), dtype=torch.int16)
-    with pytest.raises(NotPortedError, match="multiple of 441"):
-        tbatch.make_flagship_step(fused=True, device="cpu")(unaligned,
-                                                            unaligned)
+    y_odd = tbatch.make_flagship_step(fused=True, device="cpu")(
+        v[:, :N_IN - 1], b[:, :N_IN - 1])
+    assert y_odd.shape == (B, -(-(N_IN - 1) * 160 // 441))
 
 
-def test_lti_fold_off_refused_only_on_fused_branch(clips):
-    """As in the JAX step, lti_fold only changes the fused branch:
-    with fused=False it builds and runs the unfused chain, with
-    fused=None it runs below 128 rows and is refused from 128 rows up
-    (before any work), with fused=True it is refused at build."""
+def test_bench_takes_the_root_bench_keys(monkeypatch):
+    """The port's bench accepts the root bench.py's keys; values the
+    step refuses raise its typed error before the device check, and an
+    unknown key exits naming the known ones."""
+    from xmtpu_torch import bench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(NotPortedError, match="ROADMAP"):
+        bench.main(iir_backend="scan")
+    with pytest.raises(NotPortedError, match="ROADMAP"):
+        bench.main(envelope_block=8)
+    with pytest.raises(ConfigError, match="accepted"):
+        bench.main(resample_backend="mixfrist")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        bench.main(resample_backend="rsmix", limiter_fuse=0,
+                   envelope_block=1)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-m", "xmtpu_torch.bench",
+                          "--resample_backnd=rsmix"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "limiter_fuse" in out.stderr
+
+
+def _recording_eq_env(monkeypatch) -> list:
+    """Record the step's calls of the eq_env kernel's wrapper."""
+    calls = []
+    real = tbatch.eq_env
+
+    def rec(*args, **kw):
+        calls.append(args[1].shape)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tbatch, "eq_env", rec)
+    return calls
+
+
+def test_lti_fold_off_refused_only_on_fused_branch(clips, monkeypatch):
+    """As in the JAX step, lti_fold only changes the fused branch: with
+    fused=False it runs the unfused chain; on the fused branch (fused=
+    True, or fused=None from 128 rows up) it runs the unfolded chain on
+    the eq_env kernel (K6), and no longer raises."""
+    calls = _recording_eq_env(monkeypatch)
     v, b = (torch.from_numpy(a) for a in clips)
     y = tbatch.make_flagship_step(fused=False, lti_fold=False,
                                   device="cpu")(v, b)
     assert torch.equal(y, tbatch.make_flagship_step(fused=False,
                                                     device="cpu")(v, b))
     auto = tbatch.make_flagship_step(lti_fold=False, device="cpu")
-    assert torch.equal(auto(v, b), y)
+    assert torch.equal(auto(v, b), y) and not calls
     wide = torch.zeros((128, 441), dtype=torch.int16)
-    with pytest.raises(NotPortedError, match="K6"):
-        auto(wide, wide)
-    with pytest.raises(NotPortedError, match="K6"):
-        tbatch.FlagshipStep.from_tables(_jax_tables(), device="cpu",
-                                        fused=True, lti_fold=False)
+    wide[:, ::3] = 1000
+    assert auto(wide, wide).shape == (128, 160)
+    assert calls == [(128, 160)]
+    step = tbatch.FlagshipStep.from_tables(_jax_tables(), device="cpu",
+                                           fused=True, lti_fold=False)
+    y_k6 = step(v[:, :4410], b[:, :4410])
+    assert calls[-1] == (B, 1600)
+    assert torch.equal(y_k6, tbatch.make_flagship_step(
+        fused=True, lti_fold=False, device="cpu")(v[:, :4410], b[:, :4410]))
+
+
+def test_non_truncating_eq_runs_unfolded(clips, monkeypatch):
+    """EQ bands whose impulse response does not truncate leave no
+    combined IR: flagship_tables returns ir=None and the fused branch
+    runs the unfolded chain on the eq_env kernel, the same computation
+    as lti_fold=False. (RBJ bands that decay never fail the truncation
+    test, so the test makes sos_impulse_np report it.)"""
+    v, b = (torch.from_numpy(a[:, :4410].copy()) for a in clips)
+    y_ref = tbatch.make_flagship_step(fused=True, lti_fold=False,
+                                      device="cpu")(v, b)
+    monkeypatch.setattr(tbatch._biquad, "sos_impulse_np",
+                        lambda *a, **k: None)
+    tables = tbatch.flagship_tables()
+    assert tables["ir"] is None
+    calls = _recording_eq_env(monkeypatch)
+    step = tbatch.make_flagship_step(fused=True, device="cpu")
+    assert step.ir is None and not step.fold
+    assert torch.equal(step(v, b), y_ref)
+    assert calls == [(B, 1600)]
 
 
 def test_builds_on_cuda_unless_asked(monkeypatch):
@@ -274,16 +351,26 @@ def test_unfused_limiter_on_fused_branch_vs_jax(clips):
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter imports the port and runs the CPU step
-    without loading jax, jaxlib or the JAX package."""
+    """A fresh interpreter imports the port and runs the CPU step (the
+    default front, the "pallas" and "rsmix" fronts, the unfolded branch)
+    and the ragged step without loading jax, jaxlib or the JAX
+    package."""
     code = (
         "import sys, numpy as np, torch\n"
         "from xmtpu_torch import batch, bench\n"
         "import xmtpu_torch.kernels.envelope, xmtpu_torch.kernels.fftconv\n"
+        "from xmtpu_torch.kernels import eq_env, resample, rsmix\n"
         "v = np.zeros((2, 22050), np.int16); v[:, ::7] = 3000\n"
         "y = batch.make_flagship_step(fused=True, device='cpu')("
         "torch.from_numpy(v), torch.from_numpy(v))\n"
         "assert y.shape == (2, 8000), y.shape\n"
+        "s = torch.from_numpy(v[:, :4410].copy())\n"
+        "for kw in ({'resample_backend': 'pallas'}, {'resample_backend': "
+        "'rsmix'}, {'lti_fold': False}):\n"
+        "    y = batch.make_flagship_step(fused=True, device='cpu', **kw)(s, s)\n"
+        "    assert y.shape == (2, 1600), (kw, y.shape)\n"
+        "y = batch.make_batch_step(device='cpu')(s, s, [4410, 3000])\n"
+        "assert y.shape == (2, 1600) and not y[1, 1089:].any()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'xmtpu'))\n"
         "assert not bad, bad\n"

@@ -12,12 +12,18 @@ Tolerance: -100 dB RMS against the twin (float32 on both sides; the
 kernel's radix-2 FFTs and the twin's library FFT round differently, the
 fused limiter differs by FMA contraction only; the IIR and envelope-only
 kernels round every operation as their twins do and should read exactly
-0). The fused step on the card against the same step on the CPU: -90
+0). The eq_env kernel rounds every operation as its twin does: max abs
+0, asserted; it and the envelope-only kernel propagate NaN as their
+twins' torch.maximum does: equal to the twins with NaN in the same
+places. The two resample kernels sum 25 float32 products per
+output where the twins' banded matmuls sum the same taps in another
+order: -120 dB. The fused step on the card against the same step on the CPU: -90
 dB at the int16 output (quantization plus those differences); the
 unfused step: -85 dB, because its IIR carries the front's small
 card-vs-CPU differences (the resample matmuls sum in another order)
 through a long memory into 1-LSB flips of the int16 output (measured
--89.5 dB on an H100).
+-89.5 dB on an H100); the unfolded, "pallas", "rsmix" and ragged steps
+(each branch of the ragged one) likewise: -85 dB.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ import pytest
 import torch
 
 from xmtpu_torch import batch as tbatch
-from xmtpu_torch.kernels import envelope, fftconv, iir
+from xmtpu_torch.kernels import envelope, eq_env, fftconv, iir, resample, rsmix
+from xmtpu_torch.ops import resample as tres
 from xmtpu_torch.utils.errors import ConfigError
 
 pytestmark = pytest.mark.gpu
@@ -196,3 +203,199 @@ def test_step_refuses_tf32_and_mixed_devices(cuda):
     with pytest.raises(ValueError):
         fftconv.fir_convolve(x, torch.ones(3), torch.ones(2, device=cuda),
                              torch.ones(100, device=cuda))
+
+
+@pytest.mark.parametrize("R,n,ns", [
+    (33, 1003, 5),   # rows not a multiple of 32, n not of the chunk (32)
+    (2, 1, 5),       # one sample
+    (40, 700, 1),    # one section
+    (3, 200, 8),     # the largest template instance
+    (64, 96, 5),     # whole chunks, two blocks
+])
+def test_eq_env_kernel_vs_twin(cuda, R, n, ns):
+    rng = np.random.default_rng(R * n + ns + 1)
+    sos = np.tile(tbatch._biquad.eq_sos(list(tbatch.DEFAULT_BANDS),
+                                        16000), (2, 1))[:ns]
+    s32 = torch.from_numpy(sos.astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((R, n)).astype(
+        np.float32)).to(cuda)
+    zi = torch.from_numpy((0.1 * rng.standard_normal((ns, 2, R))).astype(
+        np.float32)).to(cuda)
+    ei = torch.from_numpy(rng.uniform(0.0, 1.0, (2, R)).astype(
+        np.float32)).to(cuda)
+    k_rel, c_att = 0.99937, 0.0606
+    before = eq_env.launches
+    out = eq_env.eq_env_pass(x, s32, zi, ei, k_rel, c_att)
+    torch.cuda.synchronize()
+    assert eq_env.launches == before + 1
+    ref = eq_env.eq_env_plain(x, s32, zi, ei, k_rel, c_att)
+    errs = [float((a - b).abs().max()) for a, b in zip(out, ref)]
+    print(f"eq_env kernel vs twin ({R}, {n}, ns={ns}): max abs (y, e2, zf, "
+          f"ef) {errs}")
+    assert errs == [0.0, 0.0, 0.0, 0.0]
+
+
+def test_eq_env_kernel_propagates_nan(cuda):
+    """A NaN sample (row 1) and a NaN envelope state (row 2, with a
+    finite signal: only the envelope's max can carry it) give NaN where
+    the twin gives NaN, and the other rows stay bit-equal."""
+    rng = np.random.default_rng(11)
+    sos = tbatch._biquad.eq_sos(list(tbatch.DEFAULT_BANDS), 16000)
+    ns = sos.shape[0]
+    s32 = torch.from_numpy(sos.astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((3, 300)).astype(
+        np.float32)).to(cuda)
+    x[1, 100] = float("nan")
+    zi = torch.zeros((ns, 2, 3), device=cuda)
+    ei = torch.zeros((2, 3), device=cuda)
+    ei[0, 2] = float("nan")
+    out = eq_env.eq_env_pass(x, s32, zi, ei, 0.99937, 0.0606)
+    ref = eq_env.eq_env_plain(x, s32, zi, ei, 0.99937, 0.0606)
+    assert bool(ref[1][2].isnan().all()) and bool(ref[1][1, 100:].isnan().all())
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("corr", [False, True])
+def test_envelope_only_kernel_propagates_nan(cuda, corr):
+    rng = np.random.default_rng(12)
+    R, n = 3, 300
+    d = torch.from_numpy(np.abs(rng.standard_normal((R, n))).astype(
+        np.float32)).to(cuda)
+    d[1, 100] = float("nan")
+    init = torch.zeros((2, R), device=cuda)
+    init[0, 2] = float("nan")
+    extra = ()
+    if corr:
+        extra = (torch.from_numpy(envelope.seg_ktab(0.999, n)).to(cuda),
+                 torch.tensor([0.5, 1.0, 2.0], device=cuda))
+    out = envelope.envelope_pass(d, 0.99937, 0.0606, init, *extra)
+    ref = envelope.envelope_plain(d, 0.99937, 0.0606, init, *extra)
+    assert bool(ref[0][2].isnan().all()) and bool(ref[0][1, 100:].isnan().all())
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("R,n,sr_in,sr_out", [
+    (3, 44100, 44100, 16000),   # aligned rows
+    (5, 44000, 44100, 16000),   # odd rows, not a multiple of 441
+    (1, 700, 44100, 16000),     # one frame tile, window past both ends
+    (2, 9600, 48000, 44100),    # L = 147, M = 160
+    (2, 30000, 44100, 32000),   # L = 320: two phase tiles
+    (2, 3200, 32000, 31000),    # M = 32: resample_pallas's M < 64 exit
+])
+def test_resample_kernel_vs_twin(cuda, R, n, sr_in, sr_out):
+    rng = np.random.default_rng(R + n)
+    x = torch.from_numpy((0.3 * rng.standard_normal((R, n))).astype(
+        np.float32)).to(cuda)
+    before = resample.launches
+    y = resample.resample(x, sr_in, sr_out)
+    torch.cuda.synchronize()
+    assert resample.launches == before + 1
+    ref = tres.polyphase_resample(x, sr_in, sr_out)
+    db = _db(y - ref, ref)
+    print(f"resample kernel vs twin ({R}, {n}, {sr_in}->{sr_out}): {db:.1f} "
+          "dB")
+    assert y.shape == ref.shape and db <= -120.0
+
+
+@pytest.mark.parametrize("B,n,sr_in,sr_out,fade,gb", [
+    (3, 44100, 44100, 16000, 4000, 0.4),   # single block (_pick_F == nc)
+    (5, 441 * 24, 44100, 16000, 0, 0.4),   # odd rows, no fade
+    (2, 9600, 48000, 44100, 100, 0.7),     # 48k -> 44.1k
+])
+def test_rsmix_kernel_vs_twin(cuda, B, n, sr_in, sr_out, fade, gb):
+    if (B, n) == (3, 44100):
+        assert rsmix._pick_F(n // 441) == n // 441
+    rng = np.random.default_rng(B * n)
+    v = torch.from_numpy((rng.standard_normal((B, n)) * 9000).astype(
+        np.int16)).to(cuda)
+    b = torch.from_numpy((rng.standard_normal((B, n)) * 7000).astype(
+        np.int16)).to(cuda)
+    before = rsmix.launches
+    y = rsmix.resample_mix(v, b, sr_in, sr_out, bgm_gain=gb, fade=fade)
+    torch.cuda.synchronize()
+    assert rsmix.launches == before + 1
+    g = np.gcd(sr_in, sr_out)
+    plan = tres.make_plan(sr_out // g, sr_in // g, 24, 9.0)
+    ref = rsmix.resample_mix_plain(v, b, plan, gb, fade)
+    db = _db(y - ref, ref)
+    print(f"rsmix kernel vs twin ({B}, {n}, {sr_in}->{sr_out}, fade {fade}):"
+          f" {db:.1f} dB")
+    assert y.shape == ref.shape and db <= -120.0
+
+
+@pytest.mark.parametrize("kw", [
+    {"fused": True, "lti_fold": False},
+    {"fused": True, "resample_backend": "pallas"},
+    {"fused": False, "resample_backend": "rsmix"},
+])
+def test_new_branches_on_card_match_cpu(cuda, kw):
+    rng = np.random.default_rng(8)
+    v = (rng.standard_normal((2, 22050)) * 8000).astype(np.int16)
+    b = (rng.standard_normal((2, 22050)) * 6000).astype(np.int16)
+    y_cpu = tbatch.make_flagship_step(device="cpu", **kw)(
+        torch.from_numpy(v), torch.from_numpy(b)).double()
+    y = tbatch.make_flagship_step(device=cuda, **kw)(
+        torch.from_numpy(v).to(cuda), torch.from_numpy(b).to(cuda))
+    assert y.dtype == torch.int16 and y.shape == (2, 8000)
+    assert _db(y.cpu().double() - y_cpu, y_cpu) <= -85.0
+
+
+def _counts() -> dict:
+    return {"fftconv": fftconv.launches, "iir": iir.launches,
+            "envelope": envelope.launches,
+            "envelope_seg": envelope.envelope_launches,
+            "eq_env": eq_env.launches, "resample": resample.launches,
+            "rsmix": rsmix.launches}
+
+
+def _launched(before: dict) -> set:
+    return {k for k, v in _counts().items() if v > before[k]}
+
+
+def test_rsmix_fallback_on_card_runs_resample_kernel(cuda):
+    """At a length K8's gate refuses, the "rsmix" step's two-track front
+    resamples on K7."""
+    rng = np.random.default_rng(10)
+    v = (rng.standard_normal((2, 22000)) * 8000).astype(np.int16)
+    b = (rng.standard_normal((2, 22000)) * 6000).astype(np.int16)
+    assert not rsmix.resample_mix_supported(22000, 2, 44100, 16000)
+    kw = {"fused": True, "resample_backend": "rsmix"}
+    y_cpu = tbatch.make_flagship_step(device="cpu", **kw)(
+        torch.from_numpy(v), torch.from_numpy(b)).double()
+    before = _counts()
+    y = tbatch.make_flagship_step(device=cuda, **kw)(
+        torch.from_numpy(v).to(cuda), torch.from_numpy(b).to(cuda))
+    torch.cuda.synchronize()
+    assert _launched(before) == {"resample", "fftconv", "envelope"}
+    assert _db(y.cpu().double() - y_cpu, y_cpu) <= -85.0
+
+
+@pytest.mark.parametrize("kw,kernels", [
+    ({}, {"iir", "fftconv", "envelope_seg"}),   # 2 rows: unfused
+    ({"fused": True}, {"fftconv", "envelope_seg"}),
+    ({"fused": True, "lti_fold": False}, {"fftconv", "eq_env"}),
+])
+def test_batch_step_on_card_matches_cpu(cuda, kw, kernels):
+    """Each branch of the ragged step on the card: exactly its kernels
+    launch, the output matches the CPU step, the pad stays 0."""
+    rng = np.random.default_rng(9)
+    v = (rng.standard_normal((2, 22050)) * 8000).astype(np.int16)
+    b = (rng.standard_normal((2, 22050)) * 6000).astype(np.int16)
+    v[1, 15000:] = 0
+    b[1, 15000:] = 0
+    lengths = torch.tensor([22050, 15000])
+    y_cpu = tbatch.make_batch_step(device="cpu", **kw)(
+        torch.from_numpy(v), torch.from_numpy(b), lengths).double()
+    before = _counts()
+    y = tbatch.make_batch_step(device=cuda, **kw)(
+        torch.from_numpy(v).to(cuda), torch.from_numpy(b).to(cuda),
+        lengths.to(cuda))
+    torch.cuda.synchronize()
+    assert _launched(before) == kernels
+    assert y.dtype == torch.int16 and y.shape == (2, 8000)
+    assert not y[1, 5443:].any()
+    db = _db(y.cpu().double() - y_cpu, y_cpu)
+    print(f"ragged step {kw} on the card vs the CPU: {db:.1f} dB")
+    assert db <= -85.0

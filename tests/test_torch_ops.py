@@ -90,6 +90,22 @@ def test_fade_ramp_bit_exact(n, fi, fo, length, offset):
     assert mix.db_to_amp(-1.0) == xmix.db_to_amp(-1.0)
 
 
+@pytest.mark.parametrize("gain,fi,fo,offset,length", [
+    (1.0, 4000, 4000, 0, None),   # the two-track front's voice
+    (0.4, 4000, 4000, 0, None),   # its BGM (0.4 is not a float32)
+    (0.7, 0, 300, 200, N_BUS + 500),
+])
+def test_apply_gain_fade_bit_exact(gain, fi, fo, offset, length):
+    x = (0.3 * np.random.default_rng(2).standard_normal((2, N_BUS))).astype(
+        np.float32)
+    y_t = mix.apply_gain_fade(torch.from_numpy(x), gain, fi, fo, offset,
+                              length).numpy()
+    y_j = np.asarray(xmix.apply_gain_fade(jnp.asarray(x), gain, fi, fo,
+                                          offset, length))
+    assert y_t.dtype == np.float32
+    assert np.array_equal(y_t.view(np.int32), y_j.view(np.int32))
+
+
 # ----------------------------------------------------------------- biquad
 
 

@@ -2,29 +2,39 @@
 ``xmtpu.batch``).
 
 A [B, n] batch of int16 voice and BGM clips runs the whole decode-side
-chain as one module call. The front is shared:
+chain as one module call. The front is picked by ``resample_backend``,
+as the JAX step picks it:
 
-    frame + convert + mix (int16 -> f32)  ->  banded polyphase resample
-    (two FP32 matmuls)  ->  fade ramp + per-clip peak normalize gain
+- ``"mixfirst"`` (default): mix the int16 tracks at the input rate, then
+  the banded polyphase resample (FP32 matmuls); the fade ramp is
+  deferred to the next stage;
+- ``"pallas"``: convert both tracks, resample them as 2B rows on the
+  resample kernel, then fade and gain each and sum;
+- ``"rsmix"``: the fused int16 resample + fade + mix kernel, or the
+  two-track front where that kernel's gate (``resample_mix_supported``)
+  refuses the length;
 
-and then one of the JAX package's two branches, picked as it picks
-them (``fused=None``: fused from 128 rows up):
+then the per-clip peak-normalize gain and one of the JAX package's
+branches (``fused=None``: fused from 128 rows up):
 
-- fused: EQ + reverb as ONE convolution (the EQ impulse response folds
-  into the reverb IR on the host) on the fftconv kernel, which also
-  applies the normalize gain (per row) and the fade ramp (per sample)
-  as the input loads, then the fused limiter kernel (envelope, curve
-  and clamp in one pass);
-- unfused (small batches): the EQ as an IIR cascade on the biquad
-  kernel, time-segmented; the reverb with its wet/dry mix on the
-  fftconv kernel; the limiter's envelope on the envelope kernel,
-  time-segmented, and its curve in torch.
+- fused, folded: EQ + reverb as ONE convolution (the EQ impulse
+  response folds into the reverb IR on the host) on the fftconv kernel,
+  which applies the normalize gain (per row) and a deferred fade ramp
+  (per sample) as the input loads, then the fused limiter kernel;
+- fused, unfolded (``lti_fold=False``, or an EQ whose impulse response
+  does not truncate): the reverb with its wet/dry mix on the fftconv
+  kernel, then the EQ cascade and the limiter's envelope in one pass on
+  the eq_env kernel, and the limiter's curve in torch;
+- unfused (small batches): the EQ on the biquad kernel, time-segmented;
+  the reverb on the fftconv kernel; the limiter's envelope on the
+  envelope kernel, time-segmented, and its curve in torch.
 
-Everything else is plain torch. ``make_flagship_step`` refuses the
-options whose paths are not ported with :class:`NotPortedError` naming
-the ROADMAP item that ports them. The step builds on ``cuda`` unless
-``device=`` names another device; ``device="cpu"`` runs the kernels'
-plain twins.
+:func:`make_batch_step` is the ragged-length step (``lengths`` per
+clip; masked fades, peak and output). Everything outside the kernels is
+plain torch. Options whose paths are not ported raise
+:class:`NotPortedError` naming the ROADMAP item that ports them. Both
+steps build on ``cuda`` unless ``device=`` names another device;
+``device="cpu"`` runs the kernels' plain twins.
 """
 
 from __future__ import annotations
@@ -35,15 +45,18 @@ import numpy as np
 import torch
 from torch import nn
 
-from xmtpu_torch.kernels.envelope import curve_of, limiter
+from xmtpu_torch.kernels.envelope import curve_of, envelope, limiter
+from xmtpu_torch.kernels.eq_env import eq_env
 from xmtpu_torch.kernels.iir import sosfilt
+from xmtpu_torch.kernels.resample import resample as resample_kernel
+from xmtpu_torch.kernels.rsmix import resample_mix, resample_mix_supported
 from xmtpu_torch.ops import biquad as _biquad
 from xmtpu_torch.ops import convert as _convert
 from xmtpu_torch.ops import limiter as _limiter
 from xmtpu_torch.ops import mix as _mix
 from xmtpu_torch.ops import resample as _resample
 from xmtpu_torch.ops import reverb as _reverb
-from xmtpu_torch.utils.errors import DeviceError, NotPortedError
+from xmtpu_torch.utils.errors import ConfigError, DeviceError, NotPortedError
 from xmtpu_torch.utils.profiling import stage
 
 DEFAULT_BANDS = (
@@ -57,6 +70,8 @@ DEFAULT_BANDS = (
 # limiter detector time constants of the chain
 LIM_RELEASE_MS = 100.0
 LIM_ATTACK_MS = 1.0
+
+RESAMPLE_BACKENDS = ("mixfirst", "pallas", "rsmix")
 
 
 def _combined_ir(sos, ir, wet: float, dry: float):
@@ -108,28 +123,24 @@ def flagship_tables(sr_in: int = 44100, sr_bus: int = 16000,
                     wet: float = 0.25, dry: float = 0.75,
                     bgm_gain: float = 0.4, fade_ms: float = 250.0,
                     threshold_db: float = -3.0) -> dict:
-    """Every host table the step needs (the chain has no learned
-    weights): EQ ``sos``, combined EQ+reverb ``ir`` (float32) for the
-    fused branch, the raw reverb IR ``reverb_ir`` (float32) and its
-    ``wet``/``dry`` gains for the unfused one, the aligned resample
-    tables ``H1``/``H0``/``H2`` with ``lo``/``hi``/``r0``/``r2``, the
-    limiter coefficients ``k_rel``/``c_att``, the ``curve`` (threshold,
-    knee, ceiling, slope, makeup), the ``fade`` length and the rates and
-    mix gain."""
+    """Every host table the steps need (the chain has no learned
+    weights): EQ ``sos``, combined EQ+reverb ``ir`` (float32, None when
+    the EQ's impulse response does not truncate: the steps then run the
+    unfolded chain) for the folded branch, the raw reverb IR
+    ``reverb_ir`` (float32) and its ``wet``/``dry`` gains, the aligned
+    resample tables ``H1``/``H0``/``H2`` with ``lo``/``hi``/``r0``/
+    ``r2``, the limiter coefficients ``k_rel``/``c_att``, the ``curve``
+    (threshold, knee, ceiling, slope, makeup), the ``fade`` length and
+    the rates and mix gain."""
     _resample.check_rates(sr_in, sr_bus)
     sos = _biquad.eq_sos(list(bands), sr_bus)
     ir = _reverb.synthetic_ir(ir_seconds, sr_bus).astype(np.float32)
-    ir_comb = _combined_ir(sos, ir, wet, dry)
-    if ir_comb is None:
-        raise NotPortedError(
-            "the EQ impulse response does not truncate, so the EQ cannot "
-            "fold into the reverb; the unfolded chain needs the eq_env "
-            "kernel (ROADMAP.md Queue 2, K6)")
     g = math.gcd(sr_in, sr_bus)
     t = _resample.aligned_tables(
         _resample.make_plan(sr_bus // g, sr_in // g, 24, 9.0))
     return {
-        "sos": sos, "ir": ir_comb, "reverb_ir": ir, "wet": wet, "dry": dry,
+        "sos": sos, "ir": _combined_ir(sos, ir, wet, dry), "reverb_ir": ir,
+        "wet": wet, "dry": dry,
         "H1": t.H1, "H0": t.H0, "H2": t.H2,
         "lo": t.lo, "hi": t.hi, "r0": t.r0, "r2": t.r2,
         "k_rel": _limiter._release_coeff(LIM_RELEASE_MS, sr_bus),
@@ -138,11 +149,6 @@ def flagship_tables(sr_in: int = 44100, sr_bus: int = 16000,
         "fade": int(round(fade_ms * sr_bus / 1000.0)),
         "sr_in": sr_in, "sr_bus": sr_bus, "bgm_gain": bgm_gain,
     }
-
-
-_UNFOLDED = ("lti_fold=False on the fused branch needs the eq_env kernel "
-             "(ROADMAP.md Queue 2, K6); the unfused branch (fused=False, "
-             "or fewer than 128 rows) does not fold and runs")
 
 
 def _resolve_device(device) -> torch.device:
@@ -157,100 +163,195 @@ def _resolve_device(device) -> torch.device:
     return torch.device("cuda")
 
 
-class FlagshipStep(nn.Module):
-    """The flagship chain: forward(voice_i16 (B, n), bgm_i16 (B, n)) ->
-    int16 (B, ceil(n*L/M)). Host tables are buffers on ``device``
-    (None = ``cuda``; without a CUDA device that raises
-    :class:`DeviceError`). ``fused``: True = the fused branch, False =
-    the unfused one, None = the JAX package's rule (fused from 128 rows
-    up). ``limiter_fuse=False`` runs the fused branch's limiter as the
-    envelope kernel plus the torch curve. ``lti_fold=False`` only
-    changes the fused branch, which it refuses (:class:`NotPortedError`,
-    at build for ``fused=True``, at the call for ``fused=None`` from 128
-    rows up); the unfused branch runs as with the fold."""
+def _check_resample_backend(name: str) -> None:
+    if name == "mixfirst_pad":
+        raise NotPortedError(
+            "resample_backend='mixfirst_pad' is a TPU lane-padding probe, "
+            "deliberately not ported (ROADMAP.md Queue 1, 'Deliberately "
+            "not ported')")
+    if name not in RESAMPLE_BACKENDS:
+        raise ConfigError(f"unknown resample_backend {name!r}; accepted: "
+                          + ", ".join(map(repr, RESAMPLE_BACKENDS)))
 
-    def __init__(self, tables: dict, device=None, fused: bool | None = None,
-                 limiter_fuse: bool = True, lti_fold: bool = True):
+
+class _Chain(nn.Module):
+    """Host tables on ``device`` and the chain's stages after the front,
+    shared by :class:`FlagshipStep` and :class:`BatchStep`."""
+
+    def __init__(self, tables: dict, device=None, lti_fold: bool = True):
         super().__init__()
-        if fused and not lti_fold:
-            raise NotPortedError(_UNFOLDED)
         dev = _resolve_device(device)
         f32 = torch.float32
         for name in ("ir", "reverb_ir"):
-            self.register_buffer(name, torch.as_tensor(
-                np.asarray(tables[name]), dtype=f32, device=dev).contiguous())
-        # the resample tables carry pcm16_to_f32's 1/32768 (see front)
-        for name in ("H1", "H0", "H2"):
-            h = np.asarray(tables[name], np.float64) / _convert.PCM16_SCALE
-            self.register_buffer(name, torch.as_tensor(
-                h, dtype=f32, device=dev).contiguous())
+            h = tables[name]
+            self.register_buffer(name, None if h is None else torch.as_tensor(
+                np.asarray(h), dtype=f32, device=dev).contiguous())
         # host copy: the IIR's segment corrections are built from it
         self.sos = np.asarray(tables["sos"], np.float64)
-        self.lo, self.hi = int(tables["lo"]), int(tables["hi"])
-        self.r0, self.r2 = int(tables["r0"]), int(tables["r2"])
         self.k_rel = float(tables["k_rel"])
         self.c_att = float(tables["c_att"])
-        # the unfused limiter, like the JAX step's, reads the threshold
-        # and keeps the op's default knee, ceiling, ratio and makeup
+        # the unfused limiter and the curve after eq_env, like the JAX
+        # step's, read the threshold and keep the op's default knee,
+        # ceiling, ratio and makeup
         self.curve = tuple(float(v) for v in tables["curve"])
         self.wet, self.dry = float(tables["wet"]), float(tables["dry"])
         self.fade = int(tables["fade"])
         self.sr_in, self.sr_bus = int(tables["sr_in"]), int(tables["sr_bus"])
         self.bgm_gain = float(tables["bgm_gain"])
+        g = math.gcd(self.sr_in, self.sr_bus)
+        self.L, self.M = self.sr_bus // g, self.sr_in // g
+        self.lti_fold = lti_fold
+        # the EQ folds into the reverb IR unless asked not to or unless
+        # its impulse response does not truncate
+        self.fold = lti_fold and self.ir is not None
+
+    def _limiter(self, out: torch.Tensor) -> torch.Tensor:
+        """The unfused limiter: the envelope kernel, then the curve in
+        torch (the JAX ``ops.limiter.limiter`` on its Pallas backend)."""
+        y, _ = _limiter.limiter(
+            out[:, None, :], self.sr_bus, threshold_db=self.curve[0],
+            release_ms=LIM_RELEASE_MS, attack_ms=LIM_ATTACK_MS)
+        return y[:, 0, :]
+
+    def _unfolded(self, out: torch.Tensor, scale: torch.Tensor):
+        """Fused branch without the fold, in the JAX step's order: the
+        reverb first (LTI, so it commutes with the EQ) with the normalize
+        gain in its wet/dry epilogue, then EQ + envelope on the eq_env
+        kernel, the curve in torch. ``scale``: (B, 1)."""
+        with stage("reverb"):
+            out = _reverb.reverb(out, self.reverb_ir, wet=self.wet,
+                                 dry=self.dry, prescale=scale)
+        with stage("eq+limiter"):
+            y, e2, _, _ = eq_env(self.sos, out, self.k_rel, self.c_att)
+            return _limiter.apply_gain_curve(y[:, None, :], e2,
+                                             self.curve[0])[:, 0, :]
+
+    def _unfused(self, out: torch.Tensor, scale: torch.Tensor):
+        """The small-batch branch in the JAX step's operation order: EQ
+        on the normalized signal, reverb with its wet/dry mix, limiter.
+        ``scale``: (B, 1)."""
+        with stage("eq"):
+            out, _ = sosfilt(self.sos, out * scale)
+        with stage("reverb"):
+            out = _reverb.reverb(out, self.reverb_ir, wet=self.wet,
+                                 dry=self.dry)
+        with stage("limiter"):
+            return self._limiter(out)
+
+
+class FlagshipStep(_Chain):
+    """The flagship chain: forward(voice_i16 (B, n), bgm_i16 (B, n)) ->
+    int16 (B, ceil(n*L/M)). Host tables are buffers on ``device``
+    (None = ``cuda``; without a CUDA device that raises
+    :class:`DeviceError`). ``fused``: True = the fused branch, False =
+    the unfused one, None = the JAX package's rule (fused from 128 rows
+    up). ``limiter_fuse=False`` runs the folded branch's limiter as the
+    envelope kernel plus the torch curve. ``lti_fold=False`` (or tables
+    whose ``ir`` is None) runs the fused branch unfolded, on the eq_env
+    kernel; the unfused branch does not fold either way.
+    ``resample_backend``: the front (module docstring); anything but
+    ``"mixfirst"``, ``"pallas"`` and ``"rsmix"`` raises
+    :class:`ConfigError` (``"mixfirst_pad"``: :class:`NotPortedError`)."""
+
+    def __init__(self, tables: dict, device=None, fused: bool | None = None,
+                 limiter_fuse: bool = True, lti_fold: bool = True,
+                 resample_backend: str = "mixfirst"):
+        _check_resample_backend(resample_backend)
+        super().__init__(tables, device=device, lti_fold=lti_fold)
+        dev = self.reverb_ir.device
+        f32 = torch.float32
+        # the resample tables carry pcm16_to_f32's 1/32768 (see front)
+        for name in ("H1", "H0", "H2"):
+            h = np.asarray(tables[name], np.float64) / _convert.PCM16_SCALE
+            self.register_buffer(name, torch.as_tensor(
+                h, dtype=f32, device=dev).contiguous())
+        self.lo, self.hi = int(tables["lo"]), int(tables["hi"])
+        self.r0, self.r2 = int(tables["r0"]), int(tables["r2"])
         self.register_buffer("gain", torch.tensor(self.bgm_gain, dtype=f32,
                                                   device=dev))
-        g = math.gcd(self.sr_in, self.sr_bus)
-        self.M = self.sr_in // g
         self.fused = fused
         self.limiter_fuse = limiter_fuse
-        self.lti_fold = lti_fold
+        self.resample_backend = resample_backend
 
     @classmethod
     def from_tables(cls, tables: dict, device=None, fused: bool | None = None,
-                    limiter_fuse: bool = True,
-                    lti_fold: bool = True) -> "FlagshipStep":
+                    limiter_fuse: bool = True, lti_fold: bool = True,
+                    resample_backend: str = "mixfirst") -> "FlagshipStep":
         """Step from host tables built elsewhere (keys as
         :func:`flagship_tables` returns them)."""
         return cls(tables, device=device, fused=fused,
-                   limiter_fuse=limiter_fuse, lti_fold=lti_fold)
+                   limiter_fuse=limiter_fuse, lti_fold=lti_fold,
+                   resample_backend=resample_backend)
+
+    def _mixfirst(self, voice_i16, bgm_i16) -> torch.Tensor:
+        B, n_in = voice_i16.shape
+        M = self.M
+        if not _resample.aligned_supported(n_in, self.sr_in, self.sr_bus):
+            # any length: mix in float32, the general banded resample
+            g = float(np.float32(self.bgm_gain))
+            m = (_convert.pcm16_to_f32(voice_i16)
+                 + g * _convert.pcm16_to_f32(bgm_i16))
+            return _resample.polyphase_resample(m, self.sr_in, self.sr_bus)
+        # frame the int16 inputs first, then mix at integer scale, v + g*b
+        # in float32, and let the resample tables (scaled by 1/32768 in
+        # __init__) apply pcm16_to_f32's scale. Scaling by a power of two
+        # commutes with every float32 rounding, so this is bit for bit
+        # the JAX package's pcm16_to_f32(v3) + g * pcm16_to_f32(b3)
+        # through the unscaled tables, in two elementwise passes instead
+        # of six. Mixing before the rate conversion is exact: the
+        # resampler is LTI and both tracks share the fade window.
+        v3 = voice_i16.reshape(B, n_in // M, M)
+        b3 = bgm_i16.reshape(B, n_in // M, M)
+        m3 = (b3 * self.gain).add_(v3)  # int16 * f32 0-dim -> f32
+        return _resample.apply_aligned(
+            m3, self.H1, self.H0, self.H2, self.lo, self.hi,
+            self.r0, self.r2).reshape(B, -1)
+
+    def _two_track(self, voice_i16, bgm_i16) -> torch.Tensor:
+        """Both tracks resampled as 2B rows on the resample kernel (for
+        "pallas", and for the "rsmix" fallback, where the JAX step takes
+        XLA's banded matmul), then faded, gained and summed."""
+        B = voice_i16.shape[0]
+        with stage("resample"):
+            vb = _convert.pcm16_to_f32(torch.cat([voice_i16, bgm_i16], 0))
+            vb = resample_kernel(vb, self.sr_in, self.sr_bus)
+        with stage("mix"):
+            nb = vb.shape[-1]
+            return (_mix.apply_gain_fade(vb[:B], 1.0, self.fade, self.fade,
+                                         length=nb)
+                    + _mix.apply_gain_fade(vb[B:], self.bgm_gain, self.fade,
+                                           self.fade, length=nb))
 
     @torch.no_grad()
     def front(self, voice_i16: torch.Tensor, bgm_i16: torch.Tensor):
         """Mix, resample and normalize stages -> (m (B, nb) bus signal,
-        scale (B,) normalize gain, ramp (nb,) fade). The fused branch's
-        fftconv kernel applies scale and ramp as it loads m."""
+        scale (B,) normalize gain, ramp (nb,) fade or None). The mixfirst
+        front defers the fade ramp, which the next stage applies (the
+        folded branch's fftconv kernel as it loads m); the other fronts
+        apply it themselves and return None."""
         B, n_in = voice_i16.shape
         if bgm_i16.shape != voice_i16.shape:
             raise ValueError(f"voice {tuple(voice_i16.shape)} and bgm "
                              f"{tuple(bgm_i16.shape)} differ")
-        if not _resample.aligned_supported(n_in, self.sr_in, self.sr_bus):
-            raise NotPortedError(
-                f"clip length {n_in} is not a multiple of {self.M} input "
-                "samples; only the aligned resample front is ported "
-                "(ROADMAP.md Queue 1 item 7, ragged batches)")
-        with stage("mixfirst"):
-            # frame the int16 inputs first, then mix at integer scale,
-            # v + g*b in float32, and let the resample tables (scaled by
-            # 1/32768 in __init__) apply pcm16_to_f32's scale. Scaling by
-            # a power of two commutes with every float32 rounding, so this
-            # is bit for bit the JAX package's pcm16_to_f32(v3) + g *
-            # pcm16_to_f32(b3) through the unscaled tables, in two
-            # elementwise passes instead of six. Mixing before the rate
-            # conversion is exact: the resampler is LTI and both tracks
-            # share the fade window.
-            M = self.M
-            v3 = voice_i16.reshape(B, n_in // M, M)
-            b3 = bgm_i16.reshape(B, n_in // M, M)
-            m3 = (b3 * self.gain).add_(v3)  # int16 * f32 0-dim -> f32
-            m = _resample.apply_aligned(
-                m3, self.H1, self.H0, self.H2, self.lo, self.hi,
-                self.r0, self.r2).reshape(B, -1)
-            nb = m.shape[-1]
-            ramp = _mix.fade_ramp(nb, self.fade, self.fade, nb,
-                                  device=m.device)
+        ramp = None
+        if self.resample_backend == "rsmix" and resample_mix_supported(
+                n_in, B, self.sr_in, self.sr_bus):
+            with stage("rsmix"):
+                m = resample_mix(voice_i16.contiguous(), bgm_i16.contiguous(),
+                                 self.sr_in, self.sr_bus, self.bgm_gain,
+                                 self.fade) * float(np.float32(1.0 / 32768.0))
+        elif self.resample_backend == "mixfirst":
+            with stage("mixfirst"):
+                m = self._mixfirst(voice_i16, bgm_i16)
+                nb = m.shape[-1]
+                ramp = _mix.fade_ramp(nb, self.fade, self.fade, nb,
+                                      device=m.device)
+        else:
+            m = self._two_track(voice_i16, bgm_i16)
         with stage("normalize"):
             # per-clip peak of the faded signal
-            peak = torch.amax(m.abs() * ramp, dim=-1)
+            det = m.abs() if ramp is None else m.abs() * ramp
+            peak = torch.amax(det, dim=-1)
             scale = torch.where(
                 peak > 0, _mix.db_to_amp(-1.0) / torch.clamp_min(peak, 1e-30),
                 1.0)
@@ -261,11 +362,13 @@ class FlagshipStep(nn.Module):
                 bgm_i16: torch.Tensor) -> torch.Tensor:
         fused = (self.fused if self.fused is not None
                  else voice_i16.shape[0] >= 128)
-        if fused and not self.lti_fold:
-            raise NotPortedError(_UNFOLDED)
         m, scale, ramp = self.front(voice_i16, bgm_i16)
-        if not fused:
-            return self._unfused(m, scale, ramp)
+        if not (fused and self.fold):
+            out = m if ramp is None else m * ramp
+            if fused:
+                return _convert.f32_to_pcm16(
+                    self._unfolded(out, scale[:, None]))
+            return _convert.f32_to_pcm16(self._unfused(out, scale[:, None]))
         with stage("eq+reverb"):
             out = _reverb.reverb(m, self.ir, wet=1.0, dry=0.0,
                                  pre_row=scale, pre_col=ramp)
@@ -276,27 +379,26 @@ class FlagshipStep(nn.Module):
                 out = self._limiter(out)
         return _convert.f32_to_pcm16(out)
 
-    def _limiter(self, out: torch.Tensor) -> torch.Tensor:
-        """The unfused limiter: the envelope kernel, then the curve in
-        torch (the JAX ``ops.limiter.limiter`` on its Pallas backend)."""
-        y, _ = _limiter.limiter(
-            out[:, None, :], self.sr_bus, threshold_db=self.curve[0],
-            release_ms=LIM_RELEASE_MS, attack_ms=LIM_ATTACK_MS)
-        return y[:, 0, :]
 
-    def _unfused(self, m, scale, ramp) -> torch.Tensor:
-        """The small-batch branch in the JAX step's operation order: EQ
-        on the faded, normalized signal, reverb with its wet/dry mix,
-        limiter, int16."""
-        out = m * ramp
-        with stage("eq"):
-            out, _ = sosfilt(self.sos, out * scale[:, None])
-        with stage("reverb"):
-            out = _reverb.reverb(out, self.reverb_ir, wet=self.wet,
-                                 dry=self.dry)
-        with stage("limiter"):
-            out = self._limiter(out)
-        return _convert.f32_to_pcm16(out)
+def check_options(iir_backend: str = "pallas",
+                  resample_backend: str = "mixfirst",
+                  envelope_block: int | None = None) -> None:
+    """Raise for the flagship step's option values that do not run:
+    :class:`NotPortedError` naming the ROADMAP item, or
+    :class:`ConfigError` for an unknown ``resample_backend``."""
+    refuse = {
+        "iir_backend": (iir_backend != "pallas",
+                        "the scan backend needs the float64 twins "
+                        "(ROADMAP.md Queue 1 item 5)"),
+        "envelope_block": (envelope_block not in (None, 1),
+                           "block lookahead is not ported; the envelope "
+                           "kernel steps per sample (ROADMAP.md Queue 2, "
+                           "K2 follow-up)"),
+    }
+    for name, (bad, why) in refuse.items():
+        if bad:
+            raise NotPortedError(f"{name}: {why}")
+    _check_resample_backend(resample_backend)
 
 
 def make_flagship_step(
@@ -323,27 +425,102 @@ def make_flagship_step(
     ``iir_backend="pallas"`` names the JAX package's kernel branch,
     whose kernels this port replaces. ``fused=None`` is the JAX
     package's auto rule: the fused branch from 128 rows up, the unfused
-    one below. ``lti_fold=False`` is refused where the fused branch
-    runs (see :class:`FlagshipStep`). ``envelope_block``: the kernels
-    step per sample, which is ``envelope_block=1``; None is accepted as
-    the default."""
-    refuse = {
-        "iir_backend": (iir_backend != "pallas",
-                        "the scan backend needs the float64 twins "
-                        "(ROADMAP.md Queue 1 item 5)"),
-        "resample_backend": (resample_backend != "mixfirst",
-                             "resample_backend values other than "
-                             "'mixfirst' need their own kernels (ROADMAP.md "
-                             "Queue 2, K7 'pallas' and K8 'rsmix')"),
-        "envelope_block": (envelope_block not in (None, 1),
-                           "block lookahead is not ported; the envelope "
-                           "kernel steps per sample (ROADMAP.md Queue 2, "
-                           "K2 follow-up)"),
-    }
-    for name, (bad, why) in refuse.items():
-        if bad:
-            raise NotPortedError(f"{name}: {why}")
+    one below. ``envelope_block``: the kernels step per sample, which
+    is ``envelope_block=1``; None is accepted as the default. See
+    :class:`FlagshipStep` for ``resample_backend`` and ``lti_fold``."""
+    check_options(iir_backend, resample_backend, envelope_block)
     return FlagshipStep(
         flagship_tables(sr_in, sr_bus, bands, ir_seconds, wet, dry,
                         bgm_gain, fade_ms, threshold_db), device=device,
-        fused=fused, limiter_fuse=limiter_fuse, lti_fold=lti_fold)
+        fused=fused, limiter_fuse=limiter_fuse, lti_fold=lti_fold,
+        resample_backend=resample_backend)
+
+
+class BatchStep(_Chain):
+    """Masked flagship step for ragged clip batches (counterpart of the
+    step ``xmtpu.batch.make_batch_step`` returns): forward(voice_i16 (B,
+    n_pad), bgm_i16 (B, n_pad), lengths (B,)) -> int16 (B,
+    ceil(n_pad*L/M)). Clips are zero-padded to a common n_pad;
+    ``lengths`` holds each clip's true sample count, so the fades, the
+    peak and the output mask ignore the pad, and every output sample at
+    or past ``ceil(length*L/M)`` is 0. The front mixes in float32 and
+    resamples on ``polyphase_resample`` at any length; the branches are
+    :class:`FlagshipStep`'s (fused from 128 rows up when ``fused`` is
+    None), the folded one with the envelope kernel and the torch curve."""
+
+    def __init__(self, tables: dict, device=None, fused: bool | None = None,
+                 lti_fold: bool = True):
+        super().__init__(tables, device=device, lti_fold=lti_fold)
+        self.fused = fused
+
+    @torch.no_grad()
+    def forward(self, voice_i16: torch.Tensor, bgm_i16: torch.Tensor,
+                lengths) -> torch.Tensor:
+        if bgm_i16.shape != voice_i16.shape:
+            raise ValueError(f"voice {tuple(voice_i16.shape)} and bgm "
+                             f"{tuple(bgm_i16.shape)} differ")
+        dev = voice_i16.device
+        with stage("mixfirst"):
+            g = float(np.float32(self.bgm_gain))
+            v = (_convert.pcm16_to_f32(voice_i16)
+                 + g * _convert.pcm16_to_f32(bgm_i16))
+            v = _resample.polyphase_resample(v, self.sr_in, self.sr_bus)
+        n = v.shape[-1]
+        with stage("mask+normalize"):
+            # per-clip output lengths at the bus rate, ceil(len * L / M),
+            # in int64 (int32 len * L wraps for clips of ~304 s and up);
+            # float64 indices (float32 is exact only below 2^24)
+            lens = torch.as_tensor(lengths, device=dev).to(torch.int64)
+            out_len = -torch.div(-lens * self.L, self.M,
+                                 rounding_mode="floor")
+            i = torch.arange(n, dtype=torch.float64, device=dev)[None, :]
+            lenf = out_len.to(torch.float64)[:, None]
+            mask = i < lenf
+            fade = float(self.fade)
+            if fade > 0:
+                ramp = (torch.clamp_max((i + 1.0) / fade, 1.0) * torch.clamp(
+                    (lenf - i) / fade, 0.0, 1.0)).to(torch.float32)
+            else:  # no 0/0 NaN, which would poison the peak
+                ramp = 1.0
+            out = v * ramp * mask
+            peak = torch.amax(out.abs(), dim=-1, keepdim=True)  # pad is 0
+            scale = torch.where(
+                peak > 0, _mix.db_to_amp(-1.0) / torch.clamp_min(peak, 1e-30),
+                1.0)
+        fused = self.fused if self.fused is not None else out.shape[0] >= 128
+        if not fused:
+            out = self._unfused(out, scale)
+        elif not self.fold:
+            out = self._unfolded(out, scale)
+        else:
+            with stage("eq+reverb"):
+                out = _reverb.reverb(out, self.ir, wet=1.0, dry=0.0,
+                                     prescale=scale)
+            with stage("limiter"):
+                e2, _ = envelope(out.abs(), self.k_rel, self.c_att)
+                out = _limiter.apply_gain_curve(
+                    out[:, None, :], e2, self.curve[0])[:, 0, :]
+        return _convert.f32_to_pcm16(out * mask)
+
+
+def make_batch_step(
+    sr_in: int = 44100,
+    sr_bus: int = 16000,
+    bands=DEFAULT_BANDS,
+    ir_seconds: float = 0.25,
+    wet: float = 0.25,
+    dry: float = 0.75,
+    bgm_gain: float = 0.4,
+    fade_ms: float = 250.0,
+    threshold_db: float = -3.0,
+    fused: bool | None = None,
+    lti_fold: bool = True,
+    device=None,
+) -> BatchStep:
+    """Build the ragged-length step on ``device`` (None = ``cuda``;
+    ``device="cpu"`` runs the kernels' plain twins). The arguments
+    mirror ``xmtpu.batch.make_batch_step``."""
+    return BatchStep(
+        flagship_tables(sr_in, sr_bus, bands, ir_seconds, wet, dry,
+                        bgm_gain, fade_ms, threshold_db), device=device,
+        fused=fused, lti_fold=lti_fold)

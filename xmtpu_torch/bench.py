@@ -1,11 +1,16 @@
 """Throughput benchmark of the flagship chain on one CUDA GPU
 (counterpart of the root ``bench.py``; same JSON keys).
 
-    python -m xmtpu_torch.bench [--batch=256] [--clip_seconds=10] [--iters=20]
+    python -m xmtpu_torch.bench [--batch=256] [--clip_seconds=10]
+        [--iters=20] [--resample_backend=mixfirst|pallas|rsmix]
+        [--limiter_fuse=1] [--iir_backend=pallas] [--envelope_block=0]
 
-The step takes the branch the JAX package's auto rule picks: fused at
-the default 256 clips, unfused (segmented IIR and envelope) below 128,
-e.g. ``--batch=32`` (the JAX harness's config 4).
+The keys are the root ``bench.py``'s. The step takes the branch the JAX
+package's auto rule picks: fused at the default 256 clips, unfused
+(segmented IIR and envelope) below 128, e.g. ``--batch=32`` (the JAX
+harness's config 4). Values the step refuses (``--iir_backend=scan``,
+``--envelope_block`` above 1, an unknown ``--resample_backend``) raise
+its error before any work; an unknown key exits with the list.
 
 Prints one JSON line: ``metric``, ``value`` (audio-seconds per second
 per GPU), ``unit``, ``vs_baseline`` (ratio to the 500x-realtime
@@ -62,33 +67,40 @@ def rms_db(err: np.ndarray, ref: np.ndarray) -> float:
     return -np.inf if p_err == 0 else 10.0 * np.log10(p_err / max(p_ref, 1e-300))
 
 
-def step_seconds(step, v, b, iters: int):
+def step_seconds(step, *args, iters: int):
     """(seconds per step, last output) over ``iters`` back-to-back
-    steps, timed with CUDA events after one warm-up step."""
-    y = step(v, b)
+    ``step(*args)`` calls, timed with CUDA events after one warm-up."""
+    y = step(*args)
     a = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(iters):
-        y = step(v, b)
+        y = step(*args)
     e.record()
     e.synchronize()
     return a.elapsed_time(e) / 1000.0 / iters, y
 
 
-def main(batch: int = 256, clip_seconds: float = 10.0,
-         iters: int = 20) -> dict:
-    if not torch.cuda.is_available():
-        raise SystemExit("xmtpu_torch.bench: no CUDA device")
+def main(batch: int = 256, clip_seconds: float = 10.0, iters: int = 20,
+         iir_backend: str = "pallas", resample_backend: str = "mixfirst",
+         envelope_block: int = 0, limiter_fuse: int = 1) -> dict:
     from xmtpu_torch import batch as tbatch
 
+    # the root bench.py's options; a refused value raises here, before
+    # the device check, so a typo never measures another configuration
+    opts = dict(iir_backend=iir_backend, resample_backend=resample_backend,
+                envelope_block=envelope_block or None)
+    tbatch.check_options(**opts)
+    if not torch.cuda.is_available():
+        raise SystemExit("xmtpu_torch.bench: no CUDA device")
     dev = torch.device("cuda")
     voice, bgm = make_inputs(batch, clip_seconds)
     # the JAX auto rule, as the root bench.py: fused from 128 rows up
-    step = tbatch.make_flagship_step(sr_in=SR_IN, sr_bus=16000, device=dev)
+    step = tbatch.make_flagship_step(sr_in=SR_IN, sr_bus=16000, device=dev,
+                                     limiter_fuse=bool(limiter_fuse), **opts)
     v = torch.from_numpy(voice).to(dev)
     b = torch.from_numpy(bgm).to(dev)
-    sec, y = step_seconds(step, v, b, iters)
+    sec, y = step_seconds(step, v, b, iters=iters)
     value = batch * clip_seconds / sec
     ref = tbatch.flagship_oracle_np(voice[0], bgm[0])
     y0 = y[0].cpu().numpy().astype(np.float64)
@@ -106,13 +118,16 @@ if __name__ == "__main__":
     kw = {}
     for arg in sys.argv[1:]:
         k, _, val = arg.lstrip("-").partition("=")
-        if k in ("batch", "iters"):
+        if k in ("batch", "iters", "envelope_block", "limiter_fuse"):
             kw[k] = int(val)
         elif k == "clip_seconds":
             kw[k] = float(val)
+        elif k in ("iir_backend", "resample_backend"):
+            kw[k] = val
         else:
             sys.exit(f"xmtpu_torch.bench: unknown argument {arg!r} "
-                     "(known: batch, iters, clip_seconds)")
+                     "(known: batch, iters, clip_seconds, iir_backend, "
+                     "resample_backend, envelope_block, limiter_fuse)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(json.dumps(main(**kw)))

@@ -19,8 +19,11 @@
 //    them, and the unsegmented envelope_pallas call. Its arithmetic is
 //    not contracted: __fmul_rn/__fadd_rn in the order of the JAX
 //    kernel's `update`, so it computes bit for bit what the plain torch
-//    twin (separate elementwise ops) computes. Form 1 keeps the FMA
-//    nvcc contracts a_att*e2 + c_att*env into, as it was measured.
+//    twin (separate elementwise ops) computes; its maxes propagate NaN
+//    (max.NaN.f32) as the twin's torch.maximum does, so the two agree on
+//    any input. Form 1 keeps the FMA nvcc contracts a_att*e2 + c_att*env
+//    into and fmaxf, as it was measured: it matches its twin on finite
+//    input.
 //
 // What bounds it on the H100: the recurrence is sequential in time, one
 // dependent chain per row (a multiply and a max per sample, about 160000
@@ -61,6 +64,7 @@
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
+#include "row_chain.cuh"
 
 namespace {
 
@@ -134,7 +138,7 @@ __device__ __forceinline__ void correct(float* buf,
   const float kt = ktab[t0 + t];
   for (int r = j / kChunk; r < rows; r += kRowsPerPass) {
     float* p = buf + r * kLd + t;
-    *p = fmaxf(*p, __fmul_rn(ecorr[r0 + r], kt));
+    *p = xm::max_nan(*p, __fmul_rn(ecorr[r0 + r], kt));
   }
 }
 
@@ -150,7 +154,7 @@ struct Chain {
       env = fmaxf(fabsf(x), k_rel * env);
       e2 = a_att * e2 + c_att * env;
     } else {
-      env = fmaxf(x, __fmul_rn(k_rel, env));
+      env = xm::max_nan(x, __fmul_rn(k_rel, env));
       e2 = __fadd_rn(__fmul_rn(a_att, e2), __fmul_rn(c_att, env));
     }
     return e2;

@@ -34,56 +34,21 @@
 // kernel (S segments of a row run as S rows) is what shortens the
 // chain; a GPU rule for S is later work.
 //
-// Design: one block per 32 rows; warp 0 runs the cascade, one row per
-// lane, every section's coefficients and states in registers (ns is a
-// template parameter up to kMaxSections), on time chunks staged in
-// shared memory. The other warps keep device memory off that chain: in
-// iteration c, while warp 0 filters chunk c, they start the
-// asynchronous copy (cp.async) of chunk c+kAhead and store the output
-// of chunk c-1. Both directions are coalesced along time, so no lane
-// walks device memory with a stride of n. Warp 0 moves four samples per
-// shared-memory instruction: rows are padded to kChunk+4 floats, so a
-// row stays 16-byte aligned and the float4s of 8 consecutive lanes
-// cover all 32 banks (conflict-free in each quarter-warp phase).
+// Design: one block per 32 rows, on the staging pipeline of
+// csrc/row_chain.cuh (RowChain<64, 1>): warp 0 runs the cascade, one row
+// per lane, every section's coefficients and states in registers (ns is
+// a template parameter up to kMaxSections), on 64-sample time chunks
+// that four copy warps stage with cp.async and store back, coalesced
+// along time, while the cascade runs.
 
 #include <cuda_runtime.h>
 
-#include "cp_async.cuh"
+#include "row_chain.cuh"
 
 namespace {
 
-using xm::cp_async4;
-using xm::cp_async_commit;
-using xm::cp_async_wait;
-
+using Pipe = xm::RowChain<64, 1>;
 constexpr int kMaxSections = 8;
-constexpr int kRows = 32;          // rows per block (lanes of warp 0)
-constexpr int kChunk = 64;         // time samples per chunk
-constexpr int kLd = kChunk + 4;    // row stride: 16-byte rows, float4 banks
-constexpr int kCopyWarps = 4;      // warps that copy in and store out
-constexpr int kThreads = 32 * (1 + kCopyWarps);
-constexpr int kRowsPerPass = 32 * kCopyWarps / kChunk;  // 2
-constexpr int kAhead = 2;          // chunks in flight ahead of the cascade
-constexpr int kXBufs = kAhead + 1;  // + chunk c (filtered)
-constexpr int kYBufs = 2;          // outputs of chunks c and c-1
-static_assert(32 * kCopyWarps % kChunk == 0, "copy threads tile a row");
-static_assert(kRows % kRowsPerPass == 0, "copy passes tile the rows");
-static_assert(kLd % 32 == 4, "float4 rows of 8 lanes hit all banks");
-static_assert(kChunk % 8 == 0, "warp 0 steps 8 samples per iteration");
-static_assert((kXBufs + kYBufs) * kRows * kLd * 4 <= 48 * 1024,
-              "static shared memory");
-
-// Copy thread j (of 32*kCopyWarps) owns column j % kChunk of rows
-// j / kChunk, + kRowsPerPass, ... of one chunk.
-__device__ __forceinline__ void stage(const float* __restrict__ x,
-                                      float* buf, int r0, int rows, int n,
-                                      int t0, int len, int j) {
-  const int t = j % kChunk;
-  if (t >= len) return;
-  for (int r = j / kChunk; r < rows; r += kRowsPerPass)
-    cp_async4(buf + r * kLd + t,
-              x + static_cast<size_t>(r0 + r) * n + t0 + t);
-}
 
 template <int NS>
 struct Cascade {
@@ -114,6 +79,7 @@ struct Cascade {
   // One staged chunk of one row: xr -> yr.
   __device__ __forceinline__ void run(const float* __restrict__ xr,
                                       float* __restrict__ yr, int len) {
+    constexpr int kChunk = Pipe::kChunk;
     if (len < kChunk) {  // the ragged last chunk
       for (int t = 0; t < len; ++t) yr[t] = step(xr[t]);
       return;
@@ -135,25 +101,17 @@ struct Cascade {
 };
 
 template <int NS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Pipe::kThreads)
 sosfilt_kernel(const float* __restrict__ x, const float* __restrict__ sos,
                const float* __restrict__ zi, float* __restrict__ y,
                float* __restrict__ zf, int R, int n) {
-  __shared__ __align__(16) float xs[kXBufs * kRows * kLd];
-  __shared__ __align__(16) float ys[kYBufs * kRows * kLd];
-  const int r0 = blockIdx.x * kRows;
-  const int rows = min(kRows, R - r0);
-  const int warp = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * Pipe::kRows;
+  const int rows = min(Pipe::kRows, R - r0);
   const int lane = threadIdx.x & 31;
-  const int j = threadIdx.x - 32;  // copy-thread index
-  const int nch = (n + kChunk - 1) / kChunk;
-  auto xbuf = [&](int c) { return xs + (c % kXBufs) * kRows * kLd; };
-  auto ybuf = [&](int c) { return ys + (c % kYBufs) * kRows * kLd; };
-  auto clen = [&](int c) { return min(kChunk, n - c * kChunk); };
-
+  const bool warp0 = threadIdx.x < 32;
+  const bool mine = warp0 && lane < rows;
   Cascade<NS> cs;
-  const bool mine = warp == 0 && lane < rows;
-  if (warp == 0) {
+  if (warp0) {
 #pragma unroll
     for (int s = 0; s < NS; ++s) {  // sos row: b0 b1 b2 a0 a1 a2
       cs.b0[s] = sos[6 * s + 0];
@@ -166,39 +124,8 @@ sosfilt_kernel(const float* __restrict__ x, const float* __restrict__ sos,
           mine ? zi[static_cast<size_t>(2 * s + 1) * R + r0 + lane] : 0.f;
     }
   }
-  if (warp > 0) {  // prologue: chunks 0 .. kAhead-1 landed
-    for (int c = 0; c < min(kAhead, nch); ++c)
-      stage(x, xbuf(c), r0, rows, n, c * kChunk, clen(c), j);
-    cp_async_commit();
-    cp_async_wait<0>();
-  }
-  __syncthreads();
-
-  for (int c = 0; c <= nch; ++c) {
-    if (warp == 0) {
-      if (c < nch && mine)
-        cs.run(xbuf(c) + lane * kLd, ybuf(c) + lane * kLd, clen(c));
-    } else {
-      // chunk c+kAhead reuses the buffer of chunk c-1, filtered in the
-      // previous iteration
-      if (c + kAhead < nch)
-        stage(x, xbuf(c + kAhead), r0, rows, n, (c + kAhead) * kChunk,
-              clen(c + kAhead), j);
-      cp_async_commit();  // one group per iteration, possibly empty
-      if (c >= 1) {
-        const int t = j % kChunk;
-        const int tp = (c - 1) * kChunk;
-        if (t < clen(c - 1)) {
-          const float* yb = ybuf(c - 1);
-          for (int r = j / kChunk; r < rows; r += kRowsPerPass)
-            y[static_cast<size_t>(r0 + r) * n + tp + t] = yb[r * kLd + t];
-        }
-      }
-      // all but the newest kAhead-1 groups done: chunk c+1 has landed
-      cp_async_wait<kAhead - 1>();
-    }
-    __syncthreads();
-  }
+  float* const out[1] = {y};
+  Pipe::run(x, out, r0, rows, n, cs);
   if (mine) {
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
@@ -211,9 +138,9 @@ sosfilt_kernel(const float* __restrict__ x, const float* __restrict__ sos,
 template <int NS>
 int launch(const float* x, const float* sos, const float* zi, float* y,
            float* zf, int R, int n, cudaStream_t stream) {
-  const int blocks = (R + kRows - 1) / kRows;
-  sosfilt_kernel<NS><<<blocks, kThreads, 0, stream>>>(x, sos, zi, y, zf, R,
-                                                      n);
+  const int blocks = (R + Pipe::kRows - 1) / Pipe::kRows;
+  sosfilt_kernel<NS><<<blocks, Pipe::kThreads, 0, stream>>>(x, sos, zi, y,
+                                                            zf, R, n);
   return static_cast<int>(cudaGetLastError());
 }
 

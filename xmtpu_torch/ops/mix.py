@@ -30,6 +30,19 @@ def fade_ramp(n: int, fade_in: int, fade_out: int, length: int,
     return g.to(dtype)
 
 
+def apply_gain_fade(x: torch.Tensor, gain: float, fade_in: int,
+                    fade_out: int, offset: int = 0,
+                    length: int | None = None) -> torch.Tensor:
+    """``x * (ramp * gain)`` over the last axis, the ramp of
+    :func:`fade_ramp` in x's dtype and the gain rounded to it first."""
+    n = x.shape[-1]
+    if length is None:
+        length = offset + n
+    ramp = fade_ramp(n, fade_in, fade_out, length, offset, x.dtype,
+                     device=x.device)
+    return x * (ramp * torch.tensor(gain, dtype=x.dtype).item())
+
+
 def db_to_amp(db: float) -> float:
     return float(10.0 ** (db / 20.0))
 

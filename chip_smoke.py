@@ -62,16 +62,34 @@ process exits non-zero:
    K1 and K6); each: clip 0 <= -80 dB against the float64 oracle on its
    own length; every sample past each clip's length must be 0;
    throughput in audio-seconds of the true lengths;
-13. a JSON line of the kernels (times, bounds, launches; K1 once per
+13. K1's long-IR (partitioned) form at config 3's operands: the
+   24,082-tap folded EQ+reverb IR over 32 rows (16 stereo clips of 10 s
+   at 48 kHz, the JAX benchmark's input) against its twin (gate -100
+   dB), both times, ``conv1d`` as the library yardstick, the bound and
+   the partition count;
+14. K4', the envelope kernel's gain form, through the channel-linked
+   limiter at config 3's detector (16 x 480000 from the K1 output, S =
+   16: 256 segment rows of 30000) against the same path on the twin
+   (gate -100 dB on y and on both states); the two launches' times (K3
+   pass A, gain-form pass B), the call's, the bounds;
+15. config 3 through ``xmtpu_torch.effects`` twice, counters set to 0
+   just before each: the JAX benchmark's chain (K1's long form and the
+   envelope-only kernel must launch), then with ``linked_fuse`` on the
+   limiter (K1's long form and the gain form); each: clip 0's first 2 s
+   <= -80 dB against the float64 oracle (``sosfilt_np`` ->
+   ``reverb_np`` -> ``limiter_np``; every stage is causal), throughput,
+   and the chain's stages each alone (CUDA events);
+16. a JSON line of the kernels (times, bounds, launches; K1 once per
    branch), then the contract line ``{"ok": true, "device": {...}}``
    last.
 
-Every step run with fresh counters sets all seven launch counters to 0
+Every step run with fresh counters sets all nine launch counters to 0
 just before it and reads them just after.
 
 ``bound_ms`` is the roofline bound: the larger of the bytes each kernel
 must move (inputs read once, outputs written once) over 3.35 TB/s and
-its operations over the 67 TFLOP/s float32 peak (H100 SXM data sheet).
+its operations over the 67 TFLOP/s float32 peak (H100 SXM data sheet);
+K1's operations are the FIR's least FFT work (``fir_fft_ops``).
 The recurrence kernels' text lines also print their chain bound: the
 longest chain's steps times the loop-carried latency of a step (4
 cycles per dependent float32 operation) at the card's maximum SM clock.
@@ -96,6 +114,27 @@ BATCH, SMALL_BATCH, RAGGED_BATCH, CLIP_SECONDS = 256, 32, 64, 10.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 OP_LATENCY_CYCLES = 4  # one dependent float32 add / multiply / max
+
+
+def fir_fft_ops(R: int, n: int, taps: int) -> float:
+    """The least float32 operations of a same-length causal FIR of
+    ``taps`` taps over R rows of n samples by FFT, whatever the kernel
+    does: the cheaper, over power-of-two transform sizes N, of overlap-
+    save with the whole IR (one transform pair per frame, hop N - taps +
+    1, 6 per bin for the spectral product) and of a frequency-domain
+    delay line (one transform pair per frame, hop N/2, the IR in
+    ceil(taps / (N/2)) partitions, 8 per bin and partition for the
+    multiply-add). Two real rows share one complex transform of 5 N
+    log2 N operations."""
+    pairs, best = -(-R // 2), math.inf
+    for lg in range(4, max(n + taps, 16).bit_length() + 1):
+        N = 1 << lg
+        fft_pair = 2 * 5 * N * lg
+        if N >= taps:  # the whole IR in one block
+            best = min(best, -(-n // (N - taps + 1)) * (fft_pair + 6 * N))
+        parts = -(-taps // (N // 2))
+        best = min(best, -(-n // (N // 2)) * (fft_pair + 8 * N * parts))
+    return pairs * best
 
 
 def roofline_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -142,13 +181,16 @@ def main() -> None:
         fftconv.launches = envelope.launches = 0
         iir.launches = envelope.envelope_launches = 0
         eq_env.launches = kresample.launches = rsmix.launches = 0
+        fftconv.long_launches = envelope.gain_launches = 0
 
     def counts() -> dict:
         return {"fftconv": fftconv.launches, "envelope": envelope.launches,
                 "iir": iir.launches,
                 "envelope_seg": envelope.envelope_launches,
                 "eq_env": eq_env.launches, "resample": kresample.launches,
-                "rsmix": rsmix.launches}
+                "rsmix": rsmix.launches,
+                "fftconv_long": fftconv.long_launches,
+                "gain": envelope.gain_launches}
 
     # 2. build
     t0 = time.perf_counter()
@@ -177,7 +219,9 @@ def main() -> None:
 
     def check_k1(name, x, h, pre_row, pre_col):
         """K1 against its twin on these operands; times; conv1d of the
-        gained input as the library yardstick; roofline bound."""
+        gained input as the library yardstick; roofline bound of the
+        function (``fir_fft_ops``), beside the transform work the kernel
+        itself does."""
         R, n = x.shape
         taps = h.shape[0]
         k = compare(name, "cuda", "xmtpu_torch/csrc/fftconv.cu",
@@ -193,15 +237,23 @@ def main() -> None:
         k["library_ms"] = median_ms(lambda: torch.nn.functional.conv1d(
             xin, w, padding=taps - 1), warmup=1, runs=3)
         del xin
-        n_fft = 1 << fftconv.fft_log_size(taps)
-        frames = -(-n // (n_fft - (taps - 1))) * -(-R // 2)
-        bound(k, 4 * (2 * R * n + taps + R + n),
-              frames * (2 * 5 * n_fft * math.log2(n_fft) + 6 * n_fft))
-        print(f"K1 {name} {tuple(x.shape)} x {taps} taps: "
+        if taps <= fftconv.MAX_SHORT_TAPS:
+            n_fft = 1 << fftconv.fft_log_size(taps)
+            hop, parts = n_fft - (taps - 1), 1
+        else:  # the partitioned form: one transform pair per partition
+            n_fft = 1 << fftconv.LONG_LOG_N
+            hop, parts = fftconv.LONG_HOP, fftconv.long_parts(taps)
+        frames = -(-n // hop) * -(-R // 2) * parts
+        own_ops = frames * (2 * 5 * n_fft * math.log2(n_fft) + 6 * n_fft)
+        bound(k, 4 * (2 * R * n + taps + R + n), fir_fft_ops(R, n, taps))
+        print(f"K1 {name} {tuple(x.shape)} x {taps} taps ({parts} "
+              f"partition{'s' if parts > 1 else ''} of {n_fft} points): "
               f"{k['rms_db']:.1f} dB vs plain (gate {GATE_KERNEL_DB}), "
               f"max abs {k['max_abs_err']:.3g}; kernel {k['ms']:.3f} ms, "
               f"plain {k['plain_ms']:.3f} ms, conv1d {k['library_ms']:.3f} "
-              f"ms, bound {k['bound_ms']:.3f} ms ({k['bound_by']}) [{card}]")
+              f"ms, bound {k['bound_ms']:.3f} ms ({k['bound_by']}; the "
+              f"function's {fir_fft_ops(R, n, taps) / 1e9:.2f} GFLOP, the "
+              f"kernel's own transforms {own_ops / 1e9:.2f} GFLOP) [{card}]")
         return k
 
     step = tbatch.make_flagship_step(fused=True, device=dev)
@@ -591,7 +643,122 @@ def main() -> None:
         del rag, y
     del args
 
-    # 13. kernels line, then the contract line last
+    # 13. K1's long-IR form at config 3's operands: the folded IR over
+    # the 32 channel rows of the JAX benchmark's input
+    from xmtpu_torch import api, effects
+    from xmtpu_torch.bench import config3_chain, config3_inputs
+    from xmtpu_torch.graph import fx as tfx
+    from xmtpu_torch.ops import biquad as tbiquad
+
+    SR3 = 48000
+    x3, chain3 = config3_inputs()
+    B3, n3, C3 = x3.shape
+    xd3 = torch.from_numpy(x3).to(dev)
+    folded = tfx.build_chain(SR3, chain3)[0]  # ConvLimiterFx
+    h3 = torch.from_numpy(folded.conv.ir).to(dev)
+    rows3 = xd3.transpose(1, 2).reshape(B3 * C3, n3).contiguous()
+    ones_r = torch.ones(B3 * C3, device=dev)
+    ones_n = torch.ones(n3, device=dev)
+    k1l = check_k1("fftconv_long", rows3, h3, ones_r, ones_n)
+
+    # 14. K4', the gain form, through the linked limiter at config 3's
+    # detector (the K1 output, channel-linked)
+    w3 = fftconv.fir_convolve_plain(rows3, h3, ones_r, ones_n).reshape(
+        B3, C3, n3)
+    del rows3
+    k_rel3 = limiter._release_coeff(folded.lim.kw["release_ms"], SR3)
+    c_att3 = limiter._attack_coeff(folded.lim.kw["attack_ms"], SR3)
+    thr3 = folded.lim.kw["threshold_db"]
+    passes4 = []
+
+    def recording4(*args, **kw):
+        passes4.append((args, kw))
+        return envelope.envelope_pass(*args, **kw)
+
+    yk4, stk4 = envelope.linked_limiter(w3, k_rel3, c_att3, thr3,
+                                        run=recording4)
+    yp4, stp4 = envelope.linked_limiter(w3, k_rel3, c_att3, thr3,
+                                        run=envelope.envelope_plain)
+    k4 = compare("envelope_gain", "cuda", "xmtpu_torch/csrc/envelope.cu",
+                 "xmtpu/kernels/envelope.py:590", yk4, yp4)
+    st_db = [rms_db((a - b).double().cpu().numpy(),
+                    b.double().cpu().numpy()) for a, b in zip(stk4, stp4)]
+    if not max(st_db) <= GATE_KERNEL_DB:
+        raise SystemExit(f"chip_smoke: the linked limiter's states failed "
+                         f"their check: {st_db} dB")
+    (a_args, a_kw), (b_args, b_kw) = passes4
+    rows4, seg4 = a_args[0].shape
+    pass_ms = [median_ms(lambda a=a, kw=kw: envelope.envelope_pass(*a, **kw))
+               for a, kw in passes4]
+    k4["ms"] = pass_ms[1]  # the gain-form launch (pass A is K3's form)
+    t0 = time.perf_counter()
+    envelope.envelope_plain(*b_args, **b_kw)
+    torch.cuda.synchronize()
+    k4["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    call_ms = median_ms(lambda: envelope.linked_limiter(w3, k_rel3, c_att3,
+                                                        thr3))
+    # the gain-form pass: env0 in, g out, ktab, E and the init; per
+    # sample the correction's multiply and max, 4 recurrence operations
+    # and about a dozen of the curve's
+    bound(k4, 4 * (2 * rows4 * seg4 + seg4 + 3 * rows4),
+          18 * rows4 * seg4)
+    print(f"K4' envelope_gain: linked limiter {tuple(w3.shape)} as "
+          f"{rows4} x {seg4} (S = {rows4 // B3}): y "
+          f"{k4['rms_db']:.1f} dB, states {st_db[0]:.1f} / {st_db[1]:.1f} "
+          f"dB vs the twin path (gate {GATE_KERNEL_DB}), max abs "
+          f"{k4['max_abs_err']:.3g}; pass A (K3) {pass_ms[0]:.3f} ms + "
+          f"gain-form pass B {pass_ms[1]:.3f} ms, linked_limiter() call "
+          f"{call_ms:.3f} ms, plain pass B {k4['plain_ms']:.1f} ms (one "
+          f"run), bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}), chain "
+          f"{chain_ms(seg4, 2):.3f} ms per pass [{card}]")
+    del w3, yk4, yp4, passes4, a_args, b_args
+
+    # 15. config 3 through the public entry: the JAX benchmark's chain,
+    # then with the linked (gain-form) limiter; clip 0's first 2 s
+    # against the float64 oracle
+    pre = 2 * SR3
+    x0 = x3[0, :pre].T.astype(np.float64)  # (ch, n)
+    ref3, _ = tbiquad.sosfilt_np(
+        tfx.build_chain(SR3, chain3, fold=False)[0].sos, x0)
+    ref3 = treverb.reverb_np(ref3, chain3[1]["params"]["ir"], wet=0.3,
+                             dry=0.7)
+    ref3 = limiter.limiter_np(ref3, SR3)[0].T  # (n, ch)
+    for linked, need in ((False, ("fftconv_long", "envelope_seg")),
+                         (True, ("fftconv_long", "gain"))):
+        chain = config3_chain(SR3, linked_fuse=linked)
+
+        def run3(x, chain=chain):
+            return effects(x, SR3, chain, device=dev, device_out=True)
+
+        label = "config 3 effects" + (" (linked_fuse)" if linked else "")
+        y3, got = drive(label, run3, (xd3,), need, ref3, B3 * n3 / SR3)
+        if tuple(y3.shape) != x3.shape or y3.dtype != torch.float32:
+            raise SystemExit(f"chip_smoke: {label} output "
+                             f"{tuple(y3.shape)} {y3.dtype}")
+        if linked:
+            k4["launches"] = got["gain"]
+        else:
+            k1l["launches"] = got["fftconv_long"]
+        # the chain's stages, each alone on its real input
+        (node,) = tfx.get_compiled_chain(SR3, chain)  # ConvLimiterFx
+        xt3 = api._to_f32_device(xd3, dev)[0]
+        wt3 = node.conv.apply(xt3, None)[0]
+        yt3 = node.lim.apply(wt3, None)[0]
+        stages = {
+            "layout in": median_ms(lambda: api._to_f32_device(xd3, dev)),
+            "eq+reverb (K1 long)": median_ms(
+                lambda: node.conv.apply(xt3, None)),
+            "limiter": median_ms(lambda: node.lim.apply(wt3, None)),
+            "layout out": median_ms(lambda: api._from_f32_device(
+                yt3, False, False, to_host=False)),
+        }
+        print(f"{label}: stages (ms, each alone): "
+              + ", ".join(f"{k} {t:.3f}" for k, t in stages.items())
+              + f" [{card}]")
+        del y3, xt3, wt3, yt3
+    del xd3
+
+    # 16. kernels line, then the contract line last
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

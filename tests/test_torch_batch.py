@@ -165,18 +165,35 @@ def test_front_matches_jax_operation_order(clips):
     {"resample_backend": "mixfirst_pad", "fused": True},
     {"iir_backend": "scan", "resample_backend": "pallas"},
     {"resample_backend": "mixfirst_pad"},
-    {"envelope_block": 2, "lti_fold": False},
+    {"iir_backend": "scan", "envelope_block": 2, "lti_fold": False},
     {"iir_backend": "scan", "fused": False},
-    {"limiter_fuse": False, "envelope_block": 2},
-    {"envelope_block": 8},
+    {"limiter_fuse": False, "envelope_block": 2, "iir_backend": "scan"},
+    {"envelope_block": 8, "resample_backend": "mixfirst_pad"},
 ])
 def test_unported_options_refused(kw):
     """What stays refused, each naming its ROADMAP item: the scan IIR
-    backend, block lookahead and the mixfirst_pad probe. lti_fold=False
-    and the "pallas"/"rsmix" fronts run (tests/test_torch_fronts.py,
-    tests/test_torch_unfolded.py)."""
+    backend and the mixfirst_pad probe, whatever the valid
+    envelope_block. lti_fold=False, the "pallas"/"rsmix" fronts and
+    block lookahead run (tests/test_torch_fronts.py,
+    tests/test_torch_unfolded.py, test_envelope_block_runs_per_sample)."""
     with pytest.raises(NotPortedError, match="ROADMAP"):
         tbatch.make_flagship_step(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("block", [1, 2, 8])
+def test_envelope_block_runs_per_sample(clips, block):
+    """The step takes the limiter's envelope_block validation (None or a
+    power of two >= 1) and steps per sample, the same function in exact
+    arithmetic: the same output as None on both branches. Other values
+    are a ConfigError, as in ops.limiter and LimiterFx."""
+    v, b = (torch.from_numpy(a) for a in clips)
+    for fused in (False, True):
+        y = tbatch.make_flagship_step(fused=fused, device="cpu")(v, b)
+        y_b = tbatch.make_flagship_step(fused=fused, envelope_block=block,
+                                        device="cpu")(v, b)
+        assert torch.equal(y, y_b)
+    with pytest.raises(ConfigError, match="power of two"):
+        tbatch.make_flagship_step(device="cpu", envelope_block=3 * block)
 
 
 def test_unknown_resample_backend_is_a_config_error():
@@ -218,8 +235,8 @@ def test_bench_takes_the_root_bench_keys(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(NotPortedError, match="ROADMAP"):
         bench.main(iir_backend="scan")
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        bench.main(envelope_block=8)
+    with pytest.raises(ConfigError, match="power of two"):
+        bench.main(envelope_block=3)
     with pytest.raises(ConfigError, match="accepted"):
         bench.main(resample_backend="mixfrist")
     with pytest.raises(SystemExit, match="no CUDA device"):
@@ -352,9 +369,10 @@ def test_unfused_limiter_on_fused_branch_vs_jax(clips):
 
 def test_port_imports_no_jax():
     """A fresh interpreter imports the port and runs the CPU step (the
-    default front, the "pallas" and "rsmix" fronts, the unfolded branch)
-    and the ragged step without loading jax, jaxlib or the JAX
-    package."""
+    default front, the "pallas" and "rsmix" fronts, the unfolded branch),
+    the ragged step and the public effects chain (both limiter forms, an
+    11,998-tap folded IR: the partitioned fftconv path on the card)
+    without loading jax, jaxlib or the JAX package."""
     code = (
         "import sys, numpy as np, torch\n"
         "from xmtpu_torch import batch, bench\n"
@@ -371,6 +389,14 @@ def test_port_imports_no_jax():
         "    assert y.shape == (2, 1600), (kw, y.shape)\n"
         "y = batch.make_batch_step(device='cpu')(s, s, [4410, 3000])\n"
         "assert y.shape == (2, 1600) and not y[1, 1089:].any()\n"
+        "import xmtpu_torch.api, xmtpu_torch.graph.fx\n"
+        "x = np.zeros((2, 9600, 2), np.float32); x[:, ::5] = 0.9\n"
+        "for lim in ({}, {'linked_fuse': True}):\n"
+        "    y = xmtpu_torch.api.effects(x, 48000, [\n"
+        "        {'name': 'equalizer', 'bands': [{'freq_hz': 1000.0}]},\n"
+        "        {'name': 'reverb', 'ir_seconds': 0.25},\n"
+        "        {'name': 'limiter', **lim}], device='cpu')\n"
+        "    assert y.shape == x.shape, y.shape\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'xmtpu'))\n"
         "assert not bad, bad\n"

@@ -33,7 +33,7 @@ from xmtpu.kernels import envelope as xenv
 from xmtpu.ops import limiter as xlimiter
 from xmtpu_torch.kernels import envelope
 from xmtpu_torch.ops import limiter
-from xmtpu_torch.utils.errors import NotPortedError
+from xmtpu_torch.utils.errors import ConfigError
 
 from .conftest import rms_db
 
@@ -149,10 +149,17 @@ def test_limiter_op_vs_jax(d):
     assert np.abs(y_t.numpy()).max() <= 1.0
     for a, b in zip(st_t, st_j):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5)
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        limiter.limiter(torch.from_numpy(x), SR_BUS, linked_fuse=True)
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        limiter.limiter(torch.from_numpy(x), SR_BUS, envelope_block=8)
+    # linked_fuse=True runs the gain form (tests/test_torch_linked.py):
+    # one channel, so the same function to float32 rounding
+    y_l, _ = limiter.limiter(torch.from_numpy(x), SR_BUS, threshold_db=-3.0,
+                             linked_fuse=True)
+    assert rms_db(y_l.numpy() - y_t.numpy(), y_t.numpy()) <= -100.0
+    # a power-of-two envelope_block runs the per-sample kernels
+    y_8, _ = limiter.limiter(torch.from_numpy(x), SR_BUS, threshold_db=-3.0,
+                             envelope_block=8)
+    assert torch.equal(y_8, y_t)
+    with pytest.raises(ConfigError, match="power of two"):
+        limiter.limiter(torch.from_numpy(x), SR_BUS, envelope_block=3)
     with pytest.raises(TypeError):
         limiter.limiter(torch.from_numpy(x), SR_BUS, backend="scan")
 

@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain torch twins on the card,
 at edge shapes the flagship runs do not reach (ragged tiles, fewer
 rows than a warp, an IR longer than the signal, one sample, one
-section, carried state).
+section, carried state; the long-IR fftconv at 8193 / 8194 / 24,082 /
+65,537 taps, odd rows and a signal shorter than its hop; the envelope
+kernel's gain form with NaN input and a carried init, segmented and at
+S = 1; the public effects chain on both limiter forms).
 
 Marked ``gpu``; each test skips without a CUDA device. The module
 imports no JAX, so it runs on a machine without it:
@@ -17,7 +20,12 @@ kernels round every operation as their twins do and should read exactly
 twins' torch.maximum does: equal to the twins with NaN in the same
 places. The two resample kernels sum 25 float32 products per
 output where the twins' banded matmuls sum the same taps in another
-order: -120 dB. The fused step on the card against the same step on the CPU: -90
+order: -120 dB. The gain form's e2 chain rounds as its twin's (final
+states equal); its gain goes through logf/expf where the twin's goes
+through torch.log/exp: -100 dB, NaN where the twin's is NaN. The
+effects chain on the card against the same chain on the CPU: -90 dB
+(the fftconv kernel's and the limiter's differences above). The fused
+step on the card against the same step on the CPU: -90
 dB at the int16 output (quantization plus those differences); the
 unfused step: -85 dB, because its IIR carries the front's small
 card-vs-CPU differences (the resample matmuls sum in another order)
@@ -32,7 +40,9 @@ import numpy as np
 import pytest
 import torch
 
+import xmtpu_torch
 from xmtpu_torch import batch as tbatch
+from xmtpu_torch.bench import config3_chain, config3_inputs
 from xmtpu_torch.kernels import envelope, eq_env, fftconv, iir, resample, rsmix
 from xmtpu_torch.ops import resample as tres
 from xmtpu_torch.utils.errors import ConfigError
@@ -347,7 +357,8 @@ def _counts() -> dict:
             "envelope": envelope.launches,
             "envelope_seg": envelope.envelope_launches,
             "eq_env": eq_env.launches, "resample": resample.launches,
-            "rsmix": rsmix.launches}
+            "rsmix": rsmix.launches, "fftconv_long": fftconv.long_launches,
+            "gain": envelope.gain_launches}
 
 
 def _launched(before: dict) -> set:
@@ -399,3 +410,132 @@ def test_batch_step_on_card_matches_cpu(cuda, kw, kernels):
     db = _db(y.cpu().double() - y_cpu, y_cpu)
     print(f"ragged step {kw} on the card vs the CPU: {db:.1f} dB")
     assert db <= -85.0
+
+
+@pytest.mark.parametrize("R,n,m", [
+    (2, 20000, 8193),     # the short form's largest IR
+    (2, 40000, 8194),     # the first partitioned one: a 2-tap last part
+    (3, 30000, 24082),    # config 3's folded IR (3 parts), odd rows
+    (2, 5000, 24082),     # n < hop: one partial frame, all parts padding
+    (2, 100000, 65537),   # 9 parts: the JAX kernel's largest block's IR
+])
+def test_fftconv_long_kernel_vs_twin(cuda, R, n, m):
+    rng = np.random.default_rng(R * n + m)
+    x = torch.from_numpy(rng.standard_normal((R, n)).astype(np.float32))
+    ir = torch.from_numpy((rng.standard_normal(m) * np.exp(
+        -np.arange(m) / (m / 4 + 1))).astype(np.float32))
+    pr = torch.from_numpy(rng.uniform(0.5, 2.0, R).astype(np.float32))
+    pc = torch.from_numpy(rng.uniform(0.0, 1.0, n).astype(np.float32))
+    args = [t.to(cuda) for t in (x, ir, pr, pc)]
+    before = _counts()
+    y = fftconv.fir_convolve(*args)
+    torch.cuda.synchronize()
+    assert _launched(before) == (
+        {"fftconv"} if m <= fftconv.MAX_SHORT_TAPS else {"fftconv_long"})
+    ref = fftconv.fir_convolve_plain(*args)
+    db = _db(y - ref, ref)
+    print(f"fftconv ({R}, {n}) x {m} taps vs twin: {db:.1f} dB")
+    assert y.shape == (R, n) and bool(torch.isfinite(y).all())
+    assert db <= -100.0
+
+
+def _gain_operands(cuda, R, n, corr, seed):
+    rng = np.random.default_rng(seed)
+    d = torch.from_numpy(np.abs(2.0 * rng.standard_normal((R, n))).astype(
+        np.float32)).to(cuda)
+    init = torch.from_numpy(rng.uniform(0.0, 1.0, (2, R)).astype(
+        np.float32)).to(cuda)
+    extra = ()
+    if corr:
+        extra = (torch.from_numpy(envelope.seg_ktab(0.999, n)).to(cuda),
+                 torch.from_numpy(rng.uniform(0.0, 3.0, R).astype(
+                     np.float32)).to(cuda))
+    return d, init, extra
+
+
+@pytest.mark.parametrize("R,n,corr", [
+    (33, 1003, False), (33, 1003, True), (1, 1, True), (64, 192, False),
+])
+def test_gain_kernel_vs_twin(cuda, R, n, corr):
+    """The gain form from a carried (caller-given) init, with and
+    without the inline correction (pass B k_rel = 0 and a full pass)."""
+    d, init, extra = _gain_operands(cuda, R, n, corr, R + n + corr)
+    curve = envelope.curve_of(-3.0, ratio=4.0, makeup_db=1.0)
+    k_rel = 0.0 if corr else 0.99937
+    before = _counts()
+    g, zf = envelope.envelope_pass(d, k_rel, 0.0606, init, *extra,
+                                   curve=curve, curve_mode="gain")
+    torch.cuda.synchronize()
+    assert _launched(before) == {"gain"}
+    g_p, zf_p = envelope.envelope_plain(d, k_rel, 0.0606, init, *extra,
+                                        curve=curve, curve_mode="gain")
+    print(f"gain kernel vs twin ({R}, {n}, corr={corr}): "
+          f"{_db(g - g_p, g_p):.1f} dB, max abs "
+          f"{float((g - g_p).abs().max()):.3g}")
+    assert _db(g - g_p, g_p) <= -100.0
+    torch.testing.assert_close(zf, zf_p, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("corr", [False, True])
+def test_gain_kernel_propagates_nan(cuda, corr):
+    d, init, extra = _gain_operands(cuda, 3, 300, corr, 13)
+    d[1, 100] = float("nan")
+    init[0, 2] = float("nan")
+    curve = envelope.curve_of(-3.0)
+    g, zf = envelope.envelope_pass(d, 0.99937, 0.0606, init, *extra,
+                                   curve=curve, curve_mode="gain")
+    g_p, zf_p = envelope.envelope_plain(d, 0.99937, 0.0606, init, *extra,
+                                        curve=curve, curve_mode="gain")
+    assert bool(g_p[2].isnan().all()) and bool(g_p[1, 100:].isnan().all())
+    assert torch.equal(g.isnan(), g_p.isnan())
+    ok = ~g_p.isnan()
+    assert _db(g[ok] - g_p[ok], g_p[ok]) <= -100.0
+    torch.testing.assert_close(zf, zf_p, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("segments,kernels", [
+    (None, {"envelope_seg", "gain"}),   # S = 8: pass A, gain-form pass B
+    (1, {"gain"}),                      # one gain-form pass
+])
+def test_linked_limiter_on_card_vs_twin_path(cuda, segments, kernels):
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy((0.5 * rng.standard_normal((2, 2, 48000))).astype(
+        np.float32)).to(cuda)
+    x[0, :, 1000:1300] *= 6.0
+    init = (torch.tensor([0.3, 0.0], device=cuda),
+            torch.tensor([0.2, 0.1], device=cuda))
+    args = (x, 0.99979, 0.0206, -3.0)
+    before = _counts()
+    y, st = envelope.linked_limiter(*args, init=init, segments=segments)
+    torch.cuda.synchronize()
+    assert _launched(before) == kernels
+    y_p, st_p = envelope.linked_limiter(*args, init=init, segments=segments,
+                                        run=envelope.envelope_plain)
+    db = _db(y - y_p, y_p)
+    print(f"linked limiter (segments={segments}) vs its twin path: "
+          f"{db:.1f} dB")
+    assert db <= -100.0
+    for a, b in zip(st, st_p):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("linked,kernels", [
+    (False, {"fftconv_long", "envelope_seg"}),
+    (True, {"fftconv_long", "envelope_seg", "gain"}),
+])
+def test_effects_on_card_matches_cpu(cuda, linked, kernels):
+    """Config 3's chain (24,082-tap folded IR) on 2 stereo clips of 1 s:
+    the long-IR fftconv and the limiter's kernels launch."""
+    x, _ = config3_inputs(batch=2, seconds=1.0)
+    chain = config3_chain(linked_fuse=linked)
+    y_cpu = xmtpu_torch.effects(x, 48000, chain, device="cpu")
+    before = _counts()
+    y = xmtpu_torch.effects(torch.from_numpy(x).to(cuda), 48000, chain,
+                            device=cuda, device_out=True)
+    torch.cuda.synchronize()
+    assert _launched(before) == kernels
+    db = _db(y.cpu().double() - torch.from_numpy(y_cpu).double(),
+             torch.from_numpy(y_cpu).double())
+    print(f"effects (linked_fuse={linked}) on the card vs the CPU: {db:.1f} "
+          "dB")
+    assert y.shape == x.shape and db <= -90.0

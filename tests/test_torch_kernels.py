@@ -84,6 +84,60 @@ def test_fftconv_twin_vs_direct_f64(data, m):
     assert rms_db(y_t - ref, ref) <= -120.0
 
 
+def _partitioned_model(x, ir, pre_row, pre_col, log_n, part):
+    """Torch model of the long-IR kernel's partition loop, index for
+    index: frames of ``hop = N - part`` outputs; for each partition p
+    the gained input window from t0 - p*part - (part-1), zero outside
+    [0, n), through an N-point FFT times the spectrum of ir[p*part,
+    (p+1)*part), and the window's samples [part-1, part-1+hop) summed
+    over the partitions (float64, so only the indexing is on trial)."""
+    R, n = x.shape
+    N = 1 << log_n
+    hop = N - part
+    xin = x.double() * pre_row.double()[:, None] * pre_col.double()
+    parts = -(-ir.shape[0] // part)
+    H = [torch.fft.fft(ir[p * part:(p + 1) * part].double(), n=N)
+         for p in range(parts)]
+    y = torch.zeros((R, -(-n // hop) * hop), dtype=torch.float64)
+    for f in range(-(-n // hop)):
+        t0 = f * hop
+        for p in range(parts):
+            g = torch.arange(N) + (t0 - p * part - (part - 1))
+            ok = (g >= 0) & (g < n)
+            win = torch.where(ok, xin[:, g.clamp(0, n - 1)], 0.0)
+            out = torch.fft.ifft(torch.fft.fft(win, dim=-1) * H[p]).real
+            y[:, t0:t0 + hop] += out[:, part - 1:part - 1 + hop]
+    return y[:, :n]
+
+
+@pytest.mark.parametrize("R,n,m,log_n,part", [
+    (3, 1500, 1000, 8, 128),     # 8 partitions, a short last one, R odd
+    (2, 100, 700, 9, 256),       # n < hop: one partial frame
+    (2, 20000, 24082, 14, 8192),  # the kernel's geometry at config 3's IR
+])
+def test_fftconv_partition_loop_model(data, R, n, m, log_n, part):
+    """The long-IR kernel's index arithmetic, as a torch model, against
+    the twin and a float64 direct convolution: -120 dB."""
+    if part == fftconv.LONG_PART:
+        assert (log_n, fftconv.long_parts(m)) == (fftconv.LONG_LOG_N, 3)
+        assert fftconv.LONG_HOP == (1 << log_n) - part
+    rng = np.random.default_rng(m)
+    x = (0.3 * rng.standard_normal((R, n))).astype(np.float32)
+    h = (rng.standard_normal(m) * np.exp(-np.arange(m) / (m / 5))).astype(
+        np.float32)
+    pre_row = rng.uniform(0.5, 2.0, R).astype(np.float32)
+    pre_col = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    y_m = _partitioned_model(*_t(x, h, pre_row, pre_col), log_n,
+                             part).numpy()
+    xin = (x.astype(np.float64) * pre_row[:, None]) * pre_col
+    ref = np.stack([np.convolve(r, h.astype(np.float64))[:n] for r in xin])
+    y_t = fftconv.fir_convolve_plain(*_t(x, h, pre_row, pre_col)).numpy()
+    db_m, db_t = rms_db(y_m - ref, ref), rms_db(y_t - ref, ref)
+    print(f"partition model ({R}, {n}) x {m} taps: {db_m:.1f} dB vs "
+          f"float64 (gate -120); twin {db_t:.1f} dB (gate -120)")
+    assert db_m <= -120.0 and db_t <= -120.0
+
+
 def test_reverb_op_vs_jax(data):
     """ops.reverb's folded-chain form (dry=0, in-kernel gains, output
     prescale) and its wet/dry form against the JAX op on its Pallas
@@ -181,9 +235,17 @@ def test_wrappers_refuse_bad_operands(data):
         fftconv.fir_convolve(x.T, ir, pre_row, pre_col[:R])  # strided
     with pytest.raises(ValueError):
         fftconv.fir_convolve(x, ir, pre_row[:1], pre_col)
-    with pytest.raises(ValueError, match="taps"):  # beyond a 16384 block
-        fftconv.fir_convolve(x, torch.ones(8194), pre_row, pre_col)
+    rows = fftconv._MAX_ROWS + 1  # past the launch grid's row pairs
+    with pytest.raises(ValueError, match="rows"):
+        fftconv.fir_convolve(torch.zeros(rows, 1), ir, torch.ones(rows),
+                             torch.ones(1))
+    # no tap limit: past 8193 taps the partitioned form takes over
+    assert fftconv.fir_convolve(x, torch.ones(8194), pre_row,
+                                pre_col).shape == x.shape
     assert fftconv.fft_log_size(4093) == 13  # the chain: 8192-point blocks
+    assert fftconv.MAX_SHORT_TAPS == 8193
+    assert [fftconv.long_parts(m) for m in (8194, 16384, 24082, 65537)] == [
+        2, 2, 3, 9]
     with pytest.raises(ValueError):
         envelope.limiter(x[None], 0.9, 0.1, envelope.curve_of(-3.0))
     with pytest.raises(ValueError):

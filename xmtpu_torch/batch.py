@@ -56,7 +56,8 @@ from xmtpu_torch.ops import limiter as _limiter
 from xmtpu_torch.ops import mix as _mix
 from xmtpu_torch.ops import resample as _resample
 from xmtpu_torch.ops import reverb as _reverb
-from xmtpu_torch.utils.errors import ConfigError, DeviceError, NotPortedError
+from xmtpu_torch.utils.device import resolve_device
+from xmtpu_torch.utils.errors import ConfigError, NotPortedError
 from xmtpu_torch.utils.profiling import stage
 
 DEFAULT_BANDS = (
@@ -151,18 +152,6 @@ def flagship_tables(sr_in: int = 44100, sr_bus: int = 16000,
     }
 
 
-def _resolve_device(device) -> torch.device:
-    """``device`` as given, else ``cuda``; never the CPU unless asked."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise DeviceError(
-            "no CUDA device: the step builds on cuda unless a device is "
-            "given; pass device=\"cpu\" to run the kernels' plain torch "
-            "twins on the CPU")
-    return torch.device("cuda")
-
-
 def _check_resample_backend(name: str) -> None:
     if name == "mixfirst_pad":
         raise NotPortedError(
@@ -180,7 +169,7 @@ class _Chain(nn.Module):
 
     def __init__(self, tables: dict, device=None, lti_fold: bool = True):
         super().__init__()
-        dev = _resolve_device(device)
+        dev = resolve_device(device)
         f32 = torch.float32
         for name in ("ir", "reverb_ir"):
             h = tables[name]
@@ -385,19 +374,13 @@ def check_options(iir_backend: str = "pallas",
                   envelope_block: int | None = None) -> None:
     """Raise for the flagship step's option values that do not run:
     :class:`NotPortedError` naming the ROADMAP item, or
-    :class:`ConfigError` for an unknown ``resample_backend``."""
-    refuse = {
-        "iir_backend": (iir_backend != "pallas",
-                        "the scan backend needs the float64 twins "
-                        "(ROADMAP.md Queue 1 item 5)"),
-        "envelope_block": (envelope_block not in (None, 1),
-                           "block lookahead is not ported; the envelope "
-                           "kernel steps per sample (ROADMAP.md Queue 2, "
-                           "K2 follow-up)"),
-    }
-    for name, (bad, why) in refuse.items():
-        if bad:
-            raise NotPortedError(f"{name}: {why}")
+    :class:`ConfigError` for an unknown ``resample_backend`` or an
+    ``envelope_block`` that is not a power of two (the limiter's own
+    validation)."""
+    if iir_backend != "pallas":
+        raise NotPortedError("iir_backend: the scan backend needs the "
+                             "float64 twins (ROADMAP.md Queue 1 item 5)")
+    _limiter.check_envelope_block(envelope_block)
     _check_resample_backend(resample_backend)
 
 
@@ -425,8 +408,9 @@ def make_flagship_step(
     ``iir_backend="pallas"`` names the JAX package's kernel branch,
     whose kernels this port replaces. ``fused=None`` is the JAX
     package's auto rule: the fused branch from 128 rows up, the unfused
-    one below. ``envelope_block``: the kernels step per sample, which
-    is ``envelope_block=1``; None is accepted as the default. See
+    one below. ``envelope_block``: None or a power of two, as in
+    ``ops.limiter.limiter``; the kernels step per sample, the same
+    function in exact arithmetic as any block lookahead. See
     :class:`FlagshipStep` for ``resample_backend`` and ``lti_fold``."""
     check_options(iir_backend, resample_backend, envelope_block)
     return FlagshipStep(

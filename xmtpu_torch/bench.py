@@ -1,15 +1,20 @@
 """Throughput benchmark of the flagship chain on one CUDA GPU
-(counterpart of the root ``bench.py``; same JSON keys).
+(counterpart of the root ``bench.py``; same JSON keys), and of the public
+effect chain (``--config=3``, counterpart of
+``xmtpu.benchmarks.config3_effects``).
 
     python -m xmtpu_torch.bench [--batch=256] [--clip_seconds=10]
         [--iters=20] [--resample_backend=mixfirst|pallas|rsmix]
         [--limiter_fuse=1] [--iir_backend=pallas] [--envelope_block=0]
+    python -m xmtpu_torch.bench --config=3 [--batch=16] [--clip_seconds=10]
+        [--iters=20]
 
 The keys are the root ``bench.py``'s. The step takes the branch the JAX
 package's auto rule picks: fused at the default 256 clips, unfused
 (segmented IIR and envelope) below 128, e.g. ``--batch=32`` (the JAX
 harness's config 4). Values the step refuses (``--iir_backend=scan``,
-``--envelope_block`` above 1, an unknown ``--resample_backend``) raise
+an ``--envelope_block`` that is not a power of two, an unknown
+``--resample_backend``) raise
 its error before any work; an unknown key exits with the list.
 
 Prints one JSON line: ``metric``, ``value`` (audio-seconds per second
@@ -19,6 +24,13 @@ target), ``accuracy_db`` (clip 0 against the float64 oracle) and
 ``iters`` back-to-back steps after one warm-up step, so it includes any
 gap the host leaves between kernels. There is no CPU fallback: without
 a CUDA device the command fails.
+
+``--config=3`` times ``xmtpu_torch.effects`` on the JAX benchmark's
+config-3 input, 16 stereo clips of 10 s at 48 kHz (float32 ``0.3 *
+default_rng(0).standard_normal``, public layout (B, n, 2), on the card),
+through 5-band EQ -> the 0.5 s synthetic IR at wet 0.3 / dry 0.7 ->
+the default limiter, and prints the JAX benchmark's keys ``config``, ``desc`` and
+``audio_sec_per_sec``, and ``device``.
 """
 
 from __future__ import annotations
@@ -81,6 +93,51 @@ def step_seconds(step, *args, iters: int):
     return a.elapsed_time(e) / 1000.0 / iters, y
 
 
+def config3_chain(sr: int = 48000, linked_fuse: bool = False) -> list:
+    """The JAX benchmark's config-3 chain: the 5-band EQ, the 0.5 s
+    synthetic IR at wet 0.3 / dry 0.7, the default limiter."""
+    from xmtpu_torch.batch import DEFAULT_BANDS
+    from xmtpu_torch.ops.reverb import synthetic_ir
+
+    return [
+        {"name": "equalizer", "params": {"bands": list(DEFAULT_BANDS)}},
+        {"name": "reverb", "params": {
+            "ir": synthetic_ir(0.5, sr).astype(np.float32), "wet": 0.3,
+            "dry": 0.7}},
+        {"name": "limiter",
+         "params": {"linked_fuse": True} if linked_fuse else {}},
+    ]
+
+
+def config3_inputs(batch: int = 16, seconds: float = 10.0,
+                   sr: int = 48000):
+    """The JAX benchmark's config-3 input (B, n, 2) float32 and chain."""
+    n = int(sr * seconds)
+    x = (0.3 * np.random.default_rng(0).standard_normal((batch, n, 2))
+         ).astype(np.float32)
+    return x, config3_chain(sr)
+
+
+def config3_effects(batch: int = 16, seconds: float = 10.0,
+                    sr: int = 48000, iters: int = 20) -> dict:
+    """Config 3 through the public ``xmtpu_torch.effects`` entry, input
+    and output on the card (``device_out``)."""
+    from xmtpu_torch import effects
+
+    if not torch.cuda.is_available():
+        raise SystemExit("xmtpu_torch.bench: no CUDA device")
+    dev = torch.device("cuda")
+    x, chain = config3_inputs(batch, seconds, sr)
+    xd = torch.from_numpy(x).to(dev)
+    sec, _ = step_seconds(
+        lambda: effects(xd, sr, chain, device=dev, device_out=True),
+        iters=iters)
+    return {"config": 3, "desc": "stereo 48k EQ+reverb+limiter (public "
+                                 "xmtpu_torch.effects entry)",
+            "audio_sec_per_sec": batch * seconds / sec,
+            "device": torch.cuda.get_device_name(dev)}
+
+
 def main(batch: int = 256, clip_seconds: float = 10.0, iters: int = 20,
          iir_backend: str = "pallas", resample_backend: str = "mixfirst",
          envelope_block: int = 0, limiter_fuse: int = 1) -> dict:
@@ -114,9 +171,12 @@ def main(batch: int = 256, clip_seconds: float = 10.0, iters: int = 20,
     }
 
 
-if __name__ == "__main__":
-    kw = {}
-    for arg in sys.argv[1:]:
+_CONFIG3_KEYS = ("batch", "clip_seconds", "iters")
+
+
+def _cli(argv) -> dict:
+    kw, config = {}, 4
+    for arg in argv:
         k, _, val = arg.lstrip("-").partition("=")
         if k in ("batch", "iters", "envelope_block", "limiter_fuse"):
             kw[k] = int(val)
@@ -124,10 +184,28 @@ if __name__ == "__main__":
             kw[k] = float(val)
         elif k in ("iir_backend", "resample_backend"):
             kw[k] = val
+        elif k == "config":
+            config = int(val)
         else:
             sys.exit(f"xmtpu_torch.bench: unknown argument {arg!r} "
-                     "(known: batch, iters, clip_seconds, iir_backend, "
-                     "resample_backend, envelope_block, limiter_fuse)")
+                     "(known: config, batch, iters, clip_seconds, "
+                     "iir_backend, resample_backend, envelope_block, "
+                     "limiter_fuse)")
+    if config == 3:
+        other = sorted(set(kw) - set(_CONFIG3_KEYS))
+        if other:
+            sys.exit(f"xmtpu_torch.bench: --config=3 takes "
+                     f"{', '.join(_CONFIG3_KEYS)}; not {other}")
+        if "clip_seconds" in kw:
+            kw["seconds"] = kw.pop("clip_seconds")
+        return config3_effects(**kw)
+    if config != 4:
+        sys.exit("xmtpu_torch.bench: --config=3 (effects) or 4 (the "
+                 "flagship chain, the default) are ported")
+    return main(**kw)
+
+
+if __name__ == "__main__":
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(json.dumps(main(**kw)))
+    print(json.dumps(_cli(sys.argv[1:])))

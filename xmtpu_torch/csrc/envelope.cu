@@ -1,4 +1,4 @@
-// Limiter envelope over rows of a signal, in two forms that share one
+// Limiter envelope over rows of a signal, in three forms that share one
 // kernel template:
 //
 //   env[t] = max(d[t], k_rel * env[t-1])
@@ -24,6 +24,16 @@
 //    any input. Form 1 keeps the FMA nvcc contracts a_att*e2 + c_att*env
 //    into and fmaxf, as it was measured: it matches its twin on finite
 //    input.
+// 3. The gain form (xm_envelope_gain_f32): form 2's recurrences, inline
+//    correction and caller-given init, with the copy warps writing the
+//    soft-knee gain g = exp((makeup - red) * ln10/20) of each e2 instead
+//    of e2 (_curve_gain operation for operation, as form 1; no clamp, no
+//    e2 out). Replaces _env_kernel / _env_blk_kernel with
+//    curve_mode="gain", as the channel-linked limiter drives them
+//    (xmtpu/kernels/envelope.py:_linked_seg_gain, pass B with the exact
+//    carried init, and the unsegmented call of linked_limiter_pallas).
+//    Its level meter's max propagates NaN, so g is NaN where the twin's
+//    is.
 //
 // What bounds it on the H100: the recurrence is sequential in time, one
 // dependent chain per row (a multiply and a max per sample, about 160000
@@ -98,9 +108,16 @@ struct Curve {
   float ceil_amp;   // ceiling amplitude
 };
 
-__device__ __forceinline__ float curve_apply(float x, float e2,
-                                             const Curve& c) {
-  const float level = c.lvl_scale * logf(fmaxf(e2, c.eps));
+// kNanMax: the level meter's floor propagates NaN (the gain form);
+// otherwise fmaxf, as the fused form was measured.
+template <bool kNanMax>
+__device__ __forceinline__ float curve_gain(float e2, const Curve& c) {
+  float e;
+  if constexpr (kNanMax)
+    e = xm::max_nan(e2, c.eps);
+  else
+    e = fmaxf(e2, c.eps);
+  const float level = c.lvl_scale * logf(e);
   const float over = level - c.thr;
   float red;
   if (over <= -c.half_w) {
@@ -111,7 +128,12 @@ __device__ __forceinline__ float curve_apply(float x, float e2,
     const float s = over + c.half_w;
     red = c.slope * (s * s) / c.two_w;
   }
-  const float g = expf((c.makeup - red) * c.exp_scale);
+  return expf((c.makeup - red) * c.exp_scale);
+}
+
+__device__ __forceinline__ float curve_apply(float x, float e2,
+                                             const Curve& c) {
+  const float g = curve_gain<false>(e2, c);
   return fminf(fmaxf(x * g, -c.ceil_amp), c.ceil_amp);
 }
 
@@ -192,17 +214,21 @@ struct Chain {
   }
 };
 
-// kCurve: the fused limiter (y = curve(x, e2)); otherwise y = e2.
-// kCorr (envelope only): the inline correction from ecorr (R,) and
-// ktab (n,).
-template <bool kCurve, bool kCorr>
+// The template's three forms: what y holds.
+enum Form { kEnvelope, kApply, kGain };
+
+// kApply: the fused limiter (y = curve(x, e2)); kGain: y = gain(e2);
+// kEnvelope: y = e2. kCorr (not with kApply): the inline correction from
+// ecorr (R,) and ktab (n,).
+template <int kForm, bool kCorr>
 __global__ void __launch_bounds__(kThreads)
 envelope_kernel(const float* __restrict__ x, const float* __restrict__ init,
                 const float* __restrict__ ktab,
                 const float* __restrict__ ecorr, float* __restrict__ y,
                 float* __restrict__ zf, int R, int n, float k_rel,
                 float c_att, Curve cv) {
-  static_assert(!(kCurve && kCorr), "the curve reads the raw signal");
+  static_assert(!(kForm == kApply && kCorr),
+                "the fused curve reads the raw signal");
   __shared__ __align__(16) float xs[kXBufs * kRows * kLd];
   __shared__ __align__(16) float es[kEBufs * kRows * kLd];
   const int r0 = blockIdx.x * kRows;
@@ -215,7 +241,7 @@ envelope_kernel(const float* __restrict__ x, const float* __restrict__ init,
   auto ebuf = [&](int c) { return es + (c % kEBufs) * kRows * kLd; };
   auto clen = [&](int c) { return min(kChunk, n - c * kChunk); };
 
-  Chain<kCurve> ch{0.f, 0.f, k_rel, 1.f - c_att, c_att};
+  Chain<kForm == kApply> ch{0.f, 0.f, k_rel, 1.f - c_att, c_att};
   if (warp == 0 && lane < rows) {
     ch.env = init[r0 + lane];
     ch.e2 = init[R + r0 + lane];
@@ -247,8 +273,10 @@ envelope_kernel(const float* __restrict__ x, const float* __restrict__ init,
           const float* eb = ebuf(c - 1);
           for (int r = j / kChunk; r < rows; r += kRowsPerPass) {
             float* yp = y + static_cast<size_t>(r0 + r) * n + tp + t;
-            if constexpr (kCurve)
+            if constexpr (kForm == kApply)
               *yp = curve_apply(xb[r * kLd + t], eb[r * kLd + t], cv);
+            else if constexpr (kForm == kGain)
+              *yp = curve_gain<true>(eb[r * kLd + t], cv);
             else
               *yp = eb[r * kLd + t];
           }
@@ -283,7 +311,7 @@ extern "C" int xm_limiter_f32(const float* x, const float* init, float* y,
   const Curve cv{lvl_scale, eps, thr, half_w, two_w,
                  slope, makeup, exp_scale, ceil_amp};
   const int blocks = (R + kRows - 1) / kRows;
-  envelope_kernel<true, false><<<blocks, kThreads, 0,
+  envelope_kernel<kApply, false><<<blocks, kThreads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
       x, init, nullptr, nullptr, y, zf, R, n, k_rel, c_att, cv);
   return static_cast<int>(cudaGetLastError());
@@ -299,11 +327,38 @@ extern "C" int xm_envelope_f32(const float* d, const float* init,
   const int blocks = (R + kRows - 1) / kRows;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ktab != nullptr && ecorr != nullptr)
-    envelope_kernel<false, true><<<blocks, kThreads, 0, s>>>(
+    envelope_kernel<kEnvelope, true><<<blocks, kThreads, 0, s>>>(
         d, init, ktab, ecorr, e2, zf, R, n, k_rel, c_att, Curve{});
   else if (ktab == nullptr && ecorr == nullptr)
-    envelope_kernel<false, false><<<blocks, kThreads, 0, s>>>(
+    envelope_kernel<kEnvelope, false><<<blocks, kThreads, 0, s>>>(
         d, init, nullptr, nullptr, e2, zf, R, n, k_rel, c_att, Curve{});
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gain form: d, init, ktab, ecorr, zf as xm_envelope_f32; g (R, n)
+// the soft-knee gain of each smoothed envelope sample; the curve's
+// constants as xm_limiter_f32's (ceil_amp unused). Launches on `stream`
+// and returns cudaGetLastError() of the launch.
+extern "C" int xm_envelope_gain_f32(const float* d, const float* init,
+                                    const float* ktab, const float* ecorr,
+                                    float* g, float* zf, int R, int n,
+                                    float k_rel, float c_att,
+                                    float lvl_scale, float eps, float thr,
+                                    float half_w, float two_w, float slope,
+                                    float makeup, float exp_scale,
+                                    float ceil_amp, void* stream) {
+  const Curve cv{lvl_scale, eps, thr, half_w, two_w,
+                 slope, makeup, exp_scale, ceil_amp};
+  const int blocks = (R + kRows - 1) / kRows;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ktab != nullptr && ecorr != nullptr)
+    envelope_kernel<kGain, true><<<blocks, kThreads, 0, s>>>(
+        d, init, ktab, ecorr, g, zf, R, n, k_rel, c_att, cv);
+  else if (ktab == nullptr && ecorr == nullptr)
+    envelope_kernel<kGain, false><<<blocks, kThreads, 0, s>>>(
+        d, init, nullptr, nullptr, g, zf, R, n, k_rel, c_att, cv);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -1,25 +1,34 @@
 """Limiter envelope kernels (counterparts of ``xmtpu.kernels.envelope``).
 
-Both run the envelope recurrences over rows of a detector signal
+All run the envelope recurrences over rows of a detector signal
 
     env[t] = max(d[t], k_rel * env[t-1])
     e2[t]  = (1 - c_att) * e2[t-1] + c_att * env[t]
 
 from ``init`` = (env, e2), in the hand-written kernel template of
-``csrc/envelope.cu``:
+``csrc/envelope.cu``, in three forms:
 
-- :func:`limiter`, the fused soft-knee limiter of signed rows (the JAX
-  ``limiter_pallas`` on its unsegmented path): detector ``|x|``, the
-  recurrences, the gain evaluated exactly as the JAX kernel's
-  ``_curve_gain`` (exp/log in float32) and the ceiling clamp;
-- :func:`envelope`, the smoothed envelope alone (the JAX
-  ``envelope_pallas``), time-segmented for small batches: each row's S
-  segments run from zero state as R*S rows in two passes of
-  :func:`envelope_pass` (pass A, the decaying max with c_att = 1; pass
-  B, the one-pole with k_rel = 0 over the inline-corrected envelope
-  ``max(env0[t], E * k^(t+1))``), with the exact max chain and sum chain
-  over the segments and the one-pole correction ``s_in * a^(t+1)`` on
-  the first ``_decay_cut(a)`` samples in plain torch.
+- :func:`limiter`: the fused soft-knee limiter of signed rows (the JAX
+  ``limiter_pallas`` on its unsegmented path, ``curve_mode="apply"``):
+  detector ``|x|``, the recurrences, the gain evaluated exactly as the
+  JAX kernel's ``_curve_gain`` (exp/log in float32) and the ceiling
+  clamp;
+- :func:`envelope_pass` with ``curve_mode="envelope"``: the smoothed
+  envelope alone, with an optional inline correction ``d[t] ->
+  max(d[t], E * k^(t+1))``;
+- :func:`envelope_pass` with ``curve_mode="gain"``: the envelope-only
+  form writing the soft-knee gain of each e2 instead of e2 (the JAX
+  kernels' ``curve_mode="gain"``).
+
+:func:`envelope` (the JAX ``envelope_pallas``) and :func:`linked_limiter`
+(the JAX ``linked_limiter_pallas``) are time-segmented for small
+batches: each row's S segments run from zero state as R*S rows. Pass A
+(:func:`_seg_pass_a`, the decaying max with c_att = 1) and the exact max
+chain over the segments are shared; pass B runs the one-pole (k_rel = 0)
+over the inline-corrected envelope, from zero state with the sum chain
+and the correction ``s_in * a^(t+1)`` after it (:func:`envelope`), or
+from the exact per-segment state ``s_in`` in the gain form
+(:func:`linked_limiter`). The glue is plain torch.
 
 On a CUDA tensor the wrappers launch the kernel; on a CPU tensor they
 run the plain twins (:func:`limiter_plain`, :func:`envelope_plain`),
@@ -38,11 +47,13 @@ import torch
 from xmtpu_torch.kernels import _build
 from xmtpu_torch.kernels._seg import on_device, pick_segments
 
-# Launches of the CUDA kernel in this process, by wrapper (limiter:
-# the fused form; envelope_pass: the envelope alone); callers may reset
-# them.
+# Launches of the CUDA kernel in this process, by form (the fused
+# limiter, the envelope alone, the gain form); callers may reset them.
 launches = 0
 envelope_launches = 0
+gain_launches = 0
+
+CURVE_MODES = ("envelope", "gain")  # envelope_pass's forms
 
 # the JAX envelope's lane target, which pick_segments fills
 _LANES_TARGET = 256
@@ -76,17 +87,22 @@ def curve_consts(curve) -> tuple[float, ...]:
             makeup_db, _LN10 / 20.0, 10.0 ** (ceiling_db / 20.0))
 
 
-def curve_apply(x: torch.Tensor, e2: torch.Tensor,
-                consts: tuple[float, ...]) -> torch.Tensor:
-    """Soft-knee gain from ``e2`` applied to ``x``, clamped (float32)."""
-    lvl, eps, thr, half_w, two_w, slope, makeup, exp_s, ceil_amp = consts
+def curve_gain(e2: torch.Tensor, consts: tuple[float, ...]) -> torch.Tensor:
+    """Soft-knee gain of the smoothed envelope ``e2`` (float32)."""
+    lvl, eps, thr, half_w, two_w, slope, makeup, exp_s, _ = consts
     level = lvl * torch.log(torch.clamp_min(e2, eps))
     over = level - thr
     in_knee = slope * (over + half_w) ** 2 / two_w
     red = torch.where(over <= -half_w, 0.0,
                       torch.where(over >= half_w, slope * over, in_knee))
-    g = torch.exp((makeup - red) * exp_s)
-    return torch.clamp(x * g, -ceil_amp, ceil_amp)
+    return torch.exp((makeup - red) * exp_s)
+
+
+def curve_apply(x: torch.Tensor, e2: torch.Tensor,
+                consts: tuple[float, ...]) -> torch.Tensor:
+    """Soft-knee gain from ``e2`` applied to ``x``, clamped (float32)."""
+    ceil_amp = consts[-1]
+    return torch.clamp(x * curve_gain(e2, consts), -ceil_amp, ceil_amp)
 
 
 def _check_x(x) -> None:
@@ -186,6 +202,18 @@ def seg_atab(c_att: float, seglen: int) -> np.ndarray:
     return (a ** t1a).astype(np.float32)
 
 
+def seg_avec(c_att: float, seglen: int) -> np.ndarray:
+    """The decay window a^(ac-1-t), t < ac = ``_decay_cut(a, seglen)``,
+    float32 (the JAX ``_linked_seg_gain``'s ``avec``): a zero-init
+    segment's final e2 is c_att times its dot with the last ac samples
+    of the corrected envelope."""
+    a = 1.0 - float(c_att)
+    ac = _decay_cut(a, seglen)
+    with np.errstate(under="ignore"):
+        return (a ** np.arange(ac - 1, -1, -1, dtype=np.float64)).astype(
+            np.float32)
+
+
 def _check_corr(ktab, ecorr, d) -> None:
     if (ktab is None) != (ecorr is None):
         raise ValueError("ktab and ecorr go together")
@@ -200,11 +228,25 @@ def _check_corr(ktab, ecorr, d) -> None:
                              f"({size},) tensor on {d.device}")
 
 
+def _check_mode(curve, curve_mode) -> None:
+    """One of the pass's two forms, with what it takes."""
+    if curve_mode not in CURVE_MODES:
+        raise ValueError(f"curve_mode={curve_mode!r}; the pass's forms "
+                         f"are {CURVE_MODES} (the fused form is limiter())")
+    if (curve is None) != (curve_mode == "envelope"):
+        raise ValueError(f"curve_mode={curve_mode!r} "
+                         + ("takes no curve" if curve is not None
+                            else "needs the curve"))
+
+
 def envelope_plain(d: torch.Tensor, k_rel: float, c_att: float,
-                   init: torch.Tensor, ktab=None, ecorr=None):
-    """Plain twin of one envelope pass: a torch loop over time, float32
-    coefficients as the kernel receives them and one elementwise op per
-    operation, so it matches the kernel bit for bit."""
+                   init: torch.Tensor, ktab=None, ecorr=None, curve=None,
+                   curve_mode: str = "envelope"):
+    """Plain twin of one pass (:func:`envelope_pass`): a torch loop over
+    time, float32 coefficients as the kernel receives them and one
+    elementwise op per operation, so its e2 matches the kernel bit for
+    bit; the gain form then applies :func:`curve_gain`."""
+    _check_mode(curve, curve_mode)
     k = float(np.float32(k_rel))
     c = float(np.float32(c_att))
     a = float(np.float32(1.0) - np.float32(c_att))
@@ -218,52 +260,74 @@ def envelope_plain(d: torch.Tensor, k_rel: float, c_att: float,
         env = torch.maximum(dt[t], k * env)
         e2 = a * e2 + c * env
         e2_t[t] = e2
-    return e2_t.T.contiguous(), torch.stack([env, e2])
+    out = e2_t.T.contiguous()
+    if curve_mode == "gain":
+        out = curve_gain(out, curve_consts(curve))
+    return out, torch.stack([env, e2])
 
 
 def envelope_pass(d: torch.Tensor, k_rel: float, c_att: float,
-                  init: torch.Tensor, ktab=None, ecorr=None):
+                  init: torch.Tensor, ktab=None, ecorr=None, curve=None,
+                  curve_mode: str = "envelope"):
     """One pass of the recurrences over independent rows: d (R, n),
     init (2, R), and optionally the inline correction ``d[t] ->
     max(d[t], ecorr[r] * ktab[t])`` (ktab (n,), ecorr (R,)); contiguous
-    float32 on one device -> (e2 (R, n), zf (2, R) = (env, e2)). The
-    kernel on CUDA, the twin on the CPU."""
-    global envelope_launches
+    float32 on one device -> (out (R, n), zf (2, R) = (env, e2)).
+
+    ``curve_mode`` picks the kernel's form: ``"envelope"`` (out = e2)
+    or ``"gain"`` (out = the soft-knee gain of e2 under ``curve``, the
+    5-tuple of :func:`curve_of`); any other value raises. The kernel on
+    CUDA, the twin on the CPU."""
+    global envelope_launches, gain_launches
+    _check_mode(curve, curve_mode)
     _check_x(d)
     _check_init(init, d)
     _check_corr(ktab, ecorr, d)
     if d.device.type == "cpu":
-        return envelope_plain(d, k_rel, c_att, init, ktab, ecorr)
+        return envelope_plain(d, k_rel, c_att, init, ktab, ecorr, curve,
+                              curve_mode)
     if d.device.type != "cuda":
         raise ValueError(f"no envelope kernel for device {d.device}")
     R, n = d.shape
     lib = _build.load()
-    e2 = torch.empty_like(d)
+    out = torch.empty_like(d)
     zf = torch.empty_like(init)
-    with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream(d.device).cuda_stream
-        rc = lib.xm_envelope_f32(
-            d.data_ptr(), init.data_ptr(),
+    ptrs = (d.data_ptr(), init.data_ptr(),
             None if ktab is None else ktab.data_ptr(),
             None if ecorr is None else ecorr.data_ptr(),
-            e2.data_ptr(), zf.data_ptr(), R, n, k_rel, c_att, stream)
+            out.data_ptr(), zf.data_ptr())
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        if curve_mode == "gain":
+            rc = lib.xm_envelope_gain_f32(*ptrs, R, n, k_rel, c_att,
+                                          *curve_consts(curve), stream)
+        else:
+            rc = lib.xm_envelope_f32(*ptrs, R, n, k_rel, c_att, stream)
     _build.check(rc, "envelope")
-    envelope_launches += 1
-    return e2, zf
+    if curve_mode == "gain":
+        gain_launches += 1
+    else:
+        envelope_launches += 1
+    return out, zf
 
 
-def _envelope_seg(d2d, k_rel, c_att, init2, S, run):
-    """Segmented exact envelope: d2d (R, n) -> (e2 (R, n), zf (2, R))."""
+def _seg_table(name: str, make, coef: float, seglen: int,
+               device) -> torch.Tensor:
+    """A host table of the segmented path on ``device`` (cached)."""
+    return on_device((name, float(coef), seglen), device,
+                     lambda: {name: make(coef, seglen)})[name]
+
+
+def _seg_pass_a(d2d, k_rel, init2, S, run):
+    """Segmented pass A (the decaying max from zero state, c_att = 1,
+    over R*S segment rows) and the exact max chain over the segments,
+    shared by both pass-B strategies (the JAX ``_seg_pass_a``). Returns
+    (env0 (R*S, seglen), e_last (R,), e_in (R*S,) the envelope entering
+    each segment, ktab (seglen,) pass B's correction column)."""
     R, n = d2d.shape
     seglen = n // S
-    RS = R * S
-    zeros = d2d.new_zeros((2, RS))
-    tabs = on_device(("envelope", float(k_rel), float(c_att), seglen),
-                      d2d.device, lambda: {
-                          "ktab": seg_ktab(k_rel, seglen),
-                          "atab": seg_atab(c_att, seglen)})
-    # pass A: decaying max only (c_att = 1 -> e2 == env), zero init
-    env0, zf_a = run(d2d.reshape(RS, seglen), k_rel, 1.0, zeros)
+    env0, zf_a = run(d2d.reshape(R * S, seglen), k_rel, 1.0,
+                     d2d.new_zeros((2, R * S)))
     envf = zf_a[0].reshape(R, S)
     kp = float(np.float32(float(k_rel) ** seglen))
     e = init2[0]
@@ -271,10 +335,18 @@ def _envelope_seg(d2d, k_rel, c_att, init2, S, run):
     for k in range(S):  # envelope entering each segment: (max, *) chain
         e_ins.append(e)
         e = torch.maximum(envf[:, k], kp * e)
-    e_in = torch.stack(e_ins, 1).reshape(RS)
+    ktab = _seg_table("ktab", seg_ktab, k_rel, seglen, d2d.device)
+    return env0, e, torch.stack(e_ins, 1).reshape(R * S), ktab
+
+
+def _envelope_seg(d2d, k_rel, c_att, init2, S, run):
+    """Segmented exact envelope: d2d (R, n) -> (e2 (R, n), zf (2, R))."""
+    R, n = d2d.shape
+    seglen = n // S
+    env0, e_last, e_in, ktab = _seg_pass_a(d2d, k_rel, init2, S, run)
     # pass B: one-pole only (k_rel = 0 passes the input through) over
     # the envelope corrected inline, max(env0[t], E * k^(t+1))
-    e2, zf_b = run(env0, 0.0, c_att, zeros, tabs["ktab"], e_in)
+    e2, zf_b = run(env0, 0.0, c_att, d2d.new_zeros((2, R * S)), ktab, e_in)
     e2f = zf_b[1].reshape(R, S)
     a = 1.0 - float(c_att)
     ap = float(np.float32(a ** seglen))
@@ -283,10 +355,28 @@ def _envelope_seg(d2d, k_rel, c_att, init2, S, run):
     for k in range(S):  # e2 entering each segment: (+, *) chain
         s_ins.append(s)
         s = e2f[:, k] + ap * s
-    s_in = torch.stack(s_ins, 1).reshape(RS)
-    atab = tabs["atab"]
+    s_in = torch.stack(s_ins, 1).reshape(R * S)
+    atab = _seg_table("atab", seg_atab, c_att, seglen, d2d.device)
     e2[:, :atab.shape[0]] += s_in[:, None] * atab
-    return e2.reshape(R, n), torch.stack([e, s])
+    return e2.reshape(R, n), torch.stack([e_last, s])
+
+
+def _init2(init, R, device):
+    """(env, e2), each (...,) with R elements, or None -> (2, R)."""
+    if init is None:
+        return torch.zeros((2, R), dtype=torch.float32, device=device)
+    return torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                         device=device).reshape(R)
+                        for v in init]).contiguous()
+
+
+def _segments(segments, R, n) -> int:
+    S = (pick_segments(R, n, lanes=_LANES_TARGET) if segments is None
+         else int(segments))
+    if S < 1 or n % S:
+        raise ValueError(f"segments={S} does not divide n={n} (exact state "
+                         "corrections need equal segments)")
+    return S
 
 
 def envelope(d: torch.Tensor, k_rel: float, c_att: float, init=None,
@@ -312,17 +402,8 @@ def envelope(d: torch.Tensor, k_rel: float, c_att: float, init=None,
         raise ValueError(f"n_valid={n} outside [1, {d.shape[-1]}]")
     R = int(np.prod(batch)) if batch else 1
     d2d = d.reshape(R, d.shape[-1])[:, :n].contiguous()
-    if init is None:
-        init2 = d.new_zeros((2, R))
-    else:
-        init2 = torch.stack([torch.as_tensor(v, dtype=torch.float32,
-                                             device=d.device).reshape(R)
-                             for v in init]).contiguous()
-    S = (pick_segments(R, n, lanes=_LANES_TARGET) if segments is None
-         else int(segments))
-    if S < 1 or n % S:
-        raise ValueError(f"segments={S} does not divide n={n} (exact state "
-                         "corrections need equal segments)")
+    init2 = _init2(init, R, d.device)
+    S = _segments(segments, R, n)
     run = envelope_pass if run is None else run
     if S > 1:
         e2, zf = _envelope_seg(d2d, k_rel, c_att, init2, S, run)
@@ -330,3 +411,78 @@ def envelope(d: torch.Tensor, k_rel: float, c_att: float, init=None,
         e2, zf = run(d2d, k_rel, c_att, init2)
     return e2.reshape(*batch, n), (zf[0].reshape(batch),
                                    zf[1].reshape(batch))
+
+
+# ------------------------------------------ the channel-linked limiter
+
+
+def _linked_seg_gain(d2d, k_rel, c_att, init2, S, curve, run):
+    """Segmented envelope whose pass B writes the soft-knee gain (the
+    JAX ``_linked_seg_gain``): pass B starts each segment from its exact
+    one-pole state ``s_in``, so the curve can run in the kernel. A
+    zero-init segment's final e2 depends only on the last
+    ``_decay_cut(a)`` samples of its corrected envelope (a^t is below
+    any float32 signal's resolution past that), so one decay-window dot
+    per segment row gives the finals the (+, *) chain needs. Returns
+    (g (R, n), zf (2, R) = (env_last, e2_last))."""
+    R, n = d2d.shape
+    seglen = n // S
+    env0, e_last, e_in, ktab = _seg_pass_a(d2d, k_rel, init2, S, run)
+    avec = _seg_table("avec", seg_avec, c_att, seglen, d2d.device)
+    ac = avec.shape[0]
+    tail = torch.maximum(env0[:, seglen - ac:],
+                         e_in[:, None] * ktab[seglen - ac:])
+    # float32 multiply and sum (no matmul, so no TF32 question)
+    e2f = (float(c_att) * (tail * avec).sum(-1)).reshape(R, S)
+    a = 1.0 - float(c_att)
+    ap = float(np.float32(a ** seglen))
+    s = init2[1]
+    s_ins = []
+    for k in range(S):  # e2 entering each segment: (+, *) chain
+        s_ins.append(s)
+        s = e2f[:, k] + ap * s
+    s_in = torch.stack(s_ins, 1).reshape(R * S)
+    init_b = torch.stack([torch.zeros_like(s_in), s_in])
+    g, _ = run(env0, 0.0, c_att, init_b, ktab, e_in, curve=curve,
+               curve_mode="gain")
+    return g.reshape(R, n), torch.stack([e_last, s])
+
+
+def linked_limiter(x: torch.Tensor, k_rel: float, c_att: float,
+                   threshold_db: float, knee_db: float = 6.0,
+                   ceiling_db: float = 0.0, ratio: float = float("inf"),
+                   makeup_db: float = 0.0, init=None, n_valid=None,
+                   segments=None, run=None):
+    """Channel-linked soft-knee limiter of ``x`` (..., ch, n) float32
+    (the JAX ``linked_limiter_pallas``): one gain per time step from
+    the linked detector ``max_ch |x|``, evaluated in the gain form of
+    the envelope kernel, applied to every channel and clamped at the
+    ceiling. Returns (y (..., ch, n_valid or n), (env_last, e2_last)
+    each (...,)).
+
+    ``init``: (env, e2), each (...,), or None (zeros). ``segments``:
+    as :func:`envelope` (S = 1: one gain-form pass with (k_rel, c_att)).
+    ``run``: the one-pass function, :func:`envelope_pass` by default;
+    :func:`envelope_plain` runs the same path on the twin."""
+    if not torch.is_tensor(x) or x.dtype != torch.float32 or x.dim() < 2:
+        raise ValueError(f"linked limiter needs a float32 (..., ch, n) "
+                         f"tensor, got {getattr(x, 'shape', x)!r}")
+    curve = curve_of(threshold_db, knee_db, ceiling_db, ratio, makeup_db)
+    batch = x.shape[:-2]
+    n = x.shape[-1] if n_valid is None else int(n_valid)
+    if not 1 <= n <= x.shape[-1]:
+        raise ValueError(f"n_valid={n} outside [1, {x.shape[-1]}]")
+    xf = x[..., :n]
+    R = int(np.prod(batch)) if batch else 1
+    d2d = torch.amax(xf.abs(), dim=-2).reshape(R, n).contiguous()
+    init2 = _init2(init, R, x.device)
+    S = _segments(segments, R, n)
+    run = envelope_pass if run is None else run
+    if S > 1:
+        g2, zf = _linked_seg_gain(d2d, k_rel, c_att, init2, S, curve, run)
+    else:
+        g2, zf = run(d2d, k_rel, c_att, init2, curve=curve,
+                     curve_mode="gain")
+    ceil_amp = 10.0 ** (float(ceiling_db) / 20.0)
+    y = torch.clamp(xf * g2.reshape(*batch, 1, n), -ceil_amp, ceil_amp)
+    return y, (zf[0].reshape(batch), zf[1].reshape(batch))

@@ -5,10 +5,13 @@
 
 On a CUDA tensor :func:`fir_convolve` launches the hand-written kernels
 of ``csrc/fftconv.cu`` (a shared-memory FFT overlap-save, two rows per
-complex transform; see the note at the top of that file). On a CPU
-tensor it runs :func:`fir_convolve_plain`, a float32 ``torch.fft``
-overlap-save with the same gains, which the CPU tests and the on-card
-comparison use.
+complex transform; see the note at the top of that file): for IRs of up
+to 8193 taps one transform of at most 16384 points per frame, for longer
+ones the partitioned form (:func:`long_parts` partitions of
+``LONG_PART`` taps, each through the 16384-point transform, summed in
+registers). On a CPU tensor it runs :func:`fir_convolve_plain`, a
+float32 ``torch.fft`` overlap-save with the same gains at any length,
+which the CPU tests and the on-card comparison use.
 
 The JAX kernel's ``trim=False`` hop-padded output does not carry over:
 it saved a slice copy between two opaque TPU calls, while this kernel
@@ -22,11 +25,17 @@ import torch
 
 from xmtpu_torch.kernels import _build
 
-# Launches of the CUDA kernel in this process; callers may reset it.
+# Launches of the CUDA kernel in this process, by form (short IRs, the
+# partitioned long-IR form); callers may reset them.
 launches = 0
+long_launches = 0
 
 _MAX_ROWS = 2 * 65535  # grid.y of the launch counts row pairs
 _MAX_LOG_N = 14  # the kernel's largest FFT block (16384 points)
+MAX_SHORT_TAPS = (1 << (_MAX_LOG_N - 1)) + 1  # 8193: one transform
+LONG_LOG_N = _MAX_LOG_N  # the partitioned form's transform
+LONG_PART = 1 << (LONG_LOG_N - 1)  # taps per partition, 8192
+LONG_HOP = (1 << LONG_LOG_N) - LONG_PART  # outputs per frame, 8192
 
 
 def fft_log_size(m: int) -> int:
@@ -37,6 +46,11 @@ def fft_log_size(m: int) -> int:
     while (1 << log_n) < 2 * (m - 1):
         log_n += 1
     return log_n
+
+
+def long_parts(m: int) -> int:
+    """Partitions of the long-IR form for an m-tap IR."""
+    return -(-m // LONG_PART)
 
 
 def _check(x, ir, pre_row, pre_col) -> None:
@@ -55,10 +69,8 @@ def _check(x, ir, pre_row, pre_col) -> None:
         raise ValueError(
             f"pre_row {tuple(pre_row.shape)} / pre_col "
             f"{tuple(pre_col.shape)} do not match x {tuple(x.shape)}")
-    if R > _MAX_ROWS or fft_log_size(ir.shape[0]) > _MAX_LOG_N:
-        raise ValueError(
-            f"{R} rows / {ir.shape[0]} taps exceed the kernel's "
-            f"{_MAX_ROWS} rows / {(1 << (_MAX_LOG_N - 1)) + 1} taps")
+    if R > _MAX_ROWS:
+        raise ValueError(f"{R} rows exceed the kernel's {_MAX_ROWS}")
 
 
 def os_block(m: int) -> int:
@@ -91,7 +103,7 @@ def fir_convolve(x: torch.Tensor, ir: torch.Tensor, pre_row: torch.Tensor,
                  pre_col: torch.Tensor) -> torch.Tensor:
     """x (R, n), ir (m,), pre_row (R,), pre_col (n,): contiguous float32
     on one device -> y (R, n) float32."""
-    global launches
+    global launches, long_launches
     _check(x, ir, pre_row, pre_col)
     if x.device.type == "cpu":
         return fir_convolve_plain(x, ir, pre_row, pre_col)
@@ -99,17 +111,26 @@ def fir_convolve(x: torch.Tensor, ir: torch.Tensor, pre_row: torch.Tensor,
         raise ValueError(f"no fftconv kernel for device {x.device}")
     R, n = x.shape
     m = ir.shape[0]
-    log_n = fft_log_size(m)
+    long = m > MAX_SHORT_TAPS
+    log_n = LONG_LOG_N if long else fft_log_size(m)
     lib = _build.load()
     y = torch.empty_like(x)
-    # IR spectrum (N complex) + twiddles (N/2 complex), filled in-kernel
-    work = torch.empty(3 << log_n, dtype=torch.float32, device=x.device)
+    # the IR spectra (one per partition, N complex each) and the twiddles
+    # (N/2 complex), filled in-kernel
+    spectra = long_parts(m) if long else 1
+    work = torch.empty((2 * spectra + 1) << log_n, dtype=torch.float32,
+                       device=x.device)
+    ptrs = (x.data_ptr(), pre_row.data_ptr(), pre_col.data_ptr(),
+            ir.data_ptr(), work.data_ptr(), y.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.xm_fir_convolve_f32(
-            x.data_ptr(), pre_row.data_ptr(), pre_col.data_ptr(),
-            ir.data_ptr(), work.data_ptr(), y.data_ptr(), R, n, m, log_n,
-            stream)
+        if long:
+            rc = lib.xm_fir_convolve_long_f32(*ptrs, R, n, m, stream)
+        else:
+            rc = lib.xm_fir_convolve_f32(*ptrs, R, n, m, log_n, stream)
     _build.check(rc, "fftconv")
-    launches += 1
+    if long:
+        long_launches += 1
+    else:
+        launches += 1
     return y

@@ -13,9 +13,10 @@ Pinned semantics, mirrored exactly by :func:`limiter_np`:
 Steps 1-3 run in the envelope kernels (``xmtpu_torch.kernels.envelope``):
 :func:`limiter` here is the JAX package's ``limiter`` on its Pallas
 backend (the detector, the time-segmented envelope kernel, then the
-elementwise curve in torch); the flagship chain's fused branch runs
-steps 1-5 in one kernel instead. This module also holds the coefficient
-helpers and the float64 oracle.
+elementwise curve in torch; with ``linked_fuse=True`` the curve runs in
+the kernel's gain form, ``kernels.envelope.linked_limiter``); the
+flagship chain's fused branch runs steps 1-5 in one kernel instead. This
+module also holds the coefficient helpers and the float64 oracle.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ import math
 import numpy as np
 import torch
 
-from xmtpu_torch.kernels.envelope import _EPS, _knee_slope, envelope
-from xmtpu_torch.utils.errors import NotPortedError
+from xmtpu_torch.kernels.envelope import (_EPS, _knee_slope, envelope,
+                                          linked_limiter)
+from xmtpu_torch.utils.errors import ConfigError
 from xmtpu_torch.utils.profiling import stage
 
 
@@ -40,6 +42,21 @@ def _attack_coeff(attack_ms: float, sr: int) -> float:
     if attack_ms <= 0:
         return 1.0  # identity smoothing
     return 1.0 - math.exp(-1.0 / (attack_ms * sr / 1000.0))
+
+
+def check_envelope_block(envelope_block) -> int | None:
+    """The JAX package's validation of ``envelope_block``: None or a
+    power of two >= 1. The port's kernels step per sample, the same
+    function in exact arithmetic as any block lookahead, so every valid
+    value runs the same path."""
+    if envelope_block is None:
+        return None
+    eb = int(envelope_block)
+    if eb < 1 or eb & (eb - 1):
+        raise ConfigError(
+            f"envelope_block={eb} must be a power of two "
+            "(1 = explicit per-sample recurrence)")
+    return eb
 
 
 def soft_knee_gain_db(level_db: torch.Tensor, threshold_db: float,
@@ -84,27 +101,26 @@ def limiter(x: torch.Tensor, sr: int, threshold_db: float = -3.0,
     ``n_valid``: only the first n_valid samples of x are signal. The
     envelope runs on the envelope kernel (time-segmented for small
     batches, as the JAX package's Pallas backend picks it), the curve in
-    torch. ``envelope_block``: None or 1 (the kernel steps per sample);
-    ``linked_fuse=True`` (the in-kernel curve on the linked envelope) is
-    not ported."""
-    if linked_fuse:
-        raise NotPortedError(
-            "linked_fuse=True needs the segmented linked-gain kernel "
-            "(ROADMAP.md Queue 2, K4 _linked_seg_gain; Queue 3)")
-    if envelope_block not in (None, 1):
-        raise NotPortedError(
-            f"envelope_block={envelope_block}: block lookahead is not "
-            "ported; the envelope kernel steps per sample (ROADMAP.md "
-            "Queue 2, K2 follow-up)")
+    torch; ``linked_fuse=True`` runs the curve in the kernel's gain form
+    instead (the JAX ``linked_limiter_pallas``). ``envelope_block``:
+    None or a power of two (else :class:`ConfigError`); the kernels step
+    per sample whatever its value."""
+    check_envelope_block(envelope_block)
     if not torch.is_tensor(x) or x.dtype != torch.float32 or x.dim() < 2:
         raise ValueError("x must be a float32 tensor (..., channels, n)")
+    k_rel = _release_coeff(release_ms, sr)
+    c_att = _attack_coeff(attack_ms, sr)
+    if linked_fuse:
+        with stage("linked limiter"):
+            return linked_limiter(x, k_rel, c_att, threshold_db,
+                                  knee_db=knee_db, ceiling_db=ceiling_db,
+                                  ratio=ratio, makeup_db=makeup_db,
+                                  init=state, n_valid=n_valid)
     if n_valid is not None:
         nv = int(n_valid)
         if not 1 <= nv <= x.shape[-1]:
             raise ValueError(f"n_valid={nv} outside [1, {x.shape[-1]}]")
         x = x[..., :nv]
-    k_rel = _release_coeff(release_ms, sr)
-    c_att = _attack_coeff(attack_ms, sr)
     with stage("envelope"):
         d = torch.amax(x.abs(), dim=-2)  # linked channels: (..., n)
         e2, st = envelope(d, k_rel, c_att, init=state)

@@ -14,12 +14,21 @@ process exits non-zero:
    shape (256 x 160000 bus samples, the 4093-tap combined EQ+reverb IR,
    the real normalize gains and fade ramp): gate RMS error <= -100 dB;
    both times (CUDA events, median of 7 runs after 2 warm-ups) and a
-   ``conv1d`` of the gained input as the library yardstick;
-4. K2, the fused limiter kernel, against its plain twin on the K1
-   output: same gate; both times (the twin's time loop: median of 5);
+   ``conv1d`` of the gained input as the library yardstick; the
+   transform's size, radix stages and shared-memory exchanges; every
+   transform size the IR allows (8192 and 16384 points) timed and gated
+   (also at phase 7's operands);
+4. K2, the fused limiter, time-segmented by the card's rule (S), on the
+   K1 output against the unsegmented plain twin: same gate; the
+   ``limiter()`` call's time, its pass A (the envelope-only kernel with
+   the |x| detector), carries (alone, and as a CUDA-graph replay: their
+   time on the card) and fused pass B each timed, the
+   unsegmented kernel's time, the calls at S = 4, 8, 16, 32; the twin's
+   time loop (median of 5);
 5. the fused flagship step on 256 clips of 10 s (the root bench.py's
-   inputs), launch counters set to 0 just before: K1 and K2 must launch;
-   clip 0 must read <= -80 dB against the float64 oracle; throughput;
+   inputs), launch counters set to 0 just before: K1, K2 and its pass A
+   must launch; clip 0 must read <= -80 dB against the float64 oracle;
+   throughput;
 6. K5, the IIR kernel, on the small-batch branch's real EQ input (32
    clips: 128 segment rows of 40000 samples): kernel and twin at that
    shape (gate -100 dB, both times), and the segmented ``sosfilt`` path
@@ -224,10 +233,10 @@ def main() -> None:
         itself does."""
         R, n = x.shape
         taps = h.shape[0]
+        k_plain = fftconv.fir_convolve_plain(x, h, pre_row, pre_col)
         k = compare(name, "cuda", "xmtpu_torch/csrc/fftconv.cu",
                     "xmtpu/kernels/fftconv.py:164",
-                    fftconv.fir_convolve(x, h, pre_row, pre_col),
-                    fftconv.fir_convolve_plain(x, h, pre_row, pre_col))
+                    fftconv.fir_convolve(x, h, pre_row, pre_col), k_plain)
         k["ms"] = median_ms(
             lambda: fftconv.fir_convolve(x, h, pre_row, pre_col))
         k["plain_ms"] = median_ms(
@@ -238,23 +247,51 @@ def main() -> None:
             xin, w, padding=taps - 1), warmup=1, runs=3)
         del xin
         if taps <= fftconv.MAX_SHORT_TAPS:
-            n_fft = 1 << fftconv.fft_log_size(taps)
+            log_n = fftconv.fft_log_size(taps)
+            n_fft = 1 << log_n
             hop, parts = n_fft - (taps - 1), 1
         else:  # the partitioned form: one transform pair per partition
-            n_fft = 1 << fftconv.LONG_LOG_N
+            log_n = fftconv.LONG_LOG_N
+            n_fft = 1 << log_n
             hop, parts = fftconv.LONG_HOP, fftconv.long_parts(taps)
+        radices = "x".join(str(r) for r, _, _ in fftconv.fft_plan(log_n)[2])
         frames = -(-n // hop) * -(-R // 2) * parts
         own_ops = frames * (2 * 5 * n_fft * math.log2(n_fft) + 6 * n_fft)
         bound(k, 4 * (2 * R * n + taps + R + n), fir_fft_ops(R, n, taps))
         print(f"K1 {name} {tuple(x.shape)} x {taps} taps ({parts} "
-              f"partition{'s' if parts > 1 else ''} of {n_fft} points): "
+              f"partition{'s' if parts > 1 else ''} of {n_fft} points, "
+              f"radix {radices}, {fftconv.exchanges(log_n)} shared-memory "
+              f"exchanges per transform): "
               f"{k['rms_db']:.1f} dB vs plain (gate {GATE_KERNEL_DB}), "
               f"max abs {k['max_abs_err']:.3g}; kernel {k['ms']:.3f} ms, "
               f"plain {k['plain_ms']:.3f} ms, conv1d {k['library_ms']:.3f} "
               f"ms, bound {k['bound_ms']:.3f} ms ({k['bound_by']}; the "
               f"function's {fir_fft_ops(R, n, taps) / 1e9:.2f} GFLOP, the "
               f"kernel's own transforms {own_ops / 1e9:.2f} GFLOP) [{card}]")
+        if taps <= fftconv.MAX_SHORT_TAPS:
+            frame_sizes(x, h, pre_row, pre_col, k_plain)
         return k
+
+    def frame_sizes(x, h, pre_row, pre_col, y_plain):
+        """The short form at every transform size the IR allows, each
+        gated against the twin and timed."""
+        taps = h.shape[0]
+        got = {}
+        for log_n in range(fftconv.fft_log_size(taps),
+                           fftconv.LONG_LOG_N + 1):
+            def run_n(log_n=log_n):
+                return fftconv._launch(x, h, pre_row, pre_col, log_n)
+            db = rms_db((run_n() - y_plain).double().cpu().numpy(),
+                        y_plain.double().cpu().numpy())
+            if not db <= GATE_KERNEL_DB:
+                raise SystemExit(f"chip_smoke: K1 at N = {1 << log_n} "
+                                 f"failed its check: {db:.1f} dB")
+            got[1 << log_n] = (median_ms(run_n), db)
+        print(f"K1 frame size at {tuple(x.shape)} x {taps} taps: "
+              + ", ".join(f"N = {k}: {t:.3f} ms ({d:.1f} dB)"
+                          for k, (t, d) in got.items())
+              + f"; the rule picks {1 << fftconv.fft_log_size(taps)} "
+              f"[{card}]")
 
     step = tbatch.make_flagship_step(fused=True, device=dev)
     voice, bgm = make_inputs(BATCH, CLIP_SECONDS)
@@ -266,18 +303,21 @@ def main() -> None:
     ir = step.ir
     R, n = m.shape
     k1 = check_k1("fftconv", m, ir, scale, ramp)
+    y_plain = fftconv.fir_convolve_plain(m, ir, scale, ramp)
 
-    # 4. K2: fused limiter kernel vs its plain twin, on the K1 output
-    x = fftconv.fir_convolve_plain(m, ir, scale, ramp)
+    # 4. K2: the fused limiter, segmented by the card's rule, vs the
+    # unsegmented plain twin, on the K1 output
+    x = y_plain
     init = torch.zeros((2, R), dtype=torch.float32, device=dev)
     consts = envelope.curve_consts(step.curve)
+    k_rel, c_att, curve = step.k_rel, step.c_att, step.curve
 
-    def k2_kern():
-        return envelope.limiter(x, step.k_rel, step.c_att, step.curve)[0]
+    def k2_kern(segments=None):
+        return envelope.limiter(x, k_rel, c_att, curve,
+                                segments=segments)[0]
 
     def k2_plain():
-        return envelope.limiter_plain(x, step.k_rel, step.c_att, consts,
-                                      init)[0]
+        return envelope.limiter_plain(x, k_rel, c_att, consts, init)[0]
 
     k2 = compare("envelope", "cuda", "xmtpu_torch/csrc/envelope.cu",
                  "xmtpu/kernels/envelope.py:188", k2_kern(), k2_plain())
@@ -285,19 +325,62 @@ def main() -> None:
     k2["plain_ms"] = median_ms(k2_plain, warmup=1, runs=5)
     # per sample: abs, mul, max, mul, fma and about a dozen curve ops
     bound(k2, 4 * (2 * R * n + 4 * R), 18 * R * n)
-    print(f"K2 envelope (fused limiter) {tuple(x.shape)}: "
-          f"{k2['rms_db']:.1f} dB vs plain (gate {GATE_KERNEL_DB}), "
-          f"max abs {k2['max_abs_err']:.3g}; kernel {k2['ms']:.3f} ms, "
-          f"plain {k2['plain_ms']:.1f} ms, bound {k2['bound_ms']:.3f} ms "
-          f"({k2['bound_by']}), chain {chain_ms(n, 2):.3f} ms [{card}]")
-    del m, scale, ramp, x
+    # the call's parts at the rule's S, each alone on its real operands
+    S2 = envelope.limiter_segments(R, n, c_att, dev)
+    xs = x.reshape(R * S2, n // S2)
+    env0, zf_a = envelope.envelope_pass(
+        xs, k_rel, 1.0, torch.zeros((2, R * S2), device=dev),
+        abs_detector=True)
+
+    def carries():
+        e = envelope._chain(init[0], zf_a[0].reshape(R, S2),
+                            envelope._decay(k_rel, n // S2), "max")
+        e_in = e[:, :S2].reshape(R * S2)
+        ktab = envelope._seg_table("ktab", envelope.seg_ktab, k_rel,
+                                   n // S2, dev)
+        s_in, _ = envelope._seg_e2_carries(env0, e_in, ktab, c_att,
+                                           init[1], S2)
+        return torch.stack([e_in, s_in])
+
+    init_b = carries()
+    # the carries' ~20 small launches are host-bound alone; their time on
+    # the card is that of one CUDA-graph replay of them
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        carries()
+    carries_card_ms = median_ms(graph.replay)
+    part_ms = {
+        "pass A": median_ms(lambda: envelope.envelope_pass(
+            xs, k_rel, 1.0, torch.zeros((2, R * S2), device=dev),
+            abs_detector=True)),
+        "carries": median_ms(carries),
+        "pass B": median_ms(lambda: envelope.limiter_pass(
+            xs, k_rel, c_att, curve, init_b)),
+    }
+    unseg_ms = median_ms(lambda: k2_kern(1))
+    sweep = {S: median_ms(lambda S=S: k2_kern(S)) for S in (4, 8, 16, 32)}
+    print(f"K2 envelope (fused limiter) {tuple(x.shape)}, S = {S2} (the "
+          f"card's rule): {k2['rms_db']:.1f} dB vs the unsegmented plain "
+          f"twin (gate {GATE_KERNEL_DB}), max abs {k2['max_abs_err']:.3g}; "
+          f"limiter() call {k2['ms']:.3f} ms = "
+          + " + ".join(f"{k} {t:.3f}" for k, t in part_ms.items())
+          + f" ms each alone (the carries {carries_card_ms:.3f} ms on the "
+          f"card as a graph replay); unsegmented kernel {unseg_ms:.3f} ms; "
+          "calls at "
+          + ", ".join(f"S = {S}: {t:.3f}" for S, t in sweep.items())
+          + f" ms; plain {k2['plain_ms']:.1f} ms, bound "
+          f"{k2['bound_ms']:.3f} ms ({k2['bound_by']}), chain "
+          f"{chain_ms(n // S2, 2):.3f} ms per pass (unsegmented "
+          f"{chain_ms(n, 2):.3f}) [{card}]")
+    del m, scale, ramp, x, y_plain, xs, env0, zf_a, init_b, graph
 
     # 5. the fused flagship step, driven once with fresh launch counters
     reset_counts()
     y = step(v, b)
     torch.cuda.synchronize()
     fused_launches = counts()
-    if min(fused_launches[k] for k in ("fftconv", "envelope")) < 1:
+    if min(fused_launches[k] for k in ("fftconv", "envelope",
+                                       "envelope_seg")) < 1:
         raise SystemExit(f"chip_smoke: a kernel did not launch in the "
                          f"fused step: {fused_launches}")
     k1["launches"], k2["launches"] = (fused_launches["fftconv"],
@@ -566,7 +649,8 @@ def main() -> None:
           f"({k7['bound_by']}) [{card}]")
     del x7, xs, frames
     y, got = drive("pallas-front fused step", pal, (v, b),
-                   ("resample", "fftconv", "envelope"), ref, audio_s)
+                   ("resample", "fftconv", "envelope", "envelope_seg"), ref,
+                   audio_s)
     k7["launches"] = got["resample"]
     front_ms = {"pallas": median_ms(lambda: pal.front(v, b))}
     del pal, y
@@ -596,7 +680,8 @@ def main() -> None:
           f"{k8['plain_ms']:.3f} ms, no single library call, bound "
           f"{k8['bound_ms']:.4f} ms ({k8['bound_by']}) [{card}]")
     y, got = drive("rsmix-front fused step", rsm, (v, b),
-                   ("rsmix", "fftconv", "envelope"), ref, audio_s)
+                   ("rsmix", "fftconv", "envelope", "envelope_seg"), ref,
+                   audio_s)
     k8["launches"] = got["rsmix"]
     # the three fronts of the fused step (mix, resample, fade, normalize),
     # each alone on the same 256 clips, in one call

@@ -1,10 +1,13 @@
 """The port's CUDA kernels against their plain torch twins on the card,
 at edge shapes the flagship runs do not reach (ragged tiles, fewer
 rows than a warp, an IR longer than the signal, one sample, one
-section, carried state; the long-IR fftconv at 8193 / 8194 / 24,082 /
+section, carried state; the fftconv kernel at every transform size
+(1024 to 16384 points) and the long-IR form at 8193 / 8194 / 24,082 /
 65,537 taps, odd rows and a signal shorter than its hop; the envelope
 kernel's gain form with NaN input and a carried init, segmented and at
-S = 1; the public effects chain on both limiter forms).
+S = 1; the |x| detector of the segmented fused limiter's pass A and the
+segmented limiter itself; the public effects chain on both limiter
+forms).
 
 Marked ``gpu``; each test skips without a CUDA device. The module
 imports no JAX, so it runs on a machine without it:
@@ -12,8 +15,9 @@ imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
 Tolerance: -100 dB RMS against the twin (float32 on both sides; the
-kernel's radix-2 FFTs and the twin's library FFT round differently, the
-fused limiter differs by FMA contraction only; the IIR and envelope-only
+kernel's mixed-radix FFTs and the twin's library FFT round differently,
+the fused limiter differs by FMA contraction only, and its segmented
+form also by the segment carries' reassociation (states: rtol 1e-5); the IIR and envelope-only
 kernels round every operation as their twins do and should read exactly
 0). The eq_env kernel rounds every operation as its twin does: max abs
 0, asserted; it and the envelope-only kernel propagate NaN as their
@@ -87,6 +91,26 @@ def test_fftconv_kernel_vs_twin(cuda, R, n, m):
     ref = fftconv.fir_convolve_plain(*args)
     assert y.shape == (R, n) and bool(torch.isfinite(y).all())
     assert _db(y - ref, ref) <= -100.0
+
+
+@pytest.mark.parametrize("m", [2, 513, 1025, 2049, 4093, 8193])
+def test_fftconv_every_transform_size(cuda, m):
+    """Each compiled transform size (N = 1024, 1024, 2048, 4096, 8192,
+    16384) over odd rows and frames that end past n."""
+    R, n = 3, 30000
+    rng = np.random.default_rng(m)
+    x = torch.from_numpy(rng.standard_normal((R, n)).astype(np.float32))
+    ir = torch.from_numpy((rng.standard_normal(m) * np.exp(
+        -np.arange(m) / (m / 4 + 1))).astype(np.float32))
+    pr = torch.from_numpy(rng.uniform(0.5, 2.0, R).astype(np.float32))
+    pc = torch.from_numpy(rng.uniform(0.0, 1.0, n).astype(np.float32))
+    args = [t.to(cuda) for t in (x, ir, pr, pc)]
+    y = fftconv.fir_convolve(*args)
+    ref = fftconv.fir_convolve_plain(*args)
+    db = _db(y - ref, ref)
+    print(f"fftconv N = {1 << fftconv.fft_log_size(m)} ({m} taps) vs twin: "
+          f"{db:.1f} dB")
+    assert bool(torch.isfinite(y).all()) and db <= -100.0
 
 
 @pytest.mark.parametrize("R,n", [(33, 1003), (1, 1), (64, 192), (8, 384)])
@@ -539,3 +563,74 @@ def test_effects_on_card_matches_cpu(cuda, linked, kernels):
     print(f"effects (linked_fuse={linked}) on the card vs the CPU: {db:.1f} "
           "dB")
     assert y.shape == x.shape and db <= -90.0
+
+
+@pytest.mark.parametrize("R,n", [(33, 1003), (1, 1), (256, 5000)])
+def test_abs_detector_pass_bit_equal(cuda, R, n):
+    """Pass A's |x| detector in the kernel equals the pass over a
+    stored |x|, bit for bit (NaN included)."""
+    rng = np.random.default_rng(R * n)
+    x = torch.from_numpy((2.0 * rng.standard_normal((R, n))).astype(
+        np.float32)).to(cuda)
+    x[0, n // 2] = float("nan")
+    zeros = torch.zeros((2, R), device=cuda)
+    before = _counts()
+    a = envelope.envelope_pass(x, 0.99937, 1.0, zeros, abs_detector=True)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"envelope_seg"}
+    b = envelope.envelope_pass(x.abs(), 0.99937, 1.0, zeros)
+    for u, v in zip(a, b):
+        torch.testing.assert_close(u, v, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("R,n,S", [
+    (256, 160000, None),  # the flagship shape, the card's rule
+    (3, 40000, 8),
+    (1, 8192, 2),
+])
+def test_segmented_limiter_on_card(cuda, R, n, S):
+    """The segmented fused limiter (pass A, carries, fused pass B)
+    against the unsegmented kernel and the plain twin, from a carried
+    init."""
+    rng = np.random.default_rng(R + n)
+    x = torch.from_numpy((0.9 * rng.standard_normal((R, n))).astype(
+        np.float32)).to(cuda)
+    init = torch.from_numpy(rng.uniform(0.0, 1.0, (2, R)).astype(
+        np.float32)).to(cuda)
+    curve = envelope.curve_of(-3.0)
+    k_rel, c_att = 0.99937, 0.0606
+    S_run = envelope.limiter_segments(R, n, c_att, cuda) if S is None else S
+    assert S_run > 1
+    before = _counts()
+    y, zf = envelope.limiter(x, k_rel, c_att, curve, init=init, segments=S)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"envelope", "envelope_seg"}
+    y1, zf1 = envelope.limiter(x, k_rel, c_att, curve, init=init,
+                               segments=1)
+    y_p, zf_p = envelope.limiter_plain(x, k_rel, c_att,
+                                       envelope.curve_consts(curve), init)
+    db1, dbp = _db(y - y1, y1), _db(y - y_p, y_p)
+    print(f"segmented limiter ({R}, {n}, S = {S_run}) vs the unsegmented "
+          f"kernel {db1:.1f} dB, vs the twin {dbp:.1f} dB")
+    assert db1 <= -100.0 and dbp <= -100.0
+    torch.testing.assert_close(zf, zf1, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(zf, zf_p, rtol=1e-5, atol=1e-7)
+
+
+def test_step_segments_limiter_on_card(cuda):
+    """The fused step at 2 clips of 2 s: on the card its limiter runs
+    segmented (the rule's S = 4 at 32000 samples), on the CPU in one
+    pass; the outputs agree."""
+    rng = np.random.default_rng(14)
+    v = (rng.standard_normal((2, 88200)) * 8000).astype(np.int16)
+    b = (rng.standard_normal((2, 88200)) * 6000).astype(np.int16)
+    assert envelope.limiter_segments(2, 32000, 0.0606, cuda) == 4
+    y_cpu = tbatch.make_flagship_step(fused=True, device="cpu")(
+        torch.from_numpy(v), torch.from_numpy(b)).double()
+    before = _counts()
+    y = tbatch.make_flagship_step(fused=True, device=cuda)(
+        torch.from_numpy(v).to(cuda), torch.from_numpy(b).to(cuda))
+    torch.cuda.synchronize()
+    assert _launched(before) == {"fftconv", "envelope", "envelope_seg"}
+    assert y.dtype == torch.int16 and y.shape == (2, 32000)
+    assert _db(y.cpu().double() - y_cpu, y_cpu) <= -90.0

@@ -87,10 +87,10 @@ def test_fftconv_twin_vs_direct_f64(data, m):
 def _partitioned_model(x, ir, pre_row, pre_col, log_n, part):
     """Torch model of the long-IR kernel's partition loop, index for
     index: frames of ``hop = N - part`` outputs; for each partition p
-    the gained input window from t0 - p*part - (part-1), zero outside
-    [0, n), through an N-point FFT times the spectrum of ir[p*part,
-    (p+1)*part), and the window's samples [part-1, part-1+hop) summed
-    over the partitions (float64, so only the indexing is on trial)."""
+    the gained input window from t0 - (p+1)*part, zero outside [0, n),
+    through an N-point FFT times the spectrum of ir[p*part,
+    (p+1)*part), and the window's samples [part, N) summed over the
+    partitions (float64, so only the indexing is on trial)."""
     R, n = x.shape
     N = 1 << log_n
     hop = N - part
@@ -102,11 +102,11 @@ def _partitioned_model(x, ir, pre_row, pre_col, log_n, part):
     for f in range(-(-n // hop)):
         t0 = f * hop
         for p in range(parts):
-            g = torch.arange(N) + (t0 - p * part - (part - 1))
+            g = torch.arange(N) + (t0 - (p + 1) * part)
             ok = (g >= 0) & (g < n)
             win = torch.where(ok, xin[:, g.clamp(0, n - 1)], 0.0)
             out = torch.fft.ifft(torch.fft.fft(win, dim=-1) * H[p]).real
-            y[:, t0:t0 + hop] += out[:, part - 1:part - 1 + hop]
+            y[:, t0:t0 + hop] += out[:, part:]
     return y[:, :n]
 
 
@@ -136,6 +136,84 @@ def test_fftconv_partition_loop_model(data, R, n, m, log_n, part):
     print(f"partition model ({R}, {n}) x {m} taps: {db_m:.1f} dB vs "
           f"float64 (gate -120); twin {db_t:.1f} dB (gate -120)")
     assert db_m <= -120.0 and db_t <= -120.0
+
+
+def _plan_stages(z, log_n, dit):
+    """float64 model of the kernel's transform core (``Plan`` in
+    ``csrc/fftconv.cu``, described by ``fftconv.fft_plan``), stage by
+    stage over the last axis of ``z``: stage s takes the points (b // L)
+    * M + b % L + L * k, k < R, of butterfly b, runs the R-point DFT and
+    multiplies by w^(j*k*N/M), j = b % L, after it (dif, stages in
+    order) or before it (dit, stages in reverse order), and writes the
+    results back to the same points."""
+    N = 1 << log_n
+    w = torch.exp(-2j * np.pi * torch.arange(N, dtype=torch.float64) / N)
+    a = z.clone()
+    stages = fftconv.fft_plan(log_n)[2]
+    for R, M, L in (reversed(stages) if dit else stages):
+        b = torch.arange(N // R)[:, None]
+        k = torch.arange(R)[None, :]
+        pos = (b // L) * M + b % L + L * k
+        tw = w[(b % L) * k * (N // M)]
+        x = a[..., pos]
+        x = torch.fft.fft(x * tw if dit else x, dim=-1)
+        a[..., pos] = x if dit else x * tw
+    return a
+
+
+def _digit_reversed(log_n):
+    """Where dif leaves bin f: f = f0 + R0 f1 + R0 R1 f2 + ... lands at
+    f0 L0 + f1 L1 + ... (L_s the stage strides)."""
+    f = torch.arange(1 << log_n)
+    where = torch.zeros_like(f)
+    for R, _, L in fftconv.fft_plan(log_n)[2]:
+        where += (f % R) * L
+        f = f // R
+    return where
+
+
+@pytest.mark.parametrize("log_n", [10, 11, 12, 13, 14])
+def test_fft_plan_model(log_n):
+    """K1's mixed-radix plan against torch.fft (float64, so only the
+    index maps and twiddle exponents are on trial): dif leaves the
+    spectrum in the digit-reversed order, dit takes that order back to a
+    natural-order DFT, and the overlap-save round trip through both
+    (conj(dit(conj(X * H / N)))) is the circular convolution. Each
+    stage's butterflies, b = t + T*q over the T threads, cover every
+    point once, and each half-warp's padded shared-memory indices (p +
+    p // 16) differ modulo 16: no bank conflict."""
+    N = 1 << log_n
+    T, P, stages = fftconv.fft_plan(log_n)
+    assert T * P == N and P in (16, 32)
+    assert int(np.prod([r for r, _, _ in stages])) == N
+    assert fftconv.exchanges(log_n) == len(stages) - 1 <= 3
+    rng = np.random.default_rng(log_n)
+    x, h = (torch.from_numpy(rng.standard_normal((2, N))
+                             + 1j * rng.standard_normal((2, N)))
+            for _ in range(2))
+    ref = torch.fft.fft(x, dim=-1)
+    pos = _digit_reversed(log_n)
+    X = _plan_stages(x, log_n, dit=False)
+    assert torch.allclose(X[:, pos], ref, rtol=0, atol=1e-9 * N)
+    Y = torch.zeros_like(x)
+    Y[:, pos] = h  # spectrum h stored in dif order
+    assert torch.allclose(_plan_stages(Y, log_n, dit=True),
+                          torch.fft.fft(h, dim=-1), rtol=0, atol=1e-9 * N)
+    H = _plan_stages(h, log_n, dit=False) / N
+    y = _plan_stages((X * H).conj(), log_n, dit=True).conj()
+    circ = torch.fft.ifft(ref * torch.fft.fft(h, dim=-1), dim=-1)
+    assert torch.allclose(y, circ, rtol=0, atol=1e-9 * N)
+    t = torch.arange(T)
+    for R, M, L in stages:
+        seen = torch.zeros(N, dtype=torch.int64)
+        for q in range(P // R):
+            b = (t + T * q)[:, None]
+            p = (b // L) * M + b % L + L * torch.arange(R)[None, :]
+            seen[p.reshape(-1)] += 1
+            banks = ((p + p // 16) % 16).reshape(T // 16, 16, R)
+            assert bool((banks.sort(dim=1).values
+                         == torch.arange(16)[None, :, None]).all())
+        assert bool((seen == 1).all())
 
 
 def test_reverb_op_vs_jax(data):

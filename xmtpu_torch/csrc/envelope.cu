@@ -16,7 +16,11 @@
 //    Replaces xmtpu/kernels/envelope.py:_env_kernel and _env_blk_kernel
 //    with curve=None, as the time-segmented passes _seg_pass_a (c_att =
 //    1, no correction) and _envelope_seg (k_rel = 0, corrected) drive
-//    them, and the unsegmented envelope_pallas call. Its arithmetic is
+//    them, and the unsegmented envelope_pallas call. With abs_detector
+//    the chain warp takes d = |x| of the signed input as it steps (pass
+//    A of the segmented fused limiter, below), so |x| is never written
+//    to device memory; |x| is exact, so this is bit for bit the pass
+//    over a stored |x|. Its arithmetic is
 //    not contracted: __fmul_rn/__fadd_rn in the order of the JAX
 //    kernel's `update`, so it computes bit for bit what the plain torch
 //    twin (separate elementwise ops) computes; its maxes propagate NaN
@@ -41,9 +45,18 @@
 // time of one step however many SMs are free. The bytes (x and y,
 // 0.33 GB at 256 rows) are not the limit, and neither should be the
 // exp/log of the curve, which is independent per sample. The segmented
-// form shortens the chain: S segments of a row run as S rows from zero
+// forms shorten the chain: S segments of a row run as S rows from zero
 // state, and exact cross-segment corrections (outside this kernel and
-// in its corrected pass) restore the unsegmented result.
+// in its corrected pass) restore the unsegmented result. The fused
+// limiter segments so too (kernels/envelope.py:limiter): pass A is the
+// envelope form with c_att = 1 and the |x| detector over the R*S
+// segment rows, the exact segment states (e_in, s_in) follow in torch,
+// and pass B is form 1 over the same segment rows from those states,
+// which is the unsegmented recurrence in exact arithmetic. S comes from
+// the row count, the SM count and this kernel's resident blocks per SM
+// (xm_limiter_blocks_per_sm; kernels/_seg.py:gpu_segments), so that the
+// R*S/kRows blocks fill the card: at 256 rows the unsegmented grid is 32
+// blocks on 132 SMs.
 //
 // Design: one block per kRows rows. Warp 0 runs the recurrence, one row
 // per lane, on time chunks staged in shared memory. The other warps keep
@@ -165,8 +178,9 @@ __device__ __forceinline__ void correct(float* buf,
 }
 
 // kFused: detector |x| and contracted arithmetic (the fused limiter);
-// otherwise the input is the detector and every operation rounds alone.
-template <bool kFused>
+// otherwise every operation rounds alone, and the detector is the input
+// (kAbs: its magnitude).
+template <bool kFused, bool kAbs = false>
 struct Chain {
   float env, e2;
   float k_rel, a_att, c_att;
@@ -176,7 +190,7 @@ struct Chain {
       env = fmaxf(fabsf(x), k_rel * env);
       e2 = a_att * e2 + c_att * env;
     } else {
-      env = xm::max_nan(x, __fmul_rn(k_rel, env));
+      env = xm::max_nan(kAbs ? fabsf(x) : x, __fmul_rn(k_rel, env));
       e2 = __fadd_rn(__fmul_rn(a_att, e2), __fmul_rn(c_att, env));
     }
     return e2;
@@ -219,8 +233,8 @@ enum Form { kEnvelope, kApply, kGain };
 
 // kApply: the fused limiter (y = curve(x, e2)); kGain: y = gain(e2);
 // kEnvelope: y = e2. kCorr (not with kApply): the inline correction from
-// ecorr (R,) and ktab (n,).
-template <int kForm, bool kCorr>
+// ecorr (R,) and ktab (n,). kAbs (kEnvelope only): detector |x|.
+template <int kForm, bool kCorr, bool kAbs = false>
 __global__ void __launch_bounds__(kThreads)
 envelope_kernel(const float* __restrict__ x, const float* __restrict__ init,
                 const float* __restrict__ ktab,
@@ -229,6 +243,8 @@ envelope_kernel(const float* __restrict__ x, const float* __restrict__ init,
                 float c_att, Curve cv) {
   static_assert(!(kForm == kApply && kCorr),
                 "the fused curve reads the raw signal");
+  static_assert(!kAbs || (kForm == kEnvelope && !kCorr),
+                "the |x| detector is pass A's: no curve, no correction");
   __shared__ __align__(16) float xs[kXBufs * kRows * kLd];
   __shared__ __align__(16) float es[kEBufs * kRows * kLd];
   const int r0 = blockIdx.x * kRows;
@@ -241,7 +257,7 @@ envelope_kernel(const float* __restrict__ x, const float* __restrict__ init,
   auto ebuf = [&](int c) { return es + (c % kEBufs) * kRows * kLd; };
   auto clen = [&](int c) { return min(kChunk, n - c * kChunk); };
 
-  Chain<kForm == kApply> ch{0.f, 0.f, k_rel, 1.f - c_att, c_att};
+  Chain<kForm == kApply, kAbs> ch{0.f, 0.f, k_rel, 1.f - c_att, c_att};
   if (warp == 0 && lane < rows) {
     ch.env = init[r0 + lane];
     ch.e2 = init[R + r0 + lane];
@@ -317,16 +333,34 @@ extern "C" int xm_limiter_f32(const float* x, const float* init, float* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Resident blocks per SM of the fused form (the segment rule's input),
+// or 0 if the query fails.
+extern "C" int xm_limiter_blocks_per_sm() {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, envelope_kernel<kApply, false>, kThreads, 0) !=
+      cudaSuccess)
+    return 0;
+  return blocks;
+}
+
 // d, e2: (R, n) row-major detector in, smoothed envelope out; init, zf:
 // (2, R). ktab (n,) and ecorr (R,) both null (no correction) or both
-// set. Launches on `stream` and returns cudaGetLastError() of the launch.
+// set. abs_detector (no correction): d is a signed signal, the detector
+// |d|. Launches on `stream` and returns cudaGetLastError() of the launch.
 extern "C" int xm_envelope_f32(const float* d, const float* init,
                                const float* ktab, const float* ecorr,
                                float* e2, float* zf, int R, int n,
-                               float k_rel, float c_att, void* stream) {
+                               float k_rel, float c_att, int abs_detector,
+                               void* stream) {
   const int blocks = (R + kRows - 1) / kRows;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ktab != nullptr && ecorr != nullptr)
+  if (abs_detector && (ktab != nullptr || ecorr != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (abs_detector)
+    envelope_kernel<kEnvelope, false, true><<<blocks, kThreads, 0, s>>>(
+        d, init, nullptr, nullptr, e2, zf, R, n, k_rel, c_att, Curve{});
+  else if (ktab != nullptr && ecorr != nullptr)
     envelope_kernel<kEnvelope, true><<<blocks, kThreads, 0, s>>>(
         d, init, ktab, ecorr, e2, zf, R, n, k_rel, c_att, Curve{});
   else if (ktab == nullptr && ecorr == nullptr)

@@ -12,332 +12,555 @@
 // gains applied as the tile loads, the inverse transform reusing the
 // forward one through conjugation. What does not carry over is how the
 // TPU computed its DFTs: as 3-pass bf16 matmuls, because its matrix
-// unit has no float32 path. Here each block runs a float32 radix-2 FFT
-// in shared memory.
+// unit has no float32 path. Here each block runs float32 FFTs with the
+// frame held in registers.
 //
-// What bounds it on the H100: shared-memory bandwidth. A block moves its
-// N-point complex frame (N = 8192 at the flagship's 4093 taps, 64 KB)
-// through 2*log2(N) = 26 butterfly passes; the flops (about 5 N log2 N
-// per transform, 5.5 GFLOP in all at 256 x 160000) and the device-memory
-// bytes (x and y once, 0.33 GB; the IR spectrum and twiddles come from
-// L2) are far below their peaks. A direct-form FIR of the same function
-// was FP32-FMA-bound at 1.7e11 FMA (7.2 ms measured).
+// What bounds it on the H100: at the flagship shape (256 x 160000, 4093
+// taps) the function's bytes (x and y once, 0.33 GB: 0.098 ms) bind,
+// ahead of its arithmetic (3.9 GFLOP at its best frame size). A radix-2
+// transform in shared memory moved the whole frame through shared
+// memory and a barrier 2*log2(N) = 26 times per frame and ran 20x the
+// bytes bound; this design runs about 8x (PERF.md).
 //
-// Design:
-// - spectrum_kernel (one block per call) writes the twiddles
-//   w[k] = exp(-2 pi i k / N) (sincospif, accurate to an ulp or two)
-//   and the IR spectrum H / N, in bit-reversed order, to a
-//   caller-allocated workspace;
-// - fft_conv_kernel, one block per (frame, row pair): stage the frame's
-//   gained input in natural order, in-place decimation-in-frequency FFT
-//   (natural in, bit-reversed out), multiply by H / N and conjugate,
-//   in-place decimation-in-time FFT (bit-reversed in, natural out), and
-//   store the conjugate's valid samples [m-1, N) of each row:
-//   hop = N - (m-1) outputs per frame. Pairing the two orderings means
-//   no bit-reversal permutation anywhere: a scattered bit-reversed
-//   store puts 32 lanes on one shared-memory bank.
-// N is the smallest power of two >= 2*(m-1) (and >= 1024), so at least
-// half of every frame is output; the frame and the twiddles take 12*N
-// bytes of shared memory, at most 192 KB (N = 16384, m <= 8193).
-// The TPU kernel's DFT-on-matrix-units design (here: tensor cores with a
-// 3xTF32 split) remains a possible follow-up.
+// The transform core (Plan, dif, dit), which every kernel here uses:
+// - Mixed radix, in registers. A transform of N = 2^LogN points (1024 to
+//   16384, one template instance per size, so every loop unrolls and
+//   every index is a shift or a mask) runs as S = ceil(LogN / 4) stages:
+//   one of radix R0 = 2^(LogN - 4(S-1)) (2 to 16), then radix 16. Each
+//   of T = min(N/16, 512) threads owns P = N/T points (16 or 32) and
+//   runs P/R butterflies of radix R per stage, one at a time: its R
+//   points in registers, the radix-R DFT as a radix-2 network there with
+//   constant twiddles, read from and written back to the same places of
+//   the shared frame (so only R points are live: the 32-point instances
+//   spilled when a thread held all of its points). The frame crosses a
+//   barrier only between two stages: S-1 exchanges per transform (3 at
+//   N = 8192 and 16384, 2 below). The first stage of the forward
+//   transform loads its points straight from device memory (16 loads
+//   issued together), and the last stage of the inverse stores straight
+//   to it.
+// - Stage s works on sub-transforms of M_s points (M_0 = N, M_{s+1} =
+//   M_s / R_s) at stride L_s = M_s / R_s: butterfly b = t + T*q of
+//   thread t takes the points at (b / L) * M + b % L + L * k, k < R, and
+//   writes its outputs back to the same places, so within a stage no two
+//   threads touch one point.
+// - Twiddles between stages, W_M^(j*k) = W_N^(j*k*N/M) with j = b % L,
+//   come from one table of the N roots w[i] = exp(-2 pi i i / N), written
+//   by sincospif (accurate to an ulp or two) and read through the
+//   read-only cache; the last stage (L = 1) needs none.
+// - Ordering, as before: the forward transform (dif: decimation in
+//   frequency, twiddles after each butterfly) takes natural order and
+//   leaves the spectrum in mixed-radix digit-reversed order; dit, its
+//   transpose (the same stages in reverse order, twiddles before each
+//   butterfly), takes that order back to natural. The DFT matrix is
+//   symmetric, so dit computes the same forward DFT: the inverse is
+//   conj(dit(conj(X * H / N))). The IR spectrum is written by dif, so it
+//   lies in the same order, and the spectral product runs in registers
+//   between the two transforms (the last stage of dif and the first of
+//   dit own the same points). No permutation anywhere.
+// - Padding: point p lives at p + p / 16 in shared memory. A warp's
+//   float2 accesses are served per half-warp of 16 lanes, conflict-free
+//   when their 16 indices differ modulo 16. Where L >= 16 a half-warp's
+//   points are 16 consecutive ones; where L < 16 (radix 16, M = 16 L) its
+//   lanes cover 16/L sub-transforms g at the same k, p = 16 L g + j + L k,
+//   and the pad adds L g: p + p / 16 = j + L g + const (mod 16) over
+//   j < L, g < 16/L, all different. As every L is 1 or a multiple of 16,
+//   a butterfly's padded places are one base plus constant offsets.
+//   (tests/test_torch_kernels.py checks every stage of every size.)
+// - The tensor-core design of the TPU kernel (the DFT as matrix products,
+//   here with a 3xTF32 split) stays the follow-up if the transform is
+//   still the limit.
 //
+// Kernels:
+// - twiddle_kernel writes the N roots to the workspace;
+// - spectrum_kernel, one block per IR partition, writes H_p / N (dif
+//   order, in the register-slot layout the conv kernels read back
+//   coalesced: slot i of thread t at i * T + t);
+// - fft_conv_kernel, one block per (frame, row pair): the frame's gained
+//   input in natural order, dif, times H / N and conjugated, dit, and
+//   the conjugate's valid samples [m-1, N) of each row stored: hop = N -
+//   (m-1) outputs per frame. N is the smallest power of two >= 2*(m-1)
+//   (and >= 1024), so at least half of every frame is output.
 // Longer IRs (xm_fir_convolve_long_f32; the TPU kernel runs them at
 // blocks of 32768 to 131072 points, e.g. the 24,082-tap folded EQ+reverb
 // of the public effects chain at 48 kHz) would need a frame of up to 1 MB
-// here. Instead the IR is uniformly partitioned, in the same launch pair
-// and with the same 16384-point transform: h_p = ir[p*Lp, (p+1)*Lp),
+// here. Instead the IR is uniformly partitioned, in the same launch
+// sequence and with the 16384-point transform: h_p = ir[p*Lp, (p+1)*Lp),
 // Lp = 8192, P = ceil(m / Lp) partitions, and
 //   y[t] = sum_p conv(x delayed by p*Lp, h_p)[t].
-// - part_spectrum_kernel, one block per partition, writes the P spectra
-//   H_p / N (bit-reversed) and the twiddles to the workspace;
-// - fft_conv_long_kernel, one block per (frame of 8192 outputs, row
-//   pair), loops over the partitions: stage the gained input window that
-//   starts at t0 - p*Lp - (Lp-1) (zero before t = 0 and past n, the
-//   gains applied to real samples only), forward FFT, multiply by H_p,
-//   inverse FFT, and add the window's samples [Lp-1, Lp-1+8192) to 16
-//   register accumulators per thread and row; one store at the end.
-// Each partition costs a forward and an inverse transform, so the work
-// per output is about P times the short form's: the frequency-domain
-// delay line (one forward transform per frame, spectra accumulated before
-// one inverse) is the known faster design, left to later work.
+// fft_conv_long_kernel, one block per (frame of 8192 outputs, row pair),
+// loops over the partitions: the gained input window that starts at
+// t0 - (p+1)*Lp (zero before t = 0 and past n, the gains applied to real
+// samples only), dif, times H_p, dit, and the window's samples [Lp, N)
+// (the first stage's points k >= R0/2) added to register accumulators;
+// one store at the end. Each partition costs a forward and an inverse
+// transform, so the work per output is about P times the short form's:
+// the frequency-domain delay line (one forward transform per frame,
+// spectra accumulated before one inverse) is the known faster design,
+// left to later work.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kMaxLogN = 14;  // N <= 16384: 192 KB of shared memory
+constexpr int kMinLogN = 10;
+constexpr int kMaxLogN = 14;
+constexpr int kMaxThreads = 512;
+constexpr int kTwiddleThreads = 256;
+
+// The transform of 2^LogN points (see the note at the top).
+template <int LogN>
+struct Plan {
+  static constexpr int N = 1 << LogN;
+  static constexpr int T = N / 16 < kMaxThreads ? N / 16 : kMaxThreads;
+  static constexpr int P = N / T;           // points per thread
+  static constexpr int S = (LogN + 3) / 4;  // radix stages
+  static constexpr int R0 = 1 << (LogN - 4 * (S - 1));
+  static constexpr int kSmem =
+      static_cast<int>(sizeof(float2)) * (N + N / 16);  // padded frame
+  __host__ __device__ static constexpr int radix(int s) {
+    return s == 0 ? R0 : 16;
+  }
+  __host__ __device__ static constexpr int span(int s) {  // M_s
+    return s == 0 ? N : (N / R0) >> (4 * (s - 1));
+  }
+  __host__ __device__ static constexpr int stride(int s) {  // L_s
+    return span(s) / radix(s);
+  }
+};
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
-// In-place radix-2 FFTs of a[0, N), tw[k] = exp(-2 pi i k / N), k < N/2.
-// Stage s combines a[i] and a[i + 2^(s-1)] with twiddle stride N / 2^s.
-// Both end with a barrier.
+// a * exp(-2 pi i e / 16), 0 <= e < 8. e is a constant once the
+// butterfly loops unroll, so the branches fold away (straight-line code:
+// a table indexed by e would put the register arrays in local memory).
+__device__ __forceinline__ float2 w16(float2 a, int e) {
+  constexpr float kC1 = 0.923879532511286756f;  // cos(pi/8)
+  constexpr float kC2 = 0.707106781186547524f;  // cos(pi/4)
+  constexpr float kC3 = 0.382683432365089772f;  // cos(3 pi/8)
+  float c = 0.f, s = 1.f;  // cos, sin of pi e / 8
+  if (e == 0) return a;
+  if (e == 4) return make_float2(a.y, -a.x);
+  if (e == 1) c = kC1, s = kC3;
+  if (e == 2) c = kC2, s = kC2;
+  if (e == 3) c = kC3, s = kC1;
+  if (e == 5) c = -kC3, s = kC1;
+  if (e == 6) c = -kC2, s = kC2;
+  if (e == 7) c = -kC1, s = kC3;
+  return make_float2(a.x * c + a.y * s, a.y * c - a.x * s);
+}
 
-// Decimation in frequency: natural order in, bit-reversed order out.
-__device__ void fft_dif(float2* a, const float2* tw, int n_fft, int log_n) {
-  for (int s = log_n; s >= 1; --s) {
-    const int half = 1 << (s - 1);
-    const int tstep = n_fft >> s;
-    for (int b = threadIdx.x; b < n_fft / 2; b += blockDim.x) {
-      const int pos = b & (half - 1);
-      const int i = ((b >> (s - 1)) << s) + pos;
-      const float2 u = a[i];
-      const float2 v = a[i + half];
-      a[i] = make_float2(u.x + v.x, u.y + v.y);
-      a[i + half] =
-          cmul(tw[pos * tstep], make_float2(u.x - v.x, u.y - v.y));
+// The bits-bit reversal of k, bits <= 4.
+__host__ __device__ constexpr int bitrev(int k, int bits) {
+  return (((k & 1) << 3) | ((k & 2) << 1) | ((k & 4) >> 1) |
+          ((k & 8) >> 3)) >> (4 - bits);
+}
+
+// R-point DFT of x[0, R) in registers, natural order in and out: a
+// radix-2 decimation-in-frequency network, then a relabelling of
+// registers that costs no instruction.
+template <int R>
+__device__ __forceinline__ void dft(float2* x) {
+  constexpr int kBits = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : 4;
+  // constant trip counts, so both loops unroll and every index folds
+  // (a loop halving its counter does not unroll, and an array indexed
+  // at run time lives in local memory)
+#pragma unroll
+  for (int lh = kBits - 1; lh >= 0; --lh) {
+#pragma unroll
+    for (int bf = 0; bf < R / 2; ++bf) {
+      const int i = bf & ((1 << lh) - 1);
+      const int a = ((bf >> lh) << (lh + 1)) + i;  // the pair a, a + h
+      const float2 u = x[a];
+      const float2 w = x[a + (1 << lh)];
+      x[a] = make_float2(u.x + w.x, u.y + w.y);
+      x[a + (1 << lh)] =
+          w16(make_float2(u.x - w.x, u.y - w.y), i << (3 - lh));
     }
-    __syncthreads();
+  }
+  float2 y[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) y[k] = x[bitrev(k, kBits)];
+#pragma unroll
+  for (int k = 0; k < R; ++k) x[k] = y[k];
+}
+
+// Point k of butterfly q of this thread at stage s.
+template <class Pl, int s>
+__device__ __forceinline__ int position(int q, int k) {
+  constexpr int L = Pl::stride(s);
+  constexpr int M = Pl::span(s);
+  const int b = static_cast<int>(threadIdx.x) + Pl::T * q;
+  return (b / L) * M + (b % L) + L * k;
+}
+
+// Its place p + p / 16 in the padded shared frame. Every stride L is 1
+// or a multiple of 16 and every span M a multiple of 16, so that is
+// g*(M + M/16) + j + j/16 + k*(L + L/16) (g = b / L, j = b % L): one base
+// per butterfly plus a constant offset per point.
+template <class Pl, int s>
+__device__ __forceinline__ int padded(int q, int k) {
+  constexpr int L = Pl::stride(s);
+  constexpr int M = Pl::span(s);
+  static_assert(M % 16 == 0 && (L == 1 || L % 16 == 0), "pad arithmetic");
+  const int b = static_cast<int>(threadIdx.x) + Pl::T * q;
+  const int j = b % L;
+  return (b / L) * (M + M / 16) + j + (j >> 4) + k * (L + L / 16);
+}
+
+// x[k] *= W_M^(j*k) = w[j * k * N/M], k = 1 .. R-1.
+template <class Pl, int s>
+__device__ __forceinline__ void twiddle(float2* x, int j,
+                                        const float2* __restrict__ tw) {
+  constexpr int R = Pl::radix(s);
+  constexpr int kStep = Pl::N / Pl::span(s);
+  if constexpr (Pl::stride(s) > 1) {
+#pragma unroll
+    for (int k = 1; k < R; ++k) x[k] = cmul(x[k], __ldg(tw + j * k * kStep));
   }
 }
 
-// Decimation in time: bit-reversed order in, natural order out.
-__device__ void fft_dit(float2* a, const float2* tw, int n_fft, int log_n) {
-  for (int s = 1; s <= log_n; ++s) {
-    const int half = 1 << (s - 1);
-    const int tstep = n_fft >> s;
-    for (int b = threadIdx.x; b < n_fft / 2; b += blockDim.x) {
-      const int pos = b & (half - 1);
-      const int i = ((b >> (s - 1)) << s) + pos;
-      const float2 u = a[i];
-      const float2 t = cmul(tw[pos * tstep], a[i + half]);
-      a[i] = make_float2(u.x + t.x, u.y + t.y);
-      a[i + half] = make_float2(u.x - t.x, u.y - t.y);
-    }
-    __syncthreads();
+// Butterfly q of stage s on its R points x; kDit: the transposed stage
+// (twiddles first).
+template <class Pl, int s, bool kDit>
+__device__ __forceinline__ void butterfly(float2* x, int q,
+                                          const float2* __restrict__ tw) {
+  constexpr int R = Pl::radix(s);
+  const int j = (static_cast<int>(threadIdx.x) + Pl::T * q) % Pl::stride(s);
+  if constexpr (kDit) twiddle<Pl, s>(x, j, tw);
+  dft<R>(x);
+  if constexpr (!kDit) twiddle<Pl, s>(x, j, tw);
+}
+
+// Stage s on the padded shared frame `a`, in place, one butterfly at a
+// time: only its R points are live in registers.
+template <class Pl, int s, bool kDit>
+__device__ __forceinline__ void stage(float2* a,
+                                      const float2* __restrict__ tw) {
+  constexpr int R = Pl::radix(s);
+#pragma unroll
+  for (int q = 0; q < Pl::P / R; ++q) {
+    float2 x[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) x[k] = a[padded<Pl, s>(q, k)];
+    butterfly<Pl, s, kDit>(x, q, tw);
+#pragma unroll
+    for (int k = 0; k < R; ++k) a[padded<Pl, s>(q, k)] = x[k];
   }
 }
 
-// work[0, N): H / N in bit-reversed order; work[N, N + N/2): twiddles.
-__global__ void __launch_bounds__(kThreads)
-spectrum_kernel(const float* __restrict__ ir, int m, float2* work,
-                int n_fft, int log_n) {
-  extern __shared__ float2 smem[];
-  float2* a = smem;
-  float2* tw = smem + n_fft;
-  for (int k = threadIdx.x; k < n_fft / 2; k += blockDim.x) {
+// Stages s, s+1, ... (dif) or s, s-1, ... (dit) up to kEnd (excluded),
+// each after a barrier.
+template <class Pl, int s, int kEnd, bool kDit>
+__device__ __forceinline__ void stages(float2* a,
+                                       const float2* __restrict__ tw) {
+  if constexpr (s != kEnd) {
+    __syncthreads();
+    stage<Pl, s, kDit>(a, tw);
+    stages<Pl, kDit ? s - 1 : s + 1, kEnd, kDit>(a, tw);
+  }
+}
+
+// The forward transform up to its last stage: stage 0 takes its points
+// from load(p) (natural order; 16 points of the thread's loads issued
+// before their butterflies, so the latencies overlap without holding all
+// P points) and writes them to the shared frame, stages 1 .. S-2 follow
+// there. Ends with a barrier.
+template <class Pl, class Load>
+__device__ __forceinline__ void dif_head(float2* a,
+                                         const float2* __restrict__ tw,
+                                         Load load) {
+  constexpr int R0 = Pl::R0;
+  constexpr int kQ = 16 / R0;  // butterflies per 16 points
+#pragma unroll
+  for (int c = 0; c < Pl::P / 16; ++c) {
+    float2 x[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      x[i] = load(position<Pl, 0>(c * kQ + i / R0, i % R0));
+#pragma unroll
+    for (int u = 0; u < kQ; ++u) {
+      const int q = c * kQ + u;
+      butterfly<Pl, 0, false>(x + u * R0, q, tw);
+#pragma unroll
+      for (int k = 0; k < R0; ++k) a[padded<Pl, 0>(q, k)] = x[u * R0 + k];
+    }
+  }
+  stages<Pl, 1, Pl::S - 1, false>(a, tw);
+  __syncthreads();
+}
+
+// The turn between the transforms, in registers: the last stage of dif
+// (the spectrum in digit-reversed order), v -> conj(v * H) with H in the
+// register-slot layout (slot q*16 + k of thread t at (q*16 + k)*T + t),
+// and the first stage of dit on the same points.
+template <class Pl>
+__device__ __forceinline__ void turn(float2* a, const float2* __restrict__ h,
+                                     const float2* __restrict__ tw) {
+  constexpr int s = Pl::S - 1;
+  constexpr int R = Pl::radix(s);
+#pragma unroll
+  for (int q = 0; q < Pl::P / R; ++q) {
+    float2 x[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) x[k] = a[padded<Pl, s>(q, k)];
+    butterfly<Pl, s, false>(x, q, tw);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const float2 p = cmul(x[k], __ldg(h + (q * R + k) * Pl::T + threadIdx.x));
+      x[k] = make_float2(p.x, -p.y);
+    }
+    butterfly<Pl, s, true>(x, q, tw);
+#pragma unroll
+    for (int k = 0; k < R; ++k) a[padded<Pl, s>(q, k)] = x[k];
+  }
+}
+
+// The inverse's remaining stages S-2 .. 0 (dit from the turn); stage 0
+// gives its natural-order outputs to store(q, k, p, v) instead of the
+// shared frame.
+template <class Pl, class Store>
+__device__ __forceinline__ void dit_tail(float2* a,
+                                         const float2* __restrict__ tw,
+                                         Store store) {
+  constexpr int R0 = Pl::R0;
+  stages<Pl, Pl::S - 2, 0, true>(a, tw);
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < Pl::P / R0; ++q) {
+    float2 x[R0];
+#pragma unroll
+    for (int k = 0; k < R0; ++k) x[k] = a[padded<Pl, 0>(q, k)];
+    butterfly<Pl, 0, true>(x, q, tw);
+#pragma unroll
+    for (int k = 0; k < R0; ++k) store(q, k, position<Pl, 0>(q, k), x[k]);
+  }
+}
+
+// The gained input window x[g0 + p], zero outside [0, n); row b only if
+// present.
+struct Window {
+  const float* xa;
+  const float* xb;
+  const float* pre_col;
+  float ga, gb;
+  bool has_b;
+  int g0, n;
+  __device__ __forceinline__ float2 operator()(int p) const {
+    const int g = g0 + p;
+    float2 w = make_float2(0.f, 0.f);
+    if (g >= 0 && g < n) {
+      const float c = __ldg(pre_col + g);
+      w.x = __ldg(xa + g) * ga * c;
+      if (has_b) w.y = __ldg(xb + g) * gb * c;
+    }
+    return w;
+  }
+};
+
+__global__ void twiddle_kernel(float2* tw, int n_fft) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k < n_fft) {
     float s, c;
     sincospif(-2.0f * static_cast<float>(k) / static_cast<float>(n_fft), &s,
               &c);
     tw[k] = make_float2(c, s);
-    work[n_fft + k] = tw[k];
   }
-  const float scale = 1.0f / static_cast<float>(n_fft);  // exact: N = 2^k
-  for (int i = threadIdx.x; i < n_fft; i += blockDim.x)
-    a[i] = make_float2(i < m ? ir[i] * scale : 0.f, 0.f);
-  __syncthreads();
-  fft_dif(a, tw, n_fft, log_n);
-  for (int k = threadIdx.x; k < n_fft; k += blockDim.x) work[k] = a[k];
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Block p: H_p / N of ir[p*part, min(m, (p+1)*part)), zero-padded to N.
+template <class Pl>
+__global__ void __launch_bounds__(Pl::T)
+spectrum_kernel(const float* __restrict__ ir, int m, int part,
+                const float2* __restrict__ tw, float2* __restrict__ h) {
+  extern __shared__ float2 smem[];
+  constexpr int s = Pl::S - 1;
+  constexpr int R = Pl::radix(s);
+  const float* hp = ir + static_cast<size_t>(blockIdx.x) * part;
+  const int len = min(part, m - static_cast<int>(blockIdx.x) * part);
+  const float scale = 1.0f / static_cast<float>(Pl::N);  // exact: N = 2^k
+  dif_head<Pl>(smem, tw, [&](int p) {
+    return make_float2(p < len ? hp[p] * scale : 0.f, 0.f);
+  });
+  float2* out = h + static_cast<size_t>(blockIdx.x) * Pl::N;
+#pragma unroll
+  for (int q = 0; q < Pl::P / R; ++q) {
+    float2 x[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) x[k] = smem[padded<Pl, s>(q, k)];
+    butterfly<Pl, s, false>(x, q, tw);
+#pragma unroll
+    for (int k = 0; k < R; ++k) out[(q * R + k) * Pl::T + threadIdx.x] = x[k];
+  }
+}
+
+template <class Pl>
+__global__ void __launch_bounds__(Pl::T, 1)
 fft_conv_kernel(const float* __restrict__ x, const float* __restrict__ pre_row,
                 const float* __restrict__ pre_col,
-                const float2* __restrict__ work, float* __restrict__ y,
-                int rows, int n, int m, int n_fft, int log_n) {
+                const float2* __restrict__ h, const float2* __restrict__ tw,
+                float* __restrict__ y, int rows, int n, int m) {
   extern __shared__ float2 smem[];
-  float2* a = smem;
-  float2* tw = smem + n_fft;
-  const int hop = n_fft - (m - 1);
+  const int hop = Pl::N - (m - 1);
   const int ra = 2 * blockIdx.y;  // rows ra (real part), ra+1 (imaginary)
   const bool has_b = ra + 1 < rows;
   const float* xa = x + static_cast<size_t>(ra) * n;
-  const float* xb = xa + n;
   const float ga = pre_row[ra];
   const float gb = has_b ? pre_row[ra + 1] : 0.f;
-  const int g0 = blockIdx.x * hop - (m - 1);  // input index of a[0]
+  const int g0 = blockIdx.x * hop - (m - 1);  // input index of point 0
 
-  for (int k = threadIdx.x; k < n_fft / 2; k += blockDim.x)
-    tw[k] = work[n_fft + k];
-  for (int i = threadIdx.x; i < n_fft; i += blockDim.x) {
-    const int g = g0 + i;
-    float2 v = make_float2(0.f, 0.f);
-    if (g >= 0 && g < n) {
-      const float c = pre_col[g];
-      v.x = xa[g] * ga * c;
-      if (has_b) v.y = xb[g] * gb * c;
-    }
-    a[i] = v;
-  }
-  __syncthreads();
-  fft_dif(a, tw, n_fft, log_n);
-  // spectral multiply and conjugate, both spectra in bit-reversed order;
-  // the inverse is then conj(DIT(conj(X * H / N)))
-  for (int k = threadIdx.x; k < n_fft; k += blockDim.x) {
-    const float2 yk = cmul(a[k], work[k]);
-    a[k] = make_float2(yk.x, -yk.y);
-  }
-  __syncthreads();
-  fft_dit(a, tw, n_fft, log_n);
-  // y = conj(a) over the frame's valid samples [m-1, N)
   float* ya = y + static_cast<size_t>(ra) * n;
-  for (int i = (m - 1) + threadIdx.x; i < n_fft; i += blockDim.x) {
-    const int t = g0 + i;
-    if (t >= n) break;
-    ya[t] = a[i].x;
-    if (has_b) ya[n + t] = -a[i].y;
-  }
+  dif_head<Pl>(smem, tw, Window{xa, xa + n, pre_col, ga, gb, has_b, g0, n});
+  turn<Pl>(smem, h, tw);
+  // y = conj(v) over the frame's valid points [m-1, N)
+  dit_tail<Pl>(smem, tw, [&](int, int, int p, float2 v) {
+    const int t = g0 + p;
+    if (p >= m - 1 && t < n) {
+      ya[t] = v.x;
+      if (has_b) ya[n + t] = -v.y;
+    }
+  });
 }
 
 // The partitioned form for long IRs (see the note at the top).
-constexpr int kLongLogN = kMaxLogN;
-constexpr int kLongN = 1 << kLongLogN;
-constexpr int kPart = kLongN / 2;             // taps per partition (Lp)
-constexpr int kLongHop = kLongN - kPart;      // outputs per frame
-constexpr int kPerThread = kLongHop / kThreads;
-static_assert(kLongHop % kThreads == 0, "threads tile a frame's outputs");
+using LongPlan = Plan<kMaxLogN>;
+constexpr int kPart = LongPlan::N / 2;            // taps per partition (Lp)
+constexpr int kLongHop = LongPlan::N - kPart;     // outputs per frame
+static_assert(LongPlan::R0 % 2 == 0,
+              "the outputs [N/2, N) are stage 0's points k >= R0/2");
 
-// work[p*N, (p+1)*N): H_p / N in bit-reversed order, p < parts;
-// work[parts*N, parts*N + N/2): twiddles (written by block 0).
-__global__ void __launch_bounds__(kThreads)
-part_spectrum_kernel(const float* __restrict__ ir, int m, float2* work,
-                     int parts) {
-  extern __shared__ float2 smem[];
-  float2* a = smem;
-  float2* tw = smem + kLongN;
-  const int p = blockIdx.x;
-  for (int k = threadIdx.x; k < kLongN / 2; k += blockDim.x) {
-    float s, c;
-    sincospif(-2.0f * static_cast<float>(k) / static_cast<float>(kLongN), &s,
-              &c);
-    tw[k] = make_float2(c, s);
-    if (p == 0) work[static_cast<size_t>(parts) * kLongN + k] = tw[k];
-  }
-  const float scale = 1.0f / static_cast<float>(kLongN);
-  const float* h = ir + static_cast<size_t>(p) * kPart;
-  const int len = min(kPart, m - p * kPart);  // the last one is shorter
-  for (int i = threadIdx.x; i < kLongN; i += blockDim.x)
-    a[i] = make_float2(i < len ? h[i] * scale : 0.f, 0.f);
-  __syncthreads();
-  fft_dif(a, tw, kLongN, kLongLogN);
-  float2* w = work + static_cast<size_t>(p) * kLongN;
-  for (int k = threadIdx.x; k < kLongN; k += blockDim.x) w[k] = a[k];
-}
-
-__global__ void __launch_bounds__(kThreads)
+template <class Pl>
+__global__ void __launch_bounds__(Pl::T, 1)
 fft_conv_long_kernel(const float* __restrict__ x,
                      const float* __restrict__ pre_row,
                      const float* __restrict__ pre_col,
-                     const float2* __restrict__ work, float* __restrict__ y,
+                     const float2* __restrict__ h,
+                     const float2* __restrict__ tw, float* __restrict__ y,
                      int rows, int n, int parts) {
   extern __shared__ float2 smem[];
-  float2* a = smem;
-  float2* tw = smem + kLongN;
+  constexpr int R0 = Pl::R0;
+  constexpr int Q0 = Pl::P / R0;
+  constexpr int kHalf = R0 / 2;
   const int ra = 2 * blockIdx.y;  // rows ra (real part), ra+1 (imaginary)
   const bool has_b = ra + 1 < rows;
   const float* xa = x + static_cast<size_t>(ra) * n;
-  const float* xb = xa + n;
   const float ga = pre_row[ra];
   const float gb = has_b ? pre_row[ra + 1] : 0.f;
   const int t0 = blockIdx.x * kLongHop;  // the frame's first output
 
-  for (int k = threadIdx.x; k < kLongN / 2; k += blockDim.x)
-    tw[k] = work[static_cast<size_t>(parts) * kLongN + k];
-  float acc_a[kPerThread], acc_b[kPerThread];
+  float acc_a[Q0][kHalf], acc_b[Q0][kHalf];
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) acc_a[j] = acc_b[j] = 0.f;
+  for (int q = 0; q < Q0; ++q)
+#pragma unroll
+    for (int k = 0; k < kHalf; ++k) acc_a[q][k] = acc_b[q][k] = 0.f;
 
   for (int p = 0; p < parts; ++p) {
-    const int g0 = t0 - p * kPart - (kPart - 1);  // input index of a[0]
-    for (int i = threadIdx.x; i < kLongN; i += blockDim.x) {
-      const int g = g0 + i;
-      float2 v = make_float2(0.f, 0.f);
-      if (g >= 0 && g < n) {
-        const float c = pre_col[g];
-        v.x = xa[g] * ga * c;
-        if (has_b) v.y = xb[g] * gb * c;
+    // point i of the window is input t0 - (p+1)*Lp + i; its outputs
+    // i in [Lp, N) are t0 + i - Lp
+    dif_head<Pl>(smem, tw, Window{xa, xa + n, pre_col, ga, gb, has_b,
+                                  t0 - (p + 1) * kPart, n});
+    turn<Pl>(smem, h + static_cast<size_t>(p) * Pl::N, tw);
+    dit_tail<Pl>(smem, tw, [&](int q, int k, int, float2 v) {
+      if (k >= kHalf) {
+        acc_a[q][k - kHalf] += v.x;
+        acc_b[q][k - kHalf] -= v.y;
       }
-      a[i] = v;
-    }
-    __syncthreads();
-    fft_dif(a, tw, kLongN, kLongLogN);
-    const float2* hp = work + static_cast<size_t>(p) * kLongN;
-    for (int k = threadIdx.x; k < kLongN; k += blockDim.x) {
-      const float2 yk = cmul(a[k], hp[k]);
-      a[k] = make_float2(yk.x, -yk.y);
-    }
-    __syncthreads();
-    fft_dit(a, tw, kLongN, kLongLogN);
-    // output t0 + i - (Lp-1) is valid for i in [Lp-1, N); take the hop
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const float2 v = a[kPart - 1 + threadIdx.x + j * kThreads];
-      acc_a[j] += v.x;
-      acc_b[j] -= v.y;
-    }
-    __syncthreads();  // every read done before the next window lands
+    });
   }
   float* ya = y + static_cast<size_t>(ra) * n;
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int t = t0 + threadIdx.x + j * kThreads;
-    if (t < n) {
-      ya[t] = acc_a[j];
-      if (has_b) ya[n + t] = acc_b[j];
+  for (int q = 0; q < Q0; ++q)
+#pragma unroll
+    for (int k = 0; k < kHalf; ++k) {
+      const int t = t0 + position<Pl, 0>(q, kHalf + k) - kPart;
+      if (t < n) {
+        ya[t] = acc_a[q][k];
+        if (has_b) ya[n + t] = acc_b[q][k];
+      }
     }
-  }
+}
+
+// work: [H_p / N for p < parts (parts*N) | twiddles (N)] float2.
+template <class Pl>
+cudaError_t launch_spectra(const float* ir, int m, int part, int parts,
+                           float2* work, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      spectrum_kernel<Pl>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Pl::kSmem);
+  if (err != cudaSuccess) return err;
+  float2* tw = work + static_cast<size_t>(parts) * Pl::N;
+  twiddle_kernel<<<Pl::N / kTwiddleThreads, kTwiddleThreads, 0, st>>>(
+      tw, Pl::N);
+  spectrum_kernel<Pl><<<parts, Pl::T, Pl::kSmem, st>>>(ir, m, part, tw,
+                                                       work);
+  return cudaSuccess;
+}
+
+template <int LogN>
+int run_short(const float* x, const float* pre_row, const float* pre_col,
+              const float* ir, float2* work, float* y, int rows, int n,
+              int m, cudaStream_t st) {
+  using Pl = Plan<LogN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fft_conv_kernel<Pl>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Pl::kSmem);
+  if (err == cudaSuccess) err = launch_spectra<Pl>(ir, m, m, 1, work, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int hop = Pl::N - (m - 1);
+  const dim3 grid((n + hop - 1) / hop, (rows + 1) / 2);
+  fft_conv_kernel<Pl><<<grid, Pl::T, Pl::kSmem, st>>>(
+      x, pre_row, pre_col, work, work + Pl::N, y, rows, n, m);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x, y: (rows, n) row-major; pre_row: (rows,); pre_col: (n,); ir: (m,);
-// work: (3*N/2) float2 scratch, N = 2^log_n >= 2*(m-1). Launches both
-// kernels on `stream`; returns cudaGetLastError() after them.
+// work: 2*N float2 scratch, N = 2^log_n >= 2*(m-1), 10 <= log_n <= 14.
+// Launches the three kernels on `stream`; returns cudaGetLastError()
+// after them.
 extern "C" int xm_fir_convolve_f32(const float* x, const float* pre_row,
                                    const float* pre_col, const float* ir,
                                    float* work, float* y, int rows, int n,
                                    int m, int log_n, void* stream) {
-  if (log_n < 10 || log_n > kMaxLogN) return cudaErrorInvalidValue;
+  if (log_n < kMinLogN || log_n > kMaxLogN) return cudaErrorInvalidValue;
   const int n_fft = 1 << log_n;
-  const int hop = n_fft - (m - 1);
-  if (m < 1 || 2 * hop < n_fft) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float2) * (n_fft + n_fft / 2);
-  const int max_smem = static_cast<int>(sizeof(float2) * 3 << (kMaxLogN - 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      spectrum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fft_conv_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               max_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (m < 1 || 2 * (n_fft - (m - 1)) < n_fft) return cudaErrorInvalidValue;
   auto* w2 = reinterpret_cast<float2*>(work);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  spectrum_kernel<<<1, kThreads, smem, st>>>(ir, m, w2, n_fft, log_n);
-  const dim3 grid((n + hop - 1) / hop, (rows + 1) / 2);
-  fft_conv_kernel<<<grid, kThreads, smem, st>>>(x, pre_row, pre_col, w2, y,
-                                                rows, n, m, n_fft, log_n);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (log_n) {
+    case 10: return run_short<10>(x, pre_row, pre_col, ir, w2, y, rows, n, m, st);
+    case 11: return run_short<11>(x, pre_row, pre_col, ir, w2, y, rows, n, m, st);
+    case 12: return run_short<12>(x, pre_row, pre_col, ir, w2, y, rows, n, m, st);
+    case 13: return run_short<13>(x, pre_row, pre_col, ir, w2, y, rows, n, m, st);
+    default: return run_short<14>(x, pre_row, pre_col, ir, w2, y, rows, n, m, st);
+  }
 }
 
 // The partitioned form, any m >= 1: x, y, pre_row, pre_col, ir as above;
-// work: (parts*N + N/2) float2 scratch, N = 16384, parts = ceil(m/8192).
-// Launches both kernels on `stream`; returns cudaGetLastError() after
-// them.
+// work: (parts + 1) * N float2 scratch, N = 16384, parts = ceil(m/8192).
+// Launches the three kernels on `stream`; returns cudaGetLastError()
+// after them.
 extern "C" int xm_fir_convolve_long_f32(const float* x, const float* pre_row,
                                         const float* pre_col, const float* ir,
                                         float* work, float* y, int rows,
                                         int n, int m, void* stream) {
   if (m < 1 || rows < 1 || n < 1) return cudaErrorInvalidValue;
+  using Pl = LongPlan;
   const int parts = (m + kPart - 1) / kPart;
-  const int smem = static_cast<int>(sizeof(float2) * (kLongN + kLongN / 2));
-  cudaError_t err = cudaFuncSetAttribute(
-      part_spectrum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fft_conv_long_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   auto* w2 = reinterpret_cast<float2*>(work);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  part_spectrum_kernel<<<parts, kThreads, smem, st>>>(ir, m, w2, parts);
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      fft_conv_long_kernel<Pl>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Pl::kSmem);
+  if (err == cudaSuccess)
+    err = launch_spectra<Pl>(ir, m, kPart, parts, w2, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + kLongHop - 1) / kLongHop, (rows + 1) / 2);
-  fft_conv_long_kernel<<<grid, kThreads, smem, st>>>(
-      x, pre_row, pre_col, w2, y, rows, n, parts);
+  fft_conv_long_kernel<Pl><<<grid, Pl::T, Pl::kSmem, st>>>(
+      x, pre_row, pre_col, w2, w2 + static_cast<size_t>(parts) * Pl::N, y,
+      rows, n, parts);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -44,7 +44,8 @@ _SIGNATURES = {
     "xm_fir_convolve_f32": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "xm_fir_convolve_long_f32": ([_P] * 6 + [_I] * 3 + [_P], _I),
     "xm_limiter_f32": ([_P, _P, _P, _P, _I, _I] + [_F] * 11 + [_P], _I),
-    "xm_envelope_f32": ([_P] * 6 + [_I, _I, _F, _F, _P], _I),
+    "xm_envelope_f32": ([_P] * 6 + [_I, _I, _F, _F, _I, _P], _I),
+    "xm_limiter_blocks_per_sm": ([], _I),
     "xm_envelope_gain_f32": ([_P] * 6 + [_I, _I] + [_F] * 11 + [_P], _I),
     "xm_sosfilt_f32": ([_P] * 5 + [_I] * 3 + [_P], _I),
     "xm_eq_env_f32": ([_P] * 8 + [_I] * 3 + [_F] * 2 + [_P], _I),

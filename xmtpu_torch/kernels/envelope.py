@@ -8,27 +8,36 @@ All run the envelope recurrences over rows of a detector signal
 from ``init`` = (env, e2), in the hand-written kernel template of
 ``csrc/envelope.cu``, in three forms:
 
-- :func:`limiter`: the fused soft-knee limiter of signed rows (the JAX
-  ``limiter_pallas`` on its unsegmented path, ``curve_mode="apply"``):
-  detector ``|x|``, the recurrences, the gain evaluated exactly as the
-  JAX kernel's ``_curve_gain`` (exp/log in float32) and the ceiling
-  clamp;
+- :func:`limiter_pass`: one pass of the fused soft-knee limiter over
+  signed rows (the JAX ``limiter_pallas`` on its unsegmented path,
+  ``curve_mode="apply"``): detector ``|x|``, the recurrences, the gain
+  evaluated exactly as the JAX kernel's ``_curve_gain`` (exp/log in
+  float32) and the ceiling clamp;
 - :func:`envelope_pass` with ``curve_mode="envelope"``: the smoothed
   envelope alone, with an optional inline correction ``d[t] ->
-  max(d[t], E * k^(t+1))``;
+  max(d[t], E * k^(t+1))`` or, instead, the detector ``|d|`` of a
+  signed input (``abs_detector``);
 - :func:`envelope_pass` with ``curve_mode="gain"``: the envelope-only
   form writing the soft-knee gain of each e2 instead of e2 (the JAX
   kernels' ``curve_mode="gain"``).
 
-:func:`envelope` (the JAX ``envelope_pallas``) and :func:`linked_limiter`
-(the JAX ``linked_limiter_pallas``) are time-segmented for small
-batches: each row's S segments run from zero state as R*S rows. Pass A
-(:func:`_seg_pass_a`, the decaying max with c_att = 1) and the exact max
-chain over the segments are shared; pass B runs the one-pole (k_rel = 0)
-over the inline-corrected envelope, from zero state with the sum chain
-and the correction ``s_in * a^(t+1)`` after it (:func:`envelope`), or
-from the exact per-segment state ``s_in`` in the gain form
-(:func:`linked_limiter`). The glue is plain torch.
+:func:`envelope` (the JAX ``envelope_pallas``), :func:`linked_limiter`
+(the JAX ``linked_limiter_pallas``) and the fused :func:`limiter` are
+time-segmented: each row's S segments run from zero state as R*S rows.
+Pass A (:func:`_seg_pass_a`, the decaying max with c_att = 1) and the
+exact max chain over the segments are shared; pass B runs the one-pole
+(k_rel = 0) over the inline-corrected envelope, from zero state with the
+sum chain and the correction ``s_in * a^(t+1)`` after it
+(:func:`envelope`), or from the exact per-segment state ``s_in``
+(:func:`_seg_e2_carries`: a decay-window dot per segment, then the sum
+chain) in the gain form (:func:`linked_limiter`) or, from the exact
+``(e_in, s_in)``, in the fused form (:func:`limiter`). The chains over
+the segments are closed forms over a table of powers (a masked multiply
+and an ``amax`` or a sum: a few launches whatever S is). The glue is
+plain torch. :func:`envelope` and :func:`linked_limiter` pick S as the
+JAX package does; :func:`limiter` by the card's own rule
+(``_seg.gpu_segments``) on CUDA, and runs unsegmented on the CPU unless
+``segments`` says otherwise.
 
 On a CUDA tensor the wrappers launch the kernel; on a CPU tensor they
 run the plain twins (:func:`limiter_plain`, :func:`envelope_plain`),
@@ -39,13 +48,14 @@ per sample, the same function in exact arithmetic.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 
 from xmtpu_torch.kernels import _build
-from xmtpu_torch.kernels._seg import on_device, pick_segments
+from xmtpu_torch.kernels._seg import gpu_segments, on_device, pick_segments
 
 # Launches of the CUDA kernel in this process, by form (the fused
 # limiter, the envelope alone, the gain form); callers may reset them.
@@ -57,6 +67,8 @@ CURVE_MODES = ("envelope", "gain")  # envelope_pass's forms
 
 # the JAX envelope's lane target, which pick_segments fills
 _LANES_TARGET = 256
+_MIN_SEGLEN = 4096  # the shortest segment the segment rules make
+_ROWS_PER_BLOCK = 8  # rows of one kernel block (kRows in csrc/envelope.cu)
 
 _LN10 = math.log(10.0)
 _EPS = 1e-12  # level-meter floor of the curve (and of ops.limiter's)
@@ -143,16 +155,41 @@ def limiter_plain(x: torch.Tensor, k_rel: float, c_att: float,
 
 
 def limiter(x: torch.Tensor, k_rel: float, c_att: float, curve,
-            init: torch.Tensor | None = None):
+            init: torch.Tensor | None = None, segments=None, run=None):
     """x (R, n) contiguous float32 -> (y (R, n), zf (2, R) = (env, e2)).
     ``curve``: the 5-tuple of :func:`curve_of`. ``init``: (2, R)
-    float32 starting state, None = zeros."""
-    global launches
-    consts = curve_consts(curve)
+    float32 starting state, None = zeros.
+
+    ``segments``: time segmentation (exact), None = the card's rule
+    (:func:`limiter_segments`) on CUDA and 1 on the CPU; 1 is one fused
+    pass (:func:`limiter_pass`). ``run``: pass A's one-pass function,
+    :func:`envelope_pass` by default (:func:`envelope_plain` runs pass A
+    on the twin)."""
+    curve_consts(curve)
     _check_x(x)
     if init is None:
         init = torch.zeros((2, x.shape[0]), dtype=torch.float32,
                            device=x.device)
+    _check_init(init, x)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no envelope kernel for device {x.device}")
+    R, n = x.shape
+    S = (limiter_segments(R, n, c_att, x.device) if segments is None
+         else _segments(segments, R, n))
+    if S == 1:
+        return limiter_pass(x, k_rel, c_att, curve, init)
+    return _limiter_seg(x, k_rel, c_att, curve, init, S,
+                        envelope_pass if run is None else run)
+
+
+def limiter_pass(x: torch.Tensor, k_rel: float, c_att: float, curve,
+                 init: torch.Tensor):
+    """One pass of the fused limiter over independent rows: x (R, n),
+    init (2, R), contiguous float32 on one device -> (y (R, n), zf (2,
+    R)). The kernel on CUDA, :func:`limiter_plain` on the CPU."""
+    global launches
+    consts = curve_consts(curve)
+    _check_x(x)
     _check_init(init, x)
     if x.device.type == "cpu":
         return limiter_plain(x, k_rel, c_att, consts, init)
@@ -170,6 +207,48 @@ def limiter(x: torch.Tensor, k_rel: float, c_att: float, curve,
     _build.check(rc, "envelope")
     launches += 1
     return y, zf
+
+
+@functools.cache
+def _card_slots(index: int) -> tuple[int, int]:
+    """(SMs, resident blocks of the fused kernel per SM) of a card."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    with torch.cuda.device(index):
+        per_sm = _build.load().xm_limiter_blocks_per_sm()
+    if per_sm < 1:
+        raise RuntimeError("the envelope kernel's occupancy query failed")
+    return sms, per_sm
+
+
+def limiter_segments(R: int, n: int, c_att: float, device) -> int:
+    """The fused limiter's segment count: 1 on the CPU; on a card,
+    ``gpu_segments`` over its SM count and the kernel's resident blocks
+    per SM, with segments at least 4096 samples and the carries' decay
+    window (``_decay_cut(1 - c_att)``)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 1
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    sms, per_sm = _card_slots(index)
+    min_seglen = max(_MIN_SEGLEN, _decay_cut(1.0 - float(c_att), n))
+    return gpu_segments(R, n, sms, per_sm, _ROWS_PER_BLOCK, min_seglen)
+
+
+def _limiter_seg(x, k_rel, c_att, curve, init2, S, run):
+    """Segmented fused limiter: pass A (|x| detector, c_att = 1) over
+    the R*S segment rows and the max chain give the envelope entering
+    each segment, e_in; the decay-window dot and the sum chain give its
+    e2, s_in; pass B, the fused form over the same segment rows from
+    (e_in, s_in), is then the unsegmented recurrence in exact
+    arithmetic. zf is the state after each row's last segment."""
+    R, n = x.shape
+    env0, _, e_in, ktab = _seg_pass_a(x, k_rel, init2, S, run,
+                                      abs_detector=True)
+    s_in, _ = _seg_e2_carries(env0, e_in, ktab, c_att, init2[1], S)
+    y, zf_b = limiter_pass(x.reshape(R * S, n // S), k_rel, c_att, curve,
+                           torch.stack([e_in, s_in]))
+    return y.reshape(R, n), zf_b.reshape(2, R, S)[:, :, -1].contiguous()
 
 
 # ------------------------------------------------ the envelope alone
@@ -228,7 +307,7 @@ def _check_corr(ktab, ecorr, d) -> None:
                              f"({size},) tensor on {d.device}")
 
 
-def _check_mode(curve, curve_mode) -> None:
+def _check_mode(curve, curve_mode, abs_detector=False, ktab=None) -> None:
     """One of the pass's two forms, with what it takes."""
     if curve_mode not in CURVE_MODES:
         raise ValueError(f"curve_mode={curve_mode!r}; the pass's forms "
@@ -237,20 +316,23 @@ def _check_mode(curve, curve_mode) -> None:
         raise ValueError(f"curve_mode={curve_mode!r} "
                          + ("takes no curve" if curve is not None
                             else "needs the curve"))
+    if abs_detector and (curve_mode != "envelope" or ktab is not None):
+        raise ValueError("abs_detector is the envelope form's, without "
+                         "the inline correction (the limiter's pass A)")
 
 
 def envelope_plain(d: torch.Tensor, k_rel: float, c_att: float,
                    init: torch.Tensor, ktab=None, ecorr=None, curve=None,
-                   curve_mode: str = "envelope"):
+                   curve_mode: str = "envelope", abs_detector: bool = False):
     """Plain twin of one pass (:func:`envelope_pass`): a torch loop over
     time, float32 coefficients as the kernel receives them and one
     elementwise op per operation, so its e2 matches the kernel bit for
     bit; the gain form then applies :func:`curve_gain`."""
-    _check_mode(curve, curve_mode)
+    _check_mode(curve, curve_mode, abs_detector, ktab)
     k = float(np.float32(k_rel))
     c = float(np.float32(c_att))
     a = float(np.float32(1.0) - np.float32(c_att))
-    dt = d.T.contiguous()  # (n, R): one contiguous row per step
+    dt = (d.abs() if abs_detector else d).T.contiguous()  # (n, R)
     if ktab is not None:
         dt = torch.maximum(dt, ecorr[None, :] * ktab[:, None])
     env = init[0].clone()
@@ -268,7 +350,7 @@ def envelope_plain(d: torch.Tensor, k_rel: float, c_att: float,
 
 def envelope_pass(d: torch.Tensor, k_rel: float, c_att: float,
                   init: torch.Tensor, ktab=None, ecorr=None, curve=None,
-                  curve_mode: str = "envelope"):
+                  curve_mode: str = "envelope", abs_detector: bool = False):
     """One pass of the recurrences over independent rows: d (R, n),
     init (2, R), and optionally the inline correction ``d[t] ->
     max(d[t], ecorr[r] * ktab[t])`` (ktab (n,), ecorr (R,)); contiguous
@@ -276,16 +358,18 @@ def envelope_pass(d: torch.Tensor, k_rel: float, c_att: float,
 
     ``curve_mode`` picks the kernel's form: ``"envelope"`` (out = e2)
     or ``"gain"`` (out = the soft-knee gain of e2 under ``curve``, the
-    5-tuple of :func:`curve_of`); any other value raises. The kernel on
-    CUDA, the twin on the CPU."""
+    5-tuple of :func:`curve_of`); any other value raises.
+    ``abs_detector`` (envelope form, no correction): d is signed and
+    the detector is ``|d|``, taken in the kernel. The kernel on CUDA,
+    the twin on the CPU."""
     global envelope_launches, gain_launches
-    _check_mode(curve, curve_mode)
+    _check_mode(curve, curve_mode, abs_detector, ktab)
     _check_x(d)
     _check_init(init, d)
     _check_corr(ktab, ecorr, d)
     if d.device.type == "cpu":
         return envelope_plain(d, k_rel, c_att, init, ktab, ecorr, curve,
-                              curve_mode)
+                              curve_mode, abs_detector)
     if d.device.type != "cuda":
         raise ValueError(f"no envelope kernel for device {d.device}")
     R, n = d.shape
@@ -302,7 +386,8 @@ def envelope_pass(d: torch.Tensor, k_rel: float, c_att: float,
             rc = lib.xm_envelope_gain_f32(*ptrs, R, n, k_rel, c_att,
                                           *curve_consts(curve), stream)
         else:
-            rc = lib.xm_envelope_f32(*ptrs, R, n, k_rel, c_att, stream)
+            rc = lib.xm_envelope_f32(*ptrs, R, n, k_rel, c_att,
+                                     int(abs_detector), stream)
     _build.check(rc, "envelope")
     if curve_mode == "gain":
         gain_launches += 1
@@ -318,25 +403,76 @@ def _seg_table(name: str, make, coef: float, seglen: int,
                      lambda: {name: make(coef, seglen)})[name]
 
 
-def _seg_pass_a(d2d, k_rel, init2, S, run):
+def _chain_powers(coef: float, S: int) -> dict:
+    """The closed form of the chain s_k = f_(k-1) + coef * s_(k-1) over
+    S segments: s_k = sum (or max) over j of pow[k, j] * v[j], v = (s_0,
+    f_0 .. f_(S-1)), with pow[k, 0] = coef^k and pow[k, j+1] =
+    coef^(k-1-j) for j < k, k = 0 .. S. Returns ``pow`` (S+1, S+1)
+    float32 (float64 powers of the float32 coefficient, rounded once)
+    and ``mask``, where pow applies."""
+    k = np.arange(S + 1)[:, None]
+    j = np.arange(S + 1)[None, :]
+    e = np.where(j == 0, k, k - j)
+    mask = (j == 0) | (j <= k)
+    c = float(np.float32(coef))
+    with np.errstate(under="ignore"):
+        pw = np.where(mask, c ** np.maximum(e, 0).astype(np.float64), 0.0)
+    return {"pow": pw.astype(np.float32), "mask": mask}
+
+
+def _decay(coef, seglen: int) -> float:
+    """A segment's decay as the kernel steps it: the float32
+    coefficient to the power seglen (in float64)."""
+    return float(np.float32(coef)) ** seglen
+
+
+def _chain(first, finals, coef, reduce):
+    """All S+1 states of a segment chain (:func:`_chain_powers`):
+    ``first`` (R,) the state entering segment 0, ``finals`` (R, S) each
+    segment's zero-init final; ``reduce`` "max" (the decaying max) or
+    "sum" (the one-pole). -> (R, S+1): entering each segment, then after
+    the last. Masked, so a NaN final reaches only later segments."""
+    S = finals.shape[1]
+    t = on_device(("chain", float(np.float32(coef)), S), first.device,
+                  lambda: _chain_powers(coef, S))
+    v = torch.cat([first[:, None], finals], 1)[:, None, :]  # (R, 1, S+1)
+    terms = torch.where(t["mask"], t["pow"] * v, 0.0)
+    return terms.amax(-1) if reduce == "max" else terms.sum(-1)
+
+
+def _seg_pass_a(d2d, k_rel, init2, S, run, **kw):
     """Segmented pass A (the decaying max from zero state, c_att = 1,
-    over R*S segment rows) and the exact max chain over the segments,
-    shared by both pass-B strategies (the JAX ``_seg_pass_a``). Returns
-    (env0 (R*S, seglen), e_last (R,), e_in (R*S,) the envelope entering
-    each segment, ktab (seglen,) pass B's correction column)."""
+    over R*S segment rows; ``kw`` to ``run``) and the exact max chain
+    over the segments, shared by every pass-B strategy (the JAX
+    ``_seg_pass_a``). Returns (env0 (R*S, seglen), e_last (R,), e_in
+    (R*S,) the envelope entering each segment, ktab (seglen,) pass B's
+    correction column)."""
     R, n = d2d.shape
     seglen = n // S
     env0, zf_a = run(d2d.reshape(R * S, seglen), k_rel, 1.0,
-                     d2d.new_zeros((2, R * S)))
-    envf = zf_a[0].reshape(R, S)
-    kp = float(np.float32(float(k_rel) ** seglen))
-    e = init2[0]
-    e_ins = []
-    for k in range(S):  # envelope entering each segment: (max, *) chain
-        e_ins.append(e)
-        e = torch.maximum(envf[:, k], kp * e)
+                     d2d.new_zeros((2, R * S)), **kw)
+    e = _chain(init2[0], zf_a[0].reshape(R, S), _decay(k_rel, seglen),
+               "max")
     ktab = _seg_table("ktab", seg_ktab, k_rel, seglen, d2d.device)
-    return env0, e, torch.stack(e_ins, 1).reshape(R * S), ktab
+    return env0, e[:, S], e[:, :S].reshape(R * S), ktab
+
+
+def _seg_e2_carries(env0, e_in, ktab, c_att, s0, S):
+    """The exact e2 entering each segment, s_in (R*S,), and after each
+    row's last, (R,): a zero-init segment's final e2 depends only on the
+    last ``_decay_cut(a)`` samples of its corrected envelope (a^t is
+    below any float32 signal's resolution past that), so one
+    decay-window dot per segment row gives the finals that the sum
+    chain carries from ``s0`` (R,)."""
+    RS, seglen = env0.shape
+    avec = _seg_table("avec", seg_avec, c_att, seglen, env0.device)
+    ac = avec.shape[0]
+    tail = torch.maximum(env0[:, seglen - ac:],
+                         e_in[:, None] * ktab[seglen - ac:])
+    # float32 multiply and sum (no matmul, so no TF32 question)
+    e2f = (float(c_att) * (tail * avec).sum(-1)).reshape(RS // S, S)
+    s = _chain(s0, e2f, _decay(1.0 - np.float32(c_att), seglen), "sum")
+    return s[:, :S].reshape(RS), s[:, S]
 
 
 def _envelope_seg(d2d, k_rel, c_att, init2, S, run):
@@ -347,18 +483,11 @@ def _envelope_seg(d2d, k_rel, c_att, init2, S, run):
     # pass B: one-pole only (k_rel = 0 passes the input through) over
     # the envelope corrected inline, max(env0[t], E * k^(t+1))
     e2, zf_b = run(env0, 0.0, c_att, d2d.new_zeros((2, R * S)), ktab, e_in)
-    e2f = zf_b[1].reshape(R, S)
-    a = 1.0 - float(c_att)
-    ap = float(np.float32(a ** seglen))
-    s = init2[1]
-    s_ins = []
-    for k in range(S):  # e2 entering each segment: (+, *) chain
-        s_ins.append(s)
-        s = e2f[:, k] + ap * s
-    s_in = torch.stack(s_ins, 1).reshape(R * S)
+    s = _chain(init2[1], zf_b[1].reshape(R, S),
+               _decay(1.0 - np.float32(c_att), seglen), "sum")
     atab = _seg_table("atab", seg_atab, c_att, seglen, d2d.device)
-    e2[:, :atab.shape[0]] += s_in[:, None] * atab
-    return e2.reshape(R, n), torch.stack([e_last, s])
+    e2[:, :atab.shape[0]] += s[:, :S].reshape(R * S, 1) * atab
+    return e2.reshape(R, n), torch.stack([e_last, s[:, S]])
 
 
 def _init2(init, R, device):
@@ -419,29 +548,12 @@ def envelope(d: torch.Tensor, k_rel: float, c_att: float, init=None,
 def _linked_seg_gain(d2d, k_rel, c_att, init2, S, curve, run):
     """Segmented envelope whose pass B writes the soft-knee gain (the
     JAX ``_linked_seg_gain``): pass B starts each segment from its exact
-    one-pole state ``s_in``, so the curve can run in the kernel. A
-    zero-init segment's final e2 depends only on the last
-    ``_decay_cut(a)`` samples of its corrected envelope (a^t is below
-    any float32 signal's resolution past that), so one decay-window dot
-    per segment row gives the finals the (+, *) chain needs. Returns
-    (g (R, n), zf (2, R) = (env_last, e2_last))."""
+    one-pole state ``s_in`` (:func:`_seg_e2_carries`), so the curve can
+    run in the kernel. Returns (g (R, n), zf (2, R) = (env_last,
+    e2_last))."""
     R, n = d2d.shape
-    seglen = n // S
     env0, e_last, e_in, ktab = _seg_pass_a(d2d, k_rel, init2, S, run)
-    avec = _seg_table("avec", seg_avec, c_att, seglen, d2d.device)
-    ac = avec.shape[0]
-    tail = torch.maximum(env0[:, seglen - ac:],
-                         e_in[:, None] * ktab[seglen - ac:])
-    # float32 multiply and sum (no matmul, so no TF32 question)
-    e2f = (float(c_att) * (tail * avec).sum(-1)).reshape(R, S)
-    a = 1.0 - float(c_att)
-    ap = float(np.float32(a ** seglen))
-    s = init2[1]
-    s_ins = []
-    for k in range(S):  # e2 entering each segment: (+, *) chain
-        s_ins.append(s)
-        s = e2f[:, k] + ap * s
-    s_in = torch.stack(s_ins, 1).reshape(R * S)
+    s_in, s = _seg_e2_carries(env0, e_in, ktab, c_att, init2[1], S)
     init_b = torch.stack([torch.zeros_like(s_in), s_in])
     g, _ = run(env0, 0.0, c_att, init_b, ktab, e_in, curve=curve,
                curve_mode="gain")

@@ -4,10 +4,11 @@
     y[r, t] = sum_k ir[k] * pre_row[r] * pre_col[t-k] * x[r, t-k]
 
 On a CUDA tensor :func:`fir_convolve` launches the hand-written kernels
-of ``csrc/fftconv.cu`` (a shared-memory FFT overlap-save, two rows per
-complex transform; see the note at the top of that file): for IRs of up
-to 8193 taps one transform of at most 16384 points per frame, for longer
-ones the partitioned form (:func:`long_parts` partitions of
+of ``csrc/fftconv.cu`` (FFT overlap-save, two rows per complex
+transform, the frame in registers through mixed-radix stages that
+:func:`fft_plan` describes; see the note at the top of that file): for
+IRs of up to 8193 taps one transform of at most 16384 points per frame,
+for longer ones the partitioned form (:func:`long_parts` partitions of
 ``LONG_PART`` taps, each through the 16384-point transform, summed in
 registers). On a CPU tensor it runs :func:`fir_convolve_plain`, a
 float32 ``torch.fft`` overlap-save with the same gains at any length,
@@ -46,6 +47,30 @@ def fft_log_size(m: int) -> int:
     while (1 << log_n) < 2 * (m - 1):
         log_n += 1
     return log_n
+
+
+def fft_plan(log_n: int) -> tuple[int, int, list[tuple[int, int, int]]]:
+    """The kernel's transform of 2^log_n points (``Plan`` in
+    ``csrc/fftconv.cu``): (threads, points per thread, one (radix,
+    span M, stride L) per stage). The first stage takes the radix
+    2^(log_n mod 4) (16 if 0), the others 16; stage s works on
+    sub-transforms of M points at stride L = M / radix."""
+    n_fft = 1 << log_n
+    threads = min(n_fft // 16, 512)
+    n_stages = (log_n + 3) // 4
+    r0 = 1 << (log_n - 4 * (n_stages - 1))
+    stages, span = [], n_fft
+    for s in range(n_stages):
+        r = r0 if s == 0 else 16
+        stages.append((r, span, span // r))
+        span //= r
+    return threads, n_fft // threads, stages
+
+
+def exchanges(log_n: int) -> int:
+    """Passes of the frame through shared memory per transform: one
+    between two radix stages."""
+    return len(fft_plan(log_n)[2]) - 1
 
 
 def long_parts(m: int) -> int:
@@ -103,22 +128,30 @@ def fir_convolve(x: torch.Tensor, ir: torch.Tensor, pre_row: torch.Tensor,
                  pre_col: torch.Tensor) -> torch.Tensor:
     """x (R, n), ir (m,), pre_row (R,), pre_col (n,): contiguous float32
     on one device -> y (R, n) float32."""
-    global launches, long_launches
     _check(x, ir, pre_row, pre_col)
     if x.device.type == "cpu":
         return fir_convolve_plain(x, ir, pre_row, pre_col)
     if x.device.type != "cuda":
         raise ValueError(f"no fftconv kernel for device {x.device}")
+    m = ir.shape[0]
+    return _launch(x, ir, pre_row, pre_col,
+                   LONG_LOG_N if m > MAX_SHORT_TAPS else fft_log_size(m))
+
+
+def _launch(x, ir, pre_row, pre_col, log_n: int) -> torch.Tensor:
+    """The kernel on checked CUDA operands, the short form at a
+    transform of 2^log_n points (>= 2*(m-1)) or, past
+    ``MAX_SHORT_TAPS``, the partitioned form."""
+    global launches, long_launches
     R, n = x.shape
     m = ir.shape[0]
     long = m > MAX_SHORT_TAPS
-    log_n = LONG_LOG_N if long else fft_log_size(m)
     lib = _build.load()
     y = torch.empty_like(x)
-    # the IR spectra (one per partition, N complex each) and the twiddles
-    # (N/2 complex), filled in-kernel
+    # the IR spectra (one per partition, N complex each) and the N
+    # twiddles, filled in-kernel
     spectra = long_parts(m) if long else 1
-    work = torch.empty((2 * spectra + 1) << log_n, dtype=torch.float32,
+    work = torch.empty((2 * spectra + 2) << log_n, dtype=torch.float32,
                        device=x.device)
     ptrs = (x.data_ptr(), pre_row.data_ptr(), pre_col.data_ptr(),
             ir.data_ptr(), work.data_ptr(), y.data_ptr())

@@ -24,7 +24,9 @@ process exits non-zero:
    the |x| detector), carries (alone, and as a CUDA-graph replay: their
    time on the card) and fused pass B each timed, the
    unsegmented kernel's time, the calls at S = 4, 8, 16, 32; the twin's
-   time loop (median of 5);
+   time loop (median of 5); then a NaN sample in one segment of one row:
+   ``limiter()`` at the rule's S and unsegmented must give NaN exactly
+   where the twin does (and -100 dB elsewhere);
 5. the fused flagship step on 256 clips of 10 s (the root bench.py's
    inputs), launch counters set to 0 just before: K1, K2 and its pass A
    must launch; clip 0 must read <= -80 dB against the float64 oracle;
@@ -47,12 +49,19 @@ process exits non-zero:
    breakdown (CUDA events);
 9. K6, the eq_env kernel, on the unfolded fused branch's real input
    (the K1 output with the raw 4000-tap IR and the normalize gain as
-   ``prescale``, 256 x 160000): kernel and twin on a 256 x 16000 prefix
-   (the twin's time loop is too slow at full length; y, e2 and both
-   final states must read max abs 0), the kernel's time at full length;
-   then ``make_flagship_step(fused=True, lti_fold=False)`` with fresh
-   counters: K1 and K6 must launch; clip 0 <= -80 dB; throughput; a
-   per-stage breakdown (CUDA events);
+   ``prescale``, 256 x 160000): the one-pass kernel against its twin on
+   a 256 x 16000 prefix (the twin's time loop is too slow at full
+   length; y, e2 and both final states must read max abs 0), and the
+   segmented path (S = 4) there against that twin (y and e2 <= -100
+   dB); the segmented ``eq_env()`` call at the card's rule (S = 32:
+   pass 0 and pass A on K6, pass B on the envelope-only kernel) against
+   the same path on the twins at full length (gate -100 dB, max abs
+   printed); the call's time, pass 0, pass A, the carries (alone, and as
+   a CUDA-graph replay), pass B, the one-pass kernel, the calls at S =
+   4, 8, 16, 32, and pass A with 1, 2 and 4 blocks per SM; then
+   ``make_flagship_step(fused=True, lti_fold=False)`` with fresh
+   counters: K1, K6 and the envelope-only kernel must launch; clip 0 <=
+   -80 dB; throughput; a per-stage breakdown (CUDA events);
 10. K7, the resample kernel, on the two-track front's real input (512 x
    441000 float32): gate -100 dB against its twin, both times, and the
    dense banded ``torch.matmul`` (the TPU kernel's form) as the library
@@ -68,8 +77,9 @@ process exits non-zero:
    branches: the unfused one the auto rule picks at 64 rows (K5, K1 and
    the envelope-only kernel must launch), then ``fused=True`` folded
    (K1 and the envelope-only kernel) and unfolded (``lti_fold=False``:
-   K1 and K6); each: clip 0 <= -80 dB against the float64 oracle on its
-   own length; every sample past each clip's length must be 0;
+   K1, K6 and the envelope-only kernel); each: clip 0 <= -80 dB
+   against the float64 oracle on its own length; every sample past
+   each clip's length must be 0;
    throughput in audio-seconds of the true lengths;
 13. K1's long-IR (partitioned) form at config 3's operands: the
    24,082-tap folded EQ+reverb IR over 32 rows (16 stereo clips of 10 s
@@ -372,7 +382,36 @@ def main() -> None:
           f"{k2['bound_ms']:.3f} ms ({k2['bound_by']}), chain "
           f"{chain_ms(n // S2, 2):.3f} ms per pass (unsegmented "
           f"{chain_ms(n, 2):.3f}) [{card}]")
+    # a NaN sample in segment S2/2 of row 5: limiter() at the rule's S
+    # and unsegmented must give NaN exactly where the twin does (rows
+    # are independent, so the twin runs on the first 8 rows)
+    t_nan = (S2 // 2) * (n // S2) + 1234
+    x_nan = x.clone()
+    x_nan[5, t_nan] = float("nan")
+    y_nan = envelope.limiter(x_nan, k_rel, c_att, curve)[0]
+    y_nan1 = envelope.limiter(x_nan[:8].contiguous(), k_rel, c_att, curve,
+                              segments=1)[0]
+    y_nan_p = envelope.limiter_plain(x_nan[:8].contiguous(), k_rel, c_att,
+                                     consts, init[:, :8].contiguous())[0]
+    torch.cuda.synchronize()
+    nan_p = y_nan_p.isnan()
+    ok_p = ~nan_p
+    nan_ok = (bool(nan_p[5, t_nan:].all()) and int(nan_p.sum()) == n - t_nan
+              and torch.equal(y_nan[:8].isnan(), nan_p)
+              and torch.equal(y_nan1.isnan(), nan_p)
+              and not bool(y_nan[8:].isnan().any()))
+    db_nan = [rms_db((yk[ok_p] - y_nan_p[ok_p]).double().cpu().numpy(),
+                     y_nan_p[ok_p].double().cpu().numpy())
+              for yk in (y_nan[:8], y_nan1)]
+    print(f"K2 with a NaN sample in row 5, segment {S2 // 2}: NaN in "
+          f"{int(y_nan[:8].isnan().sum())} samples at S = {S2} and "
+          f"{int(y_nan1.isnan().sum())} unsegmented, the twin "
+          f"{int(nan_p.sum())} (masks equal: {nan_ok}); elsewhere "
+          f"{db_nan[0]:.1f} / {db_nan[1]:.1f} dB vs the twin")
+    if not (nan_ok and max(db_nan) <= GATE_KERNEL_DB):
+        raise SystemExit("chip_smoke: K2 does not propagate NaN as its twin")
     del m, scale, ramp, x, y_plain, xs, env0, zf_a, init_b, graph
+    del x_nan, y_nan, y_nan1, y_nan_p
 
     # 5. the fused flagship step, driven once with fresh launch counters
     reset_counts()
@@ -557,47 +596,153 @@ def main() -> None:
     b = torch.from_numpy(bgm).to(dev)
     audio_s = BATCH * CLIP_SECONDS
 
-    # 9. K6 on the unfolded fused branch's real input, then that step
+    # 9. K6 on the unfolded fused branch's real input: the one-pass
+    # kernel against its twin on a prefix, the segmented eq_env() call at
+    # the card's rule against the same path on the twins, then that step
     nf = tbatch.make_flagship_step(fused=True, lti_fold=False, device=dev)
     m, scale, ramp = nf.front(v, b)
     x6 = treverb.reverb(m * ramp, nf.reverb_ir, wet=nf.wet, dry=nf.dry,
                         prescale=scale[:, None])
     R, n = x6.shape
+    k_rel, c_att = nf.k_rel, nf.c_att
     sos32 = torch.as_tensor(nf.sos, dtype=torch.float32, device=dev)
     ns = sos32.shape[0]
     zi0 = torch.zeros((ns, 2, R), dtype=torch.float32, device=dev)
     ei0 = torch.zeros((2, R), dtype=torch.float32, device=dev)
     pre = x6[:, :16000].contiguous()
-    out_k = eq_env.eq_env_pass(pre, sos32, zi0, ei0, nf.k_rel, nf.c_att)
+    out_k = eq_env.eq_env_pass(pre, sos32, zi0, ei0, k_rel, c_att)
     t0 = time.perf_counter()
-    out_p = eq_env.eq_env_plain(pre, sos32, zi0, ei0, nf.k_rel, nf.c_att)
+    out_p = eq_env.eq_env_plain(pre, sos32, zi0, ei0, k_rel, c_att)
     torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    k6 = compare("eq_env", "cuda", "xmtpu_torch/csrc/eq_env.cu",
-                 "xmtpu/kernels/eq_env.py:48", out_k[0], out_p[0])
+    plain_pre_s = time.perf_counter() - t0
     errs = [float((a - c).abs().max()) for a, c in zip(out_k, out_p)]
-    k6["max_abs_err"] = max(errs)
-    if k6["max_abs_err"] != 0.0:
+    if max(errs) != 0.0:
         raise SystemExit(f"chip_smoke: eq_env kernel differs from its twin "
                          f"(max abs y, e2, zf, ef: {errs})")
-    k6["ms"] = median_ms(lambda: eq_env.eq_env_pass(x6, sos32, zi0, ei0,
-                                                    nf.k_rel, nf.c_att))
-    k6["plain_ms"] = plain_s * 1e3
-    # x in, y and e2 out; per sample 9 operations per section and 4 of
-    # the envelope
+    # segmented (S = 4) on the prefix against the one-pass twin
+    seg_pre = eq_env.eq_env(nf.sos, pre, k_rel, c_att, segments=4)
+    db_pre = [rms_db((seg_pre[k] - out_p[k]).double().cpu().numpy(),
+                     out_p[k].double().cpu().numpy()) for k in (0, 1)]
+    if not max(db_pre) <= GATE_KERNEL_DB:
+        raise SystemExit(f"chip_smoke: segmented eq_env vs the one-pass "
+                         f"twin {db_pre} dB")
+    del pre, out_k, out_p, seg_pre
+
+    S6 = eq_env.eq_env_segments(R, n, c_att, dev, ns)
+
+    def k6_kern(segments=None):
+        return eq_env.eq_env(nf.sos, x6, k_rel, c_att, segments=segments)
+
+    out6 = k6_kern()
+    t0 = time.perf_counter()
+    out6_p = eq_env.eq_env(nf.sos, x6, k_rel, c_att, run=eq_env.TWINS)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    k6 = compare("eq_env", "cuda", "xmtpu_torch/csrc/eq_env.cu",
+                 "xmtpu/kernels/eq_env.py:48", out6[0], out6_p[0])
+    flat, flat_p = ([o[0], o[1], o[2], *o[3]] for o in (out6, out6_p))
+    errs6 = [float((a - c).abs().max()) for a, c in zip(flat, flat_p)]
+    db_e2 = rms_db((out6[1] - out6_p[1]).double().cpu().numpy(),
+                   out6_p[1].double().cpu().numpy())
+    k6["max_abs_err"] = max(errs6 + errs)
+    if not (db_e2 <= GATE_KERNEL_DB and bool(torch.isfinite(out6[1]).all())):
+        raise SystemExit(f"chip_smoke: segmented eq_env's e2 vs its twin "
+                         f"path {db_e2:.1f} dB")
+    del out6_p, flat_p
+    k6["ms"] = median_ms(k6_kern)
+    k6["plain_ms"] = twin_s * 1e3
+    # the function's own bound: x in, y and e2 out; per sample 9
+    # operations per section and 4 of the envelope
     bound(k6, 4 * (3 * R * n + 6 * ns + 2 * (2 * ns + 2) * R),
           (9 * ns + 4) * R * n)
-    print(f"K6 eq_env {tuple(x6.shape)}, {ns} sections: on the "
-          f"{tuple(pre.shape)} prefix max abs (y, e2, zf, ef) {errs} vs "
-          f"plain; kernel {k6['ms']:.3f} ms at full length, plain "
-          f"{k6['plain_ms']:.1f} ms on the prefix (one run), bound "
+    # the call's parts at the rule's S, each alone on its real operands
+    seglen = n // S6
+    xs6 = x6.reshape(R * S6, seglen)
+    z0 = torch.zeros((ns, 2, R * S6), dtype=torch.float32, device=dev)
+    e0 = torch.zeros((2, R * S6), dtype=torch.float32, device=dev)
+    zf0 = eq_env.eq_env_pass(xs6, sos32, z0, e0, k_rel, c_att,
+                             finals_only=True)[2]
+    a_t = torch.as_tensor(iir._seg_consts(nf.sos, seglen)["A_seg"],
+                          device=dev).T
+
+    def state_chain():
+        zin, _ = iir._state_chain(zf0, zi0, a_t, S6)
+        return zin.reshape(R * S6, ns, 2).permute(1, 2, 0).float(
+            ).contiguous()
+
+    zin32 = state_chain()
+    _, env0, _, ef_a = eq_env.eq_env_pass(xs6, sos32, zin32, e0, k_rel, 1.0)
+    _, e_in, ktab = envelope._seg_max_carries(
+        ei0[0], ef_a[0].reshape(R, S6), k_rel, seglen)
+    e2b, zf_b = envelope.envelope_pass(env0, 0.0, c_att, e0, ktab, e_in)
+
+    def carries():  # the state chain, the max chain, the e2 sum chain
+        state_chain()
+        envelope._seg_max_carries(ei0[0], ef_a[0].reshape(R, S6), k_rel,
+                                  seglen)
+        s6 = envelope._chain(ei0[1], zf_b[1].reshape(R, S6),
+                             envelope._decay(1.0 - np.float32(c_att),
+                                             seglen), "sum")
+        atab = envelope._seg_table("atab", envelope.seg_atab, c_att, seglen,
+                                   dev)
+        e2b[:, :atab.shape[0]] += s6[:, :S6].reshape(R * S6, 1) * atab
+
+    carries()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        carries()
+    carries6_card_ms = median_ms(graph.replay)
+    part6_ms = {
+        "pass 0": median_ms(lambda: eq_env.eq_env_pass(
+            xs6, sos32, z0, e0, k_rel, c_att, finals_only=True)),
+        "pass A": median_ms(lambda: eq_env.eq_env_pass(
+            xs6, sos32, zin32, e0, k_rel, 1.0)),
+        "carries": median_ms(carries),
+        "pass B": median_ms(lambda: envelope.envelope_pass(
+            env0, 0.0, c_att, e0, ktab, e_in)),
+    }
+    del env0, e2b, zf_b, graph
+    unseg6_ms = median_ms(lambda: k6_kern(1))
+    sweep6 = {S: median_ms(lambda S=S: k6_kern(S)) for S in (4, 8, 16, 32)}
+    # pass A with 1, 2 and 4 blocks of 32 segment rows per SM: does a
+    # chain warp slow down when others share its SM?
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows_sm = {k: k * sms * 32 for k in (1, 2, 4)}
+    big = xs6.repeat(-(-rows_sm[4] // xs6.shape[0]), 1)[:rows_sm[4]]
+    per_sm_ms = {
+        k: median_ms(lambda r=r: eq_env.eq_env_pass(
+            big[:r], sos32,
+            torch.zeros((ns, 2, r), dtype=torch.float32, device=dev),
+            torch.zeros((2, r), dtype=torch.float32, device=dev), k_rel,
+            1.0))
+        for k, r in rows_sm.items()}
+    del big
+    print(f"K6 eq_env {tuple(x6.shape)}, {ns} sections, S = {S6} (the "
+          f"card's rule, {eq_env._card_slots(dev.index or 0, ns)[1]} "
+          f"resident blocks per SM): segmented vs its twin path max abs "
+          f"(y, e2, zf, env, e2 last) {errs6}, y {k6['rms_db']:.1f} dB, e2 "
+          f"{db_e2:.1f} dB (gate {GATE_KERNEL_DB}); on the (256, 16000) "
+          f"prefix the one-pass kernel vs its twin max abs (y, e2, zf, ef) "
+          f"{errs}, segmented (S = 4) vs the one-pass twin y "
+          f"{db_pre[0]:.1f}, e2 {db_pre[1]:.1f} dB; eq_env() call "
+          f"{k6['ms']:.3f} ms = "
+          + " + ".join(f"{k} {t:.3f}" for k, t in part6_ms.items())
+          + f" ms each alone (the carries {carries6_card_ms:.3f} ms on the "
+          f"card as a graph replay); one-pass kernel {unseg6_ms:.3f} ms; "
+          "calls at "
+          + ", ".join(f"S = {S}: {t:.3f}" for S, t in sweep6.items())
+          + " ms; pass A at 1, 2, 4 blocks per SM ("
+          + ", ".join(str(r) for r in rows_sm.values()) + " rows): "
+          + ", ".join(f"{t:.3f}" for t in per_sm_ms.values())
+          + f" ms; the twin path {k6['plain_ms']:.1f} ms (one run; the "
+          f"one-pass twin {plain_pre_s * 1e3:.1f} ms on the prefix), bound "
           f"{k6['bound_ms']:.4f} ms ({k6['bound_by']}), chain "
-          f"{chain_ms(n, 4):.3f} ms [{card}]")
-    y6, e26, _, _ = eq_env.eq_env_pass(x6, sos32, zi0, ei0, nf.k_rel,
-                                       nf.c_att)
-    del pre, out_k, out_p
+          f"{chain_ms(seglen, 4):.3f} ms per pass (unsegmented "
+          f"{chain_ms(n, 4):.3f}) [{card}]")
+    y6, e26 = out6[0], out6[1]
+    del out6, flat, xs6, z0, e0, zf0, zin32, ef_a, e_in
     y, got = drive("unfolded fused step (lti_fold=False)", nf, (v, b),
-                   ("fftconv", "eq_env"), ref, audio_s)
+                   ("fftconv", "eq_env", "envelope_seg"), ref, audio_s)
     k6["launches"] = got["eq_env"]
     stages = {  # the unfolded branch's stages, on their real inputs
         "front": median_ms(lambda: nf.front(v, b)),
@@ -709,7 +854,7 @@ def main() -> None:
     for kw, need in (({}, ("iir", "fftconv", "envelope_seg")),
                      ({"fused": True}, ("fftconv", "envelope_seg")),
                      ({"fused": True, "lti_fold": False},
-                      ("fftconv", "eq_env"))):
+                      ("fftconv", "eq_env", "envelope_seg"))):
         rag = tbatch.make_batch_step(device=dev, **kw)
         opts = "".join(f", {k}={val}" for k, val in kw.items())
         label = f"ragged batch step ({RAGGED_BATCH} clips{opts})"

@@ -6,8 +6,9 @@ section, carried state; the fftconv kernel at every transform size
 65,537 taps, odd rows and a signal shorter than its hop; the envelope
 kernel's gain form with NaN input and a carried init, segmented and at
 S = 1; the |x| detector of the segmented fused limiter's pass A and the
-segmented limiter itself; the public effects chain on both limiter
-forms).
+segmented limiter itself, with NaN too; the segmented eq_env path and
+the unfolded steps that run it; the public effects chain on both
+limiter forms).
 
 Marked ``gpu``; each test skips without a CUDA device. The module
 imports no JAX, so it runs on a machine without it:
@@ -22,7 +23,12 @@ kernels round every operation as their twins do and should read exactly
 0). The eq_env kernel rounds every operation as its twin does: max abs
 0, asserted; it and the envelope-only kernel propagate NaN as their
 twins' torch.maximum does: equal to the twins with NaN in the same
-places. The two resample kernels sum 25 float32 products per
+places. The segmented eq_env path on the kernels runs every pass bit for bit as
+the same path on the twins, with the same torch glue: -100 dB, max abs
+0 expected (printed); against the one-pass kernel -100 dB (each segment
+starts from the float64 state rounded to float32). The fused limiter
+propagates NaN as its twin: the same NaN mask, -100 dB elsewhere. The
+two resample kernels sum 25 float32 products per
 output where the twins' banded matmuls sum the same taps in another
 order: -120 dB. The gain form's e2 chain rounds as its twin's (final
 states equal); its gain goes through logf/expf where the twin's goes
@@ -634,3 +640,135 @@ def test_step_segments_limiter_on_card(cuda):
     assert _launched(before) == {"fftconv", "envelope", "envelope_seg"}
     assert y.dtype == torch.int16 and y.shape == (2, 32000)
     assert _db(y.cpu().double() - y_cpu, y_cpu) <= -90.0
+
+
+@pytest.mark.parametrize("S", [1, None])  # one fused pass; the card's rule
+def test_limiter_propagates_nan(cuda, S):
+    """A NaN sample in segment 4 of row 0 and a NaN initial envelope on
+    row 1: the fused limiter, unsegmented and at the rule's S (8 here),
+    gives NaN exactly where the twin does (never a clamped +-ceiling
+    there) and reads -100 dB against it elsewhere."""
+    R, n = 3, 40000
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy((0.9 * rng.standard_normal((R, n))).astype(
+        np.float32)).to(cuda)
+    x[0, 22000] = float("nan")
+    init = torch.tensor([[0.3, float("nan"), 0.1], [0.2, 0.1, 0.0]],
+                        device=cuda)
+    curve = envelope.curve_of(-3.0)
+    k_rel, c_att = 0.99937, 0.0606
+    assert envelope.limiter_segments(R, n, c_att, cuda) == 8
+    y, zf = envelope.limiter(x, k_rel, c_att, curve, init=init, segments=S)
+    y_p, zf_p = envelope.limiter_plain(x, k_rel, c_att,
+                                       envelope.curve_consts(curve), init)
+    nan_p = y_p.isnan()
+    assert bool(nan_p[0, 22000:].all()) and not bool(nan_p[0, :22000].any())
+    assert bool(nan_p[1].all()) and not bool(nan_p[2].any())
+    assert torch.equal(y.isnan(), nan_p)
+    assert torch.equal(zf.isnan(), zf_p.isnan())
+    ok = ~nan_p
+    db = _db(y[ok] - y_p[ok], y_p[ok])
+    print(f"limiter with NaN (segments={S}): NaN where the twin's, "
+          f"{db:.1f} dB elsewhere")
+    assert db <= -100.0
+
+
+def _eq_env_operands(cuda, R, n, seed):
+    rng = np.random.default_rng(seed)
+    sos = tbatch._biquad.eq_sos(list(tbatch.DEFAULT_BANDS), 16000)
+    x = torch.from_numpy((0.3 * rng.standard_normal((R, n))).astype(
+        np.float32)).to(cuda)
+    zi = torch.from_numpy((0.05 * rng.standard_normal((5, R, 2))).astype(
+        np.float32)).to(cuda)
+    ei = tuple(torch.from_numpy(rng.uniform(0.0, 0.5, R).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    return sos, x, zi, ei
+
+
+@pytest.mark.parametrize("S", [None, 4])  # the card's rule (8 here), 4
+def test_segmented_eq_env_on_card_vs_twin_path(cuda, S):
+    """The segmented K6 path on the kernels (pass 0 and pass A on K6,
+    pass B on the envelope-only form) against the same path on the plain
+    twins, from a carried state: every pass equals its twin bit for bit
+    and the glue is the same torch code, so max abs 0 is expected (gate
+    -100 dB); and against the unsegmented kernel."""
+    R, n = 3, 40000
+    sos, x, zi, ei = _eq_env_operands(cuda, R, n, 16)
+    k_rel, c_att = 0.99937, 0.0606
+    assert eq_env.eq_env_segments(R, n, c_att, cuda, 5) == 8
+    before = _counts()
+    out = eq_env.eq_env(sos, x, k_rel, c_att, zi=zi, env_init=ei,
+                        segments=S)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"eq_env", "envelope_seg"}
+    assert (eq_env.launches - before["eq_env"],
+            envelope.envelope_launches - before["envelope_seg"]) == (2, 1)
+    ref = eq_env.eq_env(sos, x, k_rel, c_att, zi=zi, env_init=ei,
+                        segments=S, run=eq_env.TWINS)
+    one = eq_env.eq_env(sos, x, k_rel, c_att, zi=zi, env_init=ei,
+                        segments=1)
+    flat = [out[0], out[1], out[2], *out[3]]
+    errs = [float((a - b).abs().max())
+            for a, b in zip(flat, [ref[0], ref[1], ref[2], *ref[3]])]
+    dbs = [_db(a - b, b) for a, b in zip(flat, [ref[0], ref[1], ref[2],
+                                                 *ref[3]])]
+    db1 = [_db(out[k] - one[k], one[k]) for k in (0, 1)]
+    print(f"segmented eq_env (segments={S}) vs its twin path: max abs (y, "
+          f"e2, zf, env, e2 last) {errs}; y, e2 vs the unsegmented kernel "
+          f"{db1[0]:.1f}, {db1[1]:.1f} dB")
+    assert all(d <= -100.0 for d in dbs), dbs
+    assert all(d <= -100.0 for d in db1), db1
+
+
+def test_segmented_eq_env_propagates_nan(cuda):
+    """A NaN sample in segment 4 of row 0 and a NaN initial envelope on
+    row 1: the segmented kernel path gives NaN where the unsegmented
+    twin does, in y, e2 and the final states."""
+    R, n = 3, 40000
+    sos, x, zi, ei = _eq_env_operands(cuda, R, n, 17)
+    x[0, 22000] = float("nan")
+    ei[0][1] = float("nan")
+    out = eq_env.eq_env(sos, x, 0.99937, 0.0606, zi=zi, env_init=ei)
+    s32 = torch.from_numpy(sos.astype(np.float32)).to(cuda)
+    y, e2, zf, ef = eq_env.eq_env_plain(
+        x, s32, zi.permute(0, 2, 1).contiguous(), torch.stack(ei),
+        0.99937, 0.0606)
+    assert bool(y[0, 22000:].isnan().all()) and bool(e2[1].isnan().all())
+    assert not bool(y[0, :22000].isnan().any())
+    for a, b in ((out[0], y), (out[1], e2), (out[2], zf.permute(0, 2, 1)),
+                 (out[3][0], ef[0]), (out[3][1], ef[1])):
+        assert torch.equal(a.isnan(), b.isnan())
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_unfolded_steps_segment_eq_env_on_card(cuda, ragged):
+    """The unfolded fused step and the ragged step's unfolded branch at 2
+    clips of 2 s: on the card eq_env runs segmented (the rule's S = 4 at
+    32000 samples: K6 twice, then the envelope-only form), on the CPU in
+    one pass; the outputs agree."""
+    rng = np.random.default_rng(18)
+    v = (rng.standard_normal((2, 88200)) * 8000).astype(np.int16)
+    b = (rng.standard_normal((2, 88200)) * 6000).astype(np.int16)
+    assert eq_env.eq_env_segments(2, 32000, 0.0606, cuda, 5) == 4
+    kw = {"fused": True, "lti_fold": False}
+    if ragged:
+        v[1, 60000:] = 0
+        b[1, 60000:] = 0
+        extra = (torch.tensor([88200, 60000]),)
+        make = tbatch.make_batch_step
+    else:
+        extra = ()
+        make = tbatch.make_flagship_step
+    y_cpu = make(device="cpu", **kw)(torch.from_numpy(v), torch.from_numpy(b),
+                                     *extra).double()
+    before = _counts()
+    y = make(device=cuda, **kw)(torch.from_numpy(v).to(cuda),
+                                torch.from_numpy(b).to(cuda),
+                                *(t.to(cuda) for t in extra))
+    torch.cuda.synchronize()
+    assert _launched(before) == {"fftconv", "eq_env", "envelope_seg"}
+    assert y.dtype == torch.int16 and y.shape == (2, 32000)
+    db = _db(y.cpu().double() - y_cpu, y_cpu)
+    print(f"unfolded step (ragged={ragged}) on the card vs the CPU: "
+          f"{db:.1f} dB")
+    assert db <= -85.0

@@ -211,3 +211,28 @@ def test_segment_chains_closed_form(reduce):
     got = envelope._chain(first, finals, coef, reduce)
     assert not bool(got[1, :4].isnan().any())
     assert bool(got[1, 4:].isnan().all()) and not bool(got[0].isnan().any())
+
+
+def test_segmented_limiter_nan_mask_vs_pallas(x):
+    """A NaN sample in segment 2 of row 1 and a NaN initial envelope on
+    row 0: the segmented twin path (S = 4) gives NaN exactly where the
+    JAX limiter does (from the sample on; all of row 0), never a clamped
+    +-ceiling there, and agrees with it elsewhere."""
+    xn = x.copy()
+    xn[1, 4500] = np.nan
+    init = np.array([[np.nan, 0.4], [0.2, 0.2]], np.float32)
+    y_j, st_j = limiter_pallas(jnp.asarray(xn), K_REL, C_ATT, -3.0,
+                               init=tuple(jnp.asarray(v) for v in init),
+                               interpret=True)
+    y_j = np.asarray(y_j)
+    y_t, zf_t = envelope.limiter(torch.from_numpy(xn), K_REL, C_ATT, CURVE,
+                                 init=torch.from_numpy(init), segments=4,
+                                 run=envelope.envelope_plain)
+    nan_j = np.isnan(y_j)
+    assert nan_j[0].all() and nan_j[1, 4500:].all()
+    assert not nan_j[1, :4500].any()
+    assert np.array_equal(y_t.isnan().numpy(), nan_j)
+    assert np.array_equal(zf_t.isnan().numpy(),
+                          np.isnan(np.stack([np.asarray(s) for s in st_j])))
+    ok = ~nan_j
+    assert rms_db(y_t.numpy()[ok] - y_j[ok], y_j[ok]) <= -100.0

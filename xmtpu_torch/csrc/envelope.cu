@@ -23,11 +23,14 @@
 //    over a stored |x|. Its arithmetic is
 //    not contracted: __fmul_rn/__fadd_rn in the order of the JAX
 //    kernel's `update`, so it computes bit for bit what the plain torch
-//    twin (separate elementwise ops) computes; its maxes propagate NaN
-//    (max.NaN.f32) as the twin's torch.maximum does, so the two agree on
-//    any input. Form 1 keeps the FMA nvcc contracts a_att*e2 + c_att*env
-//    into and fmaxf, as it was measured: it matches its twin on finite
-//    input.
+//    twin (separate elementwise ops) computes. Form 1 keeps the FMA nvcc
+//    contracts a_att*e2 + c_att*env into, as it was measured: it matches
+//    its twin to a gate, not bit for bit. Every form propagates NaN as
+//    the JAX kernel (jnp.maximum, jnp.clip) and the twins (torch.maximum,
+//    clamp_min, clamp) do: the detector's max, the level meter's floor
+//    and form 1's ceiling clamp are max.NaN.f32 / min.NaN.f32, so a NaN
+//    sample or state gives NaN where the twin gives NaN (fmaxf / fminf
+//    would return the other operand: a NaN product clamped to -ceiling).
 // 3. The gain form (xm_envelope_gain_f32): form 2's recurrences, inline
 //    correction and caller-given init, with the copy warps writing the
 //    soft-knee gain g = exp((makeup - red) * ln10/20) of each e2 instead
@@ -36,8 +39,6 @@
 //    curve_mode="gain", as the channel-linked limiter drives them
 //    (xmtpu/kernels/envelope.py:_linked_seg_gain, pass B with the exact
 //    carried init, and the unsegmented call of linked_limiter_pallas).
-//    Its level meter's max propagates NaN, so g is NaN where the twin's
-//    is.
 //
 // What bounds it on the H100: the recurrence is sequential in time, one
 // dependent chain per row (a multiply and a max per sample, about 160000
@@ -121,16 +122,9 @@ struct Curve {
   float ceil_amp;   // ceiling amplitude
 };
 
-// kNanMax: the level meter's floor propagates NaN (the gain form);
-// otherwise fmaxf, as the fused form was measured.
-template <bool kNanMax>
+// The level meter's floor propagates NaN, as jnp.maximum does.
 __device__ __forceinline__ float curve_gain(float e2, const Curve& c) {
-  float e;
-  if constexpr (kNanMax)
-    e = xm::max_nan(e2, c.eps);
-  else
-    e = fmaxf(e2, c.eps);
-  const float level = c.lvl_scale * logf(e);
+  const float level = c.lvl_scale * logf(xm::max_nan(e2, c.eps));
   const float over = level - c.thr;
   float red;
   if (over <= -c.half_w) {
@@ -146,8 +140,9 @@ __device__ __forceinline__ float curve_gain(float e2, const Curve& c) {
 
 __device__ __forceinline__ float curve_apply(float x, float e2,
                                              const Curve& c) {
-  const float g = curve_gain<false>(e2, c);
-  return fminf(fmaxf(x * g, -c.ceil_amp), c.ceil_amp);
+  // the clamp propagates NaN, as jnp.clip and torch.clamp do
+  return xm::min_nan(xm::max_nan(x * curve_gain(e2, c), -c.ceil_amp),
+                     c.ceil_amp);
 }
 
 // Copy thread j (of 32*kCopyWarps) owns column j % kChunk of rows
@@ -187,7 +182,7 @@ struct Chain {
 
   __device__ __forceinline__ float step(float x) {
     if constexpr (kFused) {
-      env = fmaxf(fabsf(x), k_rel * env);
+      env = xm::max_nan(fabsf(x), k_rel * env);
       e2 = a_att * e2 + c_att * env;
     } else {
       env = xm::max_nan(kAbs ? fabsf(x) : x, __fmul_rn(k_rel, env));
@@ -292,7 +287,7 @@ envelope_kernel(const float* __restrict__ x, const float* __restrict__ init,
             if constexpr (kForm == kApply)
               *yp = curve_apply(xb[r * kLd + t], eb[r * kLd + t], cv);
             else if constexpr (kForm == kGain)
-              *yp = curve_gain<true>(eb[r * kLd + t], cv);
+              *yp = curve_gain(eb[r * kLd + t], cv);
             else
               *yp = eb[r * kLd + t];
           }

@@ -7,6 +7,8 @@
 // other kCopyWarps warps keep device memory off that chain: in iteration
 // c, while warp 0 filters chunk c, they start the asynchronous copy
 // (cp.async) of chunk c+kAhead and store the kOuts outputs of chunk c-1.
+// With kOuts = 0 (a chain whose final states are all it returns) nothing
+// is staged out or stored.
 // Both directions are coalesced along time, so no lane walks device
 // memory with a stride of n. Rows are padded to kChunk+4 floats, so a
 // row stays 16-byte aligned and the float4s of 8 consecutive lanes cover
@@ -25,6 +27,14 @@ namespace xm {
 __device__ __forceinline__ float max_nan(float a, float b) {
   float r;
   asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// min(a, b) that returns NaN when either operand is NaN, as torch.minimum
+// and jnp.minimum do (fminf returns the other operand): one min.NaN.f32.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
 }
 
@@ -65,14 +75,15 @@ struct RowChain {
   // warp 0's lanes below `rows` call ch.run(xr, yr, len) per chunk, with
   // xr the row's staged input and yr its first staged output (output k at
   // yr + k*kBuf), and the copy warps store output k into out[k] (R, n).
-  // The chain's states are the caller's, before and after.
+  // With kOuts = 0 they call ch.run(xr, len), and `out` is one unused
+  // pointer. The chain's states are the caller's, before and after.
   template <class Chain>
-  static __device__ __forceinline__ void run(const float* __restrict__ x,
-                                             float* const (&out)[kOuts],
-                                             int r0, int rows, int n,
-                                             Chain& ch) {
+  static __device__ __forceinline__ void run(
+      const float* __restrict__ x, float* const (&out)[kOuts > 0 ? kOuts : 1],
+      int r0, int rows, int n, Chain& ch) {
     __shared__ __align__(16) float xs[kXBufs * kBuf];
-    __shared__ __align__(16) float ys[kOutBufs * kOuts * kBuf];
+    __shared__ __align__(16) float ys[kOuts > 0 ? kOutBufs * kOuts * kBuf
+                                                : 1];
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
     const int j = threadIdx.x - 32;  // copy-thread index
@@ -91,8 +102,12 @@ struct RowChain {
 
     for (int c = 0; c <= nch; ++c) {
       if (warp == 0) {
-        if (c < nch && lane < rows)
-          ch.run(xbuf(c) + lane * kLd, ybuf(c) + lane * kLd, clen(c));
+        if (c < nch && lane < rows) {
+          if constexpr (kOuts > 0)
+            ch.run(xbuf(c) + lane * kLd, ybuf(c) + lane * kLd, clen(c));
+          else
+            ch.run(xbuf(c) + lane * kLd, clen(c));
+        }
       } else {
         // chunk c+kAhead reuses the buffer of chunk c-1, filtered in the
         // previous iteration
@@ -100,7 +115,7 @@ struct RowChain {
           stage(x, xbuf(c + kAhead), r0, rows, n, (c + kAhead) * kChunk,
                 clen(c + kAhead), j);
         cp_async_commit();  // one group per iteration, possibly empty
-        if (c >= 1) {
+        if (kOuts > 0 && c >= 1) {
           const int t = j % kChunk;
           const int tp = (c - 1) * kChunk;
           if (t < clen(c - 1)) {

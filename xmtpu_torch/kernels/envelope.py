@@ -42,8 +42,12 @@ JAX package does; :func:`limiter` by the card's own rule
 On a CUDA tensor the wrappers launch the kernel; on a CPU tensor they
 run the plain twins (:func:`limiter_plain`, :func:`envelope_plain`),
 torch loops over time, which the CPU tests and the on-card comparison
-use. The TPU kernels' block-8 lookahead is not used: the kernel steps
-per sample, the same function in exact arithmetic.
+use. Every form propagates NaN as the JAX kernels' ``jnp.maximum`` and
+``jnp.clip`` and the twins' ``torch.maximum``, ``clamp_min`` and
+``clamp`` do (the detector, the level meter's floor, the fused form's
+ceiling clamp), so a NaN sample or state gives NaN where the twin's
+does, segmented or not. The TPU kernels' block-8 lookahead is not used:
+the kernel steps per sample, the same function in exact arithmetic.
 """
 
 from __future__ import annotations
@@ -221,18 +225,26 @@ def _card_slots(index: int) -> tuple[int, int]:
 
 
 def limiter_segments(R: int, n: int, c_att: float, device) -> int:
-    """The fused limiter's segment count: 1 on the CPU; on a card,
-    ``gpu_segments`` over its SM count and the kernel's resident blocks
-    per SM, with segments at least 4096 samples and the carries' decay
-    window (``_decay_cut(1 - c_att)``)."""
+    """The fused limiter's segment count (:func:`card_segments` with
+    this kernel's resident blocks per SM)."""
+    return card_segments(R, n, c_att, device, _card_slots, _ROWS_PER_BLOCK)
+
+
+def card_segments(R: int, n: int, c_att: float, device, slots,
+                  rows_per_block: int) -> int:
+    """A segmented row-chain call's segment count: 1 on the CPU; on a
+    card, ``gpu_segments`` over ``slots(index)`` = (SMs, the kernel's
+    resident blocks per SM) and its ``rows_per_block``, with segments at
+    least 4096 samples and the envelope carries' decay window
+    (``_decay_cut(1 - c_att)``)."""
     device = torch.device(device)
     if device.type != "cuda":
         return 1
     index = (torch.cuda.current_device() if device.index is None
              else device.index)
-    sms, per_sm = _card_slots(index)
+    sms, per_sm = slots(index)
     min_seglen = max(_MIN_SEGLEN, _decay_cut(1.0 - float(c_att), n))
-    return gpu_segments(R, n, sms, per_sm, _ROWS_PER_BLOCK, min_seglen)
+    return gpu_segments(R, n, sms, per_sm, rows_per_block, min_seglen)
 
 
 def _limiter_seg(x, k_rel, c_att, curve, init2, S, run):
@@ -451,10 +463,19 @@ def _seg_pass_a(d2d, k_rel, init2, S, run, **kw):
     seglen = n // S
     env0, zf_a = run(d2d.reshape(R * S, seglen), k_rel, 1.0,
                      d2d.new_zeros((2, R * S)), **kw)
-    e = _chain(init2[0], zf_a[0].reshape(R, S), _decay(k_rel, seglen),
-               "max")
-    ktab = _seg_table("ktab", seg_ktab, k_rel, seglen, d2d.device)
-    return env0, e[:, S], e[:, :S].reshape(R * S), ktab
+    return (env0, *_seg_max_carries(init2[0], zf_a[0].reshape(R, S), k_rel,
+                                    seglen))
+
+
+def _seg_max_carries(e_first, finals, k_rel, seglen):
+    """The exact max chain over the segments: ``e_first`` (R,) the
+    envelope entering each row, ``finals`` (R, S) each segment's
+    zero-state final envelope -> (e_last (R,), e_in (R*S,) the envelope
+    entering each segment, ktab (seglen,) pass B's correction column)."""
+    R, S = finals.shape
+    e = _chain(e_first, finals, _decay(k_rel, seglen), "max")
+    ktab = _seg_table("ktab", seg_ktab, k_rel, seglen, finals.device)
+    return e[:, S], e[:, :S].reshape(R * S), ktab
 
 
 def _seg_e2_carries(env0, e_in, ktab, c_att, s0, S):
@@ -475,19 +496,27 @@ def _seg_e2_carries(env0, e_in, ktab, c_att, s0, S):
     return s[:, :S].reshape(RS), s[:, S]
 
 
+def _seg_pass_b(env0, e_in, ktab, c_att, s0, S, run):
+    """Pass B of the segmented envelope: the one-pole alone (k_rel = 0
+    passes the input through) over the zero-state decaying max ``env0``
+    (R*S, seglen) corrected inline, max(env0[t], e_in * k^(t+1)), from
+    zero state; then the sum chain from ``s0`` (R,) and the correction
+    ``s_in * a^(t+1)``. Returns (e2 (R*S, seglen), e2_last (R,))."""
+    RS, seglen = env0.shape
+    e2, zf_b = run(env0, 0.0, c_att, env0.new_zeros((2, RS)), ktab, e_in)
+    s = _chain(s0, zf_b[1].reshape(RS // S, S),
+               _decay(1.0 - np.float32(c_att), seglen), "sum")
+    atab = _seg_table("atab", seg_atab, c_att, seglen, env0.device)
+    e2[:, :atab.shape[0]] += s[:, :S].reshape(RS, 1) * atab
+    return e2, s[:, S]
+
+
 def _envelope_seg(d2d, k_rel, c_att, init2, S, run):
     """Segmented exact envelope: d2d (R, n) -> (e2 (R, n), zf (2, R))."""
     R, n = d2d.shape
-    seglen = n // S
     env0, e_last, e_in, ktab = _seg_pass_a(d2d, k_rel, init2, S, run)
-    # pass B: one-pole only (k_rel = 0 passes the input through) over
-    # the envelope corrected inline, max(env0[t], E * k^(t+1))
-    e2, zf_b = run(env0, 0.0, c_att, d2d.new_zeros((2, R * S)), ktab, e_in)
-    s = _chain(init2[1], zf_b[1].reshape(R, S),
-               _decay(1.0 - np.float32(c_att), seglen), "sum")
-    atab = _seg_table("atab", seg_atab, c_att, seglen, d2d.device)
-    e2[:, :atab.shape[0]] += s[:, :S].reshape(R * S, 1) * atab
-    return e2.reshape(R, n), torch.stack([e_last, s[:, S]])
+    e2, e2_last = _seg_pass_b(env0, e_in, ktab, c_att, init2[1], S, run)
+    return e2.reshape(R, n), torch.stack([e_last, e2_last])
 
 
 def _init2(init, R, device):

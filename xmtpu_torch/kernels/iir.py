@@ -166,24 +166,35 @@ def sosfilt_pass(x: torch.Tensor, sos: torch.Tensor, zi: torch.Tensor):
     return y, zf
 
 
+def _state_chain(zf0, zi3, a_t, S):
+    """The exact cascade state entering each segment, in float64: zf0
+    (ns, 2, R*S) the segments' zero-state final states (row r*S + k is
+    segment k of row r), zi3 (ns, 2, R) the state entering each row, a_t
+    the transposed A^seglen -> (zin (R*S, D), z (R, D) after each row's
+    last segment), D = 2*ns in probe order. A sequential loop over the
+    segments, so a NaN final reaches only later segments."""
+    ns = zf0.shape[0]
+    D = 2 * ns
+    R = zi3.shape[2]
+    # zero-init segment final states -> (S, R, D) in probe order
+    v = zf0.reshape(ns, 2, R, S).permute(3, 2, 0, 1).reshape(S, R, D).double()
+    z = zi3.permute(2, 0, 1).reshape(R, D).double()
+    z_ins = []
+    for k in range(S):  # exact cross-segment state chain
+        z_ins.append(z)
+        z = z @ a_t + v[k]
+    return torch.stack(z_ins, 1).reshape(R * S, D), z
+
+
 def _sosfilt_seg(x2d, sos32, zi3, S, tabs, run):
     """Segmented exact cascade: x2d (R, n) -> (y (R, n), zf (ns, 2, R))."""
     ns = sos32.shape[0]
-    D = 2 * ns
     R, n = x2d.shape
     seglen = n // S
     # row r*S + k is segment k of row r
     y0, zf0 = run(x2d.reshape(R * S, seglen), sos32,
                   x2d.new_zeros((ns, 2, R * S)))
-    # zero-init segment final states -> (S, R, D) in probe order
-    v = zf0.reshape(ns, 2, R, S).permute(3, 2, 0, 1).reshape(S, R, D).double()
-    z = zi3.permute(2, 0, 1).reshape(R, D).double()
-    a_t = tabs["A_seg"].T
-    z_ins = []
-    for k in range(S):  # exact cross-segment state chain
-        z_ins.append(z)
-        z = z @ a_t + v[k]
-    zin = torch.stack(z_ins, 1).reshape(R * S, D)
+    zin, z = _state_chain(zf0, zi3, tabs["A_seg"].T, S)
     wr = (zin @ tabs["Tr"].T).float()
     wi = (zin @ tabs["Ti"].T).float()
     corr = wr @ tabs["Lr"] - wi @ tabs["Li"]

@@ -32,10 +32,19 @@ process exits non-zero:
    must launch; clip 0 must read <= -80 dB against the float64 oracle;
    throughput;
 6. K5, the IIR kernel, on the small-batch branch's real EQ input (32
-   clips: 128 segment rows of 40000 samples): kernel and twin at that
-   shape (gate -100 dB, both times), and the segmented ``sosfilt`` path
-   on a 1 s prefix (32 x 16000, 2 segments) against the same path on
-   the twin;
+   x 160000) cut into segment rows at the card's rule (S = 64 on an
+   H100: 2,048 rows of 2,500) and at the JAX rule's S = 4: the kernel
+   against the plain twin (y and zf max abs 0), its time from the host
+   and as a CUDA-graph replay (its time on the card), and its cycles
+   per sample on the card; at S = 4 .. 128 the pass, the ``sosfilt()``
+   call from the host (three interleaved rounds) and as a graph replay;
+   the float64 state-chain kernel against its torch loop (<= 1e-12
+   relative), its call, its time as a CUDA-graph replay and the loop's;
+   the ``sosfilt()`` call and its glue (alone, and as a graph replay);
+   the segmented call against the same path on the twin (max abs 0),
+   against the unsegmented kernel and, on a 1 s prefix at S = 8, the
+   unsegmented twin (-100 dB); a NaN sample in one segment of one row:
+   the NaN masks of the kernels' path and the twin path equal;
 7. K1 at the small-batch branch's own operands (the EQ output, 32 x
    160000, the raw 4000-tap reverb IR, unit gains: what ``reverb()``
    passes it there) against its twin (gate -100 dB, both times,
@@ -44,24 +53,27 @@ process exits non-zero:
    two launches) against the same path on the twin (gate -100 dB);
    each launch's time against its twin's;
 8. the unfused small-batch step on 32 clips of 10 s, counters set to 0
-   just before: K1, K5 and the envelope-only kernel must launch; clip 0
-   <= -80 dB against the float64 oracle; throughput; a per-stage
-   breakdown (CUDA events);
+   just before: K1, K5, the state-chain kernel and the envelope-only
+   kernel must launch; clip 0 <= -80 dB against the float64 oracle;
+   throughput; a per-stage breakdown (CUDA events);
 9. K6, the eq_env kernel, on the unfolded fused branch's real input
    (the K1 output with the raw 4000-tap IR and the normalize gain as
    ``prescale``, 256 x 160000): the one-pass kernel against its twin on
    a 256 x 16000 prefix (the twin's time loop is too slow at full
    length; y, e2 and both final states must read max abs 0), and the
    segmented path (S = 4) there against that twin (y and e2 <= -100
-   dB); the segmented ``eq_env()`` call at the card's rule (S = 32:
-   pass 0 and pass A on K6, pass B on the envelope-only kernel) against
+   dB); the state-chain kernel against its torch loop on the finals of
+   K6's pass 0 at the rule's S (<= 1e-12 relative); the segmented
+   ``eq_env()`` call at the card's rule (S = 32: pass 0 and pass A on
+   K6, pass B on the envelope-only kernel) against
    the same path on the twins at full length (gate -100 dB, max abs
    printed); the call's time, pass 0, pass A, the carries (alone, and as
    a CUDA-graph replay), pass B, the one-pass kernel, the calls at S =
    4, 8, 16, 32, and pass A with 1, 2 and 4 blocks per SM; then
    ``make_flagship_step(fused=True, lti_fold=False)`` with fresh
-   counters: K1, K6 and the envelope-only kernel must launch; clip 0 <=
-   -80 dB; throughput; a per-stage breakdown (CUDA events);
+   counters: K1, K6, the state chain and the envelope-only kernel must
+   launch; clip 0 <= -80 dB; throughput; a per-stage breakdown (CUDA
+   events);
 10. K7, the resample kernel, on the two-track front's real input (512 x
    441000 float32): gate -100 dB against its twin, both times, and the
    dense banded ``torch.matmul`` (the TPU kernel's form) as the library
@@ -74,12 +86,12 @@ process exits non-zero:
    pallas, rsmix) each timed alone on the same clips;
 12. the ragged ``make_batch_step`` at 64 clips (the file runner's
    default) with lengths of 5-10 s padded to 10 s, on each of its three
-   branches: the unfused one the auto rule picks at 64 rows (K5, K1 and
-   the envelope-only kernel must launch), then ``fused=True`` folded
-   (K1 and the envelope-only kernel) and unfolded (``lti_fold=False``:
-   K1, K6 and the envelope-only kernel); each: clip 0 <= -80 dB
-   against the float64 oracle on its own length; every sample past
-   each clip's length must be 0;
+   branches: the unfused one the auto rule picks at 64 rows (K5, the
+   state chain, K1 and the envelope-only kernel must launch), then
+   ``fused=True`` folded (K1 and the envelope-only kernel) and unfolded
+   (``lti_fold=False``: K1, K6, the state chain and the envelope-only
+   kernel); each: clip 0 <= -80 dB against the float64 oracle on its
+   own length; every sample past each clip's length must be 0;
    throughput in audio-seconds of the true lengths;
 13. K1's long-IR (partitioned) form at config 3's operands: the
    24,082-tap folded EQ+reverb IR over 32 rows (16 stereo clips of 10 s
@@ -99,16 +111,17 @@ process exits non-zero:
    ``reverb_np`` -> ``limiter_np``; every stage is causal), throughput,
    and the chain's stages each alone (CUDA events);
 16. a JSON line of the kernels (times, bounds, launches; K1 once per
-   branch), then the contract line ``{"ok": true, "device": {...}}``
-   last.
+   branch; the state-chain kernel beside K5), then the contract line
+   ``{"ok": true, "device": {...}}`` last.
 
-Every step run with fresh counters sets all nine launch counters to 0
+Every step run with fresh counters sets all ten launch counters to 0
 just before it and reads them just after.
 
 ``bound_ms`` is the roofline bound: the larger of the bytes each kernel
 must move (inputs read once, outputs written once) over 3.35 TB/s and
-its operations over the 67 TFLOP/s float32 peak (H100 SXM data sheet);
-K1's operations are the FIR's least FFT work (``fir_fft_ops``).
+its operations over the 67 TFLOP/s float32 peak (H100 SXM data sheet;
+the state chain's over the 34 TFLOP/s float64 peak); K1's operations
+are the FIR's least FFT work (``fir_fft_ops``).
 The recurrence kernels' text lines also print their chain bound: the
 longest chain's steps times the loop-carried latency of a step (4
 cycles per dependent float32 operation) at the card's maximum SM clock.
@@ -132,6 +145,7 @@ GATE_CHAIN_DB = -80.0
 BATCH, SMALL_BATCH, RAGGED_BATCH, CLIP_SECONDS = 256, 32, 64, 10.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+F64_OPS_PER_S = 34e12  # H100 SXM, float64 outside the tensor cores
 OP_LATENCY_CYCLES = 4  # one dependent float32 add / multiply / max
 
 
@@ -156,9 +170,10 @@ def fir_fft_ops(R: int, n: int, taps: int) -> float:
     return pairs * best
 
 
-def roofline_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def roofline_ms(n_bytes: float, n_ops: float,
+                ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -170,7 +185,8 @@ def main() -> None:
     from xmtpu_torch import batch as tbatch
     from xmtpu_torch.bench import (make_inputs, median_ms, rms_db,
                                    step_seconds)
-    from xmtpu_torch.kernels import _build, envelope, eq_env, fftconv, iir
+    from xmtpu_torch.kernels import _build, _seg, envelope, eq_env, fftconv
+    from xmtpu_torch.kernels import iir
     from xmtpu_torch.kernels import resample as kresample
     from xmtpu_torch.kernels import rsmix
     from xmtpu_torch.ops import convert, limiter
@@ -198,13 +214,13 @@ def main() -> None:
 
     def reset_counts() -> None:
         fftconv.launches = envelope.launches = 0
-        iir.launches = envelope.envelope_launches = 0
+        iir.launches = envelope.envelope_launches = iir.chain_launches = 0
         eq_env.launches = kresample.launches = rsmix.launches = 0
         fftconv.long_launches = envelope.gain_launches = 0
 
     def counts() -> dict:
         return {"fftconv": fftconv.launches, "envelope": envelope.launches,
-                "iir": iir.launches,
+                "iir": iir.launches, "state_chain": iir.chain_launches,
                 "envelope_seg": envelope.envelope_launches,
                 "eq_env": eq_env.launches, "resample": kresample.launches,
                 "rsmix": rsmix.launches,
@@ -450,43 +466,197 @@ def main() -> None:
     x_eq = m * ramp * scale[:, None]
     R, n = x_eq.shape
 
-    # 6. K5: the IIR kernel vs its plain twin
-    S = iir.pick_segments(R, n)
+    # 6. K5: the IIR kernel at the card's rule and at the JAX rule's S
+    # against its plain twin; the S sweep; the state-chain kernel against
+    # its torch loop; the sosfilt() call and its glue; a NaN-bearing row
     sos32 = torch.as_tensor(small.sos, dtype=torch.float32, device=dev)
     ns = sos32.shape[0]
-    xs = x_eq.reshape(R * S, n // S)
-    zi0 = torch.zeros((ns, 2, R * S), dtype=torch.float32, device=dev)
-    yk, zk = iir.sosfilt_pass(xs, sos32, zi0)
-    t0 = time.perf_counter()
-    yp, zp = iir.sosfilt_plain(xs, sos32, zi0)
+    S = iir.sosfilt_segments(R, n, dev, ns)
+
+    def seg_rows(S_):
+        return (x_eq.reshape(R * S_, n // S_),
+                torch.zeros((ns, 2, R * S_), dtype=torch.float32,
+                            device=dev))
+
+    def cycles(ms, S_):  # per sample of a row: every row runs at once
+        return ms * 1e-3 * clock_hz / (n // S_)
+
+    def replay_ms(fn):  # fn's time on the card: a CUDA-graph replay
+        fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return median_ms(graph.replay)
+
+    k5 = None
+    pass5 = {}  # S -> (ms, ms on the card, cycles per sample on the card)
+    for S_ in (S, iir.pick_segments(R, n)):
+        xs, zi0 = seg_rows(S_)
+        yk, zk = iir.sosfilt_pass(xs, sos32, zi0)
+        t0 = time.perf_counter()
+        yp, zp = iir.sosfilt_plain(xs, sos32, zi0)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        errs5 = [float((a_ - b_).abs().max()) for a_, b_ in ((yk, yp),
+                                                             (zk, zp))]
+        if max(errs5) != 0.0:
+            raise SystemExit(f"chip_smoke: K5 differs from its twin at S = "
+                             f"{S_} (max abs y, zf: {errs5})")
+        t = median_ms(lambda: iir.sosfilt_pass(xs, sos32, zi0))
+        t_card = replay_ms(lambda: iir.sosfilt_pass(xs, sos32, zi0))
+        pass5[S_] = (t, t_card, cycles(t_card, S_))
+        if k5 is None:  # the rule's S: the kernel line's numbers
+            k5 = compare("iir", "cuda", "xmtpu_torch/csrc/iir.cu",
+                         "xmtpu/kernels/iir.py:37", yk, yp)
+            k5["plain_ms"] = plain_s * 1e3
+        k5["max_abs_err"] = max(k5["max_abs_err"], *errs5)
+        del xs, yk, zk, yp, zp
+    k5["ms"] = pass5[S][0]
+    # the function's own bound: x in, y out, sos, zi and zf
+    bound(k5, 4 * (2 * R * n + 6 * ns + 4 * ns * R), 9 * ns * R * n)
+    # the S sweep: the pass; the sosfilt() call timed from the host in
+    # three interleaved rounds (host-bound: its launches take longer than
+    # its work on the card) and as a CUDA-graph replay (the call's time
+    # on the card)
+    sweep_s = (4, 8, 16, 32, 64, 128)
+    call_rounds = {S_: [] for S_ in sweep_s}
+    for _ in range(3):
+        for S_ in sweep_s:
+            call_rounds[S_].append(median_ms(
+                lambda S_=S_: iir.sosfilt(small.sos, x_eq, segments=S_)))
+    sweep5 = {}  # S -> (pass ms, call ms per round, call ms on the card)
+    for S_ in sweep_s:
+        xs, zi0 = seg_rows(S_)
+        sweep5[S_] = (median_ms(lambda: iir.sosfilt_pass(xs, sos32, zi0)),
+                      call_rounds[S_], replay_ms(
+                          lambda S_=S_: iir.sosfilt(small.sos, x_eq,
+                                                    segments=S_)))
+    # the state chain at the rule's S: the kernel against its torch loop
+    xs, zi0 = seg_rows(S)
+    y0, zf0 = iir.sosfilt_pass(xs, sos32, zi0)
+    zi3 = torch.from_numpy((0.1 * np.random.default_rng(5).standard_normal(
+        (ns, 2, R))).astype(np.float32)).to(dev)
+    a_t = torch.as_tensor(iir._seg_consts(small.sos, n // S)["A_seg"],
+                          device=dev).T
+    zin_k, z_k = iir._state_chain(zf0, zi3, a_t, S)
+    zin_p, z_p = iir.state_chain_plain(zf0, zi3, a_t, S)
     torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    k5 = compare("iir", "cuda", "xmtpu_torch/csrc/iir.cu",
-                 "xmtpu/kernels/iir.py:37", yk, yp)
-    zf_err = float((zk - zp).abs().max())
-    k5["ms"] = median_ms(lambda: iir.sosfilt_pass(xs, sos32, zi0))
-    k5["plain_ms"] = plain_s * 1e3
-    bound(k5, 4 * (2 * xs.numel() + 6 * ns + 4 * ns * R * S),
-          9 * ns * xs.numel())
-    pre =x_eq[:, :16000].contiguous()
-    S_pre = iir.pick_segments(R, pre.shape[1])
-    y_pre, _ = iir.sosfilt(small.sos, pre)
-    y_pre_p, _ = iir.sosfilt(small.sos, pre, run=iir.sosfilt_plain)
+    kc = dict(name="state_chain", route="cuda",
+              source="xmtpu_torch/csrc/seg_chain.cu",
+              replaces="xmtpu/kernels/iir.py:304", library_ms=None,
+              max_abs_err=max(float((zin_k - zin_p).abs().max()),
+                              float((z_k - z_p).abs().max())))
+    rel_c = kc["max_abs_err"] / max(float(zin_p.abs().max()),
+                                    float(z_p.abs().max()))
+    if not (rel_c <= 1e-12 and bool(torch.isfinite(zin_k).all())):
+        raise SystemExit(f"chip_smoke: the state-chain kernel differs from "
+                         f"its loop by {rel_c:.3g} relative")
+    kernels.append(kc)
+    kc["ms"] = median_ms(lambda: iir._state_chain(zf0, zi3, a_t, S))
+    kc["plain_ms"] = median_ms(lambda: iir.state_chain_plain(zf0, zi3, a_t,
+                                                             S))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        iir._state_chain(zf0, zi3, a_t, S)
+    chain_card_ms = median_ms(graph.replay)
+    D = 2 * ns
+    # zf0 and zi in, A_seg, zin and the last states out; 2 D^2 float64
+    # operations per segment
+    kc["bound_ms"], kc["bound_by"] = roofline_ms(
+        4 * D * R * (S + 1) + 8 * (D * D + D * R * (S + 1)),
+        2 * D * D * R * S, F64_OPS_PER_S)
+    # sosfilt() alone at the rule's S, its glue (everything but the pass:
+    # the pass returns the y0 and zf0 above), alone and as a graph replay
+    call_ms = median_ms(lambda: iir.sosfilt(small.sos, x_eq))
+
+    def cached(xs_, s_, z_):
+        return y0, zf0
+
+    glue_ms = median_ms(lambda: iir.sosfilt(small.sos, x_eq, run=cached))
+    iir.sosfilt(small.sos, x_eq, run=cached)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        iir.sosfilt(small.sos, x_eq, run=cached)
+    glue_card_ms = median_ms(graph.replay)
+    del graph, y0, zf0, zin_k, zin_p, xs
+    # segmented on the kernels against the same path on the twin (full
+    # length) and against the unsegmented kernel; on a 1 s prefix at S =
+    # 8 against the unsegmented twin
+    y_seg, zf_seg = iir.sosfilt(small.sos, x_eq)
+    y_seg_p, zf_seg_p = iir.sosfilt(small.sos, x_eq, run=iir.sosfilt_plain)
+    y_one = iir.sosfilt(small.sos, x_eq, segments=1)[0]
+    pre = x_eq[:, :16000].contiguous()
+    y_pre = iir.sosfilt(small.sos, pre, segments=8)[0]
+    y_pre_p = iir.sosfilt(small.sos, pre, segments=1,
+                          run=iir.sosfilt_plain)[0]
     torch.cuda.synchronize()
+    twin_path_err = max(float((y_seg - y_seg_p).abs().max()),
+                        float((zf_seg - zf_seg_p).abs().max()))
+    db_one = rms_db((y_seg - y_one).double().cpu().numpy(),
+                    y_one.double().cpu().numpy())
     db_pre = rms_db((y_pre - y_pre_p).double().cpu().numpy(),
                     y_pre_p.double().cpu().numpy())
-    print(f"K5 iir {tuple(xs.shape)} ({R} rows x {S} segments), {ns} "
-          f"sections: {k5['rms_db']:.1f} dB vs plain (gate "
-          f"{GATE_KERNEL_DB}), max abs {k5['max_abs_err']:.3g}, zf max abs "
-          f"{zf_err:.3g}; segmented sosfilt on {tuple(pre.shape)} (S = "
-          f"{S_pre}) {db_pre:.1f} dB vs its twin path; kernel "
-          f"{k5['ms']:.3f} ms, plain {k5['plain_ms']:.1f} ms (one run), "
-          f"bound {k5['bound_ms']:.4f} ms ({k5['bound_by']}), chain "
-          f"{chain_ms(n // S, 4):.3f} ms [{card}]")
-    if not (db_pre <= GATE_KERNEL_DB and zf_err <= 1e-4):
-        raise SystemExit("chip_smoke: the segmented IIR path failed its "
-                         "check")
-    del xs, yk, yp, pre
+    if not (twin_path_err == 0.0 and max(db_one, db_pre) <= GATE_KERNEL_DB):
+        raise SystemExit(f"chip_smoke: segmented sosfilt failed its check "
+                         f"(vs its twin path max abs {twin_path_err}; vs "
+                         f"one pass {db_one:.1f} dB, on the prefix "
+                         f"{db_pre:.1f} dB)")
+    del y_seg, y_seg_p, y_one, pre, y_pre, y_pre_p
+    # a NaN sample in segment S/2 of row 5: the kernels' path and the twin
+    # path (rows are independent: the first 8 rows) give the same masks
+    S_nan = iir.sosfilt_segments(8, n, dev, ns)
+    t_nan = (S_nan // 2) * (n // S_nan) + 1234
+    x_nan = x_eq[:8].clone()
+    x_nan[5, t_nan] = float("nan")
+    y_nan, zf_nan = iir.sosfilt(small.sos, x_nan)
+    y_nan_p, zf_nan_p = iir.sosfilt(small.sos, x_nan, run=iir.sosfilt_plain)
+    torch.cuda.synchronize()
+    nan_p = y_nan_p.isnan()
+    nan_ok = (torch.equal(y_nan.isnan(), nan_p)
+              and torch.equal(zf_nan.isnan(), zf_nan_p.isnan())
+              and bool(nan_p[5, t_nan:].all())
+              and int(nan_p.sum()) == n - t_nan)
+    db_nan = rms_db((y_nan[~nan_p] - y_nan_p[~nan_p]).double().cpu().numpy(),
+                    y_nan_p[~nan_p].double().cpu().numpy())
+    if not (nan_ok and db_nan <= GATE_KERNEL_DB):
+        raise SystemExit("chip_smoke: segmented sosfilt does not propagate "
+                         "NaN as its twin path")
+    del x_nan, y_nan, y_nan_p, nan_p
+    S_jax = iir.pick_segments(R, n)
+    per_sm5 = _seg.card_slots("xm_sosfilt_blocks_per_sm", dev.index or 0,
+                              ns)[1]
+    print(f"K5 iir {tuple(x_eq.shape)}, {ns} sections, S = {S} (the card's "
+          f"rule: {per_sm5} resident blocks per SM, "
+          f"{iir.rows_per_block(ns)} rows per block): kernel vs plain max "
+          f"abs {k5['max_abs_err']:.3g} (y and zf, at S = {S} and "
+          f"{S_jax}); pass at S = {S} {pass5[S][0]:.4f} ms "
+          f"({pass5[S][1]:.4f} ms on the card as a graph replay, "
+          f"{pass5[S][2]:.1f} cycles per sample), at S = {S_jax} "
+          f"{pass5[S_jax][0]:.4f} ms ({pass5[S_jax][1]:.4f} ms, "
+          f"{pass5[S_jax][2]:.1f} cycles per sample); plain "
+          f"{k5['plain_ms']:.1f} ms at S = {S} (one run); bound "
+          f"{k5['bound_ms']:.4f} ms ({k5['bound_by']}), chain "
+          f"{chain_ms(n // S, 4):.4f} ms (S = {S_jax}: "
+          f"{chain_ms(n // S_jax, 4):.4f}) [{card}]")
+    print("K5 S sweep (pass / sosfilt() call from the host, 3 rounds / "
+          "the call as a graph replay, ms): "
+          + ", ".join(f"S = {S_}: {p_:.4f} / "
+                      + " ".join(f"{c_:.4f}" for c_ in cs_)
+                      + f" / {g_:.4f}"
+                      for S_, (p_, cs_, g_) in sweep5.items()) + f" [{card}]")
+    print(f"K5 state chain ({R} rows x {S} segments, D = {D}): kernel vs "
+          f"its torch loop {rel_c:.3g} relative (gate 1e-12); kernel call "
+          f"{kc['ms']:.4f} ms ({chain_card_ms:.4f} ms on the card as a graph "
+          f"replay), loop {kc['plain_ms']:.4f} ms ({S} steps), bound "
+          f"{kc['bound_ms']:.5f} ms ({kc['bound_by']}) [{card}]")
+    print(f"K5 sosfilt() call at S = {S}: {call_ms:.4f} ms; its glue "
+          f"{glue_ms:.4f} ms alone, {glue_card_ms:.4f} ms on the card as a "
+          f"graph replay; segmented vs its twin path max abs "
+          f"{twin_path_err:.3g} (y and zf), vs one pass {db_one:.1f} dB, on "
+          f"the (32, 16000) prefix at S = 8 vs the unsegmented twin "
+          f"{db_pre:.1f} dB (gate {GATE_KERNEL_DB}); a NaN in row 5, segment "
+          f"{S_nan // 2} of {S_nan}: masks equal {nan_ok}, elsewhere "
+          f"{db_nan:.1f} dB [{card}]")
 
     # 7. K1 on the operands reverb() gives it on this branch, then the
     # envelope-only kernel through the segmented envelope()
@@ -536,11 +706,13 @@ def main() -> None:
     y = small(v, b)
     torch.cuda.synchronize()
     small_launches = counts()
-    if min(small_launches[k] for k in ("fftconv", "iir", "envelope_seg")) < 1:
+    if min(small_launches[k] for k in ("fftconv", "iir", "state_chain",
+                                       "envelope_seg")) < 1:
         raise SystemExit(f"chip_smoke: a kernel did not launch in the "
                          f"small-batch step: {small_launches}")
     k1s["launches"] = small_launches["fftconv"]
     k5["launches"] = small_launches["iir"]
+    kc["launches"] = small_launches["state_chain"]
     ke["launches"] = small_launches["envelope_seg"]
     if tuple(y.shape) != (SMALL_BATCH, n_bus) or y.dtype != torch.int16:
         raise SystemExit(f"chip_smoke: small step output {tuple(y.shape)}")
@@ -665,6 +837,21 @@ def main() -> None:
     a_t = torch.as_tensor(iir._seg_consts(nf.sos, seglen)["A_seg"],
                           device=dev).T
 
+    # the state-chain kernel against its torch loop on K6's own finals
+    # (R x S6 segments): the twin path's comparison above runs the kernel
+    # on both sides
+    chain6 = [iir._state_chain(zf0, zi0, a_t, S6),
+              iir.state_chain_plain(zf0, zi0, a_t, S6)]
+    torch.cuda.synchronize()
+    rel6 = max(float((a - c).abs().max()) / float(c.abs().max())
+               for a, c in zip(*chain6))
+    if not (rel6 <= 1e-12 and bool(torch.isfinite(chain6[0][0]).all())):
+        raise SystemExit(f"chip_smoke: the state-chain kernel differs from "
+                         f"its loop on K6's finals by {rel6:.3g} relative")
+    kc["max_abs_err"] = max(kc["max_abs_err"], *(
+        float((a - c).abs().max()) for a, c in zip(*chain6)))
+    del chain6
+
     def state_chain():
         zin, _ = iir._state_chain(zf0, zi0, a_t, S6)
         return zin.reshape(R * S6, ns, 2).permute(1, 2, 0).float(
@@ -717,11 +904,15 @@ def main() -> None:
             1.0))
         for k, r in rows_sm.items()}
     del big
+    per_sm6 = _seg.card_slots("xm_eq_env_blocks_per_sm", dev.index or 0,
+                              ns)[1]
     print(f"K6 eq_env {tuple(x6.shape)}, {ns} sections, S = {S6} (the "
-          f"card's rule, {eq_env._card_slots(dev.index or 0, ns)[1]} "
-          f"resident blocks per SM): segmented vs its twin path max abs "
-          f"(y, e2, zf, env, e2 last) {errs6}, y {k6['rms_db']:.1f} dB, e2 "
-          f"{db_e2:.1f} dB (gate {GATE_KERNEL_DB}); on the (256, 16000) "
+          f"card's rule, {per_sm6} resident blocks per SM): segmented vs "
+          f"its twin path max abs (y, e2, zf, env, e2 last) {errs6}, y "
+          f"{k6['rms_db']:.1f} dB, e2 {db_e2:.1f} dB (gate "
+          f"{GATE_KERNEL_DB}); the state-chain kernel vs its loop on K6's "
+          f"finals ({R} x {S6}) {rel6:.3g} relative (gate 1e-12); on the "
+          f"(256, 16000) "
           f"prefix the one-pass kernel vs its twin max abs (y, e2, zf, ef) "
           f"{errs}, segmented (S = 4) vs the one-pass twin y "
           f"{db_pre[0]:.1f}, e2 {db_pre[1]:.1f} dB; eq_env() call "
@@ -742,7 +933,8 @@ def main() -> None:
     y6, e26 = out6[0], out6[1]
     del out6, flat, xs6, z0, e0, zf0, zin32, ef_a, e_in
     y, got = drive("unfolded fused step (lti_fold=False)", nf, (v, b),
-                   ("fftconv", "eq_env", "envelope_seg"), ref, audio_s)
+                   ("fftconv", "eq_env", "state_chain", "envelope_seg"), ref,
+                   audio_s)
     k6["launches"] = got["eq_env"]
     stages = {  # the unfolded branch's stages, on their real inputs
         "front": median_ms(lambda: nf.front(v, b)),
@@ -851,10 +1043,10 @@ def main() -> None:
     ln0 = int(lengths[0])
     ref0 = tbatch.flagship_oracle_np(voice[0, :ln0], bgm[0, :ln0])
     # the branch the auto rule picks at 64 rows, then both fused branches
-    for kw, need in (({}, ("iir", "fftconv", "envelope_seg")),
+    for kw, need in (({}, ("iir", "state_chain", "fftconv", "envelope_seg")),
                      ({"fused": True}, ("fftconv", "envelope_seg")),
                      ({"fused": True, "lti_fold": False},
-                      ("fftconv", "eq_env", "envelope_seg"))):
+                      ("fftconv", "eq_env", "state_chain", "envelope_seg"))):
         rag = tbatch.make_batch_step(device=dev, **kw)
         opts = "".join(f", {k}={val}" for k, val in kw.items())
         label = f"ragged batch step ({RAGGED_BATCH} clips{opts})"

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain torch twins on the card,
 at edge shapes the flagship runs do not reach (ragged tiles, fewer
 rows than a warp, an IR longer than the signal, one sample, one
-section, carried state; the fftconv kernel at every transform size
+section, carried state; the IIR kernel at 1 to 8 sections, bit for
+bit, the float64 state-chain kernel, and the
+segmented IIR with NaN; the fftconv kernel at every transform size
 (1024 to 16384 points) and the long-IR form at 8193 / 8194 / 24,082 /
 65,537 taps, odd rows and a signal shorter than its hop; the envelope
 kernel's gain form with NaN input and a carried init, segmented and at
@@ -170,6 +172,114 @@ def test_iir_kernel_refuses_too_many_sections(cuda):
     with pytest.raises(ValueError, match="sections"):
         iir.sosfilt_pass(x, torch.zeros((ns, 6), device=cuda),
                          torch.zeros((ns, 2, 2), device=cuda))
+
+
+def _iir_operands(cuda, R, n, ns, seed):
+    rng = np.random.default_rng(seed)
+    sos = np.tile(tbatch._biquad.eq_sos(list(tbatch.DEFAULT_BANDS), 16000),
+                  (2, 1))[:ns]
+    x = torch.from_numpy(rng.standard_normal((R, n)).astype(
+        np.float32)).to(cuda)
+    zi = torch.from_numpy((0.1 * rng.standard_normal((ns, 2, R))).astype(
+        np.float32)).to(cuda)
+    return sos, x, zi
+
+
+@pytest.mark.parametrize("ns", range(1, 9))
+@pytest.mark.parametrize("R,n", [
+    (1, 1003),   # one row, many chunks, a ragged last one
+    (7, 130),    # rows that do not fill a warp; one steady chunk
+    (33, 67),    # the last chunk shorter than the pipeline's lag
+    (1024, 1),   # the unfused step's segment-row count, one sample
+])
+def test_iir_kernel_bit_equal_to_twin(cuda, ns, R, n):
+    """The kernel (the cascade pipelined across lanes) equals the twin
+    bit for bit, y and zf, from a carried state."""
+    sos, x, zi = _iir_operands(cuda, R, n, ns, 100 * ns + R + n)
+    s32 = torch.from_numpy(sos.astype(np.float32)).to(cuda)
+    y_p, zf_p = iir.sosfilt_plain(x, s32, zi)
+    before = iir.launches
+    y, zf = iir.sosfilt_pass(x, s32, zi)
+    torch.cuda.synchronize()
+    assert iir.launches == before + 1
+    assert torch.equal(y, y_p)
+    assert torch.equal(zf, zf_p)
+
+
+@pytest.mark.parametrize("ns", range(1, 9))
+def test_state_chain_kernel_vs_loop(cuda, ns):
+    """The float64 state-chain kernel against its torch loop: 1e-12
+    relative (the loop's product may sum in another order); a NaN final
+    reaches only the later segments of its row, in both."""
+    rng = np.random.default_rng(ns)
+    R, S, D = 37, 9, 2 * ns
+    zf0 = torch.from_numpy(rng.standard_normal((ns, 2, R * S)).astype(
+        np.float32)).to(cuda)
+    zf0[0, 1, 4 * S + 3] = float("nan")  # row 4, segment 3
+    zi3 = torch.from_numpy(rng.standard_normal((ns, 2, R)).astype(
+        np.float32)).to(cuda)
+    a_t = torch.from_numpy(np.linalg.matrix_power(
+        rng.uniform(-0.3, 0.3, (D, D)), 2)).to(cuda).T
+    before = iir.chain_launches
+    zin, z = iir._state_chain(zf0, zi3, a_t, S)
+    torch.cuda.synchronize()
+    assert iir.chain_launches == before + 1
+    zin_p, z_p = iir.state_chain_plain(zf0, zi3, a_t, S)
+    for a, b in ((zin, zin_p), (z, z_p)):
+        assert torch.equal(a.isnan(), b.isnan())
+        ok = ~b.isnan()
+        assert float((a[ok] - b[ok]).abs().max()) <= 1e-12 * float(
+            b[ok].abs().max())
+    bad = zin.isnan().any(1).reshape(R, S)
+    assert bool(bad[4, 4:].all()) and int(bad.sum()) == S - 4
+
+
+@pytest.mark.parametrize("S", [None, 2])  # the card's rule (8 here), 2
+def test_segmented_sosfilt_on_card_vs_twin_path(cuda, S):
+    """The segmented cascade on the kernels (the pass, the state chain)
+    against the same path on the plain twin from a carried state: the
+    pass equals its twin and the glue is the same code, so max abs 0;
+    and against the unsegmented twin: -100 dB (each segment starts from
+    the float64 state rounded to float32)."""
+    R, n = 3, 16384
+    sos, x, zi = _iir_operands(cuda, R, n, 5, 31)
+    zi_b = zi.permute(0, 2, 1)  # (ns, R, 2), sosfilt's layout
+    assert iir.sosfilt_segments(R, n, cuda, 5) == 8
+    before = (iir.launches, iir.chain_launches)
+    y, zf = iir.sosfilt(sos, x, zi=zi_b, segments=S)
+    torch.cuda.synchronize()
+    assert (iir.launches, iir.chain_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    y_t, zf_t = iir.sosfilt(sos, x, zi=zi_b, segments=S,
+                            run=iir.sosfilt_plain)
+    y1, zf1 = iir.sosfilt_plain(x, torch.from_numpy(sos.astype(
+        np.float32)).to(cuda), zi)
+    err = max(float((y - y_t).abs().max()), float((zf - zf_t).abs().max()))
+    db = _db(y - y1, y1)
+    print(f"segmented sosfilt (segments={S}) vs its twin path: max abs "
+          f"{err:.3g}; vs the unsegmented twin {db:.1f} dB")
+    assert err == 0.0
+    assert db <= -100.0
+    # final states as tests/test_torch_iir.py holds them: within 1e-4
+    torch.testing.assert_close(zf, zf1.permute(0, 2, 1), rtol=0, atol=1e-4)
+
+
+def test_segmented_sosfilt_propagates_nan(cuda):
+    """A NaN sample in segment 4 of row 1 at the card's rule (S = 8):
+    NaN from that sample to the row's end and in its final states, as
+    the unsegmented twin puts it, and nowhere else."""
+    R, n = 3, 16384
+    sos, x, zi = _iir_operands(cuda, R, n, 5, 32)
+    x[1, 9000] = float("nan")
+    y, zf = iir.sosfilt(sos, x, zi=zi.permute(0, 2, 1))
+    y1, zf1 = iir.sosfilt_plain(x, torch.from_numpy(sos.astype(
+        np.float32)).to(cuda), zi)
+    assert bool(y1[1, 9000:].isnan().all()) and int(y1.isnan().sum()) == (
+        n - 9000)
+    assert torch.equal(y.isnan(), y1.isnan())
+    assert torch.equal(zf.isnan(), zf1.permute(0, 2, 1).isnan())
+    ok = ~y1.isnan()
+    assert _db(y[ok] - y1[ok], y1[ok]) <= -100.0
 
 
 @pytest.mark.parametrize("R,n,corr", [

@@ -37,7 +37,7 @@ from xmtpu import batch as xbatch
 from xmtpu.kernels import eq_env as xeq_env
 from xmtpu.ops import biquad as xbiquad
 from xmtpu.ops import limiter as xlimiter
-from xmtpu_torch.kernels import envelope, eq_env
+from xmtpu_torch.kernels import _seg, envelope, eq_env
 from xmtpu_torch.kernels._seg import gpu_segments
 from xmtpu_torch.ops.biquad import sosfilt_np
 
@@ -272,13 +272,13 @@ def test_eq_env_segment_rule(monkeypatch, R_, n, sms, per_sm):
     decay window."""
     seen = []
 
-    def slots(index, ns):
-        seen.append((index, ns))
+    def slots(query, index, *args):
+        seen.append((query, index, *args))
         return sms, per_sm
 
-    monkeypatch.setattr(eq_env, "_card_slots", slots)
+    monkeypatch.setattr(_seg, "card_slots", slots)
     S = eq_env.eq_env_segments(R_, n, C_ATT, "cuda:0", 5)
-    assert seen == [(0, 5)]
+    assert seen == [("xm_eq_env_blocks_per_sm", 0, 5)]
     min_seglen = max(4096, envelope._decay_cut(1.0 - C_ATT, n))
     assert S == gpu_segments(R_, n, sms, per_sm, 32, min_seglen)
     assert S >= 1 and S & (S - 1) == 0 and n % S == 0

@@ -39,6 +39,7 @@ _COMPILE_FLAGS = ("-Xptxas", "-v", "-c")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C interface of csrc/*.cu: name -> (argtypes, restype)
 _SIGNATURES = {
     "xm_fir_convolve_f32": ([_P] * 6 + [_I] * 4 + [_P], _I),
@@ -48,6 +49,9 @@ _SIGNATURES = {
     "xm_limiter_blocks_per_sm": ([], _I),
     "xm_envelope_gain_f32": ([_P] * 6 + [_I, _I] + [_F] * 11 + [_P], _I),
     "xm_sosfilt_f32": ([_P] * 5 + [_I] * 3 + [_P], _I),
+    "xm_sosfilt_blocks_per_sm": ([_I], _I),
+    "xm_state_chain_f64": ([_P] * 3 + [_L] * 2 + [_P] * 2 + [_I] * 3 + [_P],
+                           _I),
     "xm_eq_env_f32": ([_P] * 8 + [_I] * 3 + [_F] * 2 + [_P], _I),
     "xm_eq_env_finals_f32": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "xm_eq_env_blocks_per_sm": ([_I], _I),

@@ -1,11 +1,16 @@
 """What the time-segmented kernels share: the segment-count rules (the
 JAX package's lane-filling :func:`pick_segments`, and the card's
-:func:`gpu_segments`) and a per-device cache of their host tables
-(``kernels.iir`` and ``kernels.envelope``)."""
+:func:`gpu_segments`, fed by :func:`card_segments`) and a per-device
+cache of their host tables (``kernels.iir``, ``kernels.envelope`` and
+``kernels.eq_env``)."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from xmtpu_torch.kernels import _build
 
 LANES = 128  # the JAX IIR kernel's lane tile, pick_segments' default
 
@@ -17,7 +22,8 @@ def pick_segments(R: int, n: int, min_seglen: int = 4096,
     """Segment count that (a) keeps R*S <= lanes, (b) divides n exactly
     (exact state math needs equal segments), and (c) leaves segments of
     at least ``min_seglen`` samples. The JAX package's rule, kept so
-    both packages segment alike; the GPU's own rule is open work."""
+    both packages segment alike on the CPU; a card's rule is
+    :func:`gpu_segments`."""
     s = 1
     while (R * s * 2 <= lanes and n % (s * 2) == 0
            and n // (s * 2) >= min_seglen):
@@ -46,15 +52,46 @@ def gpu_segments(R: int, n: int, sm_count: int, blocks_per_sm: int,
         s *= 2
 
 
+@functools.cache
+def card_slots(query: str, index: int, *args) -> tuple[int, int]:
+    """(SMs, resident blocks per SM of a kernel) of card ``index``; the
+    blocks from the built library's occupancy function ``query`` (for
+    example ``xm_sosfilt_blocks_per_sm``) called with ``args``."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    with torch.cuda.device(index):
+        per_sm = getattr(_build.load(), query)(*args)
+    if per_sm < 1:
+        raise RuntimeError(f"the occupancy query {query}{args} failed")
+    return sms, per_sm
+
+
+def card_segments(R: int, n: int, device, query: str, args: tuple,
+                  rows_per_block: int, min_seglen: int, cpu: int) -> int:
+    """A segmented call's segment count: ``cpu`` off a card; on one,
+    :func:`gpu_segments` over its SM count and the kernel's resident
+    blocks per SM (:func:`card_slots` of ``query`` and ``args``), with
+    ``rows_per_block`` rows per block and segments of at least
+    ``min_seglen`` samples."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return cpu
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    sms, per_sm = card_slots(query, index, *args)
+    return gpu_segments(R, n, sms, per_sm, rows_per_block, min_seglen)
+
+
 def on_device(key, device, make) -> dict:
     """Tensors from ``make()`` cached per (key, device), so a step does
-    not copy its host tables to the card on every call."""
+    not copy its host tables to the card on every call. The least
+    recently used entry goes first, so a call made once before a
+    CUDA-graph capture finds every table it needs during the capture."""
     k = (key, str(device))
-    hit = _DEVICE_CACHE.get(k)
+    hit = _DEVICE_CACHE.pop(k, None)
     if hit is None:
         hit = {name: torch.as_tensor(a, device=device)
                for name, a in make().items()}
-        _DEVICE_CACHE[k] = hit
-        if len(_DEVICE_CACHE) > 32:
+        if len(_DEVICE_CACHE) >= 32:
             _DEVICE_CACHE.pop(next(iter(_DEVICE_CACHE)))
+    _DEVICE_CACHE[k] = hit
     return hit

@@ -36,7 +36,7 @@ the segments are closed forms over a table of powers (a masked multiply
 and an ``amax`` or a sum: a few launches whatever S is). The glue is
 plain torch. :func:`envelope` and :func:`linked_limiter` pick S as the
 JAX package does; :func:`limiter` by the card's own rule
-(``_seg.gpu_segments``) on CUDA, and runs unsegmented on the CPU unless
+(``_seg.card_segments``) on CUDA, and runs unsegmented on the CPU unless
 ``segments`` says otherwise.
 
 On a CUDA tensor the wrappers launch the kernel; on a CPU tensor they
@@ -52,14 +52,13 @@ the kernel steps per sample, the same function in exact arithmetic.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import numpy as np
 import torch
 
 from xmtpu_torch.kernels import _build
-from xmtpu_torch.kernels._seg import gpu_segments, on_device, pick_segments
+from xmtpu_torch.kernels._seg import card_segments, on_device, pick_segments
 
 # Launches of the CUDA kernel in this process, by form (the fused
 # limiter, the envelope alone, the gain form); callers may reset them.
@@ -213,38 +212,18 @@ def limiter_pass(x: torch.Tensor, k_rel: float, c_att: float, curve,
     return y, zf
 
 
-@functools.cache
-def _card_slots(index: int) -> tuple[int, int]:
-    """(SMs, resident blocks of the fused kernel per SM) of a card."""
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    with torch.cuda.device(index):
-        per_sm = _build.load().xm_limiter_blocks_per_sm()
-    if per_sm < 1:
-        raise RuntimeError("the envelope kernel's occupancy query failed")
-    return sms, per_sm
-
-
 def limiter_segments(R: int, n: int, c_att: float, device) -> int:
-    """The fused limiter's segment count (:func:`card_segments` with
-    this kernel's resident blocks per SM)."""
-    return card_segments(R, n, c_att, device, _card_slots, _ROWS_PER_BLOCK)
+    """The fused limiter's segment count: 1 on the CPU; on a card,
+    ``_seg.card_segments`` with the kernel's occupancy query, segments
+    at least :func:`carry_min_seglen` long."""
+    return card_segments(R, n, device, "xm_limiter_blocks_per_sm", (),
+                         _ROWS_PER_BLOCK, carry_min_seglen(c_att, n), 1)
 
 
-def card_segments(R: int, n: int, c_att: float, device, slots,
-                  rows_per_block: int) -> int:
-    """A segmented row-chain call's segment count: 1 on the CPU; on a
-    card, ``gpu_segments`` over ``slots(index)`` = (SMs, the kernel's
-    resident blocks per SM) and its ``rows_per_block``, with segments at
-    least 4096 samples and the envelope carries' decay window
-    (``_decay_cut(1 - c_att)``)."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return 1
-    index = (torch.cuda.current_device() if device.index is None
-             else device.index)
-    sms, per_sm = slots(index)
-    min_seglen = max(_MIN_SEGLEN, _decay_cut(1.0 - float(c_att), n))
-    return gpu_segments(R, n, sms, per_sm, rows_per_block, min_seglen)
+def carry_min_seglen(c_att: float, n: int) -> int:
+    """The shortest segment of a call with envelope carries: 4096
+    samples, and the carries' decay window (``_decay_cut(1 - c_att)``)."""
+    return max(_MIN_SEGLEN, _decay_cut(1.0 - float(c_att), n))
 
 
 def _limiter_seg(x, k_rel, c_att, curve, init2, S, run):

@@ -37,13 +37,11 @@ correction).
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from xmtpu_torch.kernels import _build, envelope, iir
-from xmtpu_torch.kernels._seg import on_device
+from xmtpu_torch.kernels._seg import card_segments, on_device
 
 # Launches of the CUDA kernel in this process, both instances; callers
 # may reset it.
@@ -156,25 +154,13 @@ KERNELS = (eq_env_pass, envelope.envelope_pass)
 TWINS = (eq_env_plain, envelope.envelope_plain)
 
 
-@functools.cache
-def _card_slots(index: int, ns: int) -> tuple[int, int]:
-    """(SMs, resident blocks per SM of the kernel at ns sections) of a
-    card."""
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    with torch.cuda.device(index):
-        per_sm = _build.load().xm_eq_env_blocks_per_sm(ns)
-    if per_sm < 1:
-        raise RuntimeError(f"the eq_env kernel's occupancy query failed "
-                           f"at {ns} sections")
-    return sms, per_sm
-
-
 def eq_env_segments(R: int, n: int, c_att: float, device, ns: int) -> int:
-    """The segment count of :func:`eq_env` (``envelope.card_segments``
-    with the kernel's resident blocks per SM at ``ns`` sections)."""
-    return envelope.card_segments(R, n, c_att, device,
-                                  lambda index: _card_slots(index, ns),
-                                  _ROWS_PER_BLOCK)
+    """The segment count of :func:`eq_env`: 1 on the CPU; on a card,
+    ``_seg.card_segments`` with the kernel's occupancy query at ``ns``
+    sections, segments at least ``envelope.carry_min_seglen`` long."""
+    return card_segments(R, n, device, "xm_eq_env_blocks_per_sm", (ns,),
+                         _ROWS_PER_BLOCK,
+                         envelope.carry_min_seglen(c_att, n), 1)
 
 
 def _eq_env_seg(x2d, sos32, zi3, ei, k_rel, c_att, S, a_t, run):

@@ -1,4 +1,4 @@
-"""Biquad cascade (IIR) over rows, time-segmented for small batches
+"""Biquad cascade (IIR) over rows, time-segmented
 (counterpart of ``xmtpu.kernels.iir.sosfilt_pallas``).
 
 Per section, within one sample (``v`` = the previous section's output):
@@ -6,20 +6,25 @@ Per section, within one sample (``v`` = the previous section's output):
     y = b0*v + z1;   z1' = b1*v - a1*y + z2;   z2' = b2*v - a2*y
 
 On a CUDA tensor :func:`sosfilt_pass` launches the hand-written kernel
-``csrc/iir.cu``. On a CPU tensor it runs :func:`sosfilt_plain`, a torch
-loop over time in the same operation order with the same float32
-roundings, which the CPU tests and the on-card comparison use.
+``csrc/iir.cu`` (the cascade pipelined across the lanes of a warp). On a
+CPU tensor it runs :func:`sosfilt_plain`, a torch loop over time in the
+same operation order with the same float32 roundings, which the CPU
+tests and the on-card comparison use.
 
-Small batches split each row into S equal time segments
-(``_seg.pick_segments``, the JAX package's rule), filter them from zero
-state as R*S rows in one pass and correct exactly. The cascade is LTI
-with state-space matrices A, C (probed from the recurrence,
-:func:`_seg_consts`), so a segment entered with state z outputs
-``y0[t] + C A^t z``: the incoming states chain over the segments in
-float64 (``z @ A_seg.T + v``), and the correction ``wr @ Lr - wi @ Li``
-(A^t through its eigendecomposition, cut where every |lam|^t < 1e-40)
-is one FP32 matmul on the first ``t_cut`` samples of each segment. The
-host tables are numpy, bit-exact with the JAX package's.
+:func:`sosfilt` splits each row into S equal time segments, S from the
+card's rule (:func:`sosfilt_segments`: ``_seg.card_segments`` over the
+kernel's occupancy) on CUDA and from the JAX package's
+``pick_segments`` elsewhere, filters them from zero state as R*S rows in
+one pass and corrects exactly. The cascade is LTI with state-space
+matrices A, C (probed from the recurrence, :func:`_seg_consts`), so a
+segment entered with state z outputs ``y0[t] + C A^t z``: the incoming
+states chain over the segments in float64 (``z @ A_seg.T + v``;
+:func:`_state_chain`, one launch of ``csrc/seg_chain.cu`` on CUDA, the
+torch loop :func:`state_chain_plain` elsewhere), and the correction
+``wr @ Lr - wi @ Li`` (A^t through its eigendecomposition, cut where
+every |lam|^t < 1e-40) is one FP32 matmul, ``[wr, wi] @ [Lr; -Li]``,
+added into the first ``t_cut`` samples of each segment. The host tables
+are numpy, bit-exact with the JAX package's.
 """
 
 from __future__ import annotations
@@ -28,13 +33,25 @@ import numpy as np
 import torch
 
 from xmtpu_torch.kernels import _build
-from xmtpu_torch.kernels._seg import LANES, on_device, pick_segments
+from xmtpu_torch.kernels._seg import card_segments, on_device, pick_segments
 from xmtpu_torch.ops.resample import require_fp32_matmul
 
-# Launches of the CUDA kernel in this process; callers may reset it.
+# Launches of the CUDA kernels in this process (the cascade, the float64
+# state chain); callers may reset them.
 launches = 0
+chain_launches = 0
 
 MAX_SECTIONS = 8  # the kernel's largest template instance
+# The kernel's schedule (csrc/iir.cu): kChunk samples staged at a time;
+# section s of a row on lane g*ns + s, kSkew ticks behind section s-1,
+# 32 // ns rows per block (one warp).
+CHUNK = 64
+SKEW = 4
+# K5's least segment length. The JAX rule's 4096 would stop the card's
+# rule at S = 32 for 160000 samples; the S sweep of the sosfilt() call
+# (chip_smoke.py phase 6) on an H100 measured it 30% faster on the card
+# at S = 64 and no slower from the host, so the rule may go to 2048.
+MIN_SEGLEN = 2048
 
 _SEG_CACHE: dict = {}
 
@@ -142,6 +159,11 @@ def sosfilt_plain(x: torch.Tensor, sos: torch.Tensor, zi: torch.Tensor):
     return yt.T.contiguous(), zf
 
 
+def rows_per_block(ns: int) -> int:
+    """Rows of one block of the kernel at ns sections."""
+    return 32 // ns
+
+
 def sosfilt_pass(x: torch.Tensor, sos: torch.Tensor, zi: torch.Tensor):
     """One pass of the cascade over independent rows: x (R, n), sos
     (ns, 6), zi (ns, 2, R), contiguous float32 on one device ->
@@ -166,13 +188,24 @@ def sosfilt_pass(x: torch.Tensor, sos: torch.Tensor, zi: torch.Tensor):
     return y, zf
 
 
-def _state_chain(zf0, zi3, a_t, S):
-    """The exact cascade state entering each segment, in float64: zf0
-    (ns, 2, R*S) the segments' zero-state final states (row r*S + k is
-    segment k of row r), zi3 (ns, 2, R) the state entering each row, a_t
-    the transposed A^seglen -> (zin (R*S, D), z (R, D) after each row's
-    last segment), D = 2*ns in probe order. A sequential loop over the
-    segments, so a NaN final reaches only later segments."""
+def sosfilt_segments(R: int, n: int, device, ns: int) -> int:
+    """The segment count of ``sosfilt(segments=None)``: on a card,
+    ``_seg.card_segments`` with the kernel's occupancy query and rows
+    per block at ``ns`` sections and segments of at least
+    :data:`MIN_SEGLEN` samples; elsewhere the JAX package's
+    ``pick_segments``."""
+    return card_segments(R, n, device, "xm_sosfilt_blocks_per_sm", (ns,),
+                         rows_per_block(ns), MIN_SEGLEN, pick_segments(R, n))
+
+
+def state_chain_plain(zf0, zi3, a_t, S):
+    """Plain version of the state-chain kernel: the exact cascade state
+    entering each segment, in float64. zf0 (ns, 2, R*S) the segments'
+    zero-state final states (row r*S + k is segment k of row r), zi3
+    (ns, 2, R) the state entering each row, a_t the transposed A^seglen
+    -> (zin (R*S, D), z (R, D) after each row's last segment), D = 2*ns
+    in probe order. A sequential loop over the segments, so a NaN final
+    reaches only later segments."""
     ns = zf0.shape[0]
     D = 2 * ns
     R = zi3.shape[2]
@@ -186,6 +219,41 @@ def _state_chain(zf0, zi3, a_t, S):
     return torch.stack(z_ins, 1).reshape(R * S, D), z
 
 
+def _state_chain(zf0, zi3, a_t, S):
+    """:func:`state_chain_plain`'s function: on a CUDA tensor one launch
+    of ``csrc/seg_chain.cu`` (whichever pass produced zf0), elsewhere
+    the torch loop."""
+    global chain_launches
+    if zf0.device.type != "cuda":
+        return state_chain_plain(zf0, zi3, a_t, S)
+    ns = zf0.shape[0]
+    D = 2 * ns
+    R = zi3.shape[2]
+    for name, t, shape, dtype in (
+            ("zf0", zf0, (ns, 2, R * S), torch.float32),
+            ("zi3", zi3, (ns, 2, R), torch.float32),
+            ("a_t", a_t, (D, D), torch.float64)):
+        if (t.dtype != dtype or tuple(t.shape) != shape
+                or t.device != zf0.device
+                or (name != "a_t" and not t.is_contiguous())):
+            raise ValueError(f"{name} must be a {dtype} {shape} tensor on "
+                             f"{zf0.device}" + (", contiguous"
+                                                if name != "a_t" else ""))
+    if not 1 <= ns <= MAX_SECTIONS:
+        raise ValueError(f"{ns} sections: the chain takes 1 to "
+                         f"{MAX_SECTIONS}")
+    zin = zf0.new_empty((R * S, D), dtype=torch.float64)
+    z = zf0.new_empty((R, D), dtype=torch.float64)
+    with torch.cuda.device(zf0.device):
+        stream = torch.cuda.current_stream(zf0.device).cuda_stream
+        rc = _build.load().xm_state_chain_f64(
+            zf0.data_ptr(), zi3.data_ptr(), a_t.data_ptr(), a_t.stride(0),
+            a_t.stride(1), zin.data_ptr(), z.data_ptr(), R, S, ns, stream)
+    _build.check(rc, "state chain")
+    chain_launches += 1
+    return zin, z
+
+
 def _sosfilt_seg(x2d, sos32, zi3, S, tabs, run):
     """Segmented exact cascade: x2d (R, n) -> (y (R, n), zf (ns, 2, R))."""
     ns = sos32.shape[0]
@@ -195,12 +263,12 @@ def _sosfilt_seg(x2d, sos32, zi3, S, tabs, run):
     y0, zf0 = run(x2d.reshape(R * S, seglen), sos32,
                   x2d.new_zeros((ns, 2, R * S)))
     zin, z = _state_chain(zf0, zi3, tabs["A_seg"].T, S)
-    wr = (zin @ tabs["Tr"].T).float()
-    wi = (zin @ tabs["Ti"].T).float()
-    corr = wr @ tabs["Lr"] - wi @ tabs["Li"]
-    # past t_cut the correction is < 1e-40 absolute: zero in float32
-    y0[:, :corr.shape[-1]] += corr
-    zf = z.reshape(R, ns, 2).permute(1, 2, 0).float().contiguous()
+    # wr @ Lr - wi @ Li as one product: [wr, wi] @ [Lr; -Li]; past t_cut
+    # the correction is < 1e-40 absolute: zero in float32
+    w = (zin @ tabs["T"].T).float()
+    y0[:, :tabs["L"].shape[-1]].addmm_(w, tabs["L"])
+    zf = z.reshape(R, ns, 2).permute(1, 2, 0).to(
+        torch.float32, memory_format=torch.contiguous_format)
     return y0.reshape(R, n), zf
 
 
@@ -209,12 +277,14 @@ def sosfilt(sos, x: torch.Tensor, zi=None, segments=None, run=None):
     ..., 2)), the layouts of the JAX package's ``sosfilt_pallas``.
 
     ``sos``: host (ns, 6) array. ``zi``: (ns, ..., 2) or None (zeros).
-    ``segments``: time-segmentation factor, None = :func:`pick_segments`
-    (exact; 1 = one pass). A cascade that ``_seg_consts`` rejects runs
-    unsegmented. An empty cascade is the identity. ``run``: the
-    one-pass function, :func:`sosfilt_pass` by default; passing
-    :func:`sosfilt_plain` runs the same segmented path on the twin (the
-    on-card comparison does)."""
+    ``segments``: time-segmentation factor (exact; 1 = one pass), None =
+    :func:`sosfilt_segments` (the card's rule on CUDA, the JAX
+    package's ``pick_segments`` elsewhere). A cascade that
+    ``_seg_consts`` rejects runs unsegmented. An empty cascade is the
+    identity. ``run``: the one-pass function, :func:`sosfilt_pass` by
+    default; passing :func:`sosfilt_plain` runs the same segmented path
+    on the twin (the on-card comparison does; the state chain is the
+    same in both)."""
     sos_host = np.asarray(sos, np.float64)
     if sos_host.ndim != 2 or sos_host.shape[1] != 6:
         raise ValueError(f"sos must be (ns, 6), got {sos_host.shape}")
@@ -224,6 +294,9 @@ def sosfilt(sos, x: torch.Tensor, zi=None, segments=None, run=None):
     batch, n = x.shape[:-1], x.shape[-1]
     if ns == 0:
         return x.clone(), x.new_zeros((0,) + batch + (2,))
+    if ns > MAX_SECTIONS:
+        raise ValueError(f"{ns} sections: the kernel takes 1 to "
+                         f"{MAX_SECTIONS}")
     R = int(np.prod(batch)) if batch else 1
     dev = x.device
     x2d = x.reshape(R, n).contiguous()
@@ -232,7 +305,8 @@ def sosfilt(sos, x: torch.Tensor, zi=None, segments=None, run=None):
     else:
         zi3 = torch.as_tensor(zi, dtype=torch.float32, device=dev).reshape(
             ns, R, 2).permute(0, 2, 1).contiguous()
-    S = pick_segments(R, n) if segments is None else int(segments)
+    S = (sosfilt_segments(R, n, dev, ns) if segments is None
+         else int(segments))
     if S < 1 or n % S:
         raise ValueError(f"segments={S} does not divide n={n} (exact state "
                          "corrections need equal segments)")
@@ -246,7 +320,9 @@ def sosfilt(sos, x: torch.Tensor, zi=None, segments=None, run=None):
     else:
         require_fp32_matmul(dev)
         tabs = on_device((key, n // S), dev, lambda: {
-            k: consts[k] for k in ("A_seg", "Tr", "Ti", "Lr", "Li")})
+            "A_seg": consts["A_seg"],
+            "T": np.concatenate([consts["Tr"], consts["Ti"]]),
+            "L": np.concatenate([consts["Lr"], -consts["Li"]])})
         y2d, zf3 = _sosfilt_seg(x2d, sos32, zi3, S, tabs, run)
     return (y2d.reshape(*batch, n),
             zf3.permute(0, 2, 1).reshape((ns,) + batch + (2,)))

@@ -75,12 +75,19 @@ process exits non-zero:
    launch; clip 0 <= -80 dB; throughput; a per-stage breakdown (CUDA
    events);
 10. K7, the resample kernel, on the two-track front's real input (512 x
-   441000 float32): gate -100 dB against its twin, both times, and the
+   441000 float32): gate -100 dB against its twin, both times (and the
+   kernel's back to back, without the wrapper's host time), and the
    dense banded ``torch.matmul`` (the TPU kernel's form) as the library
-   yardstick; then the ``resample_backend="pallas"`` step: K7, K1 and
-   K2 must launch; clip 0 <= -80 dB; throughput;
+   yardstick; the same rows resampled 48k -> 44.1k (M = 160, where the
+   window pitch matters): gate, time, bound; each tiling's geometry (G,
+   frames a tile, pitches, shared bytes, blocks per SM) and the
+   kernel's ptxas line; then the ``resample_backend="pallas"`` step: K7,
+   K1 and K2 must launch; clip 0 <= -80 dB; throughput;
 11. K8, the fused int16 front, on the real int16 tracks (256 x 441000):
-   gate -100 dB against its twin, both times; then the
+   gate -100 dB against its twin, both times (the kernel's also back to
+   back); its geometry; a 48 kHz
+   prefix the gate takes (256 x 440320) to 44.1k: gate, time, bound,
+   geometry; the kernel's ptxas line; then the
    ``resample_backend="rsmix"`` step: K8, K1 and K2 must launch; clip 0
    <= -80 dB; throughput; the fused step's three fronts (mixfirst,
    pallas, rsmix) each timed alone on the same clips;
@@ -251,6 +258,42 @@ def main() -> None:
 
     def bound(k, n_bytes, n_ops):
         k["bound_ms"], k["bound_by"] = roofline_ms(n_bytes, n_ops)
+
+    def back_to_back_ms(fn, calls=20):
+        """CUDA-event time of ``calls`` back-to-back calls of ``fn``, per
+        call: the kernel's time on the card without the wrapper's host
+        time that one timed call also holds."""
+        fn()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / calls
+
+    def poly_geometry_line(label, plan, n_out, query, tracks):
+        """K7's / K8's tiling of this plan on this card."""
+        geo = kresample.poly_geometry(plan, -(-n_out // plan.L), tracks)
+        sms, per_sm = _seg.card_slots(query, dev.index or 0, geo.smem)
+        print(f"{label} geometry: G = {geo.G} phases x {geo.groups} "
+              f"groups, {geo.frames} frames a tile x {geo.tiles} tiles, "
+              f"window pitch {geo.pitch} words, tile pitch "
+              f"{geo.tile_pitch}, {geo.smem} shared bytes a block, "
+              f"{per_sm} blocks per SM x {sms} SMs")
+
+    def ptxas_line(entry):
+        """The ptxas summary (stack, spills, registers) of the kernels
+        whose mangled name contains ``entry``, from the build's log."""
+        log = (_build.library_path().parent / "build.log").read_text()
+        out, lines = [], log.splitlines()
+        for i, ln in enumerate(lines):
+            if "Compiling entry function" in ln and entry in ln:
+                out.append(" ".join(x.strip() for x in lines[i + 2:i + 4]))
+        if not out:
+            raise SystemExit(f"chip_smoke: no ptxas line for {entry}")
+        return " | ".join(out)
 
     def check_k1(name, x, h, pre_row, pre_col):
         """K1 against its twin on these operands; times; conv1d of the
@@ -964,6 +1007,8 @@ def main() -> None:
                  tresample.polyphase_resample(x7, pal.sr_in, pal.sr_bus))
     k7["ms"] = median_ms(lambda: kresample.resample(x7, pal.sr_in,
                                                     pal.sr_bus))
+    k7_b2b = back_to_back_ms(lambda: kresample.resample(x7, pal.sr_in,
+                                                        pal.sr_bus))
     k7["plain_ms"] = median_ms(lambda: tresample.polyphase_resample(
         x7, pal.sr_in, pal.sr_bus))
     # the library yardstick: frames (R, nj, width) as a strided view of
@@ -980,10 +1025,33 @@ def main() -> None:
           2 * plan.K2 * R * n_out)
     print(f"K7 resample {tuple(x7.shape)} -> ({R}, {n_out}): "
           f"{k7['rms_db']:.1f} dB vs plain (gate {GATE_KERNEL_DB}), max abs "
-          f"{k7['max_abs_err']:.3g}; kernel {k7['ms']:.3f} ms, plain "
+          f"{k7['max_abs_err']:.3g}; kernel {k7['ms']:.3f} ms "
+          f"({k7_b2b:.3f} ms a call back to back), plain "
           f"{k7['plain_ms']:.3f} ms, dense banded matmul "
           f"{k7['library_ms']:.3f} ms, bound {k7['bound_ms']:.4f} ms "
           f"({k7['bound_by']}) [{card}]")
+    # the same rows read as 48 kHz audio, to 44.1 kHz (M = 160)
+    k7m = compare("resample_m160", "cuda", "xmtpu_torch/csrc/resample.cu",
+                  "xmtpu/kernels/resample.py:37",
+                  kresample.resample(x7, 48000, 44100),
+                  tresample.polyphase_resample(x7, 48000, 44100))
+    kernels.remove(k7m)  # K7 again, off the main path: its text line only
+    plan_m = tresample.make_plan(147, 160, 24, 9.0)
+    n_out_m = resample_output_len(n, 147, 160)
+    k7m_ms = median_ms(lambda: kresample.resample(x7, 48000, 44100))
+    k7m_b2b = back_to_back_ms(lambda: kresample.resample(x7, 48000, 44100))
+    bound(k7m, 4 * (R * n + R * n_out_m + plan_m.L * plan_m.K2),
+          2 * plan_m.K2 * R * n_out_m)
+    print(f"K7 resample {tuple(x7.shape)} 48k -> 44.1k (L = 147, M = 160) "
+          f"-> ({R}, {n_out_m}): {k7m['rms_db']:.1f} dB vs plain (gate "
+          f"{GATE_KERNEL_DB}), max abs {k7m['max_abs_err']:.3g}; kernel "
+          f"{k7m_ms:.3f} ms ({k7m_b2b:.3f} back to back), bound "
+          f"{k7m['bound_ms']:.4f} ms "
+          f"({k7m['bound_by']}) [{card}]")
+    poly_geometry_line("K7", plan, n_out, "xm_resample_blocks_per_sm", 1)
+    poly_geometry_line("K7 at M = 160", plan_m, n_out_m,
+                       "xm_resample_blocks_per_sm", 1)
+    print("K7 ptxas: " + ptxas_line("polyphase_kernelINS_8F32Track"))
     del x7, xs, frames
     y, got = drive("pallas-front fused step", pal, (v, b),
                    ("resample", "fftconv", "envelope", "envelope_seg"), ref,
@@ -1005,6 +1073,8 @@ def main() -> None:
                                           rsm.fade))
     k8["ms"] = median_ms(lambda: rsmix.resample_mix(
         v, b, rsm.sr_in, rsm.sr_bus, rsm.bgm_gain, rsm.fade))
+    k8_b2b = back_to_back_ms(lambda: rsmix.resample_mix(
+        v, b, rsm.sr_in, rsm.sr_bus, rsm.bgm_gain, rsm.fade))
     k8["plain_ms"] = median_ms(lambda: rsmix.resample_mix_plain(
         v, b, plan, rsm.bgm_gain, rsm.fade))
     # two int16 tracks in, the float32 mix out; 2 FIRs of K2 taps and
@@ -1013,9 +1083,38 @@ def main() -> None:
           (4 * plan.K2 + 8) * R * n_out)
     print(f"K8 rsmix 2 x {tuple(v.shape)} int16 -> ({R}, {n_out}): "
           f"{k8['rms_db']:.1f} dB vs plain (gate {GATE_KERNEL_DB}), max abs "
-          f"{k8['max_abs_err']:.3g}; kernel {k8['ms']:.3f} ms, plain "
+          f"{k8['max_abs_err']:.3g}; kernel {k8['ms']:.3f} ms "
+          f"({k8_b2b:.3f} ms a call back to back), plain "
           f"{k8['plain_ms']:.3f} ms, no single library call, bound "
           f"{k8['bound_ms']:.4f} ms ({k8['bound_by']}) [{card}]")
+    poly_geometry_line("K8", plan, n_out, "xm_rsmix_blocks_per_sm", 2)
+    # a 48 kHz prefix the gate takes (2,752 frames of 160), to 44.1 kHz
+    n_m = 160 * 2752
+    vm, bm = v[:, :n_m].contiguous(), b[:, :n_m].contiguous()
+    k8m = compare("rsmix_m160", "cuda", "xmtpu_torch/csrc/rsmix.cu",
+                  "xmtpu/kernels/rsmix.py:52",
+                  rsmix.resample_mix(vm, bm, 48000, 44100, rsm.bgm_gain,
+                                     rsm.fade),
+                  rsmix.resample_mix_plain(vm, bm, plan_m, rsm.bgm_gain,
+                                           rsm.fade))
+    kernels.remove(k8m)  # K8 again, off the main path: its text line only
+    n_out_m = 2752 * 147
+    k8m_ms = median_ms(lambda: rsmix.resample_mix(
+        vm, bm, 48000, 44100, rsm.bgm_gain, rsm.fade))
+    k8m_b2b = back_to_back_ms(lambda: rsmix.resample_mix(
+        vm, bm, 48000, 44100, rsm.bgm_gain, rsm.fade))
+    bound(k8m, 2 * 2 * R * n_m + 4 * R * n_out_m + 4 * plan_m.L * plan_m.K2,
+          (4 * plan_m.K2 + 8) * R * n_out_m)
+    print(f"K8 rsmix 2 x ({R}, {n_m}) int16 48k -> 44.1k -> ({R}, "
+          f"{n_out_m}): {k8m['rms_db']:.1f} dB vs plain (gate "
+          f"{GATE_KERNEL_DB}), max abs {k8m['max_abs_err']:.3g}; kernel "
+          f"{k8m_ms:.3f} ms ({k8m_b2b:.3f} back to back), bound "
+          f"{k8m['bound_ms']:.4f} ms "
+          f"({k8m['bound_by']}) [{card}]")
+    poly_geometry_line("K8 at M = 160", plan_m, n_out_m,
+                       "xm_rsmix_blocks_per_sm", 2)
+    print("K8 ptxas: " + ptxas_line("polyphase_kernelINS_13I16PairTracks"))
+    del vm, bm
     y, got = drive("rsmix-front fused step", rsm, (v, b),
                    ("rsmix", "fftconv", "envelope", "envelope_seg"), ref,
                    audio_s)

@@ -431,8 +431,11 @@ def test_envelope_only_kernel_propagates_nan(cuda, corr):
     (5, 44000, 44100, 16000),   # odd rows, not a multiple of 441
     (1, 700, 44100, 16000),     # one frame tile, window past both ends
     (2, 9600, 48000, 44100),    # L = 147, M = 160
-    (2, 30000, 44100, 32000),   # L = 320: two phase tiles
+    (2, 30000, 44100, 32000),   # L = 320: two phase groups
     (2, 3200, 32000, 31000),    # M = 32: resample_pallas's M < 64 exit
+    (3, 19200, 48000, 11025),   # even M = 640, three phase groups
+    (37, 50000, 44100, 16000),  # 37 rows, a ragged last frame tile
+    (2, 44100, 44100, 8000),    # K2 = 25, pair skew 6: the any-K2 instance
 ])
 def test_resample_kernel_vs_twin(cuda, R, n, sr_in, sr_out):
     rng = np.random.default_rng(R + n)
@@ -453,6 +456,7 @@ def test_resample_kernel_vs_twin(cuda, R, n, sr_in, sr_out):
     (3, 44100, 44100, 16000, 4000, 0.4),   # single block (_pick_F == nc)
     (5, 441 * 24, 44100, 16000, 0, 0.4),   # odd rows, no fade
     (2, 9600, 48000, 44100, 100, 0.7),     # 48k -> 44.1k
+    (3, 160 * 128, 48000, 44100, 12000, 0.4),  # fade > a 9408-output tile
 ])
 def test_rsmix_kernel_vs_twin(cuda, B, n, sr_in, sr_out, fade, gb):
     if (B, n) == (3, 44100):
@@ -473,6 +477,58 @@ def test_rsmix_kernel_vs_twin(cuda, B, n, sr_in, sr_out, fade, gb):
     print(f"rsmix kernel vs twin ({B}, {n}, {sr_in}->{sr_out}, fade {fade}):"
           f" {db:.1f} dB")
     assert y.shape == ref.shape and db <= -120.0
+
+
+@pytest.mark.parametrize("sr_in,sr_out", [(44100, 16000), (48000, 44100)])
+def test_polyphase_kernels_past_one_register_block(cuda, sr_in, sr_out):
+    """taps_per_phase = 40 (K2 = 41, two blocks of register taps) on K7
+    and K8 against their twins at the same taps."""
+    g = np.gcd(sr_in, sr_out)
+    plan = tres.make_plan(sr_out // g, sr_in // g, 40, 9.0)
+    assert plan.K2 == 41
+    rng = np.random.default_rng(41)
+    n = plan.M * 64
+    x = torch.from_numpy((0.3 * rng.standard_normal((3, n))).astype(
+        np.float32)).to(cuda)
+    y = resample.resample(x, sr_in, sr_out, taps_per_phase=40)
+    ref = tres.polyphase_resample(x, sr_in, sr_out, taps_per_phase=40)
+    db = _db(y - ref, ref)
+    v, b = (torch.from_numpy((rng.standard_normal((3, n)) * 9000).astype(
+        np.int16)).to(cuda) for _ in range(2))
+    y8 = rsmix.resample_mix(v, b, sr_in, sr_out, bgm_gain=0.4, fade=500,
+                            taps_per_phase=40)
+    ref8 = rsmix.resample_mix_plain(v, b, plan, 0.4, 500)
+    db8 = _db(y8 - ref8, ref8)
+    print(f"K2 = 41, {sr_in}->{sr_out}: resample {db:.1f} dB, rsmix "
+          f"{db8:.1f} dB vs twins")
+    assert y.shape == ref.shape and db <= -120.0
+    assert y8.shape == ref8.shape and db8 <= -120.0
+
+
+def test_polyphase_kernels_take_unaligned_rows(cuda):
+    """Rows whose data starts off a 16-byte boundary (a view one sample
+    into its buffer): the wrappers copy them aligned; K7 (16-byte chunks
+    at odd M) and K8 (sample pairs) match their twins."""
+    rng = np.random.default_rng(5)
+    R, n = 3, 441 * 40
+    buf = torch.from_numpy((0.3 * rng.standard_normal(R * n + 1)).astype(
+        np.float32)).to(cuda)
+    x = buf[1:].view(R, n)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    y = resample.resample(x, 44100, 16000)
+    ref = tres.polyphase_resample(x, 44100, 16000)
+    db = _db(y - ref, ref)
+    ibuf = torch.from_numpy((rng.standard_normal(2 * R * n + 2) * 9000).astype(
+        np.int16)).to(cuda)
+    v = ibuf[1:R * n + 1].view(R, n)  # one and R*n + 1 samples in: 2 bytes
+    b = ibuf[R * n + 1:2 * R * n + 1].view(R, n)  # off a 4-byte boundary
+    assert v.data_ptr() % 4 and b.data_ptr() % 4
+    y8 = rsmix.resample_mix(v, b, 44100, 16000, bgm_gain=0.4, fade=300)
+    ref8 = rsmix.resample_mix_plain(v, b, tres.make_plan(160, 441, 24, 9.0),
+                                    0.4, 300)
+    db8 = _db(y8 - ref8, ref8)
+    print(f"unaligned rows: resample {db:.1f} dB, rsmix {db8:.1f} dB")
+    assert db <= -120.0 and db8 <= -120.0
 
 
 @pytest.mark.parametrize("kw", [

@@ -37,7 +37,7 @@ import torch
 
 from xmtpu.kernels import resample as xres
 from xmtpu.kernels import rsmix as xrsmix
-from xmtpu_torch.kernels import _build
+from xmtpu_torch.kernels import _build, _seg
 from xmtpu_torch.kernels import resample as kres
 from xmtpu_torch.kernels import rsmix
 from xmtpu_torch.ops import mix as tmix
@@ -46,48 +46,110 @@ from xmtpu_torch.utils.errors import ConfigError, NotPortedError
 
 from .conftest import rms_db
 
-PHASE_TILE = 256  # csrc/polyphase.cuh kPhaseTile
-
-
 def _db(a, ref) -> float:
     a = np.asarray(a, np.float64)
     ref = np.asarray(ref, np.float64)
     return rms_db(a - ref, ref)
 
 
-def _model(tracks, plan, out_len, epilogue):
-    """numpy model of polyphase_kernel: per (frame tile, phase tile)
-    block, the window [c0*M + s[r0], + wlen) zero-filled outside the
-    row, K2-tap dots from the block's relative starts. ``tracks``: list
-    of (R, n) arrays; float64 sums."""
+def _model(tracks, plan, out_len, epilogue, blocks=7):
+    """numpy model of csrc/polyphase.cuh's polyphase_kernel on the
+    wrapper's own geometry (``kres.poly_geometry``, K7's for one track,
+    K8's for two): ``blocks`` persistent blocks, a multiple of the group
+    count, each keeping one group of G phases and walking its (row,
+    frame tile) items; each item staged as one window row per frame at
+    the odd pitch (unstaged words NaN), K8's rows from the even global
+    sample at or before the row's start (``shift``) in aligned pairs;
+    lanes on frames, the consumer warps on the group's phases (for the
+    default filter in pairs, both from one window of K2 + PAIR_SKEW words
+    with each phase's taps shifted to its offset), into a (frames,
+    tile_pitch) tile (NaN where unwritten),
+    read back in output order. ``tracks``: list of (R, n) arrays;
+    float64 sums. Every output must be written exactly once, from staged
+    words only."""
     tabs = kres.poly_tables(plan)
     hsel, soff = tabs["hsel"].astype(np.float64), tabs["soff"]
     L, M, K2 = plan.L, plan.M, plan.K2
     R, n = tracks[0].shape
     nj = -(-out_len // L)
-    tc, win_max = kres.frames_per_block(plan, nj)
+    pairs = len(tracks) == 2
+    geo = kres.poly_geometry(plan, nj, tracks=len(tracks))
+    F, G, P, TP = geo.frames, geo.G, geo.pitch, geo.tile_pitch
+    assert P % 2 == 1 and TP % 2 == 1 and TP >= G
+    assert not hsel[:, K2:].any()
+    blocks = geo.groups * max(1, blocks // geo.groups)
+    stride = blocks // geo.groups
     out = np.full((R, out_len), np.nan)
-    for ft in range(-(-nj // tc)):
-        for pt in range(-(-L // PHASE_TILE)):
-            r0 = pt * PHASE_TILE
-            rl = min(PHASE_TILE, L - r0)
-            c0 = ft * tc
-            tcc = min(tc, nj - c0)
-            starts = soff[r0:r0 + rl] - soff[r0]
-            wlen = (tcc - 1) * M + int(starts[-1]) + K2
-            assert wlen <= win_max
-            t = c0 * M + int(soff[r0]) + np.arange(wlen)
+    written = np.zeros((R, out_len), np.int64)
+    for blk in range(blocks):
+        r0 = (blk % geo.groups) * G
+        gl = min(G, L - r0)
+        s0 = int(soff[r0])
+        W = int(soff[r0 + gl - 1]) - s0 + K2
+        taps = hsel[r0:r0 + gl]
+        starts = soff[r0:r0 + gl] - s0
+        if geo.paired:
+            # phases in pairs (2q, 2q + 1) from one window of KW words: each
+            # phase's taps shifted to its start's offset from the pair's
+            KW = K2 + kres.PAIR_SKEW
+            d = np.zeros(gl, int)
+            d[1::2] = starts[1::2] - starts[0:gl - 1:2]
+            assert d.max() <= kres.PAIR_SKEW
+            shifted = np.zeros((gl, KW))
+            for rr in range(gl):
+                shifted[rr, d[rr]:d[rr] + K2] = taps[rr, :K2]
+        for it in range(blk // geo.groups, R * geo.tiles, stride):
+            row, ft = divmod(it, geo.tiles)
+            c0 = ft * F
+            cnt = min(F, nj - c0)
+            x0 = c0 * M + s0 + M * np.arange(cnt)  # each row's start
+            # K8: aligned pairs from the even global sample at or before,
+            # the row placed `shift` words early; K7: the row and
+            # PAIR_SKEW zeros past it. Window sample i at column 1 + i
+            shift = (row * n + x0) % 2 if pairs else np.zeros(cnt, int)
+            Wst = W + kres.PAIR_SKEW
+            width = 2 * ((Wst + 2) // 2) if pairs else Wst
+            assert width + 1 <= P  # no row runs into the next
+            t = (x0 - shift)[:, None] + np.arange(width)[None, :]
             inside = (t >= 0) & (t < n)
-            wins = [np.where(inside, x[:, np.clip(t, 0, n - 1)], 0.0)
-                    for x in tracks]
-            for cc in range(tcc):
-                j = (c0 + cc) * L + r0 + np.arange(rl)
-                keep = j < out_len
-                idx = cc * M + starts[:, None] + np.arange(K2)  # (rl, K2)
-                accs = [np.einsum("rpk,pk->rp", w[:, idx],
-                                  hsel[r0:r0 + rl]) for w in wins]
-                out[:, j[keep]] = epilogue(j[keep], accs)[:, keep]
-    assert not np.isnan(out).any()
+            chunks = (not pairs and M % 2 and x0[0] >= 3
+                      and x0[-1] + Wst + 3 <= n)
+            if chunks:
+                # K7 at odd M inside the row: 16-byte chunks (real samples
+                # past W), each row's first chunk on an aligned word
+                gs = row * n + x0
+                o = gs[0] % 4
+                assert ((o + np.arange(cnt) * P - gs % 4) % 4 == 0).all()
+                assert P >= Wst + 6
+            elif not pairs:
+                inside &= np.arange(width)[None, :] < W
+            wins = []
+            for x in tracks:
+                w = np.full((F, P + 1), np.nan)
+                for cc in range(cnt):
+                    w[cc, 1 - shift[cc]:1 - shift[cc] + width] = np.where(
+                        inside[cc], x[row, np.clip(t[cc], 0, n - 1)], 0.0)
+                wins.append(w)
+            tile = np.full((F, TP), np.nan)
+            lanes = np.arange(cnt)
+            for rr in range(gl):
+                if geo.paired:
+                    first = starts[rr - rr % 2]
+                    k = 1 + first + np.arange(KW)[None, :]
+                    accs = [w[lanes[:, None], k] @ shifted[rr] for w in wins]
+                else:
+                    k = 1 + starts[rr] + np.arange(K2)[None, :]
+                    accs = [w[lanes[:, None], k] @ taps[rr, :K2]
+                            for w in wins]
+                j = (c0 + lanes) * L + r0 + rr
+                tile[lanes, rr] = epilogue(j, accs)
+            e = np.arange(cnt * gl)
+            cc, rr = e // gl, e % gl
+            j = (c0 + cc) * L + r0 + rr
+            keep = j < out_len
+            out[row, j[keep]] = tile[cc[keep], rr[keep]]
+            written[row, j[keep]] += 1
+    assert (written == 1).all() and not np.isnan(out).any()
     return out
 
 
@@ -124,12 +186,13 @@ def test_resample_rate_pairs():
 
 
 @pytest.mark.parametrize("n,sr_in,sr_out", [
-    (44100, 44100, 16000),   # aligned, one phase tile
+    (44100, 44100, 16000),   # aligned, two phase groups of 80
     (44000, 44100, 16000),   # ragged end
     (9600, 48000, 44100),    # L = 147, M = 160
-    (30000, 44100, 32000),   # L = 320: two phase tiles
+    (30000, 44100, 32000),   # L = 320: two phase groups of 160
     (700, 44100, 16000),     # one frame tile, window past both ends
     (3200, 32000, 31000),    # M = 32: below resample_pallas's M >= 64
+    (44100, 44100, 8000),    # paired windows 6 apart: one phase at a time
 ])
 def test_kernel_model_matches_twin(n, sr_in, sr_out):
     g = math.gcd(sr_in, sr_out)
@@ -145,18 +208,121 @@ def test_kernel_model_matches_twin(n, sr_in, sr_out):
     assert db <= -120.0
 
 
-def test_resample_wrapper_contract():
+@pytest.mark.parametrize("n,sr_in,sr_out", [
+    (44000, 44100, 16000),   # K2 = 41: two register blocks, 3 groups
+    (9600, 48000, 44100),    # M = 160, one group, K2 = 41
+])
+def test_kernel_model_taps_past_one_register_block(n, sr_in, sr_out):
+    """taps_per_phase = 40 (K2 = 41 > kTapRegs = 32) through the model
+    against the twin at the same taps_per_phase."""
+    g = math.gcd(sr_in, sr_out)
+    plan = tres.make_plan(sr_out // g, sr_in // g, 40, 9.0)
+    assert plan.K2 == 41
+    rng = np.random.default_rng(n + 40)
+    x = (0.3 * rng.standard_normal((2, n))).astype(np.float32)
+    out_len = tres.resample_output_len(n, plan.L, plan.M)
+    y = _model([x.astype(np.float64)], plan, out_len,
+               lambda j, accs: accs[0])
+    ref = tres.polyphase_resample(torch.from_numpy(x), sr_in, sr_out,
+                                  taps_per_phase=40)
+    db = _db(y, ref.numpy())
+    print(f"polyphase kernel model {sr_in}->{sr_out}, K2 = 41: {db:.1f} dB")
+    assert db <= -120.0
+
+
+RATES = (8000, 11025, 16000, 22050, 24000, 32000, 44100, 48000, 96000)
+
+
+def test_pitch_is_conflict_free_at_every_supported_pair():
+    """At every pair of common rates the kernel runs (band no wider than
+    2M) and at taps_per_phase 24 and 40, for K7 and K8: both pitches are
+    odd, so the 32 lanes of a warp (one frame each) load from 32
+    distinct banks at any window offset and store to 32 distinct banks
+    of the tile; a block's shared bytes stay within the card's 232,448;
+    every group's window fits its row."""
+    runs = 0
+    for sr_in in RATES:
+        for sr_out in RATES:
+            g = math.gcd(sr_in, sr_out)
+            L, M = sr_out // g, sr_in // g
+            if L == M:
+                continue
+            for tpp in (24, 40):
+                plan = tres.make_plan(L, M, tpp, 9.0)
+                if plan.width > 2 * M:
+                    continue
+                for tracks in (1, 2):
+                    geo = kres.poly_geometry(plan, 1000, tracks=tracks)
+                    for pitch in (geo.pitch, geo.tile_pitch):
+                        assert math.gcd(pitch, 32) == 1, (sr_in, sr_out, tpp)
+                        for off in range(32):
+                            banks = (np.arange(32) * pitch + off) % 32
+                            assert len(set(banks.tolist())) == 32
+                    assert geo.smem <= kres.BLOCK_BYTES <= 232448
+                    assert geo.smem == kres.poly_smem(
+                        geo.G, geo.frames // 32, geo.pitch, geo.tile_pitch,
+                        plan.K2, tracks)
+                    s = kres.poly_tables(plan)["soff"]
+                    for r0 in range(0, L, geo.G):
+                        r1 = min(r0 + geo.G, L) - 1
+                        assert (s[r1] - s[r0] + plan.K2 + kres.PAIR_SKEW + 4
+                                <= geo.pitch)
+                    assert geo.groups == -(-L // geo.G)
+                    assert geo.tile_pitch >= geo.G
+                    runs += 1
+    assert runs >= 40
+
+
+def test_i16_pair_word_decodes_exactly():
+    """K8's staged word: voice in the low half and BGM in the high half,
+    each in offset binary; float(0x4B40 << 16 | half) - (2^23 + 32768)
+    in float32 is the int16 sample, for every int16 value."""
+    a = np.arange(-32768, 32768, dtype=np.int64)
+    b = a[::-1].copy()
+    word = ((a & 0xFFFF) | ((b & 0xFFFF) << 16)) ^ 0x80008000
+    bias = np.float32(12615680.0)
+    for half, ref in ((word & 0xFFFF, a), (word >> 16, b)):
+        f = (np.uint32(0x4B400000) | half.astype(np.uint32)).view(
+            np.float32) - bias
+        assert f.dtype == np.float32 and np.array_equal(f, ref)
+
+
+def test_aligned16_copies_only_unaligned_rows():
+    """The wrappers' alignment step: a tensor whose data starts on a
+    16-byte boundary passes as it is; a view one sample in is copied to
+    aligned storage with the same values."""
+    buf = torch.arange(2 * 441 + 1, dtype=torch.float32)
+    x = buf[:2 * 441].view(2, 441)
+    assert kres.aligned16(x) is x
+    y = buf[1:].view(2, 441)
+    z = kres.aligned16(y)
+    assert y.data_ptr() % 16 and z.data_ptr() % 16 == 0
+    assert torch.equal(z, y)
+
+
+def test_resample_wrapper_contract(monkeypatch):
     x = torch.zeros((2, 44100))
     before = kres.launches
     kres.resample(x, 44100, 16000)
     assert kres.launches == before  # CPU: the twin, no launch
     with pytest.raises(ValueError, match="no resample kernel"):
         kres.resample(x.to("meta"), 44100, 16000)
-    with pytest.raises(ValueError, match="rows"):
-        kres.check_rows(65535 * 8 + 1)
+    # no row limit: the persistent grid walks the work items, however
+    # many rows (the parent's grid.y limit, 65535 x 8 rows, is gone)
+    monkeypatch.setattr(_seg, "card_slots", lambda q, i, smem: (132, 2))
+    plan = tres.make_plan(160, 441, 24, 9.0)
+    dev = torch.device("cuda", 0)
+    # 5 groups of 32 phases: a multiple of 5, at most one block per group
+    # and item (128 frames an item)
+    for nj, rows, blocks in ((1000, 65535 * 8 + 1, 260), (1000, 3, 120),
+                             (40, 1, 5), (40, 3, 15)):
+        geo = kres.poly_geometry(plan, nj)
+        assert kres.persistent_blocks("xm_resample_blocks_per_sm", geo, rows,
+                                      dev) == blocks
     names = {p.name for p in _build.sources()}
     assert {"resample.cu", "rsmix.cu", "polyphase.cuh"} <= names
-    assert {"xm_resample_f32", "xm_rsmix_i16"} <= set(_build._SIGNATURES)
+    assert {"xm_resample_f32", "xm_rsmix_i16", "xm_resample_blocks_per_sm",
+            "xm_rsmix_blocks_per_sm"} <= set(_build._SIGNATURES)
 
 
 # ---------------------------------------------------------------- K8

@@ -19,8 +19,10 @@
 // outside the row, which is that masking, and sums in float32. What
 // bounds it on the H100: bytes, the int16 tracks read once and the
 // float32 mix written once (0.62 GB at 2 x 256 x 441000 -> 256 x 160000,
-// 0.18 ms at 3.35 TB/s); the arithmetic is 4*K2 flops per output.
-// Measured there (700 W): 0.95-1.06 ms.
+// 0.18 ms at 3.35 TB/s); the arithmetic is 4*K2 flops per output. The
+// two tracks are staged as one 32-bit word per sample and decoded to
+// float without I2F (polyphase.cuh), so one shared load feeds both FIRs.
+// Measured there (700 W; PERF.md): about 3.7x that bound back to back.
 
 #include <cuda_runtime.h>
 
@@ -50,18 +52,25 @@ struct FadeMix {
 
 }  // namespace
 
-// v, b: (rows, n) int16; y: (rows, out_len) float32; hsel, soff, tc,
-// win_max as for xm_resample_f32. Launches on `stream` and returns
-// cudaGetLastError() of the launch.
+// v, b: (rows, n) int16, 4-byte aligned; y: (rows, out_len) float32;
+// hsel, soff, G, F, P, TP, pair_skew, blocks as for xm_resample_f32.
+// Launches on `stream` and returns cudaGetLastError() of the launch.
 extern "C" int xm_rsmix_i16(const int16_t* v, const int16_t* b,
                             const float* hsel, const int* soff, float* y,
                             int rows, int n, int out_len, int L, int M,
-                            int K2, int tc, int win_max, float bgm_gain,
+                            int K2, int G, int F, int P, int TP,
+                            int pair_skew, int blocks, float bgm_gain,
                             int fade, void* stream) {
-  const xm::PolyGeom g{rows, n, out_len, L, M, K2, tc,
-                       (L + xm::kPhaseTile - 1) / xm::kPhaseTile, win_max};
+  const xm::PolyGeom g{rows, n, out_len, L, M, K2, G,
+                       F, P, TP, pair_skew};
   const FadeMix ep{bgm_gain, static_cast<float>(fade),
                    static_cast<float>(out_len)};
-  return xm::poly_launch<int16_t, 2>(v, b, hsel, soff, y, g, ep,
-                                     static_cast<cudaStream_t>(stream));
+  return xm::poly_launch(xm::I16PairTracks{v, b}, hsel, soff, y, g, ep,
+                         blocks, static_cast<cudaStream_t>(stream));
+}
+
+// Resident blocks per SM of xm_rsmix_i16's kernel at `smem` bytes of
+// shared memory (the persistent grid's size), 0 if the query fails.
+extern "C" int xm_rsmix_blocks_per_sm(int smem) {
+  return xm::poly_blocks_per_sm<xm::I16PairTracks, FadeMix>(smem);
 }

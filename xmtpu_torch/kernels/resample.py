@@ -20,12 +20,14 @@ CPU tensor it runs ``polyphase_resample``, the kernel's plain twin.
 
 from __future__ import annotations
 
+import functools
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from xmtpu_torch.kernels import _build
+from xmtpu_torch.kernels import _build, _seg
 from xmtpu_torch.kernels._seg import on_device
 from xmtpu_torch.ops import resample as _ops
 
@@ -33,36 +35,150 @@ from xmtpu_torch.ops import resample as _ops
 # fused front's wrappers count separately); callers may reset it.
 launches = 0
 
-# input elements per track a block stages (the window of its frame tile)
-_WINDOW = 6144
-_MAX_ROW_BLOCKS = 65535  # grid.y, kRowsPerBlock = 8 rows each
-_ROWS_PER_BLOCK = 8
+# shared bytes a block may take on an H100 (one block a SM)
+BLOCK_BYTES = 232448
+# csrc/polyphase.cuh: the default filter's instance (K2 = 25) takes phases
+# in pairs whose windows start at most PAIR_SKEW apart
+DEFAULT_K2, PAIR_SKEW = 25, 3
+
+
+@dataclass(frozen=True)
+class PolyGeometry:
+    """The kernel's tiling of one plan: ``groups`` phase groups of ``G``
+    (one per block), work items of ``frames`` = 32 F output frames (F a
+    lane), ``tiles`` of them a row, the window's and the output tile's
+    row pitches ``pitch`` and ``tile_pitch`` (32-bit words, odd), a
+    block's shared ``smem`` bytes, and ``pair_skew``, the most two paired
+    phases' windows start apart (:func:`pair_skew`)."""
+    G: int
+    groups: int
+    frames: int
+    tiles: int
+    pitch: int
+    tile_pitch: int
+    smem: int
+    pair_skew: int
+
+    @property
+    def paired(self) -> bool:
+        """Whether the kernel takes this plan's phases in pairs."""
+        return self.pair_skew <= PAIR_SKEW
 
 
 def poly_tables(plan: _ops.ResamplePlan) -> dict:
-    """The kernel's host tables: ``hsel`` (L, K2) float32 taps and
-    ``soff`` (L,) int32 window starts relative to ``c*M``."""
+    """The kernel's host tables: ``hsel`` (L, K2p) float32 taps, K2p =
+    K2 rounded up to a multiple of 4 (zeros past K2, so a phase's taps
+    load 16 bytes at a time), and ``soff`` (L,) int32 window starts
+    relative to ``c*M``."""
+    K2p = -(-plan.K2 // 4) * 4
+    hsel = np.zeros((plan.L, K2p), np.float32)
+    hsel[:, :plan.K2] = plan.hsel
     soff = plan.col_start + (plan.base - plan.pad_left)
-    return {"hsel": np.ascontiguousarray(plan.hsel, np.float32),
-            "soff": soff.astype(np.int32)}
+    return {"hsel": hsel, "soff": soff.astype(np.int32)}
 
 
-def frames_per_block(plan: _ops.ResamplePlan, nj: int) -> tuple[int, int]:
-    """(output frames per block, window elements per track): the frame
-    tile whose input window, (tc-1)*M + width, stays within _WINDOW."""
-    tc = max(1, min(nj, (_WINDOW - plan.width) // plan.M + 1))
-    return tc, (tc - 1) * plan.M + plan.width
+def poly_smem(G: int, F: int, pitch: int, tile_pitch: int, K2: int,
+              tracks: int) -> int:
+    """csrc/polyphase.cuh ``poly_smem_bytes``: the group's taps ((G + 1)
+    x K2p), the window stages (K7 three, K8 two) of 32 F rows and 4
+    words, each rounded to 16 bytes, the output tile and, for K8's two
+    int16 tracks, their raw sample pairs."""
+    ring, raw = (3, 0) if tracks == 1 else (2, 2 * ((pitch + 1) // 2))
+    stage = (32 * F * pitch + 7) // 4 * 4
+    return 4 * ((G + 1) * -(-K2 // 4) * 4 + ring * stage
+                + 32 * F * (tile_pitch + raw))
 
 
-def check_rows(R: int) -> None:
-    if R > _MAX_ROW_BLOCKS * _ROWS_PER_BLOCK:
-        raise ValueError(f"{R} rows: the kernel takes at most "
-                         f"{_MAX_ROW_BLOCKS * _ROWS_PER_BLOCK}")
+def _pitch(W: int, M: int, tracks: int) -> int:
+    """The window rows' pitch for a window of W samples: odd (the 32
+    lanes' banks distinct), past W + PAIR_SKEW (the paired phases' reads)
+    and K8's whole sample pairs staged up to a sample early (+ 4); for
+    K7 at odd M also = M (mod 4), with room for 3 samples each side (+
+    6), so that rows copied as 16-byte chunks land aligned."""
+    if tracks == 1 and M % 2:
+        P = W + PAIR_SKEW + 6
+        return P + (M - P) % 4
+    return (W + PAIR_SKEW + 4) | 1
+
+
+# frames a lane per item, in order of preference: K7's consumers reuse a
+# phase pair's taps over two frame pairs at F = 4; K8, with its raw pair
+# area, runs best at F = 2 with larger groups (tools/torch_poly_tiling.py)
+F_PREFERENCE = {1: (4, 2, 1), 2: (2, 1)}
+
+
+@functools.lru_cache(maxsize=128)
+def _tiling(plan: _ops.ResamplePlan, tracks: int) -> tuple:
+    """(G, F, pitch, tile pitch, shared bytes): for F in the kernel's
+    order of preference, the largest group G = ceil(L / ng) (the fewest
+    groups: the least window staged twice) whose block fits
+    BLOCK_BYTES; the window pitch from the group's widest window
+    (:func:`_pitch`)."""
+    s = plan.col_start
+    L, K2 = plan.L, plan.K2
+    for F in F_PREFERENCE[tracks]:
+        for ng in range(1, L + 1):
+            G = -(-L // ng)
+            r0 = np.arange(0, L, G)
+            r1 = np.minimum(r0 + G, L) - 1
+            P = _pitch(int((s[r1] - s[r0]).max()) + K2, plan.M, tracks)
+            TP = G | 1
+            smem = poly_smem(G, F, P, TP, K2, tracks)
+            if smem <= BLOCK_BYTES:
+                return G, F, P, TP, smem
+    raise ValueError(f"no polyphase tiling fits {BLOCK_BYTES} bytes "
+                     f"(L={L}, K2={K2})")
+
+
+def pair_skew(plan: _ops.ResamplePlan, G: int) -> int:
+    """The most two paired phases' windows start apart (pairs r0 + 2q,
+    r0 + 2q + 1 inside each group of G from r0), or a value past
+    PAIR_SKEW when the default filter's paired instance does not apply
+    (another K2)."""
+    if plan.K2 != DEFAULT_K2:
+        return PAIR_SKEW + 1
+    s = plan.col_start
+    r = np.arange(plan.L - 1)
+    first = (r % G) % 2 == 0
+    second = (r + 1) % G != 0
+    d = (s[r + 1] - s[r])[first & second]
+    return int(d.max()) if d.size else 0
+
+
+def poly_geometry(plan: _ops.ResamplePlan, nj: int,
+                  tracks: int = 1) -> PolyGeometry:
+    """The kernel's tiling of ``plan`` over rows of ``nj`` output frames:
+    K7's (``tracks=1``) or K8's (``tracks=2``). The wrappers launch with
+    it; the tests model the kernel on it."""
+    G, F, P, TP, smem = _tiling(plan, tracks)
+    return PolyGeometry(G=G, groups=-(-plan.L // G), frames=32 * F,
+                        tiles=-(-nj // (32 * F)), pitch=P, tile_pitch=TP,
+                        smem=smem, pair_skew=pair_skew(plan, G))
 
 
 def device_tables(plan: _ops.ResamplePlan, device) -> dict:
     key = ("polyphase", plan.L, plan.M, plan.K2, plan.taps.tobytes())
     return on_device(key, device, lambda: poly_tables(plan))
+
+
+def persistent_blocks(query: str, geo: PolyGeometry, R: int,
+                      device: torch.device) -> int:
+    """The persistent grid: the kernel's resident blocks per SM (the
+    occupancy ``query`` at ``geo.smem``) on every SM, rounded down to a
+    multiple of the group count (a block keeps one group), at least one
+    block per group and at most one per work item."""
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    sms, per_sm = _seg.card_slots(query, index, geo.smem)
+    per_group = min(R * geo.tiles, max(1, sms * per_sm // geo.groups))
+    return per_group * geo.groups
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it, whose data starts 16-byte aligned: the
+    kernels read rows as aligned 16-byte chunks (K7) or 4-byte sample
+    pairs (K8)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def resample_pass(x2d: torch.Tensor, plan: _ops.ResamplePlan,
@@ -71,17 +187,20 @@ def resample_pass(x2d: torch.Tensor, plan: _ops.ResamplePlan,
     out_len)."""
     global launches
     R, n = x2d.shape
-    check_rows(R)
+    x2d = aligned16(x2d)
     tabs = device_tables(plan, x2d.device)
-    tc, win = frames_per_block(plan, -(-out_len // plan.L))
+    geo = poly_geometry(plan, -(-out_len // plan.L))
     y = torch.empty((R, out_len), dtype=torch.float32, device=x2d.device)
     lib = _build.load()
     with torch.cuda.device(x2d.device):
+        blocks = persistent_blocks("xm_resample_blocks_per_sm", geo, R,
+                                   x2d.device)
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         rc = lib.xm_resample_f32(
             x2d.data_ptr(), tabs["hsel"].data_ptr(), tabs["soff"].data_ptr(),
-            y.data_ptr(), R, n, out_len, plan.L, plan.M, plan.K2, tc, win,
-            stream)
+            y.data_ptr(), R, n, out_len, plan.L, plan.M, plan.K2, geo.G,
+            geo.frames // 32, geo.pitch, geo.tile_pitch, geo.pair_skew,
+            blocks, stream)
     _build.check(rc, "resample")
     launches += 1
     return y

@@ -137,18 +137,22 @@ def resample_mix(voice_i16: torch.Tensor, bgm_i16: torch.Tensor,
         return resample_mix_plain(voice_i16, bgm_i16, plan, bgm_gain, fade)
     if dev.type != "cuda":
         raise ValueError(f"no rsmix kernel for device {dev}")
-    _kres.check_rows(B)
     out_len = (n // plan.M) * plan.L
     tabs = _kres.device_tables(plan, dev)
-    tc, win = _kres.frames_per_block(plan, n // plan.M)
+    geo = _kres.poly_geometry(plan, n // plan.M, tracks=2)
+    voice_i16, bgm_i16 = _kres.aligned16(voice_i16), _kres.aligned16(bgm_i16)
     y = torch.empty((B, out_len), dtype=torch.float32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
+        blocks = _kres.persistent_blocks("xm_rsmix_blocks_per_sm", geo, B,
+                                         dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.xm_rsmix_i16(
             voice_i16.data_ptr(), bgm_i16.data_ptr(), tabs["hsel"].data_ptr(),
             tabs["soff"].data_ptr(), y.data_ptr(), B, n, out_len, plan.L,
-            plan.M, plan.K2, tc, win, float(bgm_gain), int(fade), stream)
+            plan.M, plan.K2, geo.G, geo.frames // 32, geo.pitch,
+            geo.tile_pitch, geo.pair_skew, blocks, float(bgm_gain),
+            int(fade), stream)
     _build.check(rc, "rsmix")
     launches += 1
     return y

@@ -19,10 +19,12 @@ process exits non-zero:
    transform size the IR allows (8192 and 16384 points) timed and gated
    (also at phase 7's operands);
 4. K2, the fused limiter, time-segmented by the card's rule (S), on the
-   K1 output against the unsegmented plain twin: same gate; the
-   ``limiter()`` call's time, its pass A (the envelope-only kernel with
-   the |x| detector), carries (alone, and as a CUDA-graph replay: their
-   time on the card) and fused pass B each timed, the
+   K1 output against the unsegmented plain twin: same gate; its pass A
+   (the envelope core's |x| instance) against its twin on the same
+   operands (max abs 0); the ``limiter()`` call's time, its pass A
+   (also as a CUDA-graph replay: its time on the card, and its cycles
+   per sample), carries (alone, and as a graph replay) and fused pass B
+   each timed, the
    unsegmented kernel's time, the calls at S = 4, 8, 16, 32; the twin's
    time loop (median of 5); then a NaN sample in one segment of one row:
    ``limiter()`` at the rule's S and unsegmented must give NaN exactly
@@ -48,10 +50,16 @@ process exits non-zero:
 7. K1 at the small-batch branch's own operands (the EQ output, 32 x
    160000, the raw 4000-tap reverb IR, unit gains: what ``reverb()``
    passes it there) against its twin (gate -100 dB, both times,
-   ``conv1d``); then the envelope-only kernel through the segmented
-   ``envelope()`` at the small-batch shape (32 x 160000, 8 segments:
-   two launches) against the same path on the twin (gate -100 dB);
-   each launch's time against its twin's;
+   ``conv1d``); then the envelope core through the segmented
+   ``envelope()`` at the small-batch shape (32 x 160000) at the card's
+   S (printed; 64 on an H100: two launches over 2,048 rows of 2,500)
+   against the same path on the twin (gate -100 dB), each launch
+   against its twin on its own operands (max abs 0, the plain and the
+   corrected instance; with phase 4's |x| one, all three); each launch
+   from the host and as a graph replay (its cycles per sample), the
+   ``envelope()`` call both ways, the same launches at the JAX rule's S
+   (8), the S sweep (8 .. 128: the launches and the call as graph
+   replays) and the instances' ptxas lines;
 8. the unfused small-batch step on 32 clips of 10 s, counters set to 0
    just before: K1, K5, the state-chain kernel and the envelope-only
    kernel must launch; clip 0 <= -80 dB against the float64 oracle;
@@ -68,7 +76,8 @@ process exits non-zero:
    K6, pass B on the envelope-only kernel) against
    the same path on the twins at full length (gate -100 dB, max abs
    printed); the call's time, pass 0, pass A, the carries (alone, and as
-   a CUDA-graph replay), pass B, the one-pass kernel, the calls at S =
+   a CUDA-graph replay), pass B (also as a graph replay, and its cycles
+   per sample), the one-pass kernel, the calls at S =
    4, 8, 16, 32, and pass A with 1, 2 and 4 blocks per SM; then
    ``make_flagship_step(fused=True, lti_fold=False)`` with fresh
    counters: K1, K6, the state chain and the envelope-only kernel must
@@ -105,11 +114,13 @@ process exits non-zero:
    at 48 kHz, the JAX benchmark's input) against its twin (gate -100
    dB), both times, ``conv1d`` as the library yardstick, the bound and
    the partition count;
-14. K4', the envelope kernel's gain form, through the channel-linked
-   limiter at config 3's detector (16 x 480000 from the K1 output, S =
-   16: 256 segment rows of 30000) against the same path on the twin
-   (gate -100 dB on y and on both states); the two launches' times (K3
-   pass A, gain-form pass B), the call's, the bounds;
+14. K4', the envelope core's gain form, through the channel-linked
+   limiter at config 3's detector (16 x 480000 from the K1 output) at
+   the card's S (printed; 64 on an H100: 1,024 segment rows of 7,500)
+   against the same path on the twin (gate -100 dB on y and on both
+   states); the two launches (K3 pass A, gain-form pass B) and the call
+   from the host and as graph replays, the launches' cycles per sample,
+   the bounds, the gain instances' ptxas lines;
 15. config 3 through ``xmtpu_torch.effects`` twice, counters set to 0
    just before each: the JAX benchmark's chain (K1's long form and the
    envelope-only kernel must launch), then with ``linked_fuse`` on the
@@ -219,6 +230,11 @@ def main() -> None:
     def chain_ms(steps: int, ops_per_step: int) -> float:
         return steps * ops_per_step * OP_LATENCY_CYCLES / clock_hz * 1e3
 
+    def cycles_at(ms: float, steps: int) -> float:
+        """Cycles per sample of a row chain that took ``ms`` for
+        ``steps`` samples (every row runs at once), at the max clock."""
+        return ms * 1e-3 * clock_hz / steps
+
     def reset_counts() -> None:
         fftconv.launches = envelope.launches = 0
         iir.launches = envelope.envelope_launches = iir.chain_launches = 0
@@ -272,6 +288,15 @@ def main() -> None:
         b.record()
         b.synchronize()
         return a.elapsed_time(b) / calls
+
+    def replay_ms(fn):
+        """fn's time on the card: the median of CUDA-graph replays of one
+        call, without the host time its launches take."""
+        fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return median_ms(graph.replay)
 
     def poly_geometry_line(label, plan, n_out, query, tracks):
         """K7's / K8's tiling of this plan on this card."""
@@ -397,9 +422,17 @@ def main() -> None:
     # the call's parts at the rule's S, each alone on its real operands
     S2 = envelope.limiter_segments(R, n, c_att, dev)
     xs = x.reshape(R * S2, n // S2)
-    env0, zf_a = envelope.envelope_pass(
-        xs, k_rel, 1.0, torch.zeros((2, R * S2), device=dev),
-        abs_detector=True)
+    zeros_a = torch.zeros((2, R * S2), device=dev)
+    env0, zf_a = envelope.envelope_pass(xs, k_rel, 1.0, zeros_a,
+                                        abs_detector=True)
+    # pass A runs the envelope core's |x| instance: max abs 0 against its
+    # twin on these operands
+    abs_err = max(float((a_ - b_).abs().max()) for a_, b_ in zip(
+        (env0, zf_a), envelope.envelope_plain(xs, k_rel, 1.0, zeros_a,
+                                              abs_detector=True)))
+    if abs_err != 0.0:
+        raise SystemExit(f"chip_smoke: K3's |x| instance differs from its "
+                         f"twin on K2's pass A by {abs_err}")
 
     def carries():
         e = envelope._chain(init[0], zf_a[0].reshape(R, S2),
@@ -418,10 +451,13 @@ def main() -> None:
     with torch.cuda.graph(graph):
         carries()
     carries_card_ms = median_ms(graph.replay)
+    def pass_a():
+        return envelope.envelope_pass(xs, k_rel, 1.0, zeros_a,
+                                      abs_detector=True)
+
+    pass_a_card = replay_ms(pass_a)
     part_ms = {
-        "pass A": median_ms(lambda: envelope.envelope_pass(
-            xs, k_rel, 1.0, torch.zeros((2, R * S2), device=dev),
-            abs_detector=True)),
+        "pass A": median_ms(pass_a),
         "carries": median_ms(carries),
         "pass B": median_ms(lambda: envelope.limiter_pass(
             xs, k_rel, c_att, curve, init_b)),
@@ -433,9 +469,11 @@ def main() -> None:
           f"twin (gate {GATE_KERNEL_DB}), max abs {k2['max_abs_err']:.3g}; "
           f"limiter() call {k2['ms']:.3f} ms = "
           + " + ".join(f"{k} {t:.3f}" for k, t in part_ms.items())
-          + f" ms each alone (the carries {carries_card_ms:.3f} ms on the "
-          f"card as a graph replay); unsegmented kernel {unseg_ms:.3f} ms; "
-          "calls at "
+          + f" ms each alone (on the card as graph replays: pass A "
+          f"{pass_a_card:.4f} ms, {cycles_at(pass_a_card, n // S2):.1f} "
+          f"cycles per sample, max abs {abs_err:.3g} against its twin; the "
+          f"carries {carries_card_ms:.3f} ms); unsegmented kernel "
+          f"{unseg_ms:.3f} ms; calls at "
           + ", ".join(f"S = {S}: {t:.3f}" for S, t in sweep.items())
           + f" ms; plain {k2['plain_ms']:.1f} ms, bound "
           f"{k2['bound_ms']:.3f} ms ({k2['bound_by']}), chain "
@@ -469,7 +507,7 @@ def main() -> None:
           f"{db_nan[0]:.1f} / {db_nan[1]:.1f} dB vs the twin")
     if not (nan_ok and max(db_nan) <= GATE_KERNEL_DB):
         raise SystemExit("chip_smoke: K2 does not propagate NaN as its twin")
-    del m, scale, ramp, x, y_plain, xs, env0, zf_a, init_b, graph
+    del m, scale, ramp, x, y_plain, xs, env0, zf_a, zeros_a, init_b, graph
     del x_nan, y_nan, y_nan1, y_nan_p
 
     # 5. the fused flagship step, driven once with fresh launch counters
@@ -521,16 +559,6 @@ def main() -> None:
                 torch.zeros((ns, 2, R * S_), dtype=torch.float32,
                             device=dev))
 
-    def cycles(ms, S_):  # per sample of a row: every row runs at once
-        return ms * 1e-3 * clock_hz / (n // S_)
-
-    def replay_ms(fn):  # fn's time on the card: a CUDA-graph replay
-        fn()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            fn()
-        return median_ms(graph.replay)
-
     k5 = None
     pass5 = {}  # S -> (ms, ms on the card, cycles per sample on the card)
     for S_ in (S, iir.pick_segments(R, n)):
@@ -547,7 +575,7 @@ def main() -> None:
                              f"{S_} (max abs y, zf: {errs5})")
         t = median_ms(lambda: iir.sosfilt_pass(xs, sos32, zi0))
         t_card = replay_ms(lambda: iir.sosfilt_pass(xs, sos32, zi0))
-        pass5[S_] = (t, t_card, cycles(t_card, S_))
+        pass5[S_] = (t, t_card, cycles_at(t_card, n // S_))
         if k5 is None:  # the rule's S: the kernel line's numbers
             k5 = compare("iir", "cuda", "xmtpu_torch/csrc/iir.cu",
                          "xmtpu/kernels/iir.py:37", yk, yp)
@@ -709,39 +737,99 @@ def main() -> None:
     y_rev = treverb.reverb(y_eq, small.reverb_ir, wet=small.wet,
                            dry=small.dry)
     d = y_rev.abs()
-    passes = []
 
-    def recording(*args):
-        passes.append(args)
-        return envelope.envelope_pass(*args)
+    def recorded(S_=None):
+        """envelope() at S_ (None: the card's rule), recording the arguments
+        of its one-pass launches."""
+        got = []
 
-    e2k, _ = envelope.envelope(d, small.k_rel, small.c_att, run=recording)
+        def recording(*args):
+            got.append(args)
+            return envelope.envelope_pass(*args)
+
+        out = envelope.envelope(d, small.k_rel, small.c_att, segments=S_,
+                                run=recording)[0]
+        return out, got
+
+    S_env = envelope.envelope_segments(R, n, dev)
+    e2k, passes = recorded()
     e2p, _ = envelope.envelope(d, small.k_rel, small.c_att,
                                run=envelope.envelope_plain)
     ke = compare("envelope_seg", "cuda", "xmtpu_torch/csrc/envelope.cu",
                  "xmtpu/kernels/envelope.py:108", e2k, e2p)
-    S_env = passes[0][0].shape[0] // R
-    pass_ms = [median_ms(lambda a=a: envelope.envelope_pass(*a))
-               for a in passes]
+    rows_e, seg_e = passes[0][0].shape
+    if rows_e != R * S_env:
+        raise SystemExit(f"chip_smoke: envelope() ran {rows_e} rows, not "
+                         f"{R} x the card's S = {S_env}")
+    # each launch against its twin on its own operands (the plain and the
+    # corrected instance; the |x| one on phase 4's): max abs 0
+    pass_err = [max(float((a_ - b_).abs().max()) for a_, b_ in zip(
+        envelope.envelope_pass(*a), envelope.envelope_plain(*a)))
+        for a in passes]
+    ke["max_abs_err"] = max(ke["max_abs_err"], abs_err, *pass_err)
+    if ke["max_abs_err"] != 0.0:
+        raise SystemExit(f"chip_smoke: the envelope core differs from its "
+                         f"twin: max abs {ke['max_abs_err']} (passes "
+                         f"{pass_err}, |x| {abs_err})")
+
+    def pass_times(args_list):
+        """Each launch from the host and on the card (graph replay)."""
+        return ([median_ms(lambda a=a: envelope.envelope_pass(*a))
+                 for a in args_list],
+                [replay_ms(lambda a=a: envelope.envelope_pass(*a))
+                 for a in args_list])
+
+    pass_ms, pass_card = pass_times(passes)
     ke["ms"] = sum(pass_ms)
     ke["plain_ms"] = sum(median_ms(lambda a=a: envelope.envelope_plain(*a),
                                    warmup=0, runs=3) for a in passes)
-    call_ms = median_ms(lambda: envelope.envelope(d, small.k_rel,
-                                                  small.c_att))
-    rows_e, seg_e = passes[0][0].shape
+
+    def env_call(S_=None):
+        return envelope.envelope(d, small.k_rel, small.c_att, segments=S_)
+
+    call_ms, call_card = median_ms(env_call), replay_ms(env_call)
+    # the same launches at the JAX rule's S, and the S sweep on the card
+    S_jax = envelope.pick_segments(R, n, lanes=256)
+    jax_ms, jax_card = pass_times(recorded(S_jax)[1])
+    sweep_e = {}
+    for S_ in (8, 16, 32, 64, 128):
+        sweep_e[S_] = (sum(pass_times(recorded(S_)[1])[1]),
+                       replay_ms(lambda S_=S_: env_call(S_)))
     # per pass: d (or env0) in, e2 out, the correction's ktab and E
     bound(ke, 4 * (len(passes) * 2 * rows_e * seg_e + seg_e + rows_e),
           len(passes) * 5 * rows_e * seg_e)
-    print(f"envelope_seg {tuple(d.shape)} as {rows_e} x {seg_e} (S = "
-          f"{S_env}), {len(passes)} launches: {ke['rms_db']:.1f} dB vs the "
-          f"twin path (gate {GATE_KERNEL_DB}), max abs "
-          f"{ke['max_abs_err']:.3g}; kernel "
-          + " + ".join(f"{t:.3f}" for t in pass_ms)
-          + f" = {ke['ms']:.3f} ms for the launches, envelope() call "
-          f"{call_ms:.3f} ms, plain "
-          f"{ke['plain_ms']:.1f} ms, bound {ke['bound_ms']:.4f} ms "
-          f"({ke['bound_by']}), chain "
-          f"{chain_ms(seg_e, 2) * len(passes):.3f} ms [{card}]")
+    per_sm_e = _seg.card_slots("xm_envelope_blocks_per_sm", dev.index or 0,
+                               0)[1]
+    print(f"envelope_seg {tuple(d.shape)} at S = {S_env} (the card's rule: "
+          f"{per_sm_e} resident blocks per SM, 32 rows per block; the JAX "
+          f"rule's S = {S_jax}) as {rows_e} x {seg_e}, {len(passes)} "
+          f"launches: {ke['rms_db']:.1f} dB vs the twin path (gate "
+          f"{GATE_KERNEL_DB}), max abs {ke['max_abs_err']:.3g} (each "
+          f"launch and the |x| instance against its twin: must be 0); "
+          "launches "
+          + " + ".join(f"{t:.4f}" for t in pass_ms)
+          + f" = {ke['ms']:.4f} ms from the host, "
+          + " + ".join(f"{t:.4f}" for t in pass_card)
+          + f" = {sum(pass_card):.4f} ms on the card as graph replays ("
+          + ", ".join(f"{cycles_at(t, seg_e):.1f}" for t in pass_card)
+          + f" cycles per sample); envelope() call {call_ms:.3f} ms "
+          f"({call_card:.4f} ms on the card); at the JAX rule's S = "
+          f"{S_jax} ({R * S_jax} x {n // S_jax}): "
+          + " + ".join(f"{t:.4f}" for t in jax_ms)
+          + " ms from the host, "
+          + " + ".join(f"{t:.4f}" for t in jax_card)
+          + " ms on the card ("
+          + ", ".join(f"{cycles_at(t, n // S_jax):.1f}" for t in jax_card)
+          + f" cycles per sample); plain {ke['plain_ms']:.1f} ms, bound "
+          f"{ke['bound_ms']:.4f} ms ({ke['bound_by']}), chain "
+          f"{chain_ms(seg_e, 2) * len(passes):.4f} ms [{card}]")
+    print("envelope() S sweep on the card (the two launches / the call, "
+          "graph replays, ms): "
+          + ", ".join(f"S = {S_}: {p_:.4f} / {c_:.4f}"
+                      for S_, (p_, c_) in sweep_e.items()) + f" [{card}]")
+    print("K3 ptxas (plain | corrected | |x|): " + " | ".join(
+        ptxas_line(f"row_envelope_kernelILb0EL{k}") for k in
+        ("b0ELb0E", "b1ELb0E", "b0ELb1E")))
     del d, e2p, passes
 
     # 8. the unfused small-batch step, driven once with fresh counters
@@ -931,6 +1019,9 @@ def main() -> None:
         "pass B": median_ms(lambda: envelope.envelope_pass(
             env0, 0.0, c_att, e0, ktab, e_in)),
     }
+    # pass B, the envelope core's corrected instance, on the card
+    pass_b6_card = replay_ms(lambda: envelope.envelope_pass(
+        env0, 0.0, c_att, e0, ktab, e_in))
     del env0, e2b, zf_b, graph
     unseg6_ms = median_ms(lambda: k6_kern(1))
     sweep6 = {S: median_ms(lambda S=S: k6_kern(S)) for S in (4, 8, 16, 32)}
@@ -961,8 +1052,10 @@ def main() -> None:
           f"{db_pre[0]:.1f}, e2 {db_pre[1]:.1f} dB; eq_env() call "
           f"{k6['ms']:.3f} ms = "
           + " + ".join(f"{k} {t:.3f}" for k, t in part6_ms.items())
-          + f" ms each alone (the carries {carries6_card_ms:.3f} ms on the "
-          f"card as a graph replay); one-pass kernel {unseg6_ms:.3f} ms; "
+          + f" ms each alone (on the card as graph replays: pass B "
+          f"{pass_b6_card:.4f} ms, {cycles_at(pass_b6_card, seglen):.1f} "
+          f"cycles per sample; the carries {carries6_card_ms:.3f} ms); "
+          f"one-pass kernel {unseg6_ms:.3f} ms; "
           "calls at "
           + ", ".join(f"S = {S}: {t:.3f}" for S, t in sweep6.items())
           + " ms; pass A at 1, 2, 4 blocks per SM ("
@@ -1209,29 +1302,51 @@ def main() -> None:
                          f"their check: {st_db} dB")
     (a_args, a_kw), (b_args, b_kw) = passes4
     rows4, seg4 = a_args[0].shape
+    S4 = envelope.linked_segments(B3, n3, c_att3, dev)
+    if rows4 != B3 * S4:
+        raise SystemExit(f"chip_smoke: linked_limiter() ran {rows4} rows, "
+                         f"not {B3} x the card's S = {S4}")
     pass_ms = [median_ms(lambda a=a, kw=kw: envelope.envelope_pass(*a, **kw))
                for a, kw in passes4]
+    pass_card = [replay_ms(lambda a=a, kw=kw: envelope.envelope_pass(*a,
+                                                                     **kw))
+                 for a, kw in passes4]
     k4["ms"] = pass_ms[1]  # the gain-form launch (pass A is K3's form)
     t0 = time.perf_counter()
     envelope.envelope_plain(*b_args, **b_kw)
     torch.cuda.synchronize()
     k4["plain_ms"] = (time.perf_counter() - t0) * 1e3
-    call_ms = median_ms(lambda: envelope.linked_limiter(w3, k_rel3, c_att3,
-                                                        thr3))
+
+    def linked_call():
+        return envelope.linked_limiter(w3, k_rel3, c_att3, thr3)
+
+    call_ms, call_card = median_ms(linked_call), replay_ms(linked_call)
     # the gain-form pass: env0 in, g out, ktab, E and the init; per
     # sample the correction's multiply and max, 4 recurrence operations
     # and about a dozen of the curve's
     bound(k4, 4 * (2 * rows4 * seg4 + seg4 + 3 * rows4),
           18 * rows4 * seg4)
-    print(f"K4' envelope_gain: linked limiter {tuple(w3.shape)} as "
-          f"{rows4} x {seg4} (S = {rows4 // B3}): y "
-          f"{k4['rms_db']:.1f} dB, states {st_db[0]:.1f} / {st_db[1]:.1f} "
-          f"dB vs the twin path (gate {GATE_KERNEL_DB}), max abs "
-          f"{k4['max_abs_err']:.3g}; pass A (K3) {pass_ms[0]:.3f} ms + "
-          f"gain-form pass B {pass_ms[1]:.3f} ms, linked_limiter() call "
-          f"{call_ms:.3f} ms, plain pass B {k4['plain_ms']:.1f} ms (one "
-          f"run), bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}), chain "
-          f"{chain_ms(seg4, 2):.3f} ms per pass [{card}]")
+    per_sm4 = _seg.card_slots("xm_envelope_blocks_per_sm", dev.index or 0,
+                              1)[1]
+    print(f"K4' envelope_gain: linked limiter {tuple(w3.shape)} at S = "
+          f"{S4} (the card's rule: {per_sm4} resident blocks per SM, 32 "
+          f"rows per block, segments of at least "
+          f"{envelope.carry_min_seglen(c_att3, n3)}; the JAX rule's S = "
+          f"{envelope.pick_segments(B3, n3, lanes=256)}) as {rows4} x "
+          f"{seg4}: y {k4['rms_db']:.1f} dB, states {st_db[0]:.1f} / "
+          f"{st_db[1]:.1f} dB vs the twin path (gate {GATE_KERNEL_DB}), max "
+          f"abs {k4['max_abs_err']:.3g}; pass A (K3) {pass_ms[0]:.4f} ms + "
+          f"gain-form pass B {pass_ms[1]:.4f} ms from the host, "
+          f"{pass_card[0]:.4f} + {pass_card[1]:.4f} ms on the card as graph "
+          f"replays ({cycles_at(pass_card[0], seg4):.1f}, "
+          f"{cycles_at(pass_card[1], seg4):.1f} cycles per sample); "
+          f"linked_limiter() call {call_ms:.3f} ms ({call_card:.4f} ms on "
+          f"the card); plain pass B {k4['plain_ms']:.1f} ms (one run), "
+          f"bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}), chain "
+          f"{chain_ms(seg4, 2):.4f} ms per pass [{card}]")
+    print("K4' ptxas (gain | gain, corrected): " + " | ".join(
+        ptxas_line(f"row_envelope_kernelILb1EL{k}") for k in
+        ("b0ELb0E", "b1ELb0E")))
     del w3, yk4, yp4, passes4, a_args, b_args
 
     # 15. config 3 through the public entry: the JAX benchmark's chain,

@@ -10,7 +10,10 @@ kernel's gain form with NaN input and a carried init, segmented and at
 S = 1; the |x| detector of the segmented fused limiter's pass A and the
 segmented limiter itself, with NaN too; the segmented eq_env path and
 the unfolded steps that run it; the public effects chain on both
-limiter forms).
+limiter forms; the envelope core of the envelope-only and gain forms at
+1, 31, 33 and 1024 rows of 1, 127, 129 and 5000 samples and on rows off
+a 16-byte boundary, its occupancy queries, and envelope() and
+linked_limiter() at the card's segment rule).
 
 Marked ``gpu``; each test skips without a CUDA device. The module
 imports no JAX, so it runs on a machine without it:
@@ -22,19 +25,22 @@ kernel's mixed-radix FFTs and the twin's library FFT round differently,
 the fused limiter differs by FMA contraction only, and its segmented
 form also by the segment carries' reassociation (states: rtol 1e-5); the IIR and envelope-only
 kernels round every operation as their twins do and should read exactly
-0). The eq_env kernel rounds every operation as its twin does: max abs
-0, asserted; it and the envelope-only kernel propagate NaN as their
-twins' torch.maximum does: equal to the twins with NaN in the same
-places. The segmented eq_env path on the kernels runs every pass bit for bit as
-the same path on the twins, with the same torch glue: -100 dB, max abs
+0: the envelope core's tests assert it, and envelope() at the card's
+rule equals its twin path bit for bit). The eq_env kernel rounds every
+operation as its twin does: max abs 0, asserted; it and the
+envelope-only kernel propagate NaN as their twins' torch.maximum does:
+equal to the twins with NaN in the same places. The segmented eq_env
+path on the kernels runs every pass bit for bit as the same path on the
+twins, with the same torch glue: -100 dB, max abs
 0 expected (printed); against the one-pass kernel -100 dB (each segment
 starts from the float64 state rounded to float32). The fused limiter
 propagates NaN as its twin: the same NaN mask, -100 dB elsewhere. The
 two resample kernels sum 25 float32 products per
 output where the twins' banded matmuls sum the same taps in another
 order: -120 dB. The gain form's e2 chain rounds as its twin's (final
-states equal); its gain goes through logf/expf where the twin's goes
-through torch.log/exp: -100 dB, NaN where the twin's is NaN. The
+states equal); its gain goes through the card's approximate log2 / exp2
+where the twin's goes through torch.log/exp: -100 dB, NaN where the
+twin's is NaN. The
 effects chain on the card against the same chain on the CPU: -90 dB
 (the fftconv kernel's and the limiter's differences above). The fused
 step on the card against the same step on the CPU: -90
@@ -55,7 +61,8 @@ import torch
 import xmtpu_torch
 from xmtpu_torch import batch as tbatch
 from xmtpu_torch.bench import config3_chain, config3_inputs
-from xmtpu_torch.kernels import envelope, eq_env, fftconv, iir, resample, rsmix
+from xmtpu_torch.kernels import (_build, envelope, eq_env, fftconv, iir,
+                                  resample, rsmix)
 from xmtpu_torch.ops import resample as tres
 from xmtpu_torch.utils.errors import ConfigError
 
@@ -938,3 +945,142 @@ def test_unfolded_steps_segment_eq_env_on_card(cuda, ragged):
     print(f"unfolded step (ragged={ragged}) on the card vs the CPU: "
           f"{db:.1f} dB")
     assert db <= -85.0
+
+
+def _core_operands(cuda, R, n, seed, signed=False, offset=0):
+    """A detector (signed: a signal for the |x| detector) of R x n, a
+    carried init, ktab and the segment corrections. ``offset`` floats
+    into its storage, so the rows can start off a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    x = (2.0 * rng.standard_normal(R * n)).astype(np.float32)
+    flat = torch.empty(R * n + offset, device=cuda)
+    d = flat[offset:].view(R, n)
+    d.copy_(torch.from_numpy(x if signed else np.abs(x)).view(R, n))
+    init = torch.from_numpy(rng.uniform(0.0, 1.0, (2, R)).astype(
+        np.float32)).to(cuda)
+    ktab = torch.from_numpy(envelope.seg_ktab(0.999, n)).to(cuda)
+    ecorr = torch.from_numpy(rng.uniform(0.0, 3.0, R).astype(
+        np.float32)).to(cuda)
+    return d, init, ktab, ecorr
+
+
+@pytest.mark.parametrize("form", ["plain", "corr", "abs"])
+@pytest.mark.parametrize("R", [1, 31, 33, 1024])
+@pytest.mark.parametrize("n", [1, 127, 129, 5000])
+def test_envelope_core_bit_equal_to_twin(cuda, form, R, n):
+    """The envelope-only core (32 rows a block, lanes past R idle, the
+    ragged last chunk, 4-byte copies where n % 4 != 0) in each
+    specialisation equals the twin bit for bit, final states too."""
+    d, init, ktab, ecorr = _core_operands(cuda, R, n, R * n + len(form),
+                                          signed=form == "abs")
+    args = {"plain": (d, 0.99937, 0.0606, init),
+            "corr": (d, 0.0, 0.0606, init, ktab, ecorr),
+            "abs": (d, 0.99937, 1.0, init)}[form]
+    kw = {"abs_detector": True} if form == "abs" else {}
+    before = _counts()
+    out = envelope.envelope_pass(*args, **kw)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"envelope_seg"}
+    ref = envelope.envelope_plain(*args, **kw)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("form", ["corr", "gain"])
+def test_envelope_core_unaligned_rows(cuda, form):
+    """Rows that start 4 bytes past a 16-byte boundary (n % 4 == 0) take
+    the 4-byte copies: the same result as the twin."""
+    d, init, ktab, ecorr = _core_operands(cuda, 40, 1000, 7, offset=1)
+    kw = ({"curve": envelope.curve_of(-3.0), "curve_mode": "gain"}
+          if form == "gain" else {})
+    out = envelope.envelope_pass(d, 0.0, 0.0606, init, ktab, ecorr, **kw)
+    ref = envelope.envelope_plain(d, 0.0, 0.0606, init, ktab, ecorr, **kw)
+    if form == "gain":
+        assert _db(out[0] - ref[0], ref[0]) <= -100.0
+    else:
+        torch.testing.assert_close(out[0], ref[0], rtol=0, atol=0)
+    torch.testing.assert_close(out[1], ref[1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("corr", [False, True])
+@pytest.mark.parametrize("R", [1, 31, 33, 1024])
+@pytest.mark.parametrize("n", [1, 127, 129, 5000])
+def test_gain_core_vs_twin(cuda, corr, R, n):
+    """The gain form on the same core: the gain -100 dB against the twin
+    (logf/expf against torch.log/exp), the final states bit for bit."""
+    d, init, ktab, ecorr = _core_operands(cuda, R, n, R + n + corr)
+    curve = envelope.curve_of(-3.0, ratio=4.0, makeup_db=1.0)
+    extra = (ktab, ecorr) if corr else ()
+    k_rel = 0.0 if corr else 0.99937
+    before = _counts()
+    g, zf = envelope.envelope_pass(d, k_rel, 0.0606, init, *extra,
+                                   curve=curve, curve_mode="gain")
+    torch.cuda.synchronize()
+    assert _launched(before) == {"gain"}
+    g_p, zf_p = envelope.envelope_plain(d, k_rel, 0.0606, init, *extra,
+                                        curve=curve, curve_mode="gain")
+    assert bool(torch.isfinite(g).all()) and _db(g - g_p, g_p) <= -100.0
+    torch.testing.assert_close(zf, zf_p, rtol=0, atol=0)
+
+
+def test_envelope_occupancy_queries(cuda):
+    """Each form's occupancy query gives the segment rules at least one
+    resident block per SM; an unknown form gives 0."""
+    lib = _build.load()
+    assert lib.xm_envelope_blocks_per_sm(0) >= 1
+    assert lib.xm_envelope_blocks_per_sm(1) >= 1
+    assert lib.xm_envelope_blocks_per_sm(2) == 0
+    assert lib.xm_limiter_blocks_per_sm() >= 1
+
+
+def test_envelope_call_at_the_card_rule_vs_twin_path(cuda):
+    """envelope() at the card's S (32 x 160000: past the JAX rule's 8)
+    from a carried init, against the same path on the twin: bit for
+    bit (the kernels equal their twins, the glue is the same)."""
+    R, n = 32, 160000
+    rng = np.random.default_rng(31)
+    d = torch.from_numpy(np.abs(0.3 * rng.standard_normal((R, n))).astype(
+        np.float32)).to(cuda)
+    init = (torch.rand(R, device=cuda), torch.rand(R, device=cuda))
+    S = envelope.envelope_segments(R, n, cuda)
+    assert S > envelope.pick_segments(R, n, lanes=256)
+    rows = []
+
+    def recording(*args, **kw):
+        rows.append(tuple(args[0].shape))
+        return envelope.envelope_pass(*args, **kw)
+
+    e2, st = envelope.envelope(d, 0.99937, 0.0606, init=init, run=recording)
+    assert rows == [(R * S, n // S)] * 2
+    e2_p, st_p = envelope.envelope(d, 0.99937, 0.0606, init=init,
+                                   run=envelope.envelope_plain)
+    print(f"envelope() at the card's S = {S}: max abs "
+          f"{float((e2 - e2_p).abs().max()):.3g} against its twin path")
+    torch.testing.assert_close(e2, e2_p, rtol=0, atol=0)
+    for a, b in zip(st, st_p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_linked_limiter_at_the_card_rule_vs_twin_path(cuda):
+    """linked_limiter() at the card's S (4 stereo clips of 2 s at 48
+    kHz: segments of at least the carries' 4,421 samples) against the
+    same path on the twin: -100 dB on y, the states bit for bit."""
+    rng = np.random.default_rng(33)
+    x = torch.from_numpy((0.5 * rng.standard_normal((4, 2, 96000))).astype(
+        np.float32)).to(cuda)
+    x[2, :, 30000:31000] *= 5.0
+    args = (x, 0.99979, 0.0206, -3.0)
+    S = envelope.linked_segments(4, 96000, 0.0206, cuda)
+    assert S > 1 and 96000 // S >= envelope.carry_min_seglen(0.0206, 96000)
+    before = _counts()
+    y, st = envelope.linked_limiter(*args)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"envelope_seg", "gain"}
+    y_p, st_p = envelope.linked_limiter(*args, segments=S,
+                                        run=envelope.envelope_plain)
+    db = _db(y - y_p, y_p)
+    print(f"linked_limiter() at the card's S = {S} vs its twin path: "
+          f"{db:.1f} dB")
+    assert db <= -100.0
+    for a, b in zip(st, st_p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

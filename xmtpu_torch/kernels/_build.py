@@ -48,6 +48,7 @@ _SIGNATURES = {
     "xm_envelope_f32": ([_P] * 6 + [_I, _I, _F, _F, _I, _P], _I),
     "xm_limiter_blocks_per_sm": ([], _I),
     "xm_envelope_gain_f32": ([_P] * 6 + [_I, _I] + [_F] * 11 + [_P], _I),
+    "xm_envelope_blocks_per_sm": ([_I], _I),
     "xm_sosfilt_f32": ([_P] * 5 + [_I] * 3 + [_P], _I),
     "xm_sosfilt_blocks_per_sm": ([_I], _I),
     "xm_state_chain_f64": ([_P] * 3 + [_L] * 2 + [_P] * 2 + [_I] * 3 + [_P],

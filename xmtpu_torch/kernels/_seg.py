@@ -32,14 +32,16 @@ def pick_segments(R: int, n: int, min_seglen: int = 4096,
 
 
 def gpu_segments(R: int, n: int, sm_count: int, blocks_per_sm: int,
-                 rows_per_block: int = 8, min_seglen: int = 4096) -> int:
+                 rows_per_block: int = 8, min_seglen: int = 4096,
+                 align: int = 1) -> int:
     """Segment count of a row-chain kernel on a card: the power of two S
-    that divides n, leaves segments of at least ``min_seglen`` samples,
-    and spreads the ceil(R*S / rows_per_block) blocks over the card's
-    ``sm_count * blocks_per_sm`` resident slots so that the chain a
-    block runs (n / S steps) times the waves it takes is least; on a tie
-    the larger S, which spreads the blocks' other work (the curve, the
-    copies) over more of the slots. 1 when n is odd."""
+    that divides n, leaves segments of at least ``min_seglen`` samples
+    (and, past S = 1, a multiple of ``align``), and spreads the
+    ceil(R*S / rows_per_block) blocks over the card's ``sm_count *
+    blocks_per_sm`` resident slots so that the chain a block runs (n / S
+    steps) times the waves it takes is least; on a tie the larger S,
+    which spreads the blocks' other work (the curve, the copies) over
+    more of the slots. 1 when n is odd."""
     slots = sm_count * blocks_per_sm
     best, best_cost, s = 1, None, 1
     while True:
@@ -47,7 +49,8 @@ def gpu_segments(R: int, n: int, sm_count: int, blocks_per_sm: int,
         cost = -(-blocks // slots) * (n // s)  # waves x chain
         if best_cost is None or cost <= best_cost:
             best, best_cost = s, cost
-        if n % (2 * s) or n // (2 * s) < min_seglen:
+        if (n % (2 * s) or n // (2 * s) < min_seglen
+                or n // (2 * s) % align):
             return best
         s *= 2
 
@@ -66,19 +69,21 @@ def card_slots(query: str, index: int, *args) -> tuple[int, int]:
 
 
 def card_segments(R: int, n: int, device, query: str, args: tuple,
-                  rows_per_block: int, min_seglen: int, cpu: int) -> int:
+                  rows_per_block: int, min_seglen: int, cpu: int,
+                  align: int = 1) -> int:
     """A segmented call's segment count: ``cpu`` off a card; on one,
     :func:`gpu_segments` over its SM count and the kernel's resident
     blocks per SM (:func:`card_slots` of ``query`` and ``args``), with
     ``rows_per_block`` rows per block and segments of at least
-    ``min_seglen`` samples."""
+    ``min_seglen`` samples, a multiple of ``align``."""
     device = torch.device(device)
     if device.type != "cuda":
         return cpu
     index = (torch.cuda.current_device() if device.index is None
              else device.index)
     sms, per_sm = card_slots(query, index, *args)
-    return gpu_segments(R, n, sms, per_sm, rows_per_block, min_seglen)
+    return gpu_segments(R, n, sms, per_sm, rows_per_block, min_seglen,
+                        align)
 
 
 def on_device(key, device, make) -> dict:

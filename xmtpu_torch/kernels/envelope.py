@@ -5,7 +5,7 @@ All run the envelope recurrences over rows of a detector signal
     env[t] = max(d[t], k_rel * env[t-1])
     e2[t]  = (1 - c_att) * e2[t-1] + c_att * env[t]
 
-from ``init`` = (env, e2), in the hand-written kernel template of
+from ``init`` = (env, e2), in the hand-written kernels of
 ``csrc/envelope.cu``, in three forms:
 
 - :func:`limiter_pass`: one pass of the fused soft-knee limiter over
@@ -19,7 +19,12 @@ from ``init`` = (env, e2), in the hand-written kernel template of
   signed input (``abs_detector``);
 - :func:`envelope_pass` with ``curve_mode="gain"``: the envelope-only
   form writing the soft-knee gain of each e2 instead of e2 (the JAX
-  kernels' ``curve_mode="gain"``).
+  kernels' ``curve_mode="gain"``), the curve's log and exp by the card's
+  approximate log2 / exp2 (relative error ~2^-22 against
+  :func:`curve_gain`).
+
+The last two share one core, 32 rows a block (one per lane of its chain
+warp); the fused form keeps its own kernel, 8 rows a block.
 
 :func:`envelope` (the JAX ``envelope_pallas``), :func:`linked_limiter`
 (the JAX ``linked_limiter_pallas``) and the fused :func:`limiter` are
@@ -34,10 +39,14 @@ chain) in the gain form (:func:`linked_limiter`) or, from the exact
 ``(e_in, s_in)``, in the fused form (:func:`limiter`). The chains over
 the segments are closed forms over a table of powers (a masked multiply
 and an ``amax`` or a sum: a few launches whatever S is). The glue is
-plain torch. :func:`envelope` and :func:`linked_limiter` pick S as the
-JAX package does; :func:`limiter` by the card's own rule
-(``_seg.card_segments``) on CUDA, and runs unsegmented on the CPU unless
-``segments`` says otherwise.
+plain torch. On CUDA each driver takes S from the card's rule
+(``_seg.card_segments``) fed its form's occupancy query and rows per
+block: :func:`limiter` the fused form's (:func:`limiter_segments`),
+:func:`envelope` and :func:`linked_limiter` the envelope-only and gain
+forms' (:func:`envelope_segments`, :func:`linked_segments`). On the CPU
+:func:`limiter` runs unsegmented and the other two pick S as the JAX
+package does (``pick_segments(R, n, lanes=256)``), unless ``segments``
+says otherwise.
 
 On a CUDA tensor the wrappers launch the kernel; on a CPU tensor they
 run the plain twins (:func:`limiter_plain`, :func:`envelope_plain`),
@@ -71,7 +80,17 @@ CURVE_MODES = ("envelope", "gain")  # envelope_pass's forms
 # the JAX envelope's lane target, which pick_segments fills
 _LANES_TARGET = 256
 _MIN_SEGLEN = 4096  # the shortest segment the segment rules make
-_ROWS_PER_BLOCK = 8  # rows of one kernel block (kRows in csrc/envelope.cu)
+# envelope()'s on a card (its carries' cost does not depend on S: judged
+# by the S sweep of chip_smoke.py phase 7, as graph replays), and the
+# multiple of 4 samples the envelope core's tensor-map staging needs
+_ENVELOPE_MIN_SEGLEN = 2048
+_CORE_ALIGN = 4
+# rows of one kernel block: the fused form's (kFusedRows in
+# csrc/envelope.cu), and the envelope-only and gain forms' (RowCore::kRows)
+_FUSED_ROWS_PER_BLOCK = 8
+_ROWS_PER_BLOCK = 32
+# the forms of xm_envelope_blocks_per_sm
+_FORM_ENVELOPE, _FORM_GAIN = 0, 1
 
 _LN10 = math.log(10.0)
 _EPS = 1e-12  # level-meter floor of the curve (and of ops.limiter's)
@@ -217,7 +236,7 @@ def limiter_segments(R: int, n: int, c_att: float, device) -> int:
     ``_seg.card_segments`` with the kernel's occupancy query, segments
     at least :func:`carry_min_seglen` long."""
     return card_segments(R, n, device, "xm_limiter_blocks_per_sm", (),
-                         _ROWS_PER_BLOCK, carry_min_seglen(c_att, n), 1)
+                         _FUSED_ROWS_PER_BLOCK, carry_min_seglen(c_att, n), 1)
 
 
 def carry_min_seglen(c_att: float, n: int) -> int:
@@ -507,9 +526,34 @@ def _init2(init, R, device):
                         for v in init]).contiguous()
 
 
+def envelope_segments(R: int, n: int, device) -> int:
+    """The segment count of :func:`envelope`: on a card,
+    ``_seg.card_segments`` with the envelope-only form's occupancy query
+    and 32 rows per block, segments at least 2048 samples (the carries'
+    ``atab`` correction costs the same at any S) and a multiple of 4;
+    elsewhere the JAX rule, ``pick_segments(R, n, lanes=256)``."""
+    return card_segments(R, n, device, "xm_envelope_blocks_per_sm",
+                         (_FORM_ENVELOPE,), _ROWS_PER_BLOCK,
+                         _ENVELOPE_MIN_SEGLEN,
+                         pick_segments(R, n, lanes=_LANES_TARGET),
+                         _CORE_ALIGN)
+
+
+def linked_segments(R: int, n: int, c_att: float, device) -> int:
+    """The segment count of :func:`linked_limiter`: on a card,
+    ``_seg.card_segments`` with the gain form's occupancy query and 32
+    rows per block, segments at least :func:`carry_min_seglen` long (the
+    decay window of the e2 carries) and a multiple of 4; elsewhere the
+    JAX rule, ``pick_segments(R, n, lanes=256)``."""
+    return card_segments(R, n, device, "xm_envelope_blocks_per_sm",
+                         (_FORM_GAIN,), _ROWS_PER_BLOCK,
+                         carry_min_seglen(c_att, n),
+                         pick_segments(R, n, lanes=_LANES_TARGET),
+                         _CORE_ALIGN)
+
+
 def _segments(segments, R, n) -> int:
-    S = (pick_segments(R, n, lanes=_LANES_TARGET) if segments is None
-         else int(segments))
+    S = int(segments)
     if S < 1 or n % S:
         raise ValueError(f"segments={S} does not divide n={n} (exact state "
                          "corrections need equal segments)")
@@ -522,8 +566,9 @@ def envelope(d: torch.Tensor, k_rel: float, c_att: float, init=None,
     -> (e2 (..., n), (env_last, e2_last) each (...,)).
 
     ``init``: (env, e2), each (...,), or None (zeros). ``segments``:
-    time segmentation, None = ``pick_segments(R, n, lanes=256)`` as the
-    JAX package picks it (exact; 1 = one pass with (k_rel, c_att)).
+    time segmentation (exact; 1 = one pass with (k_rel, c_att)), None =
+    :func:`envelope_segments`: the card's rule on CUDA, the JAX
+    package's ``pick_segments(R, n, lanes=256)`` on the CPU.
     ``n_valid``: only the first n_valid samples are signal. ``run``: the
     one-pass function, :func:`envelope_pass` by default; passing
     :func:`envelope_plain` runs the same path on the twin.
@@ -540,7 +585,8 @@ def envelope(d: torch.Tensor, k_rel: float, c_att: float, init=None,
     R = int(np.prod(batch)) if batch else 1
     d2d = d.reshape(R, d.shape[-1])[:, :n].contiguous()
     init2 = _init2(init, R, d.device)
-    S = _segments(segments, R, n)
+    S = (envelope_segments(R, n, d.device) if segments is None
+         else _segments(segments, R, n))
     run = envelope_pass if run is None else run
     if S > 1:
         e2, zf = _envelope_seg(d2d, k_rel, c_att, init2, S, run)
@@ -581,8 +627,10 @@ def linked_limiter(x: torch.Tensor, k_rel: float, c_att: float,
     each (...,)).
 
     ``init``: (env, e2), each (...,), or None (zeros). ``segments``:
-    as :func:`envelope` (S = 1: one gain-form pass with (k_rel, c_att)).
-    ``run``: the one-pass function, :func:`envelope_pass` by default;
+    time segmentation (S = 1: one gain-form pass with (k_rel, c_att)),
+    None = :func:`linked_segments`: the card's rule on CUDA, the JAX
+    package's ``pick_segments(R, n, lanes=256)`` on the CPU. ``run``:
+    the one-pass function, :func:`envelope_pass` by default;
     :func:`envelope_plain` runs the same path on the twin."""
     if not torch.is_tensor(x) or x.dtype != torch.float32 or x.dim() < 2:
         raise ValueError(f"linked limiter needs a float32 (..., ch, n) "
@@ -596,7 +644,8 @@ def linked_limiter(x: torch.Tensor, k_rel: float, c_att: float,
     R = int(np.prod(batch)) if batch else 1
     d2d = torch.amax(xf.abs(), dim=-2).reshape(R, n).contiguous()
     init2 = _init2(init, R, x.device)
-    S = _segments(segments, R, n)
+    S = (linked_segments(R, n, c_att, x.device) if segments is None
+         else _segments(segments, R, n))
     run = envelope_pass if run is None else run
     if S > 1:
         g2, zf = _linked_seg_gain(d2d, k_rel, c_att, init2, S, curve, run)

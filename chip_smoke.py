@@ -128,7 +128,35 @@ process exits non-zero:
    <= -80 dB against the float64 oracle (``sosfilt_np`` ->
    ``reverb_np`` -> ``limiter_np``; every stage is causal), throughput,
    and the chain's stages each alone (CUDA events);
-16. a JSON line of the kernels (times, bounds, launches; K1 once per
+16. K7's non-finite masks: 512 rows with NaN, +inf and -inf samples
+   at frame interiors, frame edges and the band's reach into the
+   neighbour frames, in both of the twin's branches (441000 samples,
+   aligned, and 101 fewer, windowed) at 44.1k -> 16k and 48k -> 44.1k
+   (441280 and 101 fewer): the kernel's ~isfinite mask must equal its
+   twin's (and its isnan mask, for NaN alone), the finite outputs <=
+   -100 dB; K7's time with and without non-finite samples;
+17. config 1 (the JAX harness's 32 int16 clips of 10 s, 44.1k -> 16k):
+   the port's config-1 function with fresh counters (K7 must launch),
+   clip 0 <= -100 dB against the twin and <= -80 dB against
+   ``resample_oracle_np``, throughput on K7 and on the banded FP32
+   matmuls; ``xmtpu_torch.resample`` on an (n, 2) int16 clip (1 LSB)
+   and an (n,) float32 clip (-100 dB) against the CPU twin;
+18. config 2 (two float32 tracks of 32 x 10 s at 16 kHz, gain, fade,
+   sum, peak normalize per row): row 0 <= -100 dB against
+   ``mix_oracle_np``; throughput;
+19. the strided-conv resample (``conv1d``, no kernel launch) on 32
+   clips of 10 s: at 16k -> 48k (band wider than 2M) through the
+   drop-in ``kernels.resample.resample``; at 8k -> 44.1k (band within
+   2M) the drop-in (K7 must launch) and ``polyphase_resample(method=
+   "conv")``; each clip 0 <= -80 dB against ``resample_oracle_np``;
+   times;
+20. the float64 scan engine: ``effects(backend="scan")`` on config 3's
+   full input (no kernel may launch; clip 0's first 2 s <= -80 dB
+   against the float64 oracle; throughput; peak memory), then
+   ``make_flagship_step(iir_backend="scan")`` on 32 clips of 10 s with
+   fresh counters: K1 must launch, and the IIR, state-chain, envelope
+   and eq_env kernels must not; clip 0 <= -80 dB; throughput;
+21. a JSON line of the kernels (times, bounds, launches; K1 once per
    branch; the state-chain kernel beside K5), then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -201,8 +229,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from xmtpu_torch import batch as tbatch
-    from xmtpu_torch.bench import (make_inputs, median_ms, rms_db,
-                                   step_seconds)
+    from xmtpu_torch.bench import (back_to_back_ms, make_inputs, median_ms,
+                                   replay_ms, rms_db, step_seconds)
     from xmtpu_torch.kernels import _build, _seg, envelope, eq_env, fftconv
     from xmtpu_torch.kernels import iir
     from xmtpu_torch.kernels import resample as kresample
@@ -221,7 +249,6 @@ def main() -> None:
     card = smi("name,power.limit").strip()
     clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     print(f"device: {card}; max SM clock {clock_hz / 1e6:.0f} MHz")
     print(f"tf32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
@@ -275,29 +302,6 @@ def main() -> None:
     def bound(k, n_bytes, n_ops):
         k["bound_ms"], k["bound_by"] = roofline_ms(n_bytes, n_ops)
 
-    def back_to_back_ms(fn, calls=20):
-        """CUDA-event time of ``calls`` back-to-back calls of ``fn``, per
-        call: the kernel's time on the card without the wrapper's host
-        time that one timed call also holds."""
-        fn()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(calls):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / calls
-
-    def replay_ms(fn):
-        """fn's time on the card: the median of CUDA-graph replays of one
-        call, without the host time its launches take."""
-        fn()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            fn()
-        return median_ms(graph.replay)
-
     def poly_geometry_line(label, plan, n_out, query, tracks):
         """K7's / K8's tiling of this plan on this card."""
         geo = kresample.poly_geometry(plan, -(-n_out // plan.L), tracks)
@@ -337,8 +341,9 @@ def main() -> None:
             lambda: fftconv.fir_convolve_plain(x, h, pre_row, pre_col))
         xin = (x * pre_row[:, None] * pre_col)[:, None, :]
         w = h.flip(0)[None, None, :].contiguous()
-        k["library_ms"] = median_ms(lambda: torch.nn.functional.conv1d(
-            xin, w, padding=taps - 1), warmup=1, runs=3)
+        with tresample._cudnn_fp32():  # the same function: FP32, not TF32
+            k["library_ms"] = median_ms(lambda: torch.nn.functional.conv1d(
+                xin, w, padding=taps - 1), warmup=1, runs=3)
         del xin
         if taps <= fftconv.MAX_SHORT_TAPS:
             log_n = fftconv.fft_log_size(taps)
@@ -880,7 +885,7 @@ def main() -> None:
         out = run(*args)
         torch.cuda.synchronize()
         got = counts()
-        if min(got[k] for k in need) < 1:
+        if any(got[k] < 1 for k in need):
             raise SystemExit(f"chip_smoke: a kernel did not launch in the "
                              f"{label}: {got}")
         y0 = out[0, :len(clip0_ref)].cpu().numpy().astype(np.float64)
@@ -1259,6 +1264,7 @@ def main() -> None:
 
     # 13. K1's long-IR form at config 3's operands: the folded IR over
     # the 32 channel rows of the JAX benchmark's input
+    import xmtpu_torch
     from xmtpu_torch import api, effects
     from xmtpu_torch.bench import config3_chain, config3_inputs
     from xmtpu_torch.graph import fx as tfx
@@ -1394,7 +1400,210 @@ def main() -> None:
         del y3, xt3, wt3, yt3
     del xd3
 
-    # 16. kernels line, then the contract line last
+    # 16. K7's non-finite masks: NaN, +inf and -inf at frame interiors,
+    # frame edges and the band's reach into the neighbour frames, in both
+    # of the twin's branches, at 44.1k -> 16k and 48k -> 44.1k
+    def nonfinite_rows(R, n, L, M, seed):
+        """(R, n) noise with non-finite samples at seven kinds of place
+        (each row one or two; NaN, +inf, -inf in turn), and the same rows
+        with NaN alone."""
+        t = tresample.aligned_tables(tresample.make_plan(L, M, 24, 9.0))
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = 0.3 * torch.randn((R, n), generator=gen, device=dev)
+        rows = torch.arange(R, device=dev)
+        c = 1 + (rows * 7) % max(1, n // M - 2)
+        kind = rows % 7
+        spots = torch.stack([c * M + M // 2, c * M, c * M + M - 1,
+                             c * M + t.lo, c * M - 1, (c + 1) * M + t.hi - 1,
+                             (c + 1) * M])
+        p = spots.gather(0, kind[None])[0].clamp(0, n - 1)
+        val = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                           device=dev)[rows % 3]
+        x_nan = x.clone()
+        x[rows, p] = val
+        x_nan[rows, p] = float("nan")
+        far = (rows % 5 == 0) & (p + 3 * M < n)  # a second place
+        x[rows[far], p[far] + 3 * M] = val[far]
+        x_nan[rows[far], p[far] + 3 * M] = float("nan")
+        return x, x_nan
+
+    k7_nan_ms = {}
+    for rates, n_rows in (((44100, 16000), (441000, 441000 - 101)),
+                          ((48000, 44100), (441280, 441280 - 101))):
+        g = math.gcd(*rates)
+        L, M = rates[1] // g, rates[0] // g
+        for n in n_rows:
+            x, x_nan = nonfinite_rows(512, n, L, M, n)
+            aligned = kresample.twin_branch(
+                tresample.make_plan(L, M, 24, 9.0), n,
+                resample_output_len(n, L, M))[0]
+            for arr, label in ((x, "NaN/+inf/-inf"), (x_nan, "NaN")):
+                yk = kresample.resample(arr, *rates)
+                yp = tresample.polyphase_resample(arr, *rates)
+                fk, fp = torch.isfinite(yk), torch.isfinite(yp)
+                same = bool(torch.equal(fk, fp))
+                if label == "NaN":
+                    same = same and bool(torch.equal(torch.isnan(yk),
+                                                     torch.isnan(yp)))
+                both = fk & fp
+                e2 = float((yk[both] - yp[both]).double().pow(2).mean())
+                db = 10.0 * math.log10(max(e2, 1e-300) / float(
+                    yp[both].double().pow(2).mean()))
+                print(f"K7 masks {rates[0]} -> {rates[1]}, 512 x {n} "
+                      f"({'aligned' if aligned else 'windowed'} branch), "
+                      f"{label}: {int((~fp).sum())} non-finite outputs in "
+                      f"the twin, {int((~fk).sum())} in the kernel, masks "
+                      f"equal {same}; finite outputs {db:.1f} dB (gate "
+                      f"{GATE_KERNEL_DB})")
+                if not (same and db <= GATE_KERNEL_DB and (~fp).any()):
+                    raise SystemExit("chip_smoke: K7's non-finite mask "
+                                     "differs from its twin's")
+            if n == 441000:
+                k7_nan_ms = {
+                    "call": median_ms(lambda: kresample.resample(x, *rates)),
+                    "b2b": back_to_back_ms(
+                        lambda: kresample.resample(x, *rates))}
+            del x, x_nan, yk, yp, fk, fp, both
+    print(f"K7 at 512 x 441000 -> 160000: {k7['ms']:.3f} ms one call, "
+          f"{k7_b2b:.3f} ms back to back (phase 10, finite input); with "
+          f"non-finite samples in 512 rows {k7_nan_ms['call']:.3f} ms one "
+          f"call, {k7_nan_ms['b2b']:.3f} back to back [{card}]")
+
+    # 17. config 1: the port's config-1 function (int16 -> float32 -> K7)
+    # with fresh counters, then the public resample on two clips
+    from xmtpu_torch import bench as tbench
+    from xmtpu_torch.ops import mix as tmix
+
+    x1 = tbench.config1_inputs()
+    xd1 = torch.from_numpy(x1).to(dev)
+    reset_counts()
+    y1 = tbench.config1_step(xd1)
+    torch.cuda.synchronize()
+    got1 = counts()
+    if got1["resample"] < 1:
+        raise SystemExit(f"chip_smoke: K7 did not launch in config 1: "
+                         f"{got1}")
+    y1b = tbench.config1_step(xd1, banded=True)
+    db_twin = rms_db((y1[0] - y1b[0]).double().cpu().numpy(),
+                     y1b[0].double().cpu().numpy())
+    ref1 = tresample.resample_oracle_np(x1[0].astype(np.float64) / 32768.0,
+                                        44100, 16000)
+    db_or = rms_db(y1[0].double().cpu().numpy() - ref1, ref1)
+    print(f"config 1: launches {got1}; clip 0 {db_twin:.1f} dB vs the twin "
+          f"(gate {GATE_KERNEL_DB}), {db_or:.1f} dB vs float64 oracle (gate "
+          f"{GATE_CHAIN_DB})")
+    if not (db_twin <= GATE_KERNEL_DB and db_or <= GATE_CHAIN_DB):
+        raise SystemExit("chip_smoke: config 1 accuracy gate failed")
+    B1, n1 = x1.shape
+    sec1, _ = step_seconds(tbench.config1_step, xd1, iters=20)
+    sec1b, _ = step_seconds(lambda v_: tbench.config1_step(v_, banded=True),
+                            xd1, iters=20)
+    print(f"config 1: {B1}x{n1 / 44100:g} s in {sec1 * 1e3:.3f} ms = "
+          f"{B1 * n1 / 44100 / sec1:.1f} audio-sec/sec on K7; banded FP32 "
+          f"matmuls {sec1b * 1e3:.3f} ms = {B1 * n1 / 44100 / sec1b:.1f} "
+          f"audio-sec/sec [{card}]")
+    for clip, label in ((x1[:2].T.copy(), "(n, 2) int16"),
+                        (x1[0].astype(np.float32) / 32768.0,
+                         "(n,) float32")):
+        got = xmtpu_torch.resample(clip, 44100, 16000)
+        twin = xmtpu_torch.resample(clip, 44100, 16000, device="cpu")
+        err = np.abs(got.astype(np.float64) - twin.astype(np.float64))
+        ok = got.shape == twin.shape and got.dtype == twin.dtype and (
+            err.max() <= 1 if got.dtype == np.int16 else rms_db(
+                got.astype(np.float64) - twin, twin) <= GATE_KERNEL_DB)
+        print(f"api.resample {label} {clip.shape} -> {got.shape} "
+              f"{got.dtype}: max abs {err.max():.3g} vs the twin")
+        if not ok:
+            raise SystemExit(f"chip_smoke: api.resample {label} differs "
+                             "from its twin")
+    del xd1, y1, y1b
+
+    # 18. config 2: two float32 tracks at 16 kHz, gain, fade, sum, peak
+    # normalize per row
+    v2, b2 = tbench.config2_inputs()
+    vd2, bd2 = torch.from_numpy(v2).to(dev), torch.from_numpy(b2).to(dev)
+    y2 = tbench.config2_step(vd2, bd2)
+    fade2 = int(0.25 * 16000)
+    ref2 = tmix.mix_oracle_np([v2[0], b2[0]], [0.9, 0.4], [fade2] * 2,
+                              [fade2] * 2, normalize="peak",
+                              target_amp=tmix.db_to_amp(-1.0))
+    db2 = rms_db(y2[0].double().cpu().numpy() - ref2, ref2)
+    sec2, _ = step_seconds(tbench.config2_step, vd2, bd2, iters=20)
+    B2, n2 = v2.shape
+    print(f"config 2: row 0 {db2:.1f} dB vs mix_oracle_np (gate "
+          f"{GATE_KERNEL_DB}); {B2}x{n2 / 16000:g} s in {sec2 * 1e3:.3f} ms "
+          f"= {B2 * n2 / 16000 / sec2:.1f} audio-sec/sec [{card}]")
+    if not db2 <= GATE_KERNEL_DB:
+        raise SystemExit("chip_smoke: config 2 accuracy gate failed")
+    del vd2, bd2, y2
+
+    # 19. the strided-conv resample: 16k -> 48k (band wider than 2M: the
+    # drop-in takes the conv) and 8k -> 44.1k (band within 2M: the
+    # drop-in takes K7; the conv asked for by method="conv") on 32 clips
+    # of 10 s
+    for sr_in, sr_out in ((16000, 48000), (8000, 44100)):
+        xs_ = (0.3 * np.random.default_rng(sr_in).standard_normal(
+            (32, int(sr_in * CLIP_SECONDS)))).astype(np.float32)
+        xd_ = torch.from_numpy(xs_).to(dev)
+        plan_ = tresample.make_plan(*tresample._ratio(sr_in, sr_out), 24, 9.0)
+        ref_ = tresample.resample_oracle_np(xs_[0], sr_in, sr_out)
+        wide = plan_.width > 2 * plan_.M
+        for label, fn in (
+                ("kernels.resample (" + ("the conv" if wide else "K7") + ")",
+                 lambda: kresample.resample(xd_, sr_in, sr_out)),
+                ('polyphase_resample(method="conv")',
+                 lambda: tresample.polyphase_resample(xd_, sr_in, sr_out,
+                                                      method="conv"))):
+            reset_counts()
+            y_ = fn()
+            torch.cuda.synchronize()
+            if counts()["resample"] != (0 if wide or "conv\"" in label
+                                        else 1):
+                raise SystemExit(f"chip_smoke: {sr_in} -> {sr_out} took the "
+                                 f"wrong path: {counts()}")
+            db_ = rms_db(y_[0].double().cpu().numpy() - ref_, ref_)
+            ms_ = median_ms(fn)
+            print(f"resample {sr_in} -> {sr_out} (L = {plan_.L}, M = "
+                  f"{plan_.M}, band {plan_.width}) {label} "
+                  f"{tuple(xd_.shape)} -> {tuple(y_.shape)}: clip 0 "
+                  f"{db_:.1f} dB vs float64 oracle (gate {GATE_CHAIN_DB}); "
+                  f"{ms_:.3f} ms [{card}]")
+            if not db_ <= GATE_CHAIN_DB:
+                raise SystemExit("chip_smoke: resample accuracy gate failed")
+            if wide:
+                break  # the drop-in is the conv
+        del xd_, y_
+
+    # 20. the float64 scan engine: effects(backend="scan") at config 3's
+    # full input, then the scan step on 32 clips of 10 s, fresh counters
+    xd3 = torch.from_numpy(x3).to(dev)
+
+    def run_scan(x):
+        return effects(x, SR3, chain3, device=dev, backend="scan",
+                       device_out=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    y3s, got = drive("config 3 effects (scan engine)", run_scan, (xd3,), (),
+                     ref3, B3 * n3 / SR3)
+    if any(got.values()):
+        raise SystemExit(f"chip_smoke: the scan engine launched a kernel: "
+                         f"{got}")
+    print(f"config 3 effects (scan engine): peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del xd3, y3s
+    voice, bgm = make_inputs(SMALL_BATCH, CLIP_SECONDS)
+    v = torch.from_numpy(voice).to(dev)
+    b = torch.from_numpy(bgm).to(dev)
+    scan_step = tbatch.make_flagship_step(iir_backend="scan", device=dev)
+    y, got = drive("scan step (iir_backend=scan)", scan_step, (v, b),
+                   ("fftconv",), ref, SMALL_BATCH * CLIP_SECONDS)
+    off = {k: got[k] for k in ("iir", "state_chain", "envelope",
+                               "envelope_seg", "eq_env", "gain")}
+    if any(off.values()):
+        raise SystemExit(f"chip_smoke: the scan step launched {off}")
+    del scan_step, v, b, y
+
+    # 21. kernels line, then the contract line last
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

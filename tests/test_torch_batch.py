@@ -68,6 +68,17 @@ def y_port(clips):
 
 
 @pytest.fixture(scope="module")
+def y_jax_scan(clips):
+    """The JAX step on its float64 scan backend (the unfused branch, as
+    its auto rule picks for iir_backend="scan")."""
+    v, b = clips
+    step = jax.jit(xbatch.make_flagship_step(sr_in=SR_IN, sr_bus=SR_BUS,
+                                             interpret=True,
+                                             iir_backend="scan"))
+    return np.asarray(step(jnp.asarray(v), jnp.asarray(b)))
+
+
+@pytest.fixture(scope="module")
 def clips_unfused():
     rng = np.random.default_rng(20261017)
     v = (rng.standard_normal((B, N_IN_UNFUSED)) * 8000).astype(np.int16)
@@ -170,14 +181,29 @@ def test_front_matches_jax_operation_order(clips):
     {"limiter_fuse": False, "envelope_block": 2, "iir_backend": "scan"},
     {"envelope_block": 8, "resample_backend": "mixfirst_pad"},
 ])
-def test_unported_options_refused(kw):
-    """What stays refused, each naming its ROADMAP item: the scan IIR
-    backend and the mixfirst_pad probe, whatever the valid
-    envelope_block. lti_fold=False, the "pallas"/"rsmix" fronts and
-    block lookahead run (tests/test_torch_fronts.py,
-    tests/test_torch_unfolded.py, test_envelope_block_runs_per_sample)."""
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        tbatch.make_flagship_step(device="cpu", **kw)
+def test_unported_options_refused(kw, clips, y_jax_scan):
+    """What stays refused names its ROADMAP section: the mixfirst_pad
+    probe, whatever the other options. The scan IIR backend runs: with
+    any valid envelope_block, lti_fold, limiter_fuse, fused=False or the
+    "pallas" front it is the JAX scan step's unfused chain (nothing
+    folds, the auto rule never fuses), to -80 dB and 1 LSB (the JAX
+    step's front and reverb are its float32 kernels). lti_fold=False,
+    the "pallas"/"rsmix" fronts and block lookahead run
+    (tests/test_torch_fronts.py, tests/test_torch_unfolded.py,
+    test_envelope_block_runs_per_sample)."""
+    if kw.get("resample_backend") == "mixfirst_pad":
+        with pytest.raises(NotPortedError, match="ROADMAP"):
+            tbatch.make_flagship_step(device="cpu", **kw)
+        return
+    v, b = (torch.from_numpy(a) for a in clips)
+    step = tbatch.make_flagship_step(device="cpu", **kw)
+    assert step.iir_backend == "scan" and not step.fold
+    y = step(v, b).numpy()
+    diff = np.abs(y.astype(np.int32) - y_jax_scan.astype(np.int32))
+    db = rms_db((y - y_jax_scan.astype(np.float64)) / 32768.0,
+                y_jax_scan.astype(np.float64) / 32768.0)
+    print(f"scan step {kw} vs JAX scan step: {db:.1f} dB, {diff.max()} LSB")
+    assert diff.max() <= 1 and db <= -80.0
 
 
 @pytest.mark.parametrize("block", [1, 2, 8])
@@ -233,8 +259,10 @@ def test_bench_takes_the_root_bench_keys(monkeypatch):
     from xmtpu_torch import bench
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        bench.main(iir_backend="scan")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        bench.main(iir_backend="scan")  # runs: it reaches the device check
+    with pytest.raises(ConfigError, match="iir_backend"):
+        bench.main(iir_backend="xla")
     with pytest.raises(ConfigError, match="power of two"):
         bench.main(envelope_block=3)
     with pytest.raises(ConfigError, match="accepted"):
@@ -372,7 +400,10 @@ def test_port_imports_no_jax():
     default front, the "pallas" and "rsmix" fronts, the unfolded branch),
     the ragged step and the public effects chain (both limiter forms, an
     11,998-tap folded IR: the partitioned fftconv path on the card)
-    without loading jax, jaxlib or the JAX package."""
+    without loading jax, jaxlib or the JAX package; so do the public
+    resample (the kernel's twin and the strided conv), the mix ops and
+    ducking, the matmul DFTs and the scan engine (the effects chain on
+    its scan backend and under auto on the CPU, the scan step)."""
     code = (
         "import sys, numpy as np, torch\n"
         "from xmtpu_torch import batch, bench\n"
@@ -397,6 +428,26 @@ def test_port_imports_no_jax():
         "        {'name': 'reverb', 'ir_seconds': 0.25},\n"
         "        {'name': 'limiter', **lim}], device='cpu')\n"
         "    assert y.shape == x.shape, y.shape\n"
+        "for be in ('scan', None):\n"
+        "    y = xmtpu_torch.api.effects(x, 48000, [\n"
+        "        {'name': 'equalizer', 'bands': [{'freq_hz': 1000.0}]},\n"
+        "        {'name': 'reverb', 'ir_seconds': 0.05},\n"
+        "        {'name': 'limiter'}], device='cpu', backend=be,\n"
+        "        block_size=4000)\n"
+        "    assert y.shape == x.shape, y.shape\n"
+        "y = batch.make_flagship_step(iir_backend='scan', device='cpu')(s, s)\n"
+        "assert y.shape == (2, 1600), y.shape\n"
+        "import xmtpu_torch.ops.mix as mix, xmtpu_torch.ops.fftmm as fftmm\n"
+        "y = xmtpu_torch.api.resample(v[0], 44100, 16000, device='cpu')\n"
+        "assert y.shape == (8000,) and y.dtype == np.int16, y.shape\n"
+        "y = xmtpu_torch.resample(x[0], 16000, 48000, device='cpu')\n"
+        "assert y.shape == (28800, 2) and y.dtype == np.float32, y.shape\n"
+        "g = mix.duck_gain(torch.from_numpy(x[0].T.copy()), 48000)\n"
+        "assert g.shape == (2, 9600) and bool((g <= 1.0).all())\n"
+        "m, _ = mix.peak_normalize(mix.mix_sum(torch.from_numpy(x)), 0.5)\n"
+        "y = fftmm.fir_convolve_os_mxu(torch.from_numpy(x[0].T.copy()),\n"
+        "    np.ones(64), 1024)\n"
+        "assert y.shape == (2, 9600), y.shape\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'xmtpu'))\n"
         "assert not bad, bad\n"

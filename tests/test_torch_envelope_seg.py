@@ -160,8 +160,13 @@ def test_limiter_op_vs_jax(d):
     assert torch.equal(y_8, y_t)
     with pytest.raises(ConfigError, match="power of two"):
         limiter.limiter(torch.from_numpy(x), SR_BUS, envelope_block=3)
-    with pytest.raises(TypeError):
-        limiter.limiter(torch.from_numpy(x), SR_BUS, backend="scan")
+    # the scan backend runs: the JAX float64 scan limiter to -120 dB
+    y_s, st_s = limiter.limiter(torch.from_numpy(x), SR_BUS,
+                                threshold_db=-3.0, backend="scan")
+    y_sj, st_sj = xlimiter.limiter(jnp.asarray(x), SR_BUS, threshold_db=-3.0,
+                                   backend="scan")
+    assert y_s.dtype == torch.float32 and st_s[0].dtype == torch.float64
+    assert rms_db(y_s.numpy() - np.asarray(y_sj), np.asarray(y_sj)) <= -120.0
 
 
 def test_plain_twin_rounds_like_the_kernel(d):

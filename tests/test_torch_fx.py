@@ -1,9 +1,11 @@
 """Parity of the port's public effect chain (``xmtpu_torch.effects`` /
 ``xmtpu_torch.graph.fx``) with the JAX package's
 (``xmtpu.graph.fx.apply_chain``), on the CPU: the port on
-``device="cpu"`` (the kernels' plain twins), the JAX chain on its
-``"pallas"`` backend (Pallas kernels in interpret mode) and on its
-float64 ``"scan"`` backend.
+``device="cpu"`` with ``backend="pallas"`` (the kernels' plain twins;
+with no backend the CPU runs the float64 scan engine,
+tests/test_torch_scan.py), the JAX chain on its ``"pallas"`` backend
+(Pallas kernels in interpret mode) and on its float64 ``"scan"``
+backend.
 
 One size: 1 s at 48 kHz, stereo (two clips where batched), the JAX
 tests' lighter chain (5-band EQ -> 0.1 s reverb at wet 0.3 / dry 0.7 ->
@@ -71,6 +73,14 @@ def clips():
     return x
 
 
+def clips_small():
+    """(4800, 2) float32: a 0.1 s stereo clip with a hot burst."""
+    rng = np.random.default_rng(34)
+    x = (0.3 * rng.standard_normal((4800, 2))).astype(np.float32)
+    x[1000:1500] *= 5.0
+    return x
+
+
 def _db(got, ref):
     return rms_db(np.asarray(got, np.float64) - ref, np.asarray(ref,
                                                                  np.float64))
@@ -88,7 +98,7 @@ def test_effects_vs_jax_pallas_chain(clips, case, chain, gate):
     if "int16" in case:
         x = convert.f32_to_pcm16_np(x)
     y_j = xfx.apply_chain(x, SR, chain, backend="pallas")
-    y_t = xmtpu_torch.effects(x, SR, chain, device="cpu")
+    y_t = xmtpu_torch.effects(x, SR, chain, device="cpu", backend="pallas")
     assert y_t.shape == y_j.shape == x.shape and y_t.dtype == x.dtype
     scale = 32768.0 if x.dtype == np.int16 else 1.0
     db = _db(y_t / scale, np.asarray(y_j, np.float64) / scale)
@@ -97,12 +107,14 @@ def test_effects_vs_jax_pallas_chain(clips, case, chain, gate):
 
 
 def test_effects_vs_jax_scan_chain(clips):
-    """Against the JAX float64 oracle engine, both limiter forms."""
+    """The kernels' twins against the JAX float64 oracle engine, both
+    limiter forms."""
     x = clips[0]
     ref = np.asarray(xfx.apply_chain(x, SR, PCHAIN, backend="scan"),
                      np.float64)
     for chain in (PCHAIN, LINKED):
-        db = _db(xmtpu_torch.effects(x, SR, chain, device="cpu"), ref)
+        db = _db(xmtpu_torch.effects(x, SR, chain, device="cpu",
+                                     backend="pallas"), ref)
         print(f"effects vs JAX scan chain (linked_fuse="
               f"{chain[2].get('linked_fuse', False)}): {db:.1f} dB (gate "
               "-100)")
@@ -114,10 +126,10 @@ def test_block_size_invariance(clips, chain):
     """Blocked mode carries the overlap-save history and the limiter
     state: the output does not depend on the block size."""
     x = clips[0]
-    whole = xmtpu_torch.effects(x, SR, chain, device="cpu")
+    whole = xmtpu_torch.effects(x, SR, chain, device="cpu", backend="pallas")
     for blk in (4096, 16384):
         got = xmtpu_torch.effects(x, SR, chain, device="cpu",
-                                  block_size=blk)
+                                  backend="pallas", block_size=blk)
         db = _db(got, whole)
         print(f"block {blk} vs whole clip: {db:.1f} dB (gate -100)")
         assert got.shape == whole.shape and db <= -100.0
@@ -190,8 +202,9 @@ def test_reverb_block_rule_matches_jax():
 def test_long_ir_auto_runs_explicit_pallas_refused():
     """An IR past the JAX kernel's largest block: an explicit kernel
     backend raises the JAX package's ConfigError; the auto pick runs
-    (the port's partitioned fftconv takes any IR) and matches a float64
-    convolution."""
+    (on the card the port's partitioned fftconv, which takes any IR, and
+    here its twin; on the CPU the scan engine's torch.fft) and matches a
+    float64 convolution."""
     rng = np.random.default_rng(3)
     ir = (rng.standard_normal(70000) * np.exp(-np.arange(70000) / 9000.0)
           ).astype(np.float32)
@@ -200,10 +213,15 @@ def test_long_ir_auto_runs_explicit_pallas_refused():
             tfx.build_chain(SR, [{"name": "reverb", "params": {
                 "ir": ir, "backend": backend}}])
     x = (0.3 * rng.standard_normal(6000)).astype(np.float32)
-    y = xmtpu_torch.effects(x, SR, [{"name": "reverb", "params": {
-        "ir": ir, "wet": 1.0, "dry": 0.0}}], device="cpu")
+    chain = [{"name": "reverb", "params": {"ir": ir, "wet": 1.0,
+                                           "dry": 0.0}}]
+    y = xmtpu_torch.effects(x, SR, chain, device="cpu")
     ref = np.convolve(x.astype(np.float64), ir.astype(np.float64))[:6000]
     assert _db(y, ref) <= -120.0
+    (rv,) = tfx.build_chain(SR, chain)  # the auto pick on the card
+    assert rv.engine == "pallas"
+    y_k, _ = rv.apply(torch.from_numpy(x)[None], None)
+    assert _db(y_k[0].numpy(), ref) <= -120.0
 
 
 def test_chain_cache_is_lru_and_keys_on_content():
@@ -255,8 +273,10 @@ def test_public_entry_and_device():
 
 
 def test_typed_errors():
-    """The JAX package's ConfigError cases, and NotPortedError naming
-    the ROADMAP item for what the port does not run."""
+    """The JAX package's ConfigError cases, NotPortedError naming the
+    ROADMAP item for what the port does not run (ir_wav: item 6, noise
+    suppression: item 5d), and the scan engine, which runs: the same
+    engines as the JAX chain, its output to -120 dB."""
     bad = [
         [{"name": "flanger"}],
         [3.5],
@@ -284,14 +304,20 @@ def test_typed_errors():
             tfx.build_chain(SR, chain)
         with pytest.raises(Exception):  # the JAX chain refuses each too
             xfx.build_chain(SR, chain)
-    for chain in ([{"name": "limiter", "backend": "scan"}],
-                  [{"name": "reverb", "ir_wav": "ir.wav"}]):
-        with pytest.raises(NotPortedError, match="ROADMAP"):
-            tfx.build_chain(SR, chain)
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        tfx.build_chain(SR, PCHAIN, default_backend="oracle")
+    with pytest.raises(NotPortedError, match="ROADMAP.md Queue 1 item 6"):
+        tfx.build_chain(SR, [{"name": "reverb", "ir_wav": "ir.wav"}])
+    (lim,) = tfx.build_chain(SR, [{"name": "limiter", "backend": "scan"}])
+    (lim_j,) = xfx.build_chain(SR, [{"name": "limiter", "backend": "scan"}])
+    assert lim.engine == lim_j.engine == "scan"
+    t = tfx.build_chain(SR, PCHAIN, default_backend="oracle")
+    j = xfx.build_chain(SR, PCHAIN, default_backend="oracle")
+    assert _names(t) == _names(j) == ["EqualizerFx", "ReverbFx", "LimiterFx"]
+    xs = clips_small()
+    y_t = xmtpu_torch.effects(xs, SR, PCHAIN, device="cpu", backend="oracle")
+    y_j = xfx.apply_chain(xs, SR, PCHAIN, backend="oracle")
+    assert _db(y_t, np.asarray(y_j, np.float64)) <= -120.0
     x = np.zeros(4800, np.float32)
-    with pytest.raises(NotPortedError, match="ROADMAP"):
+    with pytest.raises(NotPortedError, match="ROADMAP.md Queue 1 item 5d"):
         xmtpu_torch.effects(x, SR, [{"name": "ns"}], device="cpu")
     with pytest.raises(ConfigError, match="whole clip"):
         xmtpu_torch.effects(x, SR, [{"name": "noise_suppression"}],
@@ -302,6 +328,7 @@ def test_config3_chain_launches_nothing_on_the_cpu(clips):
     """On CPU tensors the chain runs the twins: no kernel launch."""
     before = (fftconv.launches, fftconv.long_launches, envelope.launches,
               envelope.envelope_launches, envelope.gain_launches)
-    xmtpu_torch.effects(clips[0, :9600], SR, LINKED, device="cpu")
+    xmtpu_torch.effects(clips[0, :9600], SR, LINKED, device="cpu",
+                        backend="pallas")
     assert (fftconv.launches, fftconv.long_launches, envelope.launches,
             envelope.envelope_launches, envelope.gain_launches) == before

@@ -13,7 +13,10 @@ the unfolded steps that run it; the public effects chain on both
 limiter forms; the envelope core of the envelope-only and gain forms at
 1, 31, 33 and 1024 rows of 1, 127, 129 and 5000 samples and on rows off
 a 16-byte boundary, its occupancy queries, and envelope() and
-linked_limiter() at the card's segment rule).
+linked_limiter() at the card's segment rule; the resample kernel's
+non-finite masks at edge shapes of both of its twin's branches; the
+public resample, int16 and float32, on the kernel and on the strided
+conv; the effects chain on its float64 scan engine on the card).
 
 Marked ``gpu``; each test skips without a CUDA device. The module
 imports no JAX, so it runs on a machine without it:
@@ -42,7 +45,11 @@ states equal); its gain goes through the card's approximate log2 / exp2
 where the twin's goes through torch.log/exp: -100 dB, NaN where the
 twin's is NaN. The
 effects chain on the card against the same chain on the CPU: -90 dB
-(the fftconv kernel's and the limiter's differences above). The fused
+(the fftconv kernel's and the limiter's differences above); on the
+scan engine, the card against the CPU: -120 dB (the same float64 scans;
+the reverb's float32 FFTs round differently). The resample kernel's non-finite outputs sit
+exactly where its twin's do (~isfinite masks equal; isnan masks equal
+for NaN input), -100 dB elsewhere. The fused
 step on the card against the same step on the CPU: -90
 dB at the int16 output (quantization plus those differences); the
 unfused step: -85 dB, because its IIR carries the front's small
@@ -74,7 +81,6 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -459,6 +465,100 @@ def test_resample_kernel_vs_twin(cuda, R, n, sr_in, sr_out):
     assert y.shape == ref.shape and db <= -120.0
 
 
+@pytest.mark.parametrize("R,n,sr_in,sr_out", [
+    (1, 882, 44100, 16000),     # n = 2M: the smallest aligned row
+    (3, 441 * 10, 44100, 16000),    # aligned, five phase groups
+    (3, 441 * 10 + 1, 44100, 16000),  # windowed
+    (2, 700, 44100, 16000),     # windowed, one tile past both ends
+    (37, 50000, 44100, 16000),  # 37 rows, a ragged last frame tile
+    (2, 9600, 48000, 44100),    # L = 147, M = 160, aligned
+    (2, 9601, 48000, 44100),    # windowed
+    (2, 30000, 44100, 32000),   # L = 320: two phase groups
+    (2, 44100, 44100, 8000),    # the any-K2 instance (pair skew 6)
+])
+def test_resample_kernel_nonfinite_masks(cuda, R, n, sr_in, sr_out):
+    """NaN, +inf and -inf at a frame's interior and edges, a row's first
+    and last sample and in the band's reach of the neighbour frames: the
+    kernel's ~isfinite mask equals its twin's (isnan for NaN alone), and
+    the finite outputs read -100 dB against it."""
+    g = np.gcd(sr_in, sr_out)
+    L, M = sr_out // g, sr_in // g
+    t = tres.aligned_tables(tres.make_plan(L, M, 24, 9.0))
+    rng = np.random.default_rng(R + n)
+    x = (0.3 * rng.standard_normal((R, n))).astype(np.float32)
+    only_nan = x.copy()
+    c = max(1, n // M // 2)
+    spots = [0, n - 1, c * M, c * M + M // 2, c * M - 1, c * M + t.lo,
+             (c + 1) * M + t.hi - 1]
+    for r in range(R):
+        for k, p in enumerate(spots[r % 3::3]):
+            p = min(max(p, 0), n - 1)
+            x[r, p] = (np.nan, np.inf, -np.inf)[(r + k) % 3]
+            only_nan[r, p] = np.nan
+    for arr, nan in ((x, False), (only_nan, True)):
+        xd = torch.from_numpy(arr).to(cuda)
+        y = resample.resample(xd, sr_in, sr_out)
+        ref = tres.polyphase_resample(xd, sr_in, sr_out)
+        torch.cuda.synchronize()
+        fin, fin_ref = torch.isfinite(y), torch.isfinite(ref)
+        assert torch.equal(fin, fin_ref) and bool((~fin_ref).any())
+        if nan:
+            assert torch.equal(torch.isnan(y), torch.isnan(ref))
+        db = _db(y[fin] - ref[fin], ref[fin]) if fin.any() else -np.inf
+        print(f"resample kernel non-finite ({R}, {n}, {sr_in}->{sr_out}, "
+              f"NaN only {nan}): masks equal, finite {db:.1f} dB")
+        assert db <= -100.0
+
+
+@pytest.mark.parametrize("rates", [(44100, 16000), (16000, 48000)])
+def test_api_resample_on_card(cuda, rates):
+    """xmtpu_torch.resample on the card (K7 at 44.1k -> 16k; the strided
+    conv at 16k -> 48k, band wider than 2M) against the CPU twin: int16
+    (n, 2) within 1 LSB, float32 (n,) -120 dB. It runs at torch's
+    default flags (cuDNN's TF32 on): the conv turns TF32 off itself."""
+    rng = np.random.default_rng(9)
+    x16 = (rng.standard_normal((16000, 2)) * 9000).astype(np.int16)
+    x32 = (0.3 * rng.standard_normal(16001)).astype(np.float32)
+    before = resample.launches
+    old = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True  # torch's default
+        y16 = xmtpu_torch.resample(x16, *rates)
+        y32 = xmtpu_torch.resample(torch.from_numpy(x32).to(cuda), *rates)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    assert resample.launches - before == (2 if rates[1] == 16000 else 0)
+    c16 = xmtpu_torch.resample(x16, *rates, device="cpu")
+    c32 = xmtpu_torch.resample(x32, *rates, device="cpu")
+    assert y16.shape == c16.shape and y16.dtype == np.int16
+    assert np.abs(y16.astype(np.int32) - c16.astype(np.int32)).max() <= 1
+    assert y32.shape == c32.shape and y32.dtype == np.float32
+    assert _db(torch.from_numpy(y32 - c32), torch.from_numpy(c32)) <= -120.0
+
+
+def test_effects_scan_engine_on_card(cuda):
+    """effects(backend="scan") on the card: no kernel launches, the same
+    result as the CPU scan engine (-120 dB: the reverb's float32 FFTs),
+    whole and blocked."""
+    x, _ = config3_inputs(batch=2, seconds=0.5)
+    chain = config3_chain()
+    y_cpu = xmtpu_torch.effects(x, 48000, chain, device="cpu",
+                                backend="scan")
+    before = _counts()
+    for blk in (None, 8192):
+        y = xmtpu_torch.effects(torch.from_numpy(x).to(cuda), 48000, chain,
+                                device=cuda, backend="scan", block_size=blk,
+                                device_out=True)
+        torch.cuda.synchronize()
+        db = _db(y.cpu().double() - torch.from_numpy(y_cpu).double(),
+                 torch.from_numpy(y_cpu).double())
+        print(f"effects scan engine (block {blk}) on the card vs the CPU: "
+              f"{db:.1f} dB")
+        assert y.shape == x.shape and db <= -120.0
+    assert _launched(before) == set()
+
+
 @pytest.mark.parametrize("B,n,sr_in,sr_out,fade,gb", [
     (3, 44100, 44100, 16000, 4000, 0.4),   # single block (_pick_F == nc)
     (5, 441 * 24, 44100, 16000, 0, 0.4),   # odd rows, no fade
@@ -731,7 +831,8 @@ def test_effects_on_card_matches_cpu(cuda, linked, kernels):
     the long-IR fftconv and the limiter's kernels launch."""
     x, _ = config3_inputs(batch=2, seconds=1.0)
     chain = config3_chain(linked_fuse=linked)
-    y_cpu = xmtpu_torch.effects(x, 48000, chain, device="cpu")
+    y_cpu = xmtpu_torch.effects(x, 48000, chain, device="cpu",
+                                backend="pallas")
     before = _counts()
     y = xmtpu_torch.effects(torch.from_numpy(x).to(cuda), 48000, chain,
                             device=cuda, device_out=True)

@@ -184,8 +184,8 @@ def test_envelope_block_refuses_non_powers_of_two(x, block):
 @pytest.mark.parametrize("backend", ["scan", "oracle", "xla"])
 def test_linked_fuse_on_a_scan_backend_is_a_config_error(backend):
     """The JAX chain silently ignores linked_fuse on its scan backend;
-    the port refuses the combination (the scan engine itself is not
-    ported: NotPortedError without the flag)."""
+    the port refuses the combination (the scan engine runs without the
+    flag, tests/test_torch_scan.py)."""
     with pytest.raises(ConfigError, match="linked_fuse"):
         tfx.build_chain(SR, [{"name": "limiter", "params": {
             "linked_fuse": True, "backend": backend}}])

@@ -28,7 +28,7 @@ from xmtpu.ops import mix as xmix
 from xmtpu.ops import resample as xresample
 from xmtpu.ops import reverb as xreverb
 from xmtpu_torch.ops import biquad, convert, limiter, mix, resample, reverb
-from xmtpu_torch.utils.errors import ConfigError, NotPortedError
+from xmtpu_torch.utils.errors import ConfigError
 
 from .conftest import rms_db
 
@@ -213,9 +213,18 @@ def test_resample_oracle_bit_exact(sig):
 
 
 def test_resample_refuses_unported():
-    """The strided-conv path for wide bands is not ported: typed."""
-    with pytest.raises(NotPortedError):
-        resample.polyphase_resample(torch.zeros(1, 1000), 8000, 48000)
+    """A band wider than 2M (8k -> 48k) runs the strided conv, the JAX
+    package's path there, to -120 dB against it (its own gate,
+    tests/test_resample.py:84); the framed form still refuses a last
+    axis other than M."""
+    x = np.random.default_rng(3).standard_normal((1, 1000)).astype(
+        np.float32)
+    y_t = resample.polyphase_resample(torch.from_numpy(x), 8000,
+                                      48000).numpy()
+    y_j = np.asarray(xresample.polyphase_resample(jnp.asarray(x), 8000,
+                                                  48000))
+    assert y_t.shape == y_j.shape == (1, 6000)
+    assert rms_db(y_t - y_j, y_j) <= -120.0
     with pytest.raises(ValueError):
         resample.polyphase_resample_framed(torch.zeros(1, 4, 512), SR_IN,
                                            SR_BUS)

@@ -16,8 +16,8 @@ Tolerances:
 - K7's twin against ``resample_pallas``: -120 dB (the JAX package's own
   gate; both are float32 sums over the same taps); the 48k -> 16k and
   16k -> 48k pairs (filter band wider than 2*M) take ``resample_pallas``'s
-  fallback, whose strided convolution the port does not have: they
-  raise ``NotPortedError``;
+  fallback, the strided convolution, as the port's wrapper takes its
+  twin's, -120 dB;
 - K8's twin against ``resample_mix_pallas``: -90 dB (the JAX kernel
   multiplies in 3-pass bf16, about -98 dB against float64), and against
   the float64 oracle: -120 dB;
@@ -37,12 +37,13 @@ import torch
 
 from xmtpu.kernels import resample as xres
 from xmtpu.kernels import rsmix as xrsmix
+from xmtpu.ops import resample as xresample
 from xmtpu_torch.kernels import _build, _seg
 from xmtpu_torch.kernels import resample as kres
 from xmtpu_torch.kernels import rsmix
 from xmtpu_torch.ops import mix as tmix
 from xmtpu_torch.ops import resample as tres
-from xmtpu_torch.utils.errors import ConfigError, NotPortedError
+from xmtpu_torch.utils.errors import ConfigError
 
 from .conftest import rms_db
 
@@ -167,9 +168,9 @@ def test_resample_vs_pallas(n):
 
 def test_resample_rate_pairs():
     """48k -> 44.1k runs the kernel's path; 48k -> 16k and 16k -> 48k
-    (filter band wider than 2*M) take resample_pallas's fallback, whose
-    strided convolution is not ported; equal rates pass through as
-    float32."""
+    (filter band wider than 2*M) take resample_pallas's fallback, the
+    strided convolution, and the wrapper its twin's (-120 dB); equal
+    rates pass through as float32."""
     rng = np.random.default_rng(7)
     x = (0.3 * rng.standard_normal((2, 9600))).astype(np.float32)
     y_j = np.asarray(xres.resample_pallas(x, 48000, 44100, interpret=True))
@@ -178,9 +179,13 @@ def test_resample_rate_pairs():
     print(f"K7 twin vs resample_pallas, 48k -> 44.1k: {db:.1f} dB")
     assert db <= -120.0
     for sr_in, sr_out in ((48000, 16000), (16000, 48000)):
-        xres.resample_pallas(x, sr_in, sr_out, interpret=True)  # JAX runs
-        with pytest.raises(NotPortedError, match="ROADMAP"):
-            kres.resample(torch.from_numpy(x), sr_in, sr_out)
+        y_j = np.asarray(xres.resample_pallas(x, sr_in, sr_out,
+                                              interpret=True))
+        y_t = kres.resample(torch.from_numpy(x), sr_in, sr_out).numpy()
+        db = _db(y_t, y_j)
+        print(f"K7 wrapper (strided conv) vs resample_pallas, {sr_in} -> "
+              f"{sr_out}: {db:.1f} dB")
+        assert y_t.shape == y_j.shape and db <= -120.0
     same = kres.resample(torch.from_numpy(x).double(), 16000, 16000)
     assert same.dtype == torch.float32
 
@@ -322,7 +327,189 @@ def test_resample_wrapper_contract(monkeypatch):
     names = {p.name for p in _build.sources()}
     assert {"resample.cu", "rsmix.cu", "polyphase.cuh"} <= names
     assert {"xm_resample_f32", "xm_rsmix_i16", "xm_resample_blocks_per_sm",
-            "xm_rsmix_blocks_per_sm"} <= set(_build._SIGNATURES)
+            "xm_rsmix_blocks_per_sm", "xm_resample_nan_fixup"} <= set(
+        _build._SIGNATURES)
+
+
+# ------------------------------------------- the twin's other methods
+
+RATE_PAIRS = [(44100, 16000), (48000, 44100), (16000, 48000),
+              (8000, 44100), (48000, 16000), (22050, 96000),
+              (96000, 8000), (44100, 32000)]
+
+
+@pytest.mark.parametrize("sr_in,sr_out", RATE_PAIRS)
+def test_conv_and_window_methods_vs_jax(sr_in, sr_out):
+    """polyphase_resample(method="conv"|"window") against the JAX
+    package's same methods, and "banded" (the conv where the band is
+    wider than 2M), at rate pairs check_rates accepts, on an aligned and
+    a ragged length: -120 dB (tests/test_resample.py:84's gate)."""
+    tres.check_rates(sr_in, sr_out)
+    rng = np.random.default_rng(sr_in + sr_out)
+    g = math.gcd(sr_in, sr_out)
+    M = sr_in // g
+    for n in (M * max(2, -(-4000 // M)), 4001):
+        x = (0.3 * rng.standard_normal((2, n))).astype(np.float32)
+        for method in ("banded", "conv", "window"):
+            y_t = tres.polyphase_resample(torch.from_numpy(x), sr_in, sr_out,
+                                          method=method).numpy()
+            y_j = np.asarray(xresample.polyphase_resample(
+                jnp.asarray(x), sr_in, sr_out, method=method))
+            assert y_t.shape == y_j.shape == (2, tres.resample_output_len(
+                n, sr_out // g, M))
+            assert _db(y_t, y_j) <= -120.0, (n, method)
+    with pytest.raises(ValueError, match="method"):
+        tres.polyphase_resample(torch.from_numpy(x), sr_in, sr_out,
+                                method="fft")
+
+
+def test_plan_rows_and_resample_window_vs_jax():
+    """plan_rows and resample_window (streaming's core) against the JAX
+    package's: the same row count, and the same output for a window
+    that starts mid-signal (c0 > 0), -120 dB."""
+    rng = np.random.default_rng(12)
+    for L, M in ((160, 441), (147, 160), (3, 1)):
+        plan = tres.make_plan(L, M, 24, 9.0)
+        xplan = xresample.make_plan(L, M, 24, 9.0)
+        for nj in (1, 7, 64):
+            assert tres.plan_rows(plan, nj) == xresample.plan_rows(xplan, nj)
+        nj = 7
+        xs = (0.3 * rng.standard_normal((2, tres.plan_rows(plan, nj) * M))
+              ).astype(np.float32)
+        y_t = tres.resample_window(torch.from_numpy(xs), plan, nj).numpy()
+        y_j = np.asarray(xresample.resample_window(jnp.asarray(xs), xplan,
+                                                   nj))
+        assert y_t.shape == y_j.shape == (2, nj * L)
+        assert _db(y_t, y_j) <= -120.0
+
+
+def test_conv_resample_owns_its_precision(monkeypatch):
+    """The strided conv runs with cuDNN's TF32 off whatever the caller
+    set (torch's default is on), puts the caller's flag back, and
+    matches JAX ``method="conv"`` (<= -120 dB)."""
+    seen = []
+    conv1d = torch.nn.functional.conv1d
+
+    def spy(*args, **kw):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return conv1d(*args, **kw)
+
+    monkeypatch.setattr(torch.nn.functional, "conv1d", spy)
+    old = torch.backends.cudnn.allow_tf32
+    x = (0.3 * np.random.default_rng(13).standard_normal((2, 1600))
+         ).astype(np.float32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        y_t = tres.polyphase_resample(torch.from_numpy(x), 16000, 48000,
+                                      method="conv")
+        assert seen == [False] and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    y_j = xresample.polyphase_resample(jnp.asarray(x), 16000, 48000,
+                                       method="conv")
+    assert _db(y_t.numpy(), np.asarray(y_j)) <= -120.0
+
+
+def _nonfinite_rows(n, L, M, rng):
+    """Rows of noise, each with non-finite samples at one place: a
+    frame's interior, its first and last sample, the previous frame's
+    tail the band reaches (lo), the next frame's head (hi); NaN, +inf
+    and -inf in turn (and NaN alone in the second array)."""
+    t = tres.aligned_tables(tres.make_plan(L, M, 24, 9.0))
+    nc = max(3, n // M)
+    mixed = (0.3 * rng.standard_normal((21, n))).astype(np.float32)
+    nan = mixed.copy()
+    for r in range(21):
+        c = 1 + r % (nc - 2)
+        spots = [c * M + M // 2, c * M, c * M + M - 1, c * M + t.lo,
+                 c * M - 1, (c + 1) * M + t.hi - 1, (c + 1) * M]
+        p = min(max(spots[r % 7], 0), n - 1)
+        mixed[r, p] = (np.nan, np.inf, -np.inf)[r % 3]
+        nan[r, p] = np.nan
+    return mixed, nan
+
+
+@pytest.mark.parametrize("sr_in,sr_out", [(44100, 16000), (48000, 44100)])
+@pytest.mark.parametrize("branch", ["aligned", "windowed"])
+def test_twin_nonfinite_masks_vs_jax(sr_in, sr_out, branch):
+    """The twin's ~isfinite mask (NaN, +inf, -inf) and isnan mask
+    (NaN alone) equal JAX polyphase_resample's, in both of its banded
+    branches (n % M == 0, and not): the mask K7 must reproduce."""
+    g = math.gcd(sr_in, sr_out)
+    L, M = sr_out // g, sr_in // g
+    n = 10 * M if branch == "aligned" else 10 * M + 37
+    aligned, _, _ = kres.twin_branch(tres.make_plan(L, M, 24, 9.0), n,
+                                     tres.resample_output_len(n, L, M))
+    assert aligned == (branch == "aligned")
+    mixed, nan = _nonfinite_rows(n, L, M, np.random.default_rng(n))
+    for x, test in ((mixed, np.isfinite), (nan, np.isnan)):
+        y_t = tres.polyphase_resample(torch.from_numpy(x), sr_in,
+                                      sr_out).numpy()
+        y_j = np.asarray(xresample.polyphase_resample(jnp.asarray(x), sr_in,
+                                                      sr_out))
+        assert np.array_equal(test(y_t), test(y_j))
+        assert (~np.isfinite(y_t)).any()
+
+
+def _kernel_mask_model(x, plan, out_len):
+    """numpy model of K7's non-finite mask (csrc/polyphase.cuh and
+    resample.cu's nan_fixup): each phase group's block scans the window
+    it stages for a frame (the group's s0 .. s0 + W), the frame's bits
+    (1: within its own M samples, 2: before, 4: after) OR over the
+    groups, then the fixup by the twin's branch."""
+    R, n = x.shape
+    L, M, K2 = plan.L, plan.M, plan.K2
+    nj = -(-out_len // L)
+    geo = kres.poly_geometry(plan, nj)
+    soff = kres.poly_tables(plan)["soff"]
+    bad = ~np.isfinite(x)
+    bits = np.zeros((R, nj), np.int64)
+    for r0 in range(0, L, geo.G):
+        gl = min(geo.G, L - r0)
+        s0 = int(soff[r0])
+        W = int(soff[r0 + gl - 1]) - s0 + K2
+        for c in range(nj):
+            rel = s0 + np.arange(W)
+            pos = c * M + rel
+            ok = (pos >= 0) & (pos < n)
+            hit = np.zeros((R, W), bool)
+            hit[:, ok] = bad[:, pos[ok]]
+            for cls, sel in ((1, (rel >= 0) & (rel < M)), (2, rel < 0),
+                             (4, rel >= M)):
+                bits[:, c] |= cls * hit[:, sel].any(axis=1)
+    aligned, r0, r2 = kres.twin_branch(plan, n, out_len)
+    r = np.arange(L)
+    mask = np.zeros((R, nj, L), bool)
+    for row in range(R):
+        for c in range(nj):
+            f = bits[row, c]
+            if aligned:
+                mask[row, c] = bool(f & 1) | (bool(f & 2) & (r < r0)) | (
+                    bool(f & 4) & (r >= r2))
+            else:
+                mask[row, c] = f != 0
+    return mask.reshape(R, nj * L)[:, :out_len]
+
+
+@pytest.mark.parametrize("n,sr_in,sr_out", [
+    (4410, 44100, 16000),    # aligned, five groups of 32 phases
+    (4447, 44100, 16000),    # windowed
+    (3200, 48000, 44100),    # aligned, two groups (L = 147, M = 160)
+    (3237, 48000, 44100),    # windowed
+    (4410, 44100, 32000),    # aligned, L = 320
+])
+def test_kernel_nonfinite_mask_model_matches_twin(n, sr_in, sr_out):
+    """The flag-and-fixup design on the wrapper's own tiling: the union
+    of the groups' staged windows of a frame is the frame's whole band,
+    so the model's mask equals the twin's ~isfinite mask."""
+    g = math.gcd(sr_in, sr_out)
+    L, M = sr_out // g, sr_in // g
+    plan = tres.make_plan(L, M, 24, 9.0)
+    mixed, _ = _nonfinite_rows(n, L, M, np.random.default_rng(n + 1))
+    out_len = tres.resample_output_len(n, L, M)
+    want = ~np.isfinite(tres.polyphase_resample(torch.from_numpy(mixed),
+                                                sr_in, sr_out).numpy())
+    assert np.array_equal(_kernel_mask_model(mixed, plan, out_len), want)
 
 
 # ---------------------------------------------------------------- K8

@@ -1,10 +1,13 @@
-"""Public API (counterpart of ``xmtpu.api``): :func:`effects`, the
-EQ -> reverb -> limiter chain of BASELINE config 3.
+"""Public API (counterpart of ``xmtpu.api``): :func:`resample`, the
+rate conversion of BASELINE config 1, and :func:`effects`, the EQ ->
+reverb -> limiter chain of config 3.
 
-Accepts int16 or float32 PCM shaped ``(n,)``, ``(n, channels)`` or a
-batched ``(B, n, channels)`` stack, as a numpy array or a tensor, and
-returns the same format. The device layout is time-last, as the JAX
-package's: ``(channels, n)`` or ``(B, channels, n)``.
+Accepts int16 or float32 PCM shaped ``(n,)``, ``(n, channels)`` (and,
+for :func:`effects`, a batched ``(B, n, channels)`` stack), as a numpy
+array or a tensor, and returns the same format. The device layout is
+time-last, as the JAX package's: ``(channels, n)`` or ``(B, channels,
+n)``. Both run on ``cuda`` unless ``device=`` names another device, and
+raise :class:`~xmtpu_torch.utils.errors.DeviceError` without a card.
 """
 
 from __future__ import annotations
@@ -48,13 +51,44 @@ def _from_f32_device(y: torch.Tensor, was_int16: bool, was_1d: bool,
     return out.cpu().numpy() if to_host else out
 
 
+def resample(pcm, sr_in: int, sr_out: int, taps_per_phase: int = 24,
+             beta: float = 9.0, device=None):
+    """Sample-rate-convert PCM (int16 or float32, ``(n,)`` or ``(n,
+    ch)``): int16 in gives int16 out, float32 gives float32; the output
+    length is ``ceil(n * sr_out / sr_in)`` after gcd reduction. The rates
+    pass ``ops.resample.check_rates`` first (a :class:`ConfigError`
+    otherwise). Runs on ``cuda`` unless ``device=`` is given: there on
+    the resample kernel (``kernels.resample.resample``) for bands up to
+    2M and the strided convolution above; on the CPU the kernel's plain
+    twin (``ops.resample.polyphase_resample``)."""
+    from xmtpu_torch.kernels import resample as _kres
+    from xmtpu_torch.ops import resample as _res
+    from xmtpu_torch.utils.device import resolve_device
+
+    _res.check_rates(sr_in, sr_out)
+    dev = resolve_device(device)
+    ndim = pcm.dim() if torch.is_tensor(pcm) else np.ndim(pcm)
+    if ndim > 2:
+        raise ValueError(f"PCM must be (n,) or (n, channels), got shape "
+                         f"{tuple(pcm.shape)}")
+    x, was_i16, was_1d = _to_f32_device(pcm, dev)
+    y = _kres.resample(x, sr_in, sr_out, taps_per_phase=taps_per_phase,
+                       beta=beta)
+    return _from_f32_device(y, was_i16, was_1d)
+
+
 def effects(pcm, sample_rate: int, chain, **kw):
-    """Effect chain (config 3): the chain runs on the port's kernels, on
-    ``cuda`` unless ``device=`` names another device (``device="cpu"``
-    runs the kernels' plain twins). Other keywords: ``block_size``
-    (fixed blocks with carried state), ``backend`` (the default engine
-    of effects that name none), ``device_out`` (return the tensor on the
-    device instead of a numpy array). See
+    """Effect chain (config 3), on ``cuda`` unless ``device=`` names
+    another device. With no ``backend`` (or ``"auto"``) the engine
+    follows the device, as the JAX package's follows its platform: the
+    port's kernels on ``cuda``, the float64 scan engine on the CPU
+    (``backend="pallas"`` there runs the kernels' plain twins); a
+    limiter with ``linked_fuse`` runs the kernel's gain form (its twin on
+    the CPU) under ``auto``, the computation asked for. Other keywords:
+    ``block_size`` (fixed blocks with carried state), ``backend`` (the
+    default engine of effects that name none: ``auto``, ``pallas``,
+    ``scan``/``oracle``/``xla``), ``device_out`` (return the tensor on
+    the device instead of a numpy array). See
     :func:`xmtpu_torch.graph.fx.apply_chain`."""
     from xmtpu_torch.graph import fx
 

@@ -27,12 +27,17 @@ branches (``fused=None``: fused from 128 rows up):
   the eq_env kernel, and the limiter's curve in torch;
 - unfused (small batches): the EQ on the biquad kernel, time-segmented;
   the reverb on the fftconv kernel; the limiter's envelope on the
-  envelope kernel, time-segmented, and its curve in torch.
+  envelope kernel, time-segmented, and its curve in torch. With
+  ``iir_backend="scan"`` (the JAX package's float64 twin) the EQ runs as
+  float64 associative scans (``ops.biquad.sosfilt_scan``) and the
+  limiter as float64 scans (``limiter(backend="scan")``); the reverb
+  stays on the fftconv kernel, nothing folds, and the auto rule never
+  takes the fused branch.
 
 :func:`make_batch_step` is the ragged-length step (``lengths`` per
 clip; masked fades, peak and output). Everything outside the kernels is
-plain torch. Options whose paths are not ported raise
-:class:`NotPortedError` naming the ROADMAP item that ports them. Both
+plain torch. The ``mixfirst_pad`` probe, deliberately not ported,
+raises :class:`NotPortedError` naming its ROADMAP section. Both
 steps build on ``cuda`` unless ``device=`` names another device;
 ``device="cpu"`` runs the kernels' plain twins.
 """
@@ -73,6 +78,7 @@ LIM_RELEASE_MS = 100.0
 LIM_ATTACK_MS = 1.0
 
 RESAMPLE_BACKENDS = ("mixfirst", "pallas", "rsmix")
+IIR_BACKENDS = ("pallas", "scan")
 
 
 def _combined_ir(sos, ir, wet: float, dry: float):
@@ -167,7 +173,8 @@ class _Chain(nn.Module):
     """Host tables on ``device`` and the chain's stages after the front,
     shared by :class:`FlagshipStep` and :class:`BatchStep`."""
 
-    def __init__(self, tables: dict, device=None, lti_fold: bool = True):
+    def __init__(self, tables: dict, device=None, lti_fold: bool = True,
+                 iir_backend: str = "pallas"):
         super().__init__()
         dev = resolve_device(device)
         f32 = torch.float32
@@ -190,16 +197,20 @@ class _Chain(nn.Module):
         g = math.gcd(self.sr_in, self.sr_bus)
         self.L, self.M = self.sr_bus // g, self.sr_in // g
         self.lti_fold = lti_fold
-        # the EQ folds into the reverb IR unless asked not to or unless
-        # its impulse response does not truncate
-        self.fold = lti_fold and self.ir is not None
+        self.iir_backend = iir_backend
+        # the EQ folds into the reverb IR unless asked not to, unless its
+        # impulse response does not truncate, or on the scan engine
+        self.fold = (lti_fold and self.ir is not None
+                     and iir_backend == "pallas")
 
     def _limiter(self, out: torch.Tensor) -> torch.Tensor:
         """The unfused limiter: the envelope kernel, then the curve in
-        torch (the JAX ``ops.limiter.limiter`` on its Pallas backend)."""
+        torch (the JAX ``ops.limiter.limiter`` on its Pallas backend), or
+        on the scan engine the float64 scans."""
         y, _ = _limiter.limiter(
             out[:, None, :], self.sr_bus, threshold_db=self.curve[0],
-            release_ms=LIM_RELEASE_MS, attack_ms=LIM_ATTACK_MS)
+            release_ms=LIM_RELEASE_MS, attack_ms=LIM_ATTACK_MS,
+            backend=self.iir_backend)
         return y[:, 0, :]
 
     def _unfolded(self, out: torch.Tensor, scale: torch.Tensor):
@@ -220,7 +231,10 @@ class _Chain(nn.Module):
         on the normalized signal, reverb with its wet/dry mix, limiter.
         ``scale``: (B, 1)."""
         with stage("eq"):
-            out, _ = sosfilt(self.sos, out * scale)
+            if self.iir_backend == "scan":
+                out, _ = _biquad.sosfilt_scan(self.sos, out * scale)
+            else:
+                out, _ = sosfilt(self.sos, out * scale)
         with stage("reverb"):
             out = _reverb.reverb(out, self.reverb_ir, wet=self.wet,
                                  dry=self.dry)
@@ -234,19 +248,26 @@ class FlagshipStep(_Chain):
     (None = ``cuda``; without a CUDA device that raises
     :class:`DeviceError`). ``fused``: True = the fused branch, False =
     the unfused one, None = the JAX package's rule (fused from 128 rows
-    up). ``limiter_fuse=False`` runs the folded branch's limiter as the
-    envelope kernel plus the torch curve. ``lti_fold=False`` (or tables
-    whose ``ir`` is None) runs the fused branch unfolded, on the eq_env
+    up, with ``iir_backend="pallas"``). ``limiter_fuse=False`` runs the
+    folded branch's limiter as the envelope kernel plus the torch curve.
+    ``lti_fold=False`` (or tables whose ``ir`` is None, or
+    ``iir_backend="scan"``) runs the fused branch unfolded, on the eq_env
     kernel; the unfused branch does not fold either way.
+    ``iir_backend``: ``"pallas"`` (the kernels) or ``"scan"`` (the
+    unfused branch's EQ and limiter as float64 scans; module
+    docstring).
     ``resample_backend``: the front (module docstring); anything but
     ``"mixfirst"``, ``"pallas"`` and ``"rsmix"`` raises
     :class:`ConfigError` (``"mixfirst_pad"``: :class:`NotPortedError`)."""
 
     def __init__(self, tables: dict, device=None, fused: bool | None = None,
                  limiter_fuse: bool = True, lti_fold: bool = True,
-                 resample_backend: str = "mixfirst"):
+                 resample_backend: str = "mixfirst",
+                 iir_backend: str = "pallas"):
         _check_resample_backend(resample_backend)
-        super().__init__(tables, device=device, lti_fold=lti_fold)
+        _check_iir_backend(iir_backend)
+        super().__init__(tables, device=device, lti_fold=lti_fold,
+                         iir_backend=iir_backend)
         dev = self.reverb_ir.device
         f32 = torch.float32
         # the resample tables carry pcm16_to_f32's 1/32768 (see front)
@@ -265,12 +286,13 @@ class FlagshipStep(_Chain):
     @classmethod
     def from_tables(cls, tables: dict, device=None, fused: bool | None = None,
                     limiter_fuse: bool = True, lti_fold: bool = True,
-                    resample_backend: str = "mixfirst") -> "FlagshipStep":
+                    resample_backend: str = "mixfirst",
+                    iir_backend: str = "pallas") -> "FlagshipStep":
         """Step from host tables built elsewhere (keys as
         :func:`flagship_tables` returns them)."""
         return cls(tables, device=device, fused=fused,
                    limiter_fuse=limiter_fuse, lti_fold=lti_fold,
-                   resample_backend=resample_backend)
+                   resample_backend=resample_backend, iir_backend=iir_backend)
 
     def _mixfirst(self, voice_i16, bgm_i16) -> torch.Tensor:
         B, n_in = voice_i16.shape
@@ -350,7 +372,8 @@ class FlagshipStep(_Chain):
     def forward(self, voice_i16: torch.Tensor,
                 bgm_i16: torch.Tensor) -> torch.Tensor:
         fused = (self.fused if self.fused is not None
-                 else voice_i16.shape[0] >= 128)
+                 else self.iir_backend == "pallas"
+                 and voice_i16.shape[0] >= 128)
         m, scale, ramp = self.front(voice_i16, bgm_i16)
         if not (fused and self.fold):
             out = m if ramp is None else m * ramp
@@ -369,17 +392,22 @@ class FlagshipStep(_Chain):
         return _convert.f32_to_pcm16(out)
 
 
+def _check_iir_backend(name: str) -> None:
+    if name not in IIR_BACKENDS:
+        # the JAX step runs any other string as the scan backend
+        raise ConfigError(f"unknown iir_backend {name!r}; accepted: "
+                          + ", ".join(map(repr, IIR_BACKENDS)))
+
+
 def check_options(iir_backend: str = "pallas",
                   resample_backend: str = "mixfirst",
                   envelope_block: int | None = None) -> None:
     """Raise for the flagship step's option values that do not run:
-    :class:`NotPortedError` naming the ROADMAP item, or
-    :class:`ConfigError` for an unknown ``resample_backend`` or an
-    ``envelope_block`` that is not a power of two (the limiter's own
-    validation)."""
-    if iir_backend != "pallas":
-        raise NotPortedError("iir_backend: the scan backend needs the "
-                             "float64 twins (ROADMAP.md Queue 1 item 5)")
+    :class:`NotPortedError` for the ``mixfirst_pad`` probe, or
+    :class:`ConfigError` for an unknown ``iir_backend`` or
+    ``resample_backend`` or an ``envelope_block`` that is not a power of
+    two (the limiter's own validation)."""
+    _check_iir_backend(iir_backend)
     _limiter.check_envelope_block(envelope_block)
     _check_resample_backend(resample_backend)
 
@@ -406,18 +434,19 @@ def make_flagship_step(
     ``device="cpu"`` runs the kernels' plain twins) with the port's own
     host tables. The arguments mirror ``xmtpu.batch.make_flagship_step``;
     ``iir_backend="pallas"`` names the JAX package's kernel branch,
-    whose kernels this port replaces. ``fused=None`` is the JAX
+    whose kernels this port replaces; ``"scan"`` its float64 twin. ``fused=None`` is the JAX
     package's auto rule: the fused branch from 128 rows up, the unfused
     one below. ``envelope_block``: None or a power of two, as in
     ``ops.limiter.limiter``; the kernels step per sample, the same
     function in exact arithmetic as any block lookahead. See
-    :class:`FlagshipStep` for ``resample_backend`` and ``lti_fold``."""
+    :class:`FlagshipStep` for ``resample_backend``, ``lti_fold`` and
+    ``iir_backend``."""
     check_options(iir_backend, resample_backend, envelope_block)
     return FlagshipStep(
         flagship_tables(sr_in, sr_bus, bands, ir_seconds, wet, dry,
                         bgm_gain, fade_ms, threshold_db), device=device,
         fused=fused, limiter_fuse=limiter_fuse, lti_fold=lti_fold,
-        resample_backend=resample_backend)
+        resample_backend=resample_backend, iir_backend=iir_backend)
 
 
 class BatchStep(_Chain):

@@ -1,21 +1,23 @@
 """Throughput benchmark of the flagship chain on one CUDA GPU
-(counterpart of the root ``bench.py``; same JSON keys), and of the public
-effect chain (``--config=3``, counterpart of
-``xmtpu.benchmarks.config3_effects``).
+(counterpart of the root ``bench.py``; same JSON keys), and of the JAX
+harness's configs 1-3 (``--config=1|2|3``, counterparts of
+``xmtpu.benchmarks.config1_resample``, ``config2_mix`` and
+``config3_effects``).
 
     python -m xmtpu_torch.bench [--batch=256] [--clip_seconds=10]
         [--iters=20] [--resample_backend=mixfirst|pallas|rsmix]
-        [--limiter_fuse=1] [--iir_backend=pallas] [--envelope_block=0]
-    python -m xmtpu_torch.bench --config=3 [--batch=16] [--clip_seconds=10]
-        [--iters=20]
+        [--limiter_fuse=1] [--iir_backend=pallas|scan] [--envelope_block=0]
+    python -m xmtpu_torch.bench --config=1|2|3 [--batch=...]
+        [--clip_seconds=10] [--iters=20]
 
 The keys are the root ``bench.py``'s. The step takes the branch the JAX
 package's auto rule picks: fused at the default 256 clips, unfused
 (segmented IIR and envelope) below 128, e.g. ``--batch=32`` (the JAX
-harness's config 4). Values the step refuses (``--iir_backend=scan``,
-an ``--envelope_block`` that is not a power of two, an unknown
-``--resample_backend``) raise
-its error before any work; an unknown key exits with the list.
+harness's config 4); ``--iir_backend=scan`` runs the unfused branch's EQ
+and limiter as float64 scans. Values the step refuses (an unknown
+``--iir_backend`` or ``--resample_backend``, an ``--envelope_block``
+that is not a power of two) raise its error before any work; an
+unknown key exits with the list.
 
 Prints one JSON line: ``metric``, ``value`` (audio-seconds per second
 per GPU), ``unit``, ``vs_baseline`` (ratio to the 500x-realtime
@@ -24,6 +26,16 @@ target), ``accuracy_db`` (clip 0 against the float64 oracle) and
 ``iters`` back-to-back steps after one warm-up step, so it includes any
 gap the host leaves between kernels. There is no CPU fallback: without
 a CUDA device the command fails.
+
+``--config=1`` times 32 int16 mono clips of 10 s at 44.1 kHz
+(``default_rng(0)`` noise x 9000) through ``pcm16_to_f32`` and the
+resample kernel (K7) to 16 kHz, and beside it the same conversion by
+the banded FP32 matmuls (``ops.resample.polyphase_resample``), the
+TPU kernel's form (key ``banded_audio_sec_per_sec``). ``--config=2``
+times the two-track mix at 16 kHz: two float32 tracks of 32 x 160000
+(``0.3 * default_rng(0)`` noise), each through ``apply_gain_fade``
+(gains 0.9 and 0.4, 250 ms fades), summed and peak-normalized to -1
+dBFS per row. Both on the card, inputs made there once.
 
 ``--config=3`` times ``xmtpu_torch.effects`` on the JAX benchmark's
 config-3 input, 16 stereo clips of 10 s at 48 kHz (float32 ``0.3 *
@@ -72,6 +84,31 @@ def median_ms(fn, warmup: int = 2, runs: int = 7) -> float:
     return float(np.median(times))
 
 
+def back_to_back_ms(fn, calls: int = 20) -> float:
+    """CUDA-event time of ``calls`` back-to-back calls of ``fn``, per
+    call: the kernel's time on the card without the wrapper's host time
+    that one timed call also holds."""
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
+
+
+def replay_ms(fn) -> float:
+    """``fn``'s time on the card: the median of CUDA-graph replays of one
+    call, without the host time its launches take."""
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return median_ms(graph.replay)
+
+
 def rms_db(err: np.ndarray, ref: np.ndarray) -> float:
     """RMS error in dB relative to the reference signal power."""
     p_err = float(np.mean(np.asarray(err, np.float64) ** 2))
@@ -91,6 +128,86 @@ def step_seconds(step, *args, iters: int):
     e.record()
     e.synchronize()
     return a.elapsed_time(e) / 1000.0 / iters, y
+
+
+def _require_card() -> torch.device:
+    if not torch.cuda.is_available():
+        raise SystemExit("xmtpu_torch.bench: no CUDA device")
+    return torch.device("cuda")
+
+
+def config1_inputs(batch: int = 32, seconds: float = 10.0) -> np.ndarray:
+    """The JAX benchmark's config-1 input: (batch, n) int16 at 44.1 kHz."""
+    n = int(SR_IN * seconds)
+    return (np.random.default_rng(0).standard_normal((batch, n)) * 9000
+            ).astype(np.int16)
+
+
+def config1_step(x_i16: torch.Tensor, banded: bool = False) -> torch.Tensor:
+    """Config 1's function: int16 rows -> float32 at 16 kHz, on the
+    resample kernel, or (``banded``) on the banded FP32 matmuls."""
+    from xmtpu_torch.kernels import resample as kres
+    from xmtpu_torch.ops import convert
+    from xmtpu_torch.ops import resample as ores
+
+    x = convert.pcm16_to_f32(x_i16)
+    if banded:
+        return ores.polyphase_resample(x, SR_IN, 16000)
+    return kres.resample(x, SR_IN, 16000)
+
+
+def config1_resample(batch: int = 32, seconds: float = 10.0,
+                     iters: int = 20) -> dict:
+    """Config 1 (44.1k -> 16k polyphase + int16 -> float32) on the card:
+    K7, and the banded matmuls beside it."""
+    dev = _require_card()
+    xd = torch.from_numpy(config1_inputs(batch, seconds)).to(dev)
+    sec, _ = step_seconds(config1_step, xd, iters=iters)
+    sec_b, _ = step_seconds(lambda v: config1_step(v, banded=True), xd,
+                            iters=iters)
+    return {"config": 1, "desc": "44.1k->16k polyphase + i16->f32",
+            "audio_sec_per_sec": batch * seconds / sec,
+            "banded_audio_sec_per_sec": batch * seconds / sec_b,
+            "device": torch.cuda.get_device_name(dev)}
+
+
+def config2_inputs(batch: int = 32, seconds: float = 10.0,
+                   sr: int = 16000) -> tuple[np.ndarray, np.ndarray]:
+    """The JAX benchmark's config-2 tracks: voice and BGM, (batch, n)
+    float32 each."""
+    n = int(sr * seconds)
+    rng = np.random.default_rng(0)
+    v = (0.3 * rng.standard_normal((batch, n))).astype(np.float32)
+    b = (0.3 * rng.standard_normal((batch, n))).astype(np.float32)
+    return v, b
+
+
+def config2_step(v: torch.Tensor, b: torch.Tensor,
+                 sr: int = 16000) -> torch.Tensor:
+    """Config 2's function: gain and fade each track (0.9 and 0.4, 250 ms
+    fades), sum, peak-normalize each row to -1 dBFS."""
+    from xmtpu_torch.ops import mix as mops
+
+    n = v.shape[-1]
+    fade = int(0.25 * sr)
+    out = (mops.apply_gain_fade(v, 0.9, fade, fade, length=n)
+           + mops.apply_gain_fade(b, 0.4, fade, fade, length=n))
+    peak = torch.amax(out.abs(), dim=-1, keepdim=True)
+    return out * torch.where(peak > 0, mops.db_to_amp(-1.0) / peak, 1.0)
+
+
+def config2_mix(batch: int = 32, seconds: float = 10.0, sr: int = 16000,
+                iters: int = 20) -> dict:
+    """Config 2 (two-track gain/fade/sum/peak normalize at 16 kHz) on
+    the card."""
+    dev = _require_card()
+    v, b = (torch.from_numpy(a).to(dev)
+            for a in config2_inputs(batch, seconds, sr))
+    sec, _ = step_seconds(lambda x, y: config2_step(x, y, sr), v, b,
+                          iters=iters)
+    return {"config": 2, "desc": "2-track mix gain/fade/normalize",
+            "audio_sec_per_sec": batch * seconds / sec,
+            "device": torch.cuda.get_device_name(dev)}
 
 
 def config3_chain(sr: int = 48000, linked_fuse: bool = False) -> list:
@@ -124,9 +241,7 @@ def config3_effects(batch: int = 16, seconds: float = 10.0,
     and output on the card (``device_out``)."""
     from xmtpu_torch import effects
 
-    if not torch.cuda.is_available():
-        raise SystemExit("xmtpu_torch.bench: no CUDA device")
-    dev = torch.device("cuda")
+    dev = _require_card()
     x, chain = config3_inputs(batch, seconds, sr)
     xd = torch.from_numpy(x).to(dev)
     sec, _ = step_seconds(
@@ -148,9 +263,7 @@ def main(batch: int = 256, clip_seconds: float = 10.0, iters: int = 20,
     opts = dict(iir_backend=iir_backend, resample_backend=resample_backend,
                 envelope_block=envelope_block or None)
     tbatch.check_options(**opts)
-    if not torch.cuda.is_available():
-        raise SystemExit("xmtpu_torch.bench: no CUDA device")
-    dev = torch.device("cuda")
+    dev = _require_card()
     voice, bgm = make_inputs(batch, clip_seconds)
     # the JAX auto rule, as the root bench.py: fused from 128 rows up
     step = tbatch.make_flagship_step(sr_in=SR_IN, sr_bus=16000, device=dev,
@@ -171,7 +284,7 @@ def main(batch: int = 256, clip_seconds: float = 10.0, iters: int = 20,
     }
 
 
-_CONFIG3_KEYS = ("batch", "clip_seconds", "iters")
+_CONFIG_KEYS = ("batch", "clip_seconds", "iters")  # configs 1-3
 
 
 def _cli(argv) -> dict:
@@ -191,21 +304,22 @@ def _cli(argv) -> dict:
                      "(known: config, batch, iters, clip_seconds, "
                      "iir_backend, resample_backend, envelope_block, "
                      "limiter_fuse)")
-    if config == 3:
-        other = sorted(set(kw) - set(_CONFIG3_KEYS))
+    runs = {1: config1_resample, 2: config2_mix, 3: config3_effects}
+    if config in runs:
+        other = sorted(set(kw) - set(_CONFIG_KEYS))
         if other:
-            sys.exit(f"xmtpu_torch.bench: --config=3 takes "
-                     f"{', '.join(_CONFIG3_KEYS)}; not {other}")
+            sys.exit(f"xmtpu_torch.bench: --config={config} takes "
+                     f"{', '.join(_CONFIG_KEYS)}; not {other}")
         if "clip_seconds" in kw:
             kw["seconds"] = kw.pop("clip_seconds")
-        return config3_effects(**kw)
+        return runs[config](**kw)
     if config != 4:
-        sys.exit("xmtpu_torch.bench: --config=3 (effects) or 4 (the "
-                 "flagship chain, the default) are ported")
+        sys.exit("xmtpu_torch.bench: --config=1 (resample), 2 (mix), 3 "
+                 "(effects) or 4 (the flagship chain, the default) are "
+                 "ported")
     return main(**kw)
 
 
 if __name__ == "__main__":
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     print(json.dumps(_cli(sys.argv[1:])))

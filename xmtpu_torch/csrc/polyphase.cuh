@@ -54,6 +54,20 @@
 //   Each half becomes a float exactly by one byte permute and one float
 //   subtract (I2F runs at a quarter of the FMA rate here).
 // Accumulation is float32 fmaf in k order per track.
+// - Non-finite input (float32 rows only; Src::kCheckFinite): an output is
+//   non-finite exactly where the banded twin's is (ops/resample.py: whole
+//   frames times the dense band, so a NaN or inf reaches every output of
+//   the frames whose band rows hold it). Each consumer folds its sums
+//   into fmaf(0, sum, chk), which stays 0 unless a sum is non-finite;
+//   the tile barrier ORs that over the consumers (bar.red.or). Only an
+//   item with a non-finite sum takes the slow path: the consumers scan
+//   its staged window, set per-frame bits in `flags` by where each
+//   non-finite sample sits relative to the frame (1: in the frame's own
+//   M samples, 2: before them, 4: after them), zero it, and compute the
+//   item again, so that no sum reads a non-finite sample through a zero
+//   tap. A second kernel (nan_fixup) then writes NaN over the outputs the
+//   bits poison: every group's window of a frame together is the frame's
+//   whole band, which no one block sees.
 //
 // Measured on an H100 (700 W; PERF.md): the staging and the consumers'
 // shared loads share the SM's load path and add up more than they
@@ -78,7 +92,8 @@ constexpr int kTapBlock = 8;    // taps summed per unrolled block (any K2)
 // each), the tile, the producers
 constexpr int kMaxRing = 4;
 constexpr int kBarFull = 1, kBarEmpty = 1 + kMaxRing,
-              kBarTile = 1 + 2 * kMaxRing, kBarProducers = 2 + 2 * kMaxRing;
+              kBarTile = 1 + 2 * kMaxRing, kBarProducers = 2 + 2 * kMaxRing,
+              kBarCheck = 3 + 2 * kMaxRing;
 
 struct PolyGeom {
   int R, n, out_len, L, M, K2;
@@ -110,6 +125,28 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
 
 __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// bar.sync over `threads` that also returns the OR of their `v`
+__device__ __forceinline__ bool bar_red_or(int id, int threads, bool v) {
+  int r;
+  asm volatile(
+      "{\n\t.reg .pred p, q;\n\t"
+      "setp.ne.s32 q, %3, 0;\n\t"
+      "bar.red.or.pred p, %1, %2, q;\n\t"
+      "selp.s32 %0, 1, 0, p;\n\t}"
+      : "=r"(r)
+      : "r"(id), "r"(threads), "r"(static_cast<int>(v))
+      : "memory");
+  return r != 0;
+}
+
+// the bits of nan_fixup's flags: where a non-finite sample of a frame's
+// window sits relative to the frame c (its samples c*M .. c*M + M - 1)
+constexpr unsigned kInFrame = 1u, kBeforeFrame = 2u, kAfterFrame = 4u;
+
+__device__ __forceinline__ bool not_finite(uint32_t w) {
+  return !(fabsf(__uint_as_float(w)) <= 3.402823466e38f);
 }
 
 // A work item: a row and its frames [c0, c0 + cnt); window row cc starts
@@ -158,6 +195,7 @@ struct RowWalk {
 // check).
 struct F32Track {
   static constexpr int kTracks = 1;
+  static constexpr bool kCheckFinite = true;  // see the header
   // warps a block: consumers (compute) and producers (staging)
   static constexpr int kConsumerWarps = 8, kProducerWarps = 8;
   static constexpr int kRing = 3;  // window stages
@@ -223,6 +261,7 @@ struct F32Track {
 // aligns them to 16).
 struct I16PairTracks {
   static constexpr int kTracks = 2;
+  static constexpr bool kCheckFinite = false;  // int16 is always finite
   static constexpr int kConsumerWarps = 8, kProducerWarps = 4;
   static constexpr int kRing = 2;
   static constexpr int kProducers = 32 * kProducerWarps;
@@ -317,11 +356,13 @@ __device__ __forceinline__ void fma_word(uint32_t w, float h, float* acc) {
 // Epilogue(j, acc) -> the stored value; acc holds Src::kTracks sums.
 // kK: K2 as a compile-time constant (the default filter's), or 0 for
 // any K2 (g.K2). gridDim.x is a multiple of the group count ceil(L / G).
+// flags (Src::kCheckFinite only): 1 + rows * nj words, zero on entry;
+// word 0 is set where any frame's bits are (see the header).
 template <class Src, class Epilogue, int kK>
 __global__ void __launch_bounds__(Src::kThreads, 1)
 polyphase_kernel(Src src, const float* __restrict__ hsel,
                  const int* __restrict__ soff, float* __restrict__ out,
-                 PolyGeom g, Epilogue ep) {
+                 PolyGeom g, Epilogue ep, unsigned* __restrict__ flags) {
   constexpr int kConsumerWarps = Src::kConsumerWarps;
   constexpr int kConsumers = 32 * kConsumerWarps;
   constexpr int kPolyThreads = Src::kThreads;
@@ -418,9 +459,12 @@ polyphase_kernel(Src src, const float* __restrict__ hsel,
   for (long long it = first; it < items; it += stride, ++i) {
     const int s = i % kRing;
     const PolyItem t(it, tiles, nj, s0, g);
-    const uint32_t* win = win0 + s * stage_words;
+    uint32_t* const win = win0 + s * stage_words;
     const int o = Src::origin(t, g);
     bar_sync(kBarFull + s, kPolyThreads);
+    // the item's outputs into the tile; chk stays 0 unless one of them
+    // is non-finite (kCheckFinite)
+    auto compute = [&](float& chk) {
     if constexpr (kK > 0) {
       // warp c takes pairs c, c + kConsumerWarps, ...: both phases of a
       // pair from one window of kKW words (a word decoded once for both),
@@ -450,6 +494,12 @@ polyphase_kernel(Src src, const float* __restrict__ hsel,
               a1[tr] = fmaf(ha[m], v1[tr], a1[tr]);
               b1[tr] = fmaf(hb[m], v1[tr], b1[tr]);
             }
+          }
+          if constexpr (Src::kCheckFinite) {
+            chk = fmaf(0.f, a0[0], chk);
+            chk = fmaf(0.f, b0[0], chk);
+            chk = fmaf(0.f, a1[0], chk);
+            chk = fmaf(0.f, b1[0], chk);
           }
           const long long ja = static_cast<long long>(t.c0) * g.L + r0 + ra;
           tile[cc * tp + ra] = ep(ja + static_cast<long long>(cc) * g.L, a0);
@@ -509,12 +559,48 @@ polyphase_kernel(Src src, const float* __restrict__ hsel,
             for (int kk = 0; kk < kTapBlock - 1; ++kk)
               if (kk < kn - nfull) fma_word<Src>(wk[nfull + kk], hr[kk], acc);
           }
+          if constexpr (Src::kCheckFinite) chk = fmaf(0.f, acc[0], chk);
           tile[cc * tp + rr] = ep(j0 + static_cast<long long>(cc) * g.L, acc);
         }
       }
     }
-    if (it + kRing * stride < items) bar_arrive(kBarEmpty + s, kPolyThreads);
-    bar_sync(kBarTile, kConsumers);  // the tile is written
+    };
+    float chk = 0.f;
+    compute(chk);
+    if constexpr (Src::kCheckFinite) {
+      // the tile is written; did any consumer see a non-finite sum?
+      if (bar_red_or(kBarCheck, kConsumers, !(chk == 0.f))) {
+        // slow path: flag the frames' non-finite samples, zero every one
+        // the item reads (zero taps included), compute it again
+        const int Wst = W + kPairSkew;
+        for (int cc = warp; cc < t.cnt; cc += kConsumerWarps) {
+          uint32_t* row = win + o + cc * g.P;
+          unsigned bits = 0;
+          for (int u = lane; u < Wst; u += 32) {
+            if (not_finite(row[u])) {
+              row[u] = 0u;
+              const int rel = s0 + u;
+              if (u < W)
+                bits |= rel < 0 ? kBeforeFrame
+                                : (rel < g.M ? kInFrame : kAfterFrame);
+            }
+          }
+          bits = __reduce_or_sync(0xffffffffu, bits);
+          if (lane == 0 && bits) {
+            atomicOr(flags + 1 + static_cast<size_t>(t.row) * nj + t.c0 + cc,
+                     bits);
+            atomicOr(flags, 1u);
+          }
+        }
+        bar_sync(kBarTile, kConsumers);  // the window is clean
+        compute(chk);
+        bar_sync(kBarTile, kConsumers);  // the tile is written again
+      }
+      if (it + kRing * stride < items) bar_arrive(kBarEmpty + s, kPolyThreads);
+    } else {
+      if (it + kRing * stride < items) bar_arrive(kBarEmpty + s, kPolyThreads);
+      bar_sync(kBarTile, kConsumers);  // the tile is written
+    }
     // the tile in output order: each frame's gl outputs are contiguous
     const int total = t.cnt * gl;
     const long long j0 = static_cast<long long>(t.c0) * g.L + r0;
@@ -553,7 +639,7 @@ int poly_blocks_per_sm(int smem) {
 template <class Src, class Epilogue>
 int poly_launch(const Src& src, const float* hsel, const int* soff,
                 float* out, const PolyGeom& g, Epilogue ep, int blocks,
-                cudaStream_t stream) {
+                cudaStream_t stream, unsigned* flags = nullptr) {
   auto kern = g.K2 == kDefaultK2 && g.pair_skew <= kPairSkew
                   ? polyphase_kernel<Src, Epilogue, kDefaultK2>
                   : polyphase_kernel<Src, Epilogue, 0>;
@@ -564,7 +650,8 @@ int poly_launch(const Src& src, const float* hsel, const int* soff,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kern<<<blocks, Src::kThreads, smem, stream>>>(src, hsel, soff, out, g, ep);
+  kern<<<blocks, Src::kThreads, smem, stream>>>(src, hsel, soff, out, g, ep,
+                                                 flags);
   return static_cast<int>(cudaGetLastError());
 }
 

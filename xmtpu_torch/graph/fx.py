@@ -3,21 +3,34 @@
 
 Each effect is a small object with ``init_state`` / ``apply``, so the
 same code serves the whole-clip path (state ``None``) and the blocked
-path with carried state. The effects run on the port's kernels: the EQ
-on the biquad kernel (``kernels.iir.sosfilt``), the reverb and every
-folded LTI run on the fftconv kernel (``ops.reverb.reverb``), the
-limiter on the envelope kernel (``ops.limiter.limiter``; its gain form
-with ``linked_fuse``). Each wrapper runs the kernel on a CUDA tensor and
-its plain twin on a CPU tensor, so the device of the signal picks.
+path with carried state. Each effect runs on one of the JAX package's
+two engines:
 
-The JAX package's engines map onto one: ``auto``/``pallas`` are the
-kernels; ``pallas_interpret`` (the JAX kernels in interpret mode) is
-accepted on the CPU only, where the twins stand in; the float64 scan
-engine (``scan``/``oracle``/``xla``) is not ported and raises
-:class:`NotPortedError`. Host design (EQ sections, the synthetic IR, the
-LTI fold and its combined IR) is numpy, bit-exact with the JAX package.
-There is no jit: :func:`get_compiled_chain` caches the built effect
-lists.
+* ``pallas``, the port's kernels: the EQ on the biquad kernel
+  (``kernels.iir.sosfilt``), the reverb and every folded LTI run on the
+  fftconv kernel (``ops.reverb.reverb``), the limiter on the envelope
+  kernel (``ops.limiter.limiter``; its gain form with ``linked_fuse``).
+  Each wrapper runs the kernel on a CUDA tensor and its plain twin on a
+  CPU tensor, so the device of the signal picks; ``pallas_interpret``
+  (the JAX kernels in interpret mode) is accepted on the CPU only, where
+  the twins stand in. Adjacent LTI effects with a reverb fold into one
+  convolution;
+* ``scan`` (``scan``/``oracle``/``xla``), the float64 engine: the EQ as
+  float64 associative scans (``ops.biquad.sosfilt_scan``), the reverb on
+  ``torch.fft`` (``ops.reverb``'s ``"xla"`` form; blocked: the output
+  tail carried by ``reverb_block``), the limiter in float64
+  (``limiter(backend="scan")``). Nothing folds. Its states are the JAX
+  scan engine's (float64 IIR and limiter state, the reverb's output tail)
+  and differ in shape and dtype from the kernel engine's.
+
+``auto`` (or no backend) resolves by the device the chain runs on, as
+the JAX package's does by its platform: the kernels on ``cuda``, the
+float64 scans on the CPU; a limiter with ``linked_fuse`` under ``auto``
+runs the gain form (on the CPU its twin), the computation its caller
+asked for. Host design (EQ sections, the synthetic IR, the LTI fold and
+its combined IR) is numpy, bit-exact with the JAX package. There is no
+jit: :func:`get_compiled_chain` caches the built effect lists per device
+type.
 """
 
 from __future__ import annotations
@@ -36,8 +49,9 @@ from xmtpu_torch.ops import reverb as _reverb
 from xmtpu_torch.utils.device import resolve_device
 from xmtpu_torch.utils.errors import ConfigError, NotPortedError
 
-_ITEM5 = "ROADMAP.md Queue 1 item 5"
+_ITEM5D = "ROADMAP.md Queue 1 item 5d"
 _SCAN_BACKENDS = ("scan", "oracle", "xla")
+_AUTO = (None, "auto")
 _MAX_FOLD_BLOCK = 131072  # the JAX fftconv kernel's largest block
 
 
@@ -49,18 +63,21 @@ def _as_batch_shape(batch_shape) -> tuple:
     return (int(batch_shape),)
 
 
-def _resolve_backend(backend: str | None) -> bool:
-    """-> interpret. Every accepted backend runs the kernels;
-    ``pallas_interpret`` (True) runs only on the CPU (see
-    :func:`apply_chain`)."""
-    if backend in (None, "auto", "pallas"):
-        return False
-    if backend == "pallas_interpret":
-        return True
+def _resolve_backend(backend: str | None,
+                     device_type: str = "cuda") -> tuple[str, bool]:
+    """-> (engine, interpret), engine in {"scan", "pallas"}: ``auto``
+    (or None) is the kernels on ``device_type`` "cuda" and the float64
+    scans on "cpu"; ``scan``/``oracle``/``xla`` the scans; ``pallas`` the
+    kernels (their twins on the CPU); ``pallas_interpret`` (True) the
+    kernels' twins on the CPU only (see :func:`apply_chain`)."""
+    if backend in _AUTO:
+        return ("scan" if device_type == "cpu" else "pallas"), False
     if backend in _SCAN_BACKENDS:
-        raise NotPortedError(
-            f"backend={backend!r}: the float64 scan engine is not ported "
-            f"({_ITEM5}); use backend='auto' (the kernels)")
+        return "scan", False
+    if backend == "pallas":
+        return "pallas", False
+    if backend == "pallas_interpret":
+        return "pallas", True
     raise ConfigError(f"unknown effect backend {backend!r}; use "
                       "auto|scan|pallas")
 
@@ -104,7 +121,7 @@ class EqualizerFx:
 
     PARAMS = frozenset({"bands", "backend"})
 
-    def __init__(self, sample_rate: int, params):
+    def __init__(self, sample_rate: int, params, device_type: str = "cuda"):
         p = dict(params)
         bands = p.get("bands")
         if not bands:
@@ -118,16 +135,20 @@ class EqualizerFx:
             self.sos = _biquad.eq_sos(list(bands), sample_rate)
         except (TypeError, ValueError, KeyError) as e:
             raise ConfigError(f"equalizer: bad band: {e}") from e
-        self.interpret = _resolve_backend(p.get("backend"))
+        self.engine, self.interpret = _resolve_backend(p.get("backend"),
+                                                       device_type)
 
     def init_state(self, batch_shape, device="cpu"):
         bs = _as_batch_shape(batch_shape)
-        return torch.zeros((self.sos.shape[0],) + bs + (2,),
-                           dtype=torch.float32, device=device)
+        dt = torch.float32 if self.engine == "pallas" else torch.float64
+        return torch.zeros((self.sos.shape[0],) + bs + (2,), dtype=dt,
+                           device=device)
 
     def apply(self, x, state):
-        # the segmented biquad kernel, exact zi/zf carry
-        return sosfilt(self.sos, x, zi=state)
+        if self.engine == "pallas":
+            # the segmented biquad kernel, exact zi/zf carry
+            return sosfilt(self.sos, x, zi=state)
+        return _biquad.sosfilt_scan(self.sos, x, zi=state)
 
 
 def _reverb_block_for(m: int) -> int:
@@ -148,7 +169,7 @@ class ReverbFx(_DeviceIR):
     PARAMS = frozenset({"ir", "ir_wav", "ir_seconds", "rt60", "seed",
                         "wet", "dry", "backend"})
 
-    def __init__(self, sample_rate: int, params):
+    def __init__(self, sample_rate: int, params, device_type: str = "cuda"):
         p = dict(params)
         try:
             self.wet = float(p.get("wet", 0.3))
@@ -185,7 +206,8 @@ class ReverbFx(_DeviceIR):
                 rt60=p.get("rt60"), seed=int(p.get("seed", 7)),
             )
         super().__init__(ir)
-        self.interpret = _resolve_backend(p.get("backend"))
+        self.engine, self.interpret = _resolve_backend(p.get("backend"),
+                                                       device_type)
         self.block = _reverb_block_for(len(self.ir))
         req = str(p.get("backend", ""))
         if self.block > _MAX_FOLD_BLOCK and req.startswith("pallas"):
@@ -198,14 +220,21 @@ class ReverbFx(_DeviceIR):
                 "backend='auto'")
 
     def init_state(self, batch_shape, device="cpu"):
-        # the overlap-save input history (last m-1 input samples)
+        # kernels: the overlap-save input history (last m-1 input
+        # samples); scans: the overlap-add output tail
         bs = _as_batch_shape(batch_shape)
         return torch.zeros(bs + (len(self.ir) - 1,), dtype=torch.float32,
                            device=device)
 
     def apply(self, x, state):
-        w, new_state = _conv_with_history(self, x, state)
-        return self.dry * x + self.wet * w, new_state
+        if self.engine == "pallas":
+            w, new_state = _conv_with_history(self, x, state)
+            return self.dry * x + self.wet * w, new_state
+        ir = self.ir_on(x.device)
+        if state is None:  # whole clip: overlap-save, no tail carry
+            return _reverb.reverb(x, ir, wet=self.wet, dry=self.dry,
+                                  block=self.block, backend="xla"), None
+        return _reverb.reverb_block(x, ir, state, wet=self.wet, dry=self.dry)
 
 
 class FusedLTIFx(_DeviceIR):
@@ -233,13 +262,13 @@ class FusedLTIFx(_DeviceIR):
 
 def _lti_ir(fx):
     """The effect's (finite) impulse response in float64, or None if it
-    is not foldable (not LTI, or an IIR whose response does not
-    truncate)."""
+    is not foldable (not LTI, not on the kernel engine, or an IIR whose
+    response does not truncate)."""
     if isinstance(fx, VolumeFx):
         return np.array([fx.gain], np.float64)
-    if isinstance(fx, EqualizerFx):
+    if isinstance(fx, EqualizerFx) and fx.engine == "pallas":
         return _biquad.sos_impulse_np(fx.sos)
-    if isinstance(fx, ReverbFx):
+    if isinstance(fx, ReverbFx) and fx.engine == "pallas":
         h = fx.wet * fx.ir.astype(np.float64)
         h[0] += fx.dry
         return h
@@ -284,23 +313,28 @@ def _fold_lti(effects):
 class LimiterFx:
     """Soft-knee limiter. params: threshold_db, knee_db, attack_ms,
     release_ms, ceiling_db, backend, envelope_block (None or a power of
-    two; the kernels step per sample), linked_fuse (the curve in the
-    envelope kernel's gain form)."""
+    two; the kernels step per sample, the scans ignore it), linked_fuse
+    (the curve in the envelope kernel's gain form: the kernel engine,
+    also under ``auto`` on the CPU, where its twin runs)."""
 
     PARAMS = frozenset({"threshold_db", "knee_db", "attack_ms",
                         "release_ms", "ceiling_db", "backend",
                         "envelope_block", "linked_fuse"})
 
-    def __init__(self, sample_rate: int, params):
+    def __init__(self, sample_rate: int, params, device_type: str = "cuda"):
         p = dict(params)
         self.sr = sample_rate
-        if p.get("linked_fuse") and p.get("backend") in _SCAN_BACKENDS:
-            # the JAX package ignores the flag there and runs another
-            # computation than the one asked for
-            raise ConfigError(
-                f"linked_fuse=True runs the envelope kernel's gain form; "
-                f"backend={p['backend']!r} has no such kernel")
-        self.interpret = _resolve_backend(p.get("backend"))
+        backend = p.get("backend")
+        if p.get("linked_fuse"):
+            if backend in _SCAN_BACKENDS:
+                # the JAX package ignores the flag there and runs another
+                # computation than the one asked for
+                raise ConfigError(
+                    f"linked_fuse=True runs the envelope kernel's gain form; "
+                    f"backend={backend!r} has no such kernel")
+            if backend in _AUTO:
+                backend = "pallas"  # the gain form, whatever the device
+        self.engine, self.interpret = _resolve_backend(backend, device_type)
         self.kw = dict(
             threshold_db=float(p.get("threshold_db", -3.0)),
             knee_db=float(p.get("knee_db", 6.0)),
@@ -314,11 +348,13 @@ class LimiterFx:
 
     def init_state(self, batch_shape, device="cpu"):
         bs = _as_batch_shape(batch_shape)[:-1]  # channels are linked
-        z = torch.zeros(bs, dtype=torch.float32, device=device)
+        dt = torch.float32 if self.engine == "pallas" else torch.float64
+        z = torch.zeros(bs, dtype=dt, device=device)
         return (z, z.clone())
 
     def apply(self, x, state):
-        return _limiter.limiter(x, self.sr, state=state, **self.kw)
+        return _limiter.limiter(x, self.sr, state=state, backend=self.engine,
+                                **self.kw)
 
 
 class CompressorFx(LimiterFx):
@@ -327,9 +363,9 @@ class CompressorFx(LimiterFx):
 
     PARAMS = LimiterFx.PARAMS | {"ratio", "makeup_db"}
 
-    def __init__(self, sample_rate: int, params):
+    def __init__(self, sample_rate: int, params, device_type: str = "cuda"):
         p = dict(params)
-        super().__init__(sample_rate, p)
+        super().__init__(sample_rate, p, device_type)
         self.kw["ratio"] = float(p.get("ratio", 4.0))
         self.kw["makeup_db"] = float(p.get("makeup_db", 0.0))
         try:
@@ -363,12 +399,12 @@ class ConvLimiterFx:
 
 
 def _pair_conv_limiter(effects):
-    """Post-fold pass: a FusedLTIFx followed by a limiter/compressor
-    becomes one :class:`ConvLimiterFx`."""
+    """Post-fold pass: a FusedLTIFx followed by a kernel-engine
+    limiter/compressor becomes one :class:`ConvLimiterFx`."""
     out = []
     for fx in effects:
         if (out and isinstance(out[-1], FusedLTIFx)
-                and isinstance(fx, LimiterFx)):
+                and isinstance(fx, LimiterFx) and fx.engine == "pallas"):
             out[-1] = ConvLimiterFx(out[-1], fx)
         else:
             out.append(fx)
@@ -384,7 +420,7 @@ class NoiseSuppressFx:
                         "noise_update", "noise_smooth",
                         "presence_thresh", "up_leak"})
 
-    def __init__(self, sample_rate: int, params):
+    def __init__(self, sample_rate: int, params, device_type: str = "cuda"):
         p = dict(params)
         self.kw = dict(
             nfft=int(p.get("nfft", 512)),
@@ -400,7 +436,7 @@ class NoiseSuppressFx:
     @staticmethod
     def _not_ported():
         return NotPortedError(
-            f"noise_suppression: ops/ns.py is not ported ({_ITEM5})")
+            f"noise_suppression: ops/ns.py is not ported ({_ITEM5D})")
 
     def init_state(self, batch_shape, device="cpu"):
         raise self._not_ported()
@@ -414,7 +450,7 @@ class VolumeFx:
 
     PARAMS = frozenset({"gain", "gain_db"})
 
-    def __init__(self, sample_rate: int, params):
+    def __init__(self, sample_rate: int, params, device_type: str = "cuda"):
         p = dict(params)
         if "gain" in p:
             self.gain = float(p["gain"])
@@ -470,14 +506,16 @@ def _split_entry(e) -> tuple:
 
 
 def build_chain(sample_rate: int, chain, default_backend: str | None = None,
-                fold: bool = True):
+                fold: bool = True, device_type: str = "cuda"):
     """Resolve a list of effect entries into effect objects.
 
     ``default_backend``: backend for effects that don't name one.
-    ``fold``: collapse adjacent LTI runs with a reverb into single
-    combined-IR FIR stages (:class:`FusedLTIFx`), then pair a folded
-    stage with the limiter after it (:class:`ConvLimiterFx`), as the JAX
-    package does; False keeps every effect its own kernel."""
+    ``device_type``: where the chain will run ("cuda" or "cpu"), which
+    ``auto`` resolves by (:func:`_resolve_backend`). ``fold``: collapse
+    adjacent kernel-engine LTI runs with a reverb into single combined-IR
+    FIR stages (:class:`FusedLTIFx`), then pair a folded stage with the
+    limiter after it (:class:`ConvLimiterFx`), as the JAX package does;
+    False keeps every effect its own kernel."""
     out = []
     for e in chain:
         name, params = _split_entry(e)
@@ -498,7 +536,7 @@ def build_chain(sample_rate: int, chain, default_backend: str | None = None,
                     f"{name}: unknown parameter(s) {sorted(unknown)}; "
                     f"accepted: {sorted(allowed)}")
         try:
-            out.append(cls(sample_rate, params))
+            out.append(cls(sample_rate, params, device_type=device_type))
         except ConfigError:
             raise
         except (TypeError, ValueError, KeyError, OverflowError) as e:
@@ -551,14 +589,17 @@ def _json_default(v):
 
 
 def get_compiled_chain(sample_rate: int, chain,
-                       default_backend: str | None = None):
-    """-> the built effect list, cached by content (an LRU of 64, so a
-    hot chain survives a stream of cold ones)."""
-    key = (default_backend, _chain_key(sample_rate, chain))
+                       default_backend: str | None = None,
+                       device_type: str = "cuda"):
+    """-> the built effect list for ``device_type``, cached by content
+    and device type (an LRU of 64, so a hot chain survives a stream of
+    cold ones)."""
+    key = (device_type, default_backend, _chain_key(sample_rate, chain))
     hit = _cache.pop(key, None)
     if hit is None:
         hit = build_chain(sample_rate, chain,
-                          default_backend=default_backend)
+                          default_backend=default_backend,
+                          device_type=device_type)
     _cache[key] = hit
     if len(_cache) > 64:
         _cache.pop(next(iter(_cache)))
@@ -573,14 +614,16 @@ def apply_chain(pcm, sample_rate: int, chain, block_size: int | None = None,
     ``pcm``: int16 or float32, (n,), (n, ch) or batched (B, n, ch), a
     numpy array or a tensor; returns the same format, as a numpy array
     or, with ``device_out``, a tensor on the device. ``device``: where
-    the chain runs, ``cuda`` unless given (``"cpu"``: the kernels' plain
-    twins). ``backend``: default engine for effects that don't name one
-    (:func:`_resolve_backend`). ``block_size``: process in fixed blocks
-    with carried state, the last block zero-padded; the output does not
-    depend on the block size, because every effect carries exact state.
-    Noise suppression rejects blocked mode."""
-    effects = get_compiled_chain(sample_rate, chain, default_backend=backend)
+    the chain runs, ``cuda`` unless given. ``backend``: default engine
+    for effects that don't name one (:func:`_resolve_backend`; ``auto``:
+    the kernels on ``cuda``, the float64 scans on the CPU, ``"pallas"``
+    on the CPU: the kernels' plain twins). ``block_size``: process in
+    fixed blocks with carried state, the last block zero-padded; the
+    output does not depend on the block size, because every effect
+    carries exact state. Noise suppression rejects blocked mode."""
     dev = resolve_device(device)
+    effects = get_compiled_chain(sample_rate, chain, default_backend=backend,
+                                 device_type=dev.type)
     ndim = pcm.dim() if torch.is_tensor(pcm) else np.ndim(pcm)
     if ndim < 1 or ndim > 3:
         raise ValueError(

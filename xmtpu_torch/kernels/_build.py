@@ -56,7 +56,8 @@ _SIGNATURES = {
     "xm_eq_env_f32": ([_P] * 8 + [_I] * 3 + [_F] * 2 + [_P], _I),
     "xm_eq_env_finals_f32": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "xm_eq_env_blocks_per_sm": ([_I], _I),
-    "xm_resample_f32": ([_P] * 4 + [_I] * 12 + [_P], _I),
+    "xm_resample_f32": ([_P] * 4 + [_I] * 12 + [_P, _P], _I),
+    "xm_resample_nan_fixup": ([_P, _P] + [_I] * 6 + [_P], _I),
     "xm_resample_blocks_per_sm": ([_I], _I),
     "xm_rsmix_i16": ([_P] * 5 + [_I] * 12 + [_F, _I, _P], _I),
     "xm_rsmix_blocks_per_sm": ([_I], _I),

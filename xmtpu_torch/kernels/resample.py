@@ -11,11 +11,24 @@ hand-written kernel ``csrc/resample.cu`` (shared with the fused int16
 front through ``csrc/polyphase.cuh``) on CUDA, at any row length.
 
 :func:`resample` is a drop-in for ``polyphase_resample``: it passes
-float32 through at ``L == M`` and refuses a band wider than ``2*M``
-with ``polyphase_resample``'s :class:`NotPortedError`, as the twin
-does. ``resample_pallas`` also leaves ``M < 64`` to XLA, a limit of its
-TPU tiling; the direct FIR has no such limit and runs there too. On a
-CPU tensor it runs ``polyphase_resample``, the kernel's plain twin.
+float32 through at ``L == M`` and leaves a band wider than ``2*M`` to
+the twin's strided convolution, as ``resample_pallas`` leaves it to
+XLA's. ``resample_pallas`` also leaves ``M < 64`` to XLA, a limit of
+its TPU tiling; the direct FIR has no such limit and runs there too. On
+a CPU tensor it runs ``polyphase_resample``, the kernel's plain twin.
+
+Non-finite input: an output is non-finite exactly where the twin's is.
+The twin multiplies whole frames by the band, so a NaN or inf reaches
+every output of a frame whose band holds it: in the twin's aligned
+branch (``n % M == 0``, ``n >= 2M``, whole output frames) the frame's
+own M samples poison all its outputs, the previous frame's last
+``|lo|`` samples its phases ``r < r0`` and the next frame's first
+``hi`` its phases ``r >= r2``; in its windowed branch the frame's whole
+band ``x[c*M + lo : c*M + M + hi]`` poisons all its outputs. The kernel
+flags such frames and a second launch writes NaN there
+(``csrc/polyphase.cuh``). One finer mapping differs: where the twin
+meets an inf it gives ±inf or NaN depending on what else the band holds;
+the kernel's non-finite outputs are NaN.
 """
 
 from __future__ import annotations
@@ -181,16 +194,32 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def twin_branch(plan: _ops.ResamplePlan, n: int,
+                out_len: int) -> tuple[bool, int, int]:
+    """(aligned, r0, r2): which branch ``polyphase_resample`` takes at
+    row length n, and the aligned branch's edge phases (the windowed
+    branch: False, 0, L); the kernel's non-finite mask follows it."""
+    nj = -(-out_len // plan.L)
+    if n % plan.M == 0 and n >= 2 * plan.M and nj * plan.L == out_len:
+        t = _ops.aligned_tables(plan)
+        return True, t.r0, t.r2
+    return False, 0, plan.L
+
+
 def resample_pass(x2d: torch.Tensor, plan: _ops.ResamplePlan,
                   out_len: int) -> torch.Tensor:
     """The kernel over contiguous float32 CUDA rows (R, n) -> (R,
-    out_len)."""
+    out_len), then the launch that writes NaN where the twin's would be
+    (module docstring; a no-op for finite input)."""
     global launches
     R, n = x2d.shape
     x2d = aligned16(x2d)
     tabs = device_tables(plan, x2d.device)
-    geo = poly_geometry(plan, -(-out_len // plan.L))
+    nj = -(-out_len // plan.L)
+    geo = poly_geometry(plan, nj)
     y = torch.empty((R, out_len), dtype=torch.float32, device=x2d.device)
+    flags = torch.zeros(1 + R * nj, dtype=torch.int32, device=x2d.device)
+    aligned, r0, r2 = twin_branch(plan, n, out_len)
     lib = _build.load()
     with torch.cuda.device(x2d.device):
         blocks = persistent_blocks("xm_resample_blocks_per_sm", geo, R,
@@ -200,8 +229,12 @@ def resample_pass(x2d: torch.Tensor, plan: _ops.ResamplePlan,
             x2d.data_ptr(), tabs["hsel"].data_ptr(), tabs["soff"].data_ptr(),
             y.data_ptr(), R, n, out_len, plan.L, plan.M, plan.K2, geo.G,
             geo.frames // 32, geo.pitch, geo.tile_pitch, geo.pair_skew,
-            blocks, stream)
-    _build.check(rc, "resample")
+            blocks, flags.data_ptr(), stream)
+        _build.check(rc, "resample")
+        rc = lib.xm_resample_nan_fixup(flags.data_ptr(), y.data_ptr(), R,
+                                       out_len, plan.L, r0, r2, int(aligned),
+                                       stream)
+    _build.check(rc, "resample NaN fixup")
     launches += 1
     return y
 
@@ -218,7 +251,7 @@ def resample(x: torch.Tensor, sr_in: int, sr_out: int,
         return x
     plan = _ops.make_plan(L, M, taps_per_phase, beta)
     if plan.width > 2 * M or x.device.type == "cpu":
-        # the twin (it raises NotPortedError for the wide band)
+        # the twin (the strided conv for the wide band)
         return _ops.polyphase_resample(x, sr_in, sr_out, taps_per_phase,
                                        beta)
     if x.device.type != "cuda":

@@ -1,11 +1,12 @@
-"""Biquad EQ host design (counterpart of the host part of
-``xmtpu.ops.biquad``; bit-exact with it).
+"""Biquad EQ (counterpart of ``xmtpu.ops.biquad``): the RBJ host design
+(bit-exact with the JAX package's), the float64 scan engine's cascade
+(:func:`sosfilt_scan`) and the float64 sequential oracle.
 
 On the flagship path the EQ cascade never runs as an IIR on the device:
 it is LTI, so its truncated impulse response (:func:`sos_impulse_np`)
-folds into the reverb IR on the host (``batch._combined_ir``). What
-ships here is the RBJ coefficient design and the float64 sequential
-oracle.
+folds into the reverb IR on the host (``batch._combined_ir``); the
+kernel engine's cascade is ``kernels.iir.sosfilt``. :func:`sosfilt_scan`
+is the JAX package's float64 associative-scan form, in plain torch.
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
+
+from xmtpu_torch.ops._scan import associative_scan
 
 _RBJ_KINDS = (
     "peaking",
@@ -119,6 +123,78 @@ def eq_sos(bands, sr: int) -> np.ndarray:
             gain_db=float(b.get("gain_db", 0.0)),
         ))
     return np.stack(rows) if rows else np.zeros((0, 6), np.float64)
+
+
+def _affine_combine(lhs, rhs):
+    """Compose affine maps z -> M z + v: rhs after lhs (elementwise)."""
+    lm11, lm12, lm21, lm22, lv1, lv2 = lhs
+    rm11, rm12, rm21, rm22, rv1, rv2 = rhs
+    return (
+        rm11 * lm11 + rm12 * lm21,
+        rm11 * lm12 + rm12 * lm22,
+        rm21 * lm11 + rm22 * lm21,
+        rm21 * lm12 + rm22 * lm22,
+        rm11 * lv1 + rm12 * lv2 + rv1,
+        rm21 * lv1 + rm22 * lv2 + rv2,
+    )
+
+
+def section_cums(x: torch.Tensor, b0, b1, b2, a1, a2) -> tuple:
+    """Cumulative affine maps of one section: z[n] = M[n] z[-1] + v[n].
+    Returns (m11, m12, m21, m22, v1, v2), each shaped like ``x``."""
+    g1 = b1 - a1 * b0
+    g2 = b2 - a2 * b0
+    ones = torch.ones_like(x)
+    elems = ((-a1) * ones, ones, (-a2) * ones, torch.zeros_like(x),
+             g1 * x, g2 * x)
+    return associative_scan(_affine_combine, elems)
+
+
+def _section_scan(x, b0, b1, b2, a1, a2, zi):
+    """One biquad section over the last axis of ``x`` (..., n) from the
+    DF2T state ``zi`` (..., 2) -> (y, zf)."""
+    m11, m12, m21, m22, v1, v2 = section_cums(x, b0, b1, b2, a1, a2)
+    zi1 = zi[..., 0:1]
+    zi2 = zi[..., 1:2]
+    z1 = m11 * zi1 + m12 * zi2 + v1
+    z2 = m21 * zi1 + m22 * zi2 + v2
+    # y[n] = b0 x[n] + z1[n-1], with z1[-1] = zi1
+    z1_prev = torch.cat([zi1, z1[..., :-1]], dim=-1)
+    y = b0 * x + z1_prev
+    zf = torch.cat([z1[..., -1:], z2[..., -1:]], dim=-1)
+    return y, zf
+
+
+def sosfilt_scan(sos, x: torch.Tensor, zi=None,
+                 state_dtype=torch.float64):
+    """Cascaded-biquad filter over the last axis of ``x`` (..., n), each
+    section a log-depth associative scan in ``state_dtype`` (float64 by
+    default); the output in x's dtype.
+
+    ``sos``: [S, 6] (scipy layout, a0 == 1). ``zi``: [S, ..., 2] initial
+    DF2T state or None for zeros. Returns (y, zf) with zf (S, ..., 2) in
+    ``state_dtype``. An empty cascade is the identity."""
+    dev = x.device
+    sos = torch.as_tensor(np.asarray(sos, np.float64), dtype=state_dtype,
+                          device=dev) if not torch.is_tensor(sos) else \
+        sos.to(state_dtype)
+    S = sos.shape[0]
+    in_dtype = x.dtype
+    if S == 0:
+        return x, torch.zeros((0,) + tuple(x.shape[:-1]) + (2,),
+                              dtype=state_dtype, device=dev)
+    y = x.to(state_dtype)
+    if zi is None:
+        zi = torch.zeros((S,) + tuple(x.shape[:-1]) + (2,),
+                         dtype=state_dtype, device=dev)
+    else:
+        zi = torch.as_tensor(zi, device=dev).to(state_dtype)
+    zfs = []
+    for s in range(S):  # a short cascade: one scan per section
+        y, zf = _section_scan(y, sos[s, 0], sos[s, 1], sos[s, 2],
+                              sos[s, 4], sos[s, 5], zi[s])
+        zfs.append(zf)
+    return y.to(in_dtype), torch.stack(zfs)
 
 
 def sosfilt_np(sos: np.ndarray, x: np.ndarray, zi=None):

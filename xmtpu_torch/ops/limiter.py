@@ -10,13 +10,16 @@ Pinned semantics, mirrored exactly by :func:`limiter_np`:
    ``(over + W/2)^2 / (2W)`` inside the knee, ``over`` above;
 5. safety clamp at ``ceiling_db``.
 
-Steps 1-3 run in the envelope kernels (``xmtpu_torch.kernels.envelope``):
-:func:`limiter` here is the JAX package's ``limiter`` on its Pallas
-backend (the detector, the time-segmented envelope kernel, then the
-elementwise curve in torch; with ``linked_fuse=True`` the curve runs in
-the kernel's gain form, ``kernels.envelope.linked_limiter``); the
-flagship chain's fused branch runs steps 1-5 in one kernel instead. This
-module also holds the coefficient helpers and the float64 oracle.
+:func:`limiter` is the JAX package's ``limiter`` on either engine. On
+its kernel backend (``"pallas"``, the port's default) steps 1-3 run in
+the envelope kernels (``xmtpu_torch.kernels.envelope``): the detector,
+the time-segmented envelope kernel, then the elementwise curve in torch;
+with ``linked_fuse=True`` the curve runs in the kernel's gain form,
+``kernels.envelope.linked_limiter``. On ``"scan"`` the whole limiter
+runs in float64, steps 2-3 as log-depth associative scans
+(:func:`decaying_max_scan`, :func:`onepole_scan`). The flagship chain's
+fused branch runs steps 1-5 in one kernel instead. This module also
+holds the coefficient helpers and the float64 oracle.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from xmtpu_torch.kernels.envelope import (_EPS, _knee_slope, envelope,
                                           linked_limiter)
+from xmtpu_torch.ops._scan import associative_scan
 from xmtpu_torch.utils.errors import ConfigError
 from xmtpu_torch.utils.profiling import stage
 
@@ -42,6 +46,57 @@ def _attack_coeff(attack_ms: float, sr: int) -> float:
     if attack_ms <= 0:
         return 1.0  # identity smoothing
     return 1.0 - math.exp(-1.0 / (attack_ms * sr / 1000.0))
+
+
+def _decay_max_combine(lhs, rhs):
+    lv, lp = lhs
+    rv, rp = rhs
+    return torch.maximum(rv, rp * lv), lp * rp
+
+
+def _init_of(init, like: torch.Tensor) -> torch.Tensor:
+    """A carried state (tensor, array or plain float) as a tensor of
+    ``like``'s dtype and device, shaped like ``like`` without its last
+    axis."""
+    t = torch.as_tensor(init, dtype=like.dtype, device=like.device)
+    return t.expand(like.shape[:-1])
+
+
+def decaying_max_scan(d: torch.Tensor, k: float, init):
+    """env[n] = max(d[n], k*env[n-1]) over the last axis; ``init`` =
+    env[-1]. Returns (env, env_last). The initial state folds in closed
+    form: env[n] = max(v[n], k^(n+1) * init) (k = 0: no carry)."""
+    init = _init_of(init, d)
+    p = torch.full_like(d, k)
+    v, _ = associative_scan(_decay_max_combine, (d, p))
+    npts = d.shape[-1]
+    if k > 0:
+        expo = torch.arange(1, npts + 1, dtype=d.dtype, device=d.device)
+        decay = torch.exp(expo * math.log(k))
+    else:
+        decay = torch.zeros(npts, dtype=d.dtype, device=d.device)
+    env = torch.maximum(v, decay * init[..., None])
+    return env, env[..., -1]
+
+
+def _onepole_combine(lhs, rhs):
+    lv, lp = lhs
+    rv, rp = rhs
+    return rp * lv + rv, lp * rp
+
+
+def onepole_scan(u: torch.Tensor, c: float, init):
+    """e[n] = (1-c) e[n-1] + c u[n] over the last axis; ``init`` =
+    e[-1]. Returns (e, e_last); ``c >= 1`` is the identity."""
+    init = _init_of(init, u)
+    if c >= 1.0:
+        return u, u[..., -1]
+    a = 1.0 - c
+    v, _ = associative_scan(_onepole_combine, (c * u, torch.full_like(u, a)))
+    npts = u.shape[-1]
+    expo = torch.arange(1, npts + 1, dtype=u.dtype, device=u.device)
+    e = v + torch.exp(expo * math.log(a)) * init[..., None]
+    return e, e[..., -1]
 
 
 def check_envelope_block(envelope_block) -> int | None:
@@ -87,40 +142,76 @@ def apply_gain_curve(x: torch.Tensor, e2: torch.Tensor, threshold_db: float,
     return torch.clamp(x * g[..., None, :], -ceil_amp, ceil_amp)
 
 
+def _check_n_valid(x: torch.Tensor, n_valid) -> torch.Tensor:
+    """x's first n_valid samples (the JAX validation: 1 <= n_valid <=
+    x.shape[-1])."""
+    if n_valid is None:
+        return x
+    nv = int(n_valid)
+    if not 1 <= nv <= x.shape[-1]:
+        raise ValueError(f"n_valid={nv} outside [1, {x.shape[-1]}]")
+    return x[..., :nv]
+
+
+LIMITER_BACKENDS = ("pallas", "scan")
+
+
 def limiter(x: torch.Tensor, sr: int, threshold_db: float = -3.0,
             knee_db: float = 6.0, attack_ms: float = 1.0,
             release_ms: float = 100.0, ceiling_db: float = 0.0, state=None,
             ratio: float = float("inf"), makeup_db: float = 0.0,
             envelope_block: int | None = None, n_valid: int | None = None,
-            linked_fuse: bool = False):
-    """Soft-knee limit ``x`` (..., channels, n) float32 -> (y (...,
-    channels, n_valid or n), (env_last, e2_last) each (...,)).
+            linked_fuse: bool = False, backend: str = "pallas"):
+    """Soft-knee limit ``x`` (..., channels, n) -> (y (..., channels,
+    n_valid or n) in x's dtype, (env_last, e2_last) each (...,)).
 
     Channels (axis -2) are linked; leading axes are independent rows.
     ``state``: (env, e2) carried from a previous block, or None.
-    ``n_valid``: only the first n_valid samples of x are signal. The
-    envelope runs on the envelope kernel (time-segmented for small
-    batches, as the JAX package's Pallas backend picks it), the curve in
-    torch; ``linked_fuse=True`` runs the curve in the kernel's gain form
-    instead (the JAX ``linked_limiter_pallas``). ``envelope_block``:
+    ``n_valid``: only the first n_valid samples of x are signal.
+
+    ``backend="pallas"`` (the port's default; x float32): the envelope
+    runs on the envelope kernel (time-segmented for small batches, as
+    the JAX package's Pallas backend picks it), the curve in torch;
+    ``linked_fuse=True`` runs the curve in the kernel's gain form
+    instead (the JAX ``linked_limiter_pallas``). ``backend="scan"``: the
+    JAX package's float64 engine, the whole limiter in float64 and the
+    state float64; ``linked_fuse`` has no scan form there and raises
+    :class:`ConfigError` (the JAX package ignores it). ``envelope_block``:
     None or a power of two (else :class:`ConfigError`); the kernels step
-    per sample whatever its value."""
+    per sample whatever its value, and the scans ignore it."""
     check_envelope_block(envelope_block)
-    if not torch.is_tensor(x) or x.dtype != torch.float32 or x.dim() < 2:
-        raise ValueError("x must be a float32 tensor (..., channels, n)")
+    if backend not in LIMITER_BACKENDS:
+        raise ValueError(f"unknown limiter backend {backend!r}; accepted: "
+                         + ", ".join(LIMITER_BACKENDS))
     k_rel = _release_coeff(release_ms, sr)
     c_att = _attack_coeff(attack_ms, sr)
+    if backend == "scan":
+        if linked_fuse:
+            raise ConfigError("linked_fuse=True runs the envelope kernel's "
+                              "gain form; the scan backend has no such form")
+        if not torch.is_tensor(x) or x.dim() < 2:
+            raise ValueError("x must be a tensor (..., channels, n)")
+        in_dtype = x.dtype
+        xf = _check_n_valid(x.to(torch.float64), n_valid)
+        with stage("envelope"):
+            d = torch.amax(xf.abs(), dim=-2)  # linked channels: (..., n)
+            if state is None:
+                state = (0.0, 0.0)
+            env, env_last = decaying_max_scan(d, k_rel, state[0])
+            e2, sm_last = onepole_scan(env, c_att, state[1])
+        with stage("curve"):
+            y = apply_gain_curve(xf, e2, threshold_db, knee_db, ceiling_db,
+                                 ratio, makeup_db)
+        return y.to(in_dtype), (env_last, sm_last)
+    if not torch.is_tensor(x) or x.dtype != torch.float32 or x.dim() < 2:
+        raise ValueError("x must be a float32 tensor (..., channels, n)")
     if linked_fuse:
         with stage("linked limiter"):
             return linked_limiter(x, k_rel, c_att, threshold_db,
                                   knee_db=knee_db, ceiling_db=ceiling_db,
                                   ratio=ratio, makeup_db=makeup_db,
                                   init=state, n_valid=n_valid)
-    if n_valid is not None:
-        nv = int(n_valid)
-        if not 1 <= nv <= x.shape[-1]:
-            raise ValueError(f"n_valid={nv} outside [1, {x.shape[-1]}]")
-        x = x[..., :nv]
+    x = _check_n_valid(x, n_valid)
     with stage("envelope"):
         d = torch.amax(x.abs(), dim=-2)  # linked channels: (..., n)
         e2, st = envelope(d, k_rel, c_att, init=state)

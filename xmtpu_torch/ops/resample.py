@@ -3,27 +3,40 @@
 
 The host tables (filter design, polyphase plan, aligned banded tables)
 are re-implemented here in numpy and are bit-exact with the JAX
-package's. The device part is two plain float32 matmuls, as in the JAX
-package, which leaves them to XLA outside any kernel:
+package's. The device part is plain torch, as the JAX package leaves it
+to XLA outside any kernel; :func:`polyphase_resample` takes its three
+methods:
 
-* output frame ``c = A[c] @ H1`` for the framed input ``A`` (..., nc, M);
-* two narrow edge corrections against the neighbour frames: ``A[c-1]``'s
-  last ``|lo|`` samples patch output phases [0, r0) through ``H0``, and
-  ``A[c+1]``'s first ``hi`` samples patch phases [r2, L) through ``H2``.
+* ``"banded"`` (default), at most two float32 matmuls. Where n divides
+  by M, output frame ``c = A[c] @ H1`` for the framed input ``A`` (...,
+  nc, M), with two narrow edge corrections against the neighbour
+  frames: ``A[c-1]``'s last ``|lo|`` samples patch output phases [0,
+  r0) through ``H0``, and ``A[c+1]``'s first ``hi`` samples patch phases
+  [r2, L) through ``H2``. Otherwise the padded window's frames times the
+  dense band, in two matmuls. Rate pairs whose band is wider than 2M
+  (upsampling by a large factor) take the conv;
+* ``"conv"``: the strided convolution, ``conv1d`` with stride M and L
+  output channels over the padded window;
+* ``"window"``: the explicit frame matrix times the dense band
+  (:func:`resample_window`, shared with streaming).
 
 Pinned semantics: odd-length symmetric Kaiser filter, output sample
 ``j`` is the upsampled-domain convolution at ``t = j*M + (ntaps-1)//2``,
 ``out_len = ceil(n * L / M)`` (``scipy.signal.resample_poly``'s rule for
 odd-length filters).
 
-Precision: every DSP matmul runs in full float32. A TF32 matmul keeps
-10 mantissa bits, which costs the chain its -80 dB margin, so on CUDA
-:func:`require_fp32_matmul` refuses to run while TF32 is enabled.
+Precision: every DSP matmul and convolution runs in full float32. A
+TF32 product keeps 10 mantissa bits, which costs the chain its -80 dB
+margin, so on CUDA :func:`require_fp32_matmul` refuses to run matmuls
+while TF32 is enabled, and the strided conv turns cuDNN's TF32 off
+(:func:`_cudnn_fp32`) for its own call, since
+``torch.backends.cudnn.allow_tf32`` is True by default.
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -31,7 +44,7 @@ import numpy as np
 import torch
 from scipy import signal as _sig
 
-from xmtpu_torch.utils.errors import ConfigError, NotPortedError
+from xmtpu_torch.utils.errors import ConfigError
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -144,6 +157,7 @@ class AlignedTables:
     r2: int
 
 
+@lru_cache(maxsize=64)
 def aligned_tables(plan: ResamplePlan) -> AlignedTables:
     delta = plan.base - plan.pad_left
     s = delta + plan.col_start  # [L] window start relative to c*M
@@ -188,6 +202,19 @@ def require_fp32_matmul(device: torch.device) -> None:
             "allow_tf32 / set_float32_matmul_precision); the DSP matmuls "
             "need full float32 — TF32's 10 mantissa bits cost the chain "
             "its -80 dB accuracy margin")
+
+
+@contextmanager
+def _cudnn_fp32():
+    """cuDNN convolutions in full float32 inside the block, whatever the
+    caller set; the caller's ``torch.backends.cudnn.allow_tf32`` is put
+    back after it."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
 
 
 def apply_aligned(A: torch.Tensor, H1: torch.Tensor, H0: torch.Tensor,
@@ -237,30 +264,56 @@ def polyphase_resample_framed(A: torch.Tensor, sr_in: int, sr_out: int,
                          t.lo, t.hi, t.r0, t.r2)
 
 
+def plan_rows(plan: ResamplePlan, nj: int) -> int:
+    """Input rows (of M samples) needed to emit nj output blocks."""
+    return nj + _cdiv(plan.width, plan.M) + 1
+
+
+def resample_window(xs: torch.Tensor, plan: ResamplePlan,
+                    nj: int) -> torch.Tensor:
+    """Contiguous input window -> nj*L float32 output samples, by the
+    explicit frame matrix: ``xs`` (..., plan_rows(plan, nj) * M) holds
+    input samples ``x[k + c0*M + base - pad_left]`` for the first output
+    block c0 (zeros where that index is out of range); frames F[..., c,
+    u] = xs[..., c*M + u], u < width, times the dense band (width, L).
+    Shared by the offline path (c0 = 0) and streaming (c0 = the block
+    clock), so the two agree block for block."""
+    require_fp32_matmul(xs.device)
+    L, M = plan.L, plan.M
+    batch = xs.shape[:-1]
+    rows = plan_rows(plan, nj)
+    A = xs.to(torch.float32).reshape(*batch, rows, M)
+    F = torch.cat([A[..., i: i + nj, :] for i in range(rows - nj)],
+                  dim=-1)[..., : plan.width]
+    hbank = torch.as_tensor(plan.hbank, dtype=torch.float32, device=xs.device)
+    return torch.matmul(F, hbank).reshape(*batch, nj * L)
+
+
+RESAMPLE_METHODS = ("banded", "conv", "window")
+
+
 def polyphase_resample(x: torch.Tensor, sr_in: int, sr_out: int,
-                       taps_per_phase: int = 24,
-                       beta: float = 9.0) -> torch.Tensor:
+                       taps_per_phase: int = 24, beta: float = 9.0,
+                       method: str = "banded") -> torch.Tensor:
     """Resample the last axis of float ``x`` (..., n) from sr_in to
-    sr_out -> (..., ceil(n*L/M)) float32, by the banded two-matmul
-    form: the filter band spans u in [0, width) with width <= 2M, so
-    frame c is ``[A[c] | A[c+1, :width-M]]``. Rate pairs whose band is
-    wider (upsampling by a large factor) take the JAX package's strided
-    conv, which is not ported."""
+    sr_out -> (..., ceil(n*L/M)) float32, by ``method`` (module
+    docstring): ``"banded"`` (its band within 2M, else the conv),
+    ``"conv"`` or ``"window"``."""
+    if method not in RESAMPLE_METHODS:
+        raise ValueError(f"unknown resample method {method!r}; accepted: "
+                         + ", ".join(RESAMPLE_METHODS))
     L, M = _ratio(sr_in, sr_out)
     x = x.to(torch.float32)
     if L == M:
         return x
     plan = make_plan(L, M, taps_per_phase, beta)
-    if plan.width > 2 * M:
-        raise NotPortedError(
-            f"rate pair {sr_in}->{sr_out} needs the strided-conv resample "
-            "(filter band wider than 2*M); ROADMAP.md Queue 1 item 5")
-    require_fp32_matmul(x.device)
+    if method == "banded" and plan.width > 2 * M:
+        method = "conv"  # small M (upsampling): the band spans many rows
     n = x.shape[-1]
     bshape = x.shape[:-1]
     out_len = resample_output_len(n, L, M)
     nj = _cdiv(out_len, L)  # number of L-sample output blocks
-    if n % M == 0 and n >= 2 * M and nj * L == out_len:
+    if method == "banded" and n % M == 0 and n >= 2 * M and nj * L == out_len:
         # aligned: the frame matrix is a free reshape of x
         A = x.reshape(*bshape, n // M, M)
         t = aligned_tables(plan)
@@ -268,18 +321,33 @@ def polyphase_resample(x: torch.Tensor, sr_in: int, sr_out: int,
         out = apply_aligned(A, H1, H0, H2, t.lo, t.hi, t.r0, t.r2)
         return out.reshape(*bshape, nj * L)
     # window xs[k] = x[k + base - pad_left], zeros outside [0, n)
-    need = (nj + _cdiv(plan.width, M) + 1) * M
+    need = plan_rows(plan, nj) * M
     pad_r = max(0, plan.base + need - (n + plan.pad_left))
     xpad = torch.nn.functional.pad(x, (plan.pad_left, pad_r))
     xs = xpad[..., plan.base: plan.base + need]
-    hbank = torch.as_tensor(plan.hbank, dtype=torch.float32, device=x.device)
-    A = xs[..., : nj * M].reshape(*bshape, nj, M)
-    out = torch.matmul(A, hbank[:M])
-    if plan.width > M:
-        k2 = plan.width - M
-        A1 = xs[..., M: (nj + 1) * M].reshape(*bshape, nj, M)[..., :k2]
-        out = out + torch.matmul(A1, hbank[M:])
-    return out.reshape(*bshape, nj * L)[..., :out_len]
+    if method == "banded":
+        require_fp32_matmul(x.device)
+        hbank = torch.as_tensor(plan.hbank, dtype=torch.float32,
+                                device=x.device)
+        A = xs[..., : nj * M].reshape(*bshape, nj, M)
+        out = torch.matmul(A, hbank[:M])
+        if plan.width > M:
+            k2 = plan.width - M
+            A1 = xs[..., M: (nj + 1) * M].reshape(*bshape, nj, M)[..., :k2]
+            out = out + torch.matmul(A1, hbank[M:])
+        return out.reshape(*bshape, nj * L)[..., :out_len]
+    if method == "conv":
+        # out[.., c, r] = sum_u xs[.., c*M + u] * hbank[u, r]: a stride-M
+        # convolution with L output channels (conv1d correlates)
+        R = int(np.prod(bshape)) if bshape else 1
+        w = torch.as_tensor(plan.hbank.T[:, None, :], dtype=torch.float32,
+                            device=x.device)  # (L, 1, width)
+        with _cudnn_fp32():
+            out = torch.nn.functional.conv1d(xs.reshape(R, 1, -1), w,
+                                             stride=M)
+        out = out[:, :, :nj].transpose(1, 2).reshape(*bshape, nj * L)
+        return out[..., :out_len]
+    return resample_window(xs, plan, nj)[..., :out_len]
 
 
 def resample_oracle_np(

@@ -156,8 +156,37 @@ process exits non-zero:
    ``make_flagship_step(iir_backend="scan")`` on 32 clips of 10 s with
    fresh counters: K1 must launch, and the IIR, state-chain, envelope
    and eq_env kernels must not; clip 0 <= -80 dB; throughput;
-21. a JSON line of the kernels (times, bounds, launches; K1 once per
-   branch; the state-chain kernel beside K5), then the contract line
+21. one podcast episode through ``xmtpu_torch.api.process_file``, its
+   inputs written from ``default_rng(12)`` into a temporary directory: a
+   600 s mono int16 voice at 44.1 kHz (amplitude-modulated noise
+   phrases over a noise floor), a 60 s stereo BGM at 48 kHz (tones) and
+   a 0.5 s IR at 44.1 kHz; a 48 kHz stereo bus (28.8 M samples a
+   channel) with the voice (250 ms fade-in) over the BGM (looped,
+   side-ducked, volume 0.5, 2 s fade-in); noise suppression, the 5-band
+   EQ and the reverb from the IR file on the voice bus; LUFS
+   normalization to -16; a -1 dB limiter on the master in blocks of
+   65,536. Counters set to 0 just before: K7 (the voice's 44.1k ->
+   48k), K5 (the K-weighting), K1 and the envelope kernel must launch.
+   The file read back: its length, channels, finite samples, peak at
+   most the limiter's ceiling. Then a
+   timed run (audio-seconds per second, wall clock with WAV I/O; the
+   stage times at the progress marks; peak memory), a run traced by
+   ``torch.profiler`` (the card's busy share, the kernels that take the
+   most time); ``api.mix`` alone
+   (its rate), whose bus must read within 0.02 LU of ``measure_lufs_np``
+   and 0.05 LU of -16 on the card; the voice chain and
+   ``lufs_normalize`` each alone; ``suppress`` on the whole voice at 48
+   kHz <= -80 dB against ``suppress_np``; the first 20 s on the card
+   against the CPU, <= -80 dB; K7 (the whole voice, 1 x 26.46 M at
+   44.1k -> 48k), K5 (the K-weighting of the bus, the call at the card's
+   S against the same path on the twin), K1's long form (the suppressed
+   voice, the folded IR) and the envelope kernel (the master limiter's
+   first block: its launches timed as graph replays, the envelope()
+   call from the host beside them) against their twins at the path's
+   operands;
+22. a JSON line of the kernels (times, bounds, launches; K1 once per
+   branch; the state-chain kernel beside K5; the episode's K5, K1 and
+   envelope entries with its launch counts), then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Every step run with fresh counters sets all ten launch counters to 0
@@ -193,6 +222,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 F64_OPS_PER_S = 34e12  # H100 SXM, float64 outside the tensor cores
 OP_LATENCY_CYCLES = 4  # one dependent float32 add / multiply / max
+# the podcast episode (phase 21)
+EPISODE_S, EPISODE_BGM_S, EPISODE_CPU_S = 600.0, 60.0, 20.0
+VOICE_SR, BUS_SR = 44100, 48000
+GATE_LU_ORACLE, GATE_LU_TARGET = 0.02, 0.05
 
 
 def fir_fft_ops(R: int, n: int, taps: int) -> float:
@@ -214,6 +247,71 @@ def fir_fft_ops(R: int, n: int, taps: int) -> float:
         parts = -(-taps // (N // 2))
         best = min(best, -(-n // (N // 2)) * (fft_pair + 8 * N * parts))
     return pairs * best
+
+
+def episode_inputs(root, seconds: float = EPISODE_S,
+                   bgm_seconds: float = EPISODE_BGM_S) -> dict:
+    """The episode's three int16 WAVs under ``root``, from
+    ``default_rng(12)``: the voice (mono, 44.1 kHz): phrases of 1.5-4 s
+    and pauses of 0.3-1.2 s of noise amplitude-modulated at a syllable
+    rate, over a stationary noise floor (the first 0.5 s floor alone);
+    the BGM (stereo, 48 kHz): a chord of tones with a slow tremolo; the
+    IR (mono, 44.1 kHz): the port's 0.5 s ``synthetic_ir``."""
+    from xmtpu_torch.io import write_wav
+    from xmtpu_torch.ops.convert import f32_to_pcm16_np
+    from xmtpu_torch.ops.reverb import synthetic_ir
+
+    rng = np.random.default_rng(12)
+    n = int(seconds * VOICE_SR)
+    gate = np.zeros(n, np.float32)
+    i, talk = int(0.5 * VOICE_SR), True
+    while i < n:
+        lo, hi = (1.5, 4.0) if talk else (0.3, 1.2)
+        span = int(rng.uniform(lo, hi) * VOICE_SR)
+        if talk:
+            gate[i:i + span] = 1.0
+        i, talk = i + span, not talk
+    t = np.arange(n, dtype=np.float32) / np.float32(VOICE_SR)
+    syllables = 0.55 + 0.45 * np.sin(2 * np.pi * 4.3 * t) ** 2
+    voice = (0.12 * gate * syllables * rng.standard_normal(n, np.float32)
+             + 0.01 * rng.standard_normal(n, np.float32))
+    nb = int(bgm_seconds * BUS_SR)
+    tb = np.arange(nb) / BUS_SR
+    trem = 1.0 + 0.2 * np.sin(2 * np.pi * 0.25 * tb)
+    chord = [(220.0, 329.63), (277.18, 440.0), (329.63, 554.37)]
+    bgm = np.stack([sum(0.08 * trem * np.sin(2 * np.pi * f[c] * tb)
+                        for f in chord) for c in (0, 1)], -1)
+    ir = synthetic_ir(0.5, VOICE_SR)
+    paths = {k: root / f"{k}.wav" for k in ("voice", "bgm", "ir")}
+    write_wav(paths["voice"], f32_to_pcm16_np(voice), VOICE_SR)
+    write_wav(paths["bgm"], f32_to_pcm16_np(bgm), BUS_SR)
+    write_wav(paths["ir"], f32_to_pcm16_np(0.9 * ir / np.abs(ir).max()),
+              VOICE_SR)
+    return paths
+
+
+def episode_config(paths):
+    """The episode's pipeline: the voice (250 ms fade-in) over the BGM
+    (looped, side-ducked, volume 0.5, 2 s fade-in) on a 48 kHz stereo
+    bus; on the voice bus noise suppression, the bench's 5-band EQ and a
+    reverb from the IR file (wet 0.2, dry 0.8); LUFS normalization to
+    -16; a -1 dB limiter on the master in blocks of 65,536."""
+    from xmtpu_torch.batch import DEFAULT_BANDS
+    from xmtpu_torch.config import EffectConfig, PipelineConfig, TrackConfig
+
+    return PipelineConfig(
+        tracks=(TrackConfig(url=str(paths["voice"]), kind="voice",
+                            fade_in_ms=250.0),
+                TrackConfig(url=str(paths["bgm"]), kind="bgm", volume=0.5,
+                            loop=True, side_duck=True, fade_in_ms=2000.0)),
+        effects=(EffectConfig("noise_suppression", {}),
+                 EffectConfig("equalizer", {"bands": list(DEFAULT_BANDS)}),
+                 EffectConfig("reverb", {"ir_wav": str(paths["ir"]),
+                                         "wet": 0.2, "dry": 0.8})),
+        master_effects=(EffectConfig("limiter", {"threshold_db": -1.0,
+                                                 "ceiling_db": -1.0}),),
+        sample_rate=BUS_SR, channels=2, normalize="lufs",
+        normalize_target_db=-16.0)
 
 
 def roofline_ms(n_bytes: float, n_ops: float,
@@ -1603,7 +1701,295 @@ def main() -> None:
         raise SystemExit(f"chip_smoke: the scan step launched {off}")
     del scan_step, v, b, y
 
-    # 21. kernels line, then the contract line last
+    # 21. one podcast episode through xmtpu_torch.api.process_file: the
+    # gated run with fresh counters, a timed run with the stage marks,
+    # api.mix alone and its loudness, noise suppression on the whole
+    # voice against the float64 oracle, the card against the CPU on the
+    # first 20 s, and each kernel of the path against its twin at the
+    # path's operands
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    from xmtpu_torch.io import read_wav, write_wav
+    from xmtpu_torch.ops import loudness
+    from xmtpu_torch.ops import ns as tns
+
+    with tempfile.TemporaryDirectory() as tmp_:
+        tmp = Path(tmp_)
+        paths = episode_inputs(tmp)
+        cfg = episode_config(paths)
+        n_bus = resample_output_len(int(EPISODE_S * VOICE_SR),
+                                    *tresample._ratio(VOICE_SR, BUS_SR))
+        out = tmp / "episode.wav"
+        reset_counts()
+        t0 = time.perf_counter()
+        xmtpu_torch.process_file(None, cfg, out)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        got_ep = counts()
+        k1_key = "fftconv_long" if got_ep["fftconv_long"] else "fftconv"
+        print(f"episode: launches {got_ep}; launched "
+              f"{sorted(k for k, v_ in got_ep.items() if v_)}")
+        if not all(got_ep[k] for k in ("resample", "iir", k1_key,
+                                       "envelope_seg")):
+            raise SystemExit("chip_smoke: the episode did not launch K7 "
+                             "(resample), K5 (iir), K1 and the envelope "
+                             f"kernel: {got_ep}")
+        marks = []
+
+        def mark(p_):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        xmtpu_torch.process_file(None, cfg, out, progress=mark)
+        wall = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        stages = dict(zip(("decode", "mix (voice chain, normalize)",
+                           "master chain, int16", "encode"),
+                          np.diff(marks) * 1e3))
+        y_ep, sr_ep = read_wav(out)
+        ceiling = int(convert.f32_to_pcm16_np(
+            np.float32([10.0 ** (-1.0 / 20.0)]))[0])
+        peak_ep = int(np.abs(y_ep.astype(np.int32)).max())
+        finite = bool(np.isfinite(y_ep.astype(np.float32)).all())
+        print(f"episode: {EPISODE_S:g} s voice + {EPISODE_BGM_S:g} s looped "
+              f"BGM -> {sr_ep} Hz {y_ep.shape}; peak {peak_ep} (ceiling "
+              f"{ceiling}); process_file {wall:.2f} s = "
+              f"{EPISODE_S / wall:.1f} audio-sec/sec wall clock with WAV "
+              f"I/O (first run {first_s:.2f} s); stages (ms, CUDA-synced "
+              "marks): " + ", ".join(f"{k} {t_:.1f}" for k, t_ in
+                                     stages.items())
+              + f"; peak memory {peak_gib:.2f} GiB [{card}]")
+        if not (sr_ep == BUS_SR and y_ep.shape == (n_bus, 2) and finite
+                and peak_ep <= ceiling):
+            raise SystemExit("chip_smoke: the episode's file is wrong")
+        del y_ep
+        # the card's busy share of one run: its kernels' and copies' time
+        # in a torch.profiler trace over the wall clock (the stages'
+        # annotations span their idle gaps too: left out)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            xmtpu_torch.process_file(None, cfg, out)
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        on_card = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                          for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and not e.is_user_annotation), reverse=True)
+        busy_ms = sum(t_ for t_, _, _ in on_card)
+        print(f"episode: traced run {traced_s:.2f} s, " + (
+            f"kernels on the card {busy_ms:.1f} ms = "
+            f"{100 * busy_ms / (traced_s * 1e3):.1f}% busy; most time: "
+            + "; ".join(f"{k[:48]} x{c} {t_:.1f} ms"
+                        for t_, c, k in on_card[:6]) if on_card else
+            "no device events in the trace: busy share not measured")
+            + f" [{card}]")
+
+        # api.mix alone (float32 tracks: the bus before the master chain
+        # and the int16 conversion), its loudness on the card
+        vf = convert.pcm16_to_f32_np(read_wav(paths["voice"])[0][:, 0])
+        bf = convert.pcm16_to_f32_np(read_wav(paths["bgm"])[0])
+        tracks = [dict(pcm=vf, sr=VOICE_SR, fade_in_ms=250.0),
+                  dict(pcm=bf, sr=BUS_SR, kind="bgm", gain=0.5, loop=True,
+                       side_duck=True, fade_in_ms=2000.0)]
+        t0 = time.perf_counter()
+        mixed = xmtpu_torch.mix(tracks, BUS_SR, normalize="lufs",
+                                target_db=-16.0,
+                                voice_effects=list(cfg.effects))
+        mix_s = time.perf_counter() - t0
+        bus = torch.from_numpy(mixed.T.copy()).to(dev)  # (2, n)
+        lufs_card = float(loudness.measure_lufs(bus, BUS_SR))
+        lufs_ms = median_ms(lambda: loudness.measure_lufs(bus, BUS_SR),
+                            warmup=1, runs=3)
+        lufs_ref = loudness.measure_lufs_np(mixed.T, BUS_SR)
+        (ns_fx, lti) = tfx.get_compiled_chain(BUS_SR, list(cfg.effects))
+        # K7 on the whole voice, as the mixer gives it: the kernel against
+        # its twin, the dense banded matmul as the library yardstick
+        xv7 = torch.from_numpy(vf).to(dev)[None]
+        vbus = kresample.resample(xv7, VOICE_SR, BUS_SR)
+        k7e = compare("resample_episode", "cuda",
+                      "xmtpu_torch/csrc/resample.cu",
+                      "xmtpu/kernels/resample.py:37", vbus,
+                      tresample.polyphase_resample(xv7, VOICE_SR, BUS_SR))
+        k7e["ms"] = median_ms(lambda: kresample.resample(xv7, VOICE_SR,
+                                                         BUS_SR))
+        k7e["plain_ms"] = median_ms(lambda: tresample.polyphase_resample(
+            xv7, VOICE_SR, BUS_SR), warmup=1, runs=3)
+        plan_e = tresample.make_plan(*tresample._ratio(VOICE_SR, BUS_SR),
+                                     24, 9.0)
+        nj_e = -(-n_bus // plan_e.L)
+        need_e = (nj_e + 2) * plan_e.M + plan_e.width
+        xs_e = torch.nn.functional.pad(xv7, (plan_e.pad_left, need_e))[
+            :, plan_e.base:plan_e.base + need_e].contiguous()
+        frames_e = xs_e.as_strided((1, nj_e, plan_e.width),
+                                   (xs_e.stride(0), plan_e.M, 1))
+        hbank_e = torch.as_tensor(plan_e.hbank, dtype=torch.float32,
+                                  device=dev)
+        k7e["library_ms"] = median_ms(lambda: torch.matmul(
+            frames_e, hbank_e), warmup=1, runs=3)
+        k7e["launches"] = got_ep["resample"]
+        bound(k7e, 4 * (xv7.numel() + n_bus + plan_e.L * plan_e.K2),
+              2 * plan_e.K2 * n_bus)
+        print(f"K7 on the episode's voice {tuple(xv7.shape)} -> (1, "
+              f"{n_bus}) (L = {plan_e.L}, M = {plan_e.M}, band "
+              f"{plan_e.width}): {k7e['rms_db']:.1f} dB vs plain (gate "
+              f"{GATE_KERNEL_DB}), max abs {k7e['max_abs_err']:.3g}; kernel "
+              f"{k7e['ms']:.3f} ms, plain {k7e['plain_ms']:.3f} ms, dense "
+              f"banded matmul {k7e['library_ms']:.3f} ms, bound "
+              f"{k7e['bound_ms']:.4f} ms ({k7e['bound_by']}) [{card}]")
+        poly_geometry_line("K7 on the episode", plan_e, n_bus,
+                           "xm_resample_blocks_per_sm", 1)
+        del xv7, xs_e, frames_e
+        vbus = tmix.apply_gain_fade(vbus, 1.0, int(0.25 * BUS_SR), 0)
+        vbus = vbus.expand(2, -1).contiguous()
+        chain_ms = median_ms(lambda: tfx.chain_apply(
+            (ns_fx, lti), vbus, (None, None)), warmup=1, runs=3)
+        norm_ms = median_ms(lambda: loudness.lufs_normalize(
+            bus, BUS_SR, -16.0), warmup=1, runs=3)
+        print(f"episode: api.mix {mix_s:.2f} s = {EPISODE_S / mix_s:.1f} "
+              f"audio-sec/sec wall clock; alone on the card: voice chain "
+              f"{chain_ms:.1f} ms ({type(ns_fx).__name__} + "
+              f"{type(lti).__name__}, {len(lti.ir)} taps), lufs_normalize "
+              f"{norm_ms:.1f} ms, measure_lufs {lufs_ms:.1f} ms; LUFS of the "
+              f"bus {lufs_card:.4f} on the card, {lufs_ref:.4f} float64 "
+              f"(gates {GATE_LU_ORACLE} LU, {GATE_LU_TARGET} LU of -16) "
+              f"[{card}]")
+        if not (abs(lufs_card - lufs_ref) <= GATE_LU_ORACLE
+                and abs(lufs_card + 16.0) <= GATE_LU_TARGET):
+            raise SystemExit("chip_smoke: the episode's loudness gate failed")
+
+        # noise suppression on the whole voice at 48 kHz
+        v48 = vbus[:1]
+        ns_ms = median_ms(lambda: tns.suppress(v48), warmup=1, runs=3)
+        y_ns = tns.suppress(v48)
+        t0 = time.perf_counter()
+        ref_ns = tns.suppress_np(v48.double().cpu().numpy())
+        ns_np_s = time.perf_counter() - t0
+        db_ns = rms_db(y_ns.double().cpu().numpy() - ref_ns, ref_ns)
+        print(f"episode: suppress {tuple(v48.shape)} on the card "
+              f"{ns_ms:.1f} ms, {db_ns:.1f} dB vs suppress_np (gate "
+              f"{GATE_CHAIN_DB}; the oracle took {ns_np_s:.1f} s on the "
+              f"host) [{card}]")
+        if not db_ns <= GATE_CHAIN_DB:
+            raise SystemExit("chip_smoke: the episode's NS gate failed")
+        del ref_ns
+
+        # the card against the CPU on the first 20 s of the voice
+        v20 = tmp / "voice20.wav"
+        write_wav(v20, convert.f32_to_pcm16_np(
+            vf[:int(EPISODE_CPU_S * VOICE_SR)]), VOICE_SR)
+        cfg20 = dataclasses.replace(cfg, tracks=(dataclasses.replace(
+            cfg.tracks[0], url=str(v20)),) + cfg.tracks[1:])
+        outs20 = {}
+        for d_ in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            xmtpu_torch.process_file(None, cfg20, tmp / f"{d_}.wav",
+                                     device=d_)
+            outs20[d_] = (read_wav(tmp / f"{d_}.wav")[0].astype(np.float64)
+                          / 32768.0, time.perf_counter() - t0)
+        db_cc = rms_db(outs20["cuda"][0] - outs20["cpu"][0],
+                       outs20["cpu"][0])
+        print(f"episode: first {EPISODE_CPU_S:g} s on the card "
+              f"({outs20['cuda'][1]:.2f} s) against the CPU "
+              f"({outs20['cpu'][1]:.2f} s): {db_cc:.1f} dB (gate "
+              f"{GATE_CHAIN_DB}) [{card}]")
+        if not (outs20["cuda"][0].shape == outs20["cpu"][0].shape
+                and db_cc <= GATE_CHAIN_DB):
+            raise SystemExit("chip_smoke: the episode's card-vs-CPU gate "
+                             "failed")
+
+        # the path's kernels against their twins at its operands: K5 on
+        # the K-weighting of the bus (the call at the card's S against the
+        # same path on the twin), K1 on the noise-suppressed voice with
+        # the folded EQ+reverb IR, K3 on the master limiter's first block
+        sos_k = loudness.k_weighting_sos(BUS_SR)
+        S_k = iir.sosfilt_segments(2, n_bus, dev, sos_k.shape[0])
+        yk = iir.sosfilt(sos_k, bus)[0]
+        t0 = time.perf_counter()
+        yp = iir.sosfilt(sos_k, bus, run=iir.sosfilt_plain)[0]
+        torch.cuda.synchronize()
+        plain_k = (time.perf_counter() - t0) * 1e3
+        k5e = compare("iir_k_weighting", "cuda", "xmtpu_torch/csrc/iir.cu",
+                      "xmtpu/kernels/iir.py:37", yk, yp)
+        k5e["ms"] = median_ms(lambda: iir.sosfilt(sos_k, bus))
+        k5e["plain_ms"] = plain_k
+        k5e["launches"] = got_ep["iir"]
+        bound(k5e, 4 * (2 * 2 * n_bus + 6 * 2 + 4 * 2 * 2),
+              9 * 2 * 2 * n_bus)
+        print(f"K5 on the episode's K-weighting {tuple(bus.shape)} at S = "
+              f"{S_k}: {k5e['rms_db']:.1f} dB vs the twin path, max abs "
+              f"{k5e['max_abs_err']:.3g}; the sosfilt() call "
+              f"{k5e['ms']:.3f} ms, the twin path {plain_k:.0f} ms, bound "
+              f"{k5e['bound_ms']:.3f} ms ({k5e['bound_by']}) [{card}]")
+        del yk, yp
+        xv = torch.cat([y_ns, y_ns]).contiguous()
+        k1e = check_k1("fftconv_long_episode", xv,
+                       torch.from_numpy(lti.ir).to(dev),
+                       torch.ones(2, device=dev),
+                       torch.ones(n_bus, device=dev))
+        k1e["launches"] = got_ep[k1_key]
+        del xv, y_ns
+        lim = tfx.get_compiled_chain(BUS_SR, list(cfg.master_effects))[0]
+        blk = torch.from_numpy(convert.pcm16_to_f32_np(convert.f32_to_pcm16_np(
+            mixed[:cfg.block_size].T.copy()))).to(dev)
+        d_ep = blk.abs().amax(0)
+        k_rel_e = limiter._release_coeff(lim.kw["release_ms"], BUS_SR)
+        c_att_e = limiter._attack_coeff(lim.kw["attack_ms"], BUS_SR)
+        S_e = envelope.envelope_segments(1, d_ep.shape[-1], dev)
+        passes_e = []
+
+        def recording_e(*args):
+            passes_e.append(args)
+            return envelope.envelope_pass(*args)
+
+        e2k = envelope.envelope(d_ep, k_rel_e, c_att_e, run=recording_e)[0]
+        e2p = envelope.envelope(d_ep, k_rel_e, c_att_e,
+                                run=envelope.envelope_plain)[0]
+        k3e = compare("envelope_seg_episode", "cuda",
+                      "xmtpu_torch/csrc/envelope.cu",
+                      "xmtpu/kernels/envelope.py:108", e2k, e2p)
+        # the block's launches on the card (graph replays, as phase 7),
+        # each against its twin on its own operands; the envelope() call
+        # from the host (its glue and the tensor-map encodes) printed
+        # beside them
+        pass_err_e = [max(float((a_ - b_).abs().max()) for a_, b_ in zip(
+            envelope.envelope_pass(*a), envelope.envelope_plain(*a)))
+            for a in passes_e]
+        k3e["max_abs_err"] = max(k3e["max_abs_err"], *pass_err_e)
+        if k3e["max_abs_err"] != 0.0:
+            raise SystemExit("chip_smoke: the episode's envelope launches "
+                             f"differ from their twins: {pass_err_e}")
+        pass_card_e = [replay_ms(lambda a=a: envelope.envelope_pass(*a))
+                       for a in passes_e]
+        k3e["ms"] = sum(pass_card_e)
+        k3e["plain_ms"] = sum(median_ms(
+            lambda a=a: envelope.envelope_plain(*a), warmup=0, runs=3)
+            for a in passes_e)
+        call_e = median_ms(lambda: envelope.envelope(d_ep, k_rel_e,
+                                                     c_att_e))
+        k3e["launches"] = got_ep["envelope_seg"]
+        rows_ee, seg_ee = passes_e[0][0].shape
+        bound(k3e, 4 * (len(passes_e) * 2 * rows_ee * seg_ee + seg_ee
+                        + rows_ee), len(passes_e) * 5 * rows_ee * seg_ee)
+        print(f"K3/K4 on the episode's master limiter block "
+              f"{tuple(d_ep.shape)} at S = {S_e} ({rows_ee} x {seg_ee}, "
+              f"{len(passes_e)} launches): {k3e['rms_db']:.1f} dB vs the "
+              f"twin path, max abs {k3e['max_abs_err']:.3g} (each launch "
+              "against its twin: must be 0); launches "
+              + " + ".join(f"{t:.4f}" for t in pass_card_e)
+              + f" = {k3e['ms']:.4f} ms on the card as graph replays; the "
+              f"envelope() call {call_e:.3f} ms from the host; the twin's "
+              f"launches {k3e['plain_ms']:.1f} ms; bound "
+              f"{k3e['bound_ms']:.5f} ms ({k3e['bound_by']}) [{card}]")
+        del bus, vbus, v48, blk, d_ep, e2k, e2p, mixed, passes_e
+
+    # 22. kernels line, then the contract line last
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

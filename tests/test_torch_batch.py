@@ -403,7 +403,9 @@ def test_port_imports_no_jax():
     without loading jax, jaxlib or the JAX package; so do the public
     resample (the kernel's twin and the strided conv), the mix ops and
     ducking, the matmul DFTs and the scan engine (the effects chain on
-    its scan backend and under auto on the CPU, the scan step)."""
+    its scan backend and under auto on the CPU, the scan step); so do
+    loudness, noise suppression, the WAV codec, the config schema, the
+    mixer and the file pipeline (process_file with an ir_wav reverb)."""
     code = (
         "import sys, numpy as np, torch\n"
         "from xmtpu_torch import batch, bench\n"
@@ -448,6 +450,28 @@ def test_port_imports_no_jax():
         "y = fftmm.fir_convolve_os_mxu(torch.from_numpy(x[0].T.copy()),\n"
         "    np.ones(64), 1024)\n"
         "assert y.shape == (2, 9600), y.shape\n"
+        "import tempfile, os\n"
+        "import xmtpu_torch.io, xmtpu_torch.config, xmtpu_torch.ops.ns\n"
+        "import xmtpu_torch.ops.loudness, xmtpu_torch.graph.mixer\n"
+        "import xmtpu_torch.graph.pipeline\n"
+        "from xmtpu_torch.ops import loudness, ns\n"
+        "l = loudness.measure_lufs(x[0].T, 48000, device='cpu')\n"
+        "assert l.dim() == 0 and bool(torch.isfinite(l)), l\n"
+        "y = ns.suppress(x[0].T, device='cpu')\n"
+        "assert y.shape == (2, 9600), y.shape\n"
+        "d = tempfile.mkdtemp()\n"
+        "xmtpu_torch.io.write_wav(os.path.join(d, 'v.wav'), v[0], 44100)\n"
+        "xmtpu_torch.io.write_wav(os.path.join(d, 'ir.wav'), v[0, :64], 44100)\n"
+        "cfg = xmtpu_torch.config.config_from_dict({'sampleRate': 48000,\n"
+        "    'normalize': 'lufs', 'normalizeTargetDb': -16.0,\n"
+        "    'tracks': [{'url': os.path.join(d, 'v.wav')}],\n"
+        "    'effects': [{'name': 'noise_suppression'}, {'name': 'reverb',\n"
+        "        'ir_wav': os.path.join(d, 'ir.wav')}],\n"
+        "    'masterEffects': [{'name': 'limiter'}], 'blockSize': 8192})\n"
+        "xmtpu_torch.process_file(None, cfg, os.path.join(d, 'o.wav'),\n"
+        "                         device='cpu')\n"
+        "o, sr = xmtpu_torch.io.read_wav(os.path.join(d, 'o.wav'))\n"
+        "assert sr == 48000 and o.shape == (24000, 1), o.shape\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'xmtpu'))\n"
         "assert not bad, bad\n"

@@ -28,6 +28,8 @@ Tolerances:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -40,7 +42,7 @@ from xmtpu_torch.graph import fx as tfx
 from xmtpu_torch.kernels import envelope, fftconv
 from xmtpu_torch.ops import convert
 from xmtpu_torch.ops.reverb import synthetic_ir
-from xmtpu_torch.utils.errors import ConfigError, DeviceError, NotPortedError
+from xmtpu_torch.utils.errors import ConfigError, DeviceError
 
 from .conftest import rms_db
 
@@ -273,10 +275,10 @@ def test_public_entry_and_device():
 
 
 def test_typed_errors():
-    """The JAX package's ConfigError cases, NotPortedError naming the
-    ROADMAP item for what the port does not run (ir_wav: item 6, noise
-    suppression: item 5d), and the scan engine, which runs: the same
-    engines as the JAX chain, its output to -120 dB."""
+    """The JAX package's ConfigError cases (an unreadable ir_wav among
+    them), the scan engine, which runs: the same engines as the JAX
+    chain, its output to -120 dB, and noise suppression, which runs
+    whole-clip and refuses blocked mode."""
     bad = [
         [{"name": "flanger"}],
         [3.5],
@@ -304,8 +306,8 @@ def test_typed_errors():
             tfx.build_chain(SR, chain)
         with pytest.raises(Exception):  # the JAX chain refuses each too
             xfx.build_chain(SR, chain)
-    with pytest.raises(NotPortedError, match="ROADMAP.md Queue 1 item 6"):
-        tfx.build_chain(SR, [{"name": "reverb", "ir_wav": "ir.wav"}])
+    with pytest.raises(ConfigError, match="cannot decode WAV"):
+        tfx.build_chain(SR, [{"name": "reverb", "ir_wav": "missing.wav"}])
     (lim,) = tfx.build_chain(SR, [{"name": "limiter", "backend": "scan"}])
     (lim_j,) = xfx.build_chain(SR, [{"name": "limiter", "backend": "scan"}])
     assert lim.engine == lim_j.engine == "scan"
@@ -317,8 +319,8 @@ def test_typed_errors():
     y_j = xfx.apply_chain(xs, SR, PCHAIN, backend="oracle")
     assert _db(y_t, np.asarray(y_j, np.float64)) <= -120.0
     x = np.zeros(4800, np.float32)
-    with pytest.raises(NotPortedError, match="ROADMAP.md Queue 1 item 5d"):
-        xmtpu_torch.effects(x, SR, [{"name": "ns"}], device="cpu")
+    y = xmtpu_torch.effects(x, SR, [{"name": "ns"}], device="cpu")
+    assert y.shape == x.shape and not y.any()
     with pytest.raises(ConfigError, match="whole clip"):
         xmtpu_torch.effects(x, SR, [{"name": "noise_suppression"}],
                             device="cpu", block_size=1024)
@@ -332,3 +334,54 @@ def test_config3_chain_launches_nothing_on_the_cpu(clips):
                         backend="pallas")
     assert (fftconv.launches, fftconv.long_launches, envelope.launches,
             envelope.envelope_launches, envelope.gain_launches) == before
+
+
+@pytest.mark.parametrize("ir_sr", [SR, 44100])
+def test_reverb_ir_wav_equal_ir(tmp_path, monkeypatch, ir_sr):
+    """ReverbFx(ir_wav=) reads channel 0 through the pinned conversion
+    and resamples to the bus rate with the float64 oracle: the same IR
+    as the JAX package's (its stdlib WAV codec), bit for bit, and the
+    same output."""
+    from xmtpu.io import wav as xwav
+    from xmtpu_torch.io import write_wav
+
+    monkeypatch.setattr(xwav, "_native", lambda: None)
+    ir = synthetic_ir(0.05, ir_sr, seed=5)
+    pcm = convert.f32_to_pcm16_np(
+        np.stack([0.7 * ir / np.abs(ir).max(), -ir], -1))
+    p = tmp_path / "ir.wav"
+    write_wav(p, pcm, ir_sr)
+    chain = [{"name": "reverb", "ir_wav": str(p), "wet": 0.4, "dry": 0.6}]
+    (t,) = tfx.build_chain(SR, chain, device_type="cpu")
+    (j,) = xfx.build_chain(SR, chain)
+    np.testing.assert_array_equal(t.ir, j.ir)
+    assert len(t.ir) == (len(ir) if ir_sr == SR else
+                         int(np.ceil(len(ir) * SR / ir_sr)))
+    x = clips_small()
+    y_t = xmtpu_torch.effects(x, SR, chain, device="cpu")
+    y_j = np.asarray(xfx.apply_chain(x, SR, chain))
+    assert _db(y_t, y_j) <= -100.0
+
+
+def test_ir_wav_rewritten_in_place_rebuilds_chain(tmp_path):
+    """The chain cache keys an ir_wav by (path, size, mtime): rewriting
+    the file in place rebuilds the chain with the new IR."""
+    from xmtpu_torch.io import write_wav
+
+    p = tmp_path / "ir.wav"
+    write_wav(p, np.array([16384, 0, 0, 0], np.int16), SR)
+    chain = [{"name": "reverb", "ir_wav": str(p), "wet": 1.0, "dry": 0.0}]
+    key_a = tfx._chain_key(SR, chain)
+    (a,) = tfx.get_compiled_chain(SR, chain, device_type="cpu")
+    assert tfx.get_compiled_chain(SR, chain, device_type="cpu")[0] is a
+    st = p.stat()
+    write_wav(p, np.array([0, 8192, 0, 0], np.int16), SR)  # same size
+    # a later mtime even where the clock's resolution is coarse
+    os.utime(p, ns=(st.st_atime_ns, st.st_mtime_ns + 1_000_000))
+    assert tfx._chain_key(SR, chain) != key_a
+    (b,) = tfx.get_compiled_chain(SR, chain, device_type="cpu")
+    assert b is not a and np.array_equal(b.ir, [0.0, 0.25, 0.0, 0.0])
+    x = np.zeros(64, np.float32)
+    x[0] = 1.0
+    y = xmtpu_torch.effects(x, SR, chain, device="cpu")
+    np.testing.assert_allclose(y[:3], [0.0, 0.25, 0.0], atol=1e-7)

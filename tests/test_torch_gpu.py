@@ -16,7 +16,9 @@ a 16-byte boundary, its occupancy queries, and envelope() and
 linked_limiter() at the card's segment rule; the resample kernel's
 non-finite masks at edge shapes of both of its twin's branches; the
 public resample, int16 and float32, on the kernel and on the strided
-conv; the effects chain on its float64 scan engine on the card).
+conv; the effects chain on its float64 scan engine on the card;
+measure_lufs (the K-weighting on the IIR kernel), suppress and the mixer
+with its voice chain on the card against the CPU).
 
 Marked ``gpu``; each test skips without a CUDA device. The module
 imports no JAX, so it runs on a machine without it:
@@ -56,7 +58,11 @@ unfused step: -85 dB, because its IIR carries the front's small
 card-vs-CPU differences (the resample matmuls sum in another order)
 through a long memory into 1-LSB flips of the int16 output (measured
 -89.5 dB on an H100); the unfolded, "pallas", "rsmix" and ragged steps
-(each branch of the ragged one) likewise: -85 dB.
+(each branch of the ragged one) likewise: -85 dB. measure_lufs on the
+card against the CPU and the float64 oracle: 0.02 LU; suppress on the
+card against the CPU: -100 dB (two float32 FFT libraries), against its
+float64 oracle -80 dB; the mixer with its voice chain on the card
+against the CPU (float64 scans): -80 dB.
 """
 
 from __future__ import annotations
@@ -1185,3 +1191,78 @@ def test_linked_limiter_at_the_card_rule_vs_twin_path(cuda):
     assert db <= -100.0
     for a, b in zip(st, st_p):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_measure_lufs_on_card_vs_cpu(cuda):
+    """measure_lufs on the card (the K-weighting on the IIR kernel) and
+    on the CPU (the kernel's plain twin), 5 s of stereo at 48 kHz: within
+    0.02 LU of each other and of the float64 oracle; lufs_normalize on
+    the card lands on its target."""
+    from xmtpu_torch.ops import loudness
+
+    rng = np.random.default_rng(91)
+    x = (0.1 * rng.standard_normal((2, 240000))).astype(np.float32)
+    x[:, 96000:144000] *= 4.0
+    before = _counts()
+    got = loudness.measure_lufs(x, 48000)  # cuda by default
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and "iir" in _launched(before)
+    cpu = float(loudness.measure_lufs(x, 48000, device="cpu"))
+    ref = loudness.measure_lufs_np(x, 48000)
+    print(f"LUFS card {float(got):.5f}, CPU {cpu:.5f}, float64 {ref:.5f}")
+    assert abs(float(got) - cpu) <= 0.02 and abs(float(got) - ref) <= 0.02
+    y, g = loudness.lufs_normalize(torch.from_numpy(x).to(cuda), 48000, -16.0)
+    assert g.dtype == torch.float32 and y.device.type == "cuda"
+    assert abs(float(loudness.measure_lufs(y, 48000)) + 16.0) <= 0.02
+
+
+@pytest.mark.parametrize("mode", ["frozen", "adaptive"])
+def test_suppress_on_card_vs_cpu_and_oracle(cuda, mode):
+    """suppress on the card (cuFFT) against the CPU (its FFT) at -100 dB
+    and against the float64 oracle at -80 dB, 2 s of stereo at 48 kHz."""
+    from xmtpu_torch.ops import ns
+
+    rng = np.random.default_rng(92)
+    t = np.arange(96000) / 48000
+    x = (0.15 * np.sin(2 * np.pi * 440 * t)
+         + 0.03 * rng.standard_normal((2, 96000))).astype(np.float32)
+    x[:, :8000] = 0.03 * rng.standard_normal((2, 8000))
+    y = ns.suppress(x, noise_update=mode)  # cuda by default
+    assert y.device.type == "cuda"
+    y_cpu = ns.suppress(x, noise_update=mode, device="cpu")
+    ref = torch.from_numpy(ns.suppress_np(x, noise_update=mode))
+    db_cpu = _db(y.cpu() - y_cpu, y_cpu)
+    db_ref = _db(y.cpu().double() - ref, ref)
+    print(f"suppress {mode}: card vs CPU {db_cpu:.1f} dB, vs float64 "
+          f"{db_ref:.1f} dB")
+    assert db_cpu <= -100.0 and db_ref <= -80.0
+
+
+def test_mix_on_card_vs_cpu(cuda):
+    """api.mix with the voice chain (noise suppression, the 5-band EQ and
+    a 0.2 s reverb: one folded FIR on the fftconv kernel), a looped,
+    side-ducked BGM at another rate and LUFS normalization: the card
+    against the CPU (the chain on the float64 scans, the resample and the
+    K-weighting on their kernels' twins) at -80 dB; the resample (the
+    voice's 44.1k -> 48k), IIR (K-weighting) and fftconv kernels
+    launch."""
+    from xmtpu_torch.batch import DEFAULT_BANDS
+
+    rng = np.random.default_rng(93)
+    voice = (0.2 * rng.standard_normal(88200)).astype(np.float32)  # 2 s
+    bgm = (0.2 * rng.standard_normal((48000, 2))).astype(np.float32)  # 1 s
+    tracks = [dict(pcm=voice, sr=44100, fade_in_ms=250.0),
+              dict(pcm=bgm, sr=48000, kind="bgm", loop=True, side_duck=True,
+                   gain=0.5)]
+    kw = dict(normalize="lufs", target_db=-16.0, voice_effects=[
+        {"name": "noise_suppression"},
+        {"name": "equalizer", "bands": list(DEFAULT_BANDS)},
+        {"name": "reverb", "ir_seconds": 0.2, "wet": 0.2, "dry": 0.8}])
+    before = _counts()
+    y = xmtpu_torch.mix(tracks, 48000, **kw)
+    torch.cuda.synchronize()
+    assert {"resample", "iir", "fftconv_long"} <= _launched(before)
+    y_cpu = xmtpu_torch.mix(tracks, 48000, device="cpu", **kw)
+    db = _db(torch.from_numpy(y - y_cpu), torch.from_numpy(y_cpu))
+    print(f"mix card vs CPU: {db:.1f} dB")
+    assert y.shape == y_cpu.shape == (96000, 2) and db <= -80.0

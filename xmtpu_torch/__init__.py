@@ -8,11 +8,21 @@ or ``xmtpu``.
 
 Entry points: ``xmtpu_torch.batch.make_flagship_step(device=...)`` (the
 flagship batch chain), ``xmtpu_torch.resample(pcm, sr_in, sr_out, ...)``
-(rate conversion, BASELINE config 1), ``xmtpu_torch.effects(pcm, sr,
-chain, ...)`` (the public effect chain, BASELINE config 3).
+(rate conversion, BASELINE config 1), ``xmtpu_torch.mix(tracks, sr,
+...)`` (the multi-track mixer), ``xmtpu_torch.effects(pcm, sr, chain,
+...)`` (the public effect chain, BASELINE config 3) and
+``xmtpu_torch.process_file(inputs, config, out_path)`` (the one-shot
+generator: decode, mix, effects, loudness, encode). ``xmtpu_torch.io``
+reads and writes WAV; ``xmtpu_torch.config`` loads pipeline configs.
 """
 
-from xmtpu_torch.api import effects, resample
+from xmtpu_torch import config, io
+from xmtpu_torch.api import effects, mix, process_file, resample
+from xmtpu_torch.config.schema import EffectConfig, PipelineConfig, TrackConfig
+from xmtpu_torch.ops.loudness import lufs_normalize, measure_lufs
+from xmtpu_torch.ops.ns import suppress
 
-__all__ = ["effects", "resample"]
+__all__ = ["effects", "resample", "mix", "process_file", "measure_lufs",
+           "lufs_normalize", "suppress", "PipelineConfig", "TrackConfig",
+           "EffectConfig", "config", "io"]
 __version__ = "0.1.0"

@@ -1,13 +1,16 @@
 """Public API (counterpart of ``xmtpu.api``): :func:`resample`, the
-rate conversion of BASELINE config 1, and :func:`effects`, the EQ ->
-reverb -> limiter chain of config 3.
+rate conversion of BASELINE config 1; :func:`mix`, the multi-track
+mixer; :func:`effects`, the EQ -> reverb -> limiter chain of config 3;
+and :func:`process_file`, the one-shot generator (tracks + config ->
+mixed file).
 
 Accepts int16 or float32 PCM shaped ``(n,)``, ``(n, channels)`` (and,
 for :func:`effects`, a batched ``(B, n, channels)`` stack), as a numpy
 array or a tensor, and returns the same format. The device layout is
 time-last, as the JAX package's: ``(channels, n)`` or ``(B, channels,
-n)``. Both run on ``cuda`` unless ``device=`` names another device, and
-raise :class:`~xmtpu_torch.utils.errors.DeviceError` without a card.
+n)``. Every entry runs on ``cuda`` unless ``device=`` names another
+device, and raises :class:`~xmtpu_torch.utils.errors.DeviceError`
+without a card.
 """
 
 from __future__ import annotations
@@ -15,14 +18,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from xmtpu_torch.config.schema import (EffectConfig,  # noqa: F401
+                                       PipelineConfig, TrackConfig)
 from xmtpu_torch.ops import convert as _convert
+from xmtpu_torch.utils.device import resolve_device, to_device
 
 
 def _to_f32_device(pcm, device) -> tuple[torch.Tensor, bool, bool]:
     """-> (contiguous float32 time-last tensor on ``device``, was_int16,
-    was_1d)."""
-    arr = pcm if torch.is_tensor(pcm) else torch.from_numpy(np.asarray(pcm))
-    arr = arr.to(device)
+    was_1d). The upload is ``utils.device.to_device``'s blocking copy."""
+    arr = to_device(pcm, device)
     was_1d = arr.dim() == 1
     if was_1d:
         arr = arr[:, None]
@@ -63,7 +68,6 @@ def resample(pcm, sr_in: int, sr_out: int, taps_per_phase: int = 24,
     twin (``ops.resample.polyphase_resample``)."""
     from xmtpu_torch.kernels import resample as _kres
     from xmtpu_torch.ops import resample as _res
-    from xmtpu_torch.utils.device import resolve_device
 
     _res.check_rates(sr_in, sr_out)
     dev = resolve_device(device)
@@ -75,6 +79,24 @@ def resample(pcm, sr_in: int, sr_out: int, taps_per_phase: int = 24,
     y = _kres.resample(x, sr_in, sr_out, taps_per_phase=taps_per_phase,
                        beta=beta)
     return _from_f32_device(y, was_i16, was_1d)
+
+
+def mix(tracks, sample_rate: int, normalize: str | None = "peak", **kw):
+    """Multi-track mix onto a common bus.
+
+    ``tracks``: track specs, each a ``(pcm, sr)`` pair, a dict
+    (``{"pcm", "sr", "gain"/"gain_db", "start_ms", "fade_in_ms",
+    "fade_out_ms", "loop", "kind", "side_duck"}``) or a
+    :class:`xmtpu_torch.graph.mixer.MixTrack`. Tracks are resampled to
+    ``sample_rate``, placed, faded, looped, optionally ducked under the
+    voice bus, summed and normalized (``"peak"``, ``"rms"``,
+    ``"lufs"`` or None). The output dtype follows the first track
+    (int16 in, int16 out). Other keywords: ``target_db``,
+    ``duration_ms``, ``duck_params``, ``voice_effects``, ``device``
+    (``cuda`` unless given). See :func:`xmtpu_torch.graph.mixer.mix`."""
+    from xmtpu_torch.graph import mixer
+
+    return mixer.mix(tracks, sample_rate, normalize=normalize, **kw)
 
 
 def effects(pcm, sample_rate: int, chain, **kw):
@@ -93,3 +115,18 @@ def effects(pcm, sample_rate: int, chain, **kw):
     from xmtpu_torch.graph import fx
 
     return fx.apply_chain(pcm, sample_rate, chain, **kw)
+
+
+def process_file(inputs, config: PipelineConfig, out_path, progress=None,
+                 device=None):
+    """One-shot generator: input file(s) + config -> mixed output file
+    (decode, mix with the voice effects and normalization, the master
+    chain, encode by the extension). ``inputs``: None, or a dict url ->
+    pcm or (pcm, sr) overriding the config's urls. ``progress``: called
+    with 0, 10, 80, 95 and 100 as the stages end. Runs on ``cuda``
+    unless ``device`` names another device. See
+    :func:`xmtpu_torch.graph.pipeline.process_file`."""
+    from xmtpu_torch.graph import pipeline
+
+    return pipeline.process_file(inputs, config, out_path,
+                                 progress=progress, device=device)

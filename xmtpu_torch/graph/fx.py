@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 
 import numpy as np
 import torch
@@ -45,11 +46,11 @@ from xmtpu_torch.api import _from_f32_device, _to_f32_device
 from xmtpu_torch.kernels.iir import sosfilt
 from xmtpu_torch.ops import biquad as _biquad
 from xmtpu_torch.ops import limiter as _limiter
+from xmtpu_torch.ops import ns as _ns
 from xmtpu_torch.ops import reverb as _reverb
 from xmtpu_torch.utils.device import resolve_device
-from xmtpu_torch.utils.errors import ConfigError, NotPortedError
+from xmtpu_torch.utils.errors import ConfigError
 
-_ITEM5D = "ROADMAP.md Queue 1 item 5d"
 _SCAN_BACKENDS = ("scan", "oracle", "xla")
 _AUTO = (None, "auto")
 _MAX_FOLD_BLOCK = 131072  # the JAX fftconv kernel's largest block
@@ -163,8 +164,10 @@ def _reverb_block_for(m: int) -> int:
 
 
 class ReverbFx(_DeviceIR):
-    """FIR reverb. params: ir (array) | ir_seconds (synthetic, with
-    rt60, seed), wet, dry, backend. ``ir_wav`` is not ported."""
+    """FIR reverb. params: ir (array) | ir_wav (a WAV file: channel 0,
+    the pinned int16 conversion, resampled to the bus rate by the
+    float64 oracle) | ir_seconds (synthetic, with rt60, seed), wet, dry,
+    backend."""
 
     PARAMS = frozenset({"ir", "ir_wav", "ir_seconds", "rt60", "seed",
                         "wet", "dry", "backend"})
@@ -196,10 +199,14 @@ class ReverbFx(_DeviceIR):
             if not np.all(np.isfinite(ir)):
                 raise ConfigError("reverb: ir contains NaN/inf")
         elif "ir_wav" in p:
-            raise NotPortedError(
-                "reverb: ir_wav needs the WAV reader of xmtpu/io, which is "
-                "not ported (ROADMAP.md Queue 1 item 6); pass the IR as "
-                "'ir'")
+            from xmtpu_torch.io.wav import read_wav
+            from xmtpu_torch.ops.convert import pcm16_to_f32_np
+            from xmtpu_torch.ops.resample import resample_oracle_np
+
+            pcm, ir_sr = read_wav(p["ir_wav"])
+            ir = pcm16_to_f32_np(pcm[:, 0]).astype(np.float64)
+            if ir_sr != sample_rate:
+                ir = resample_oracle_np(ir, ir_sr, sample_rate)
         else:
             ir = _reverb.synthetic_ir(
                 ir_seconds, sample_rate,
@@ -412,9 +419,13 @@ def _pair_conv_limiter(effects):
 
 
 class NoiseSuppressFx:
-    """STFT Wiener noise suppression: its parameters are validated as
-    the JAX package's, but ``ops/ns.py`` is not ported, so running it
-    raises :class:`NotPortedError`."""
+    """STFT Wiener noise suppression (``ops.ns``). params: nfft,
+    noise_frames, smooth, floor, noise_update, noise_smooth,
+    presence_thresh, up_leak; no backend (one engine: ``torch.fft`` on
+    the chain's device). Offline chains run the whole clip
+    (``ns.suppress``); after :meth:`set_streaming` the effect runs the
+    causal frame-carry twin (``ns.stream_suppress``: nfft = the session
+    frame, output delayed by nfft/2, unity gain during the lead-in)."""
 
     PARAMS = frozenset({"nfft", "noise_frames", "smooth", "floor",
                         "noise_update", "noise_smooth",
@@ -432,17 +443,28 @@ class NoiseSuppressFx:
             presence_thresh=float(p.get("presence_thresh", 4.0)),
             up_leak=float(p.get("up_leak", 1.02)),
         )
+        self._stream_nfft = None
 
-    @staticmethod
-    def _not_ported():
-        return NotPortedError(
-            f"noise_suppression: ops/ns.py is not ported ({_ITEM5D})")
+    def set_streaming(self, frame_len: int) -> None:
+        if frame_len % 2:
+            raise ConfigError(
+                f"streaming noise_suppression needs an even frame, got "
+                f"{frame_len}")
+        self._stream_nfft = int(frame_len)
 
     def init_state(self, batch_shape, device="cpu"):
-        raise self._not_ported()
+        if self._stream_nfft is None:
+            return ()
+        return _ns.stream_init(_as_batch_shape(batch_shape),
+                               nfft=self._stream_nfft,
+                               noise_frames=self.kw["noise_frames"],
+                               device=device)
 
     def apply(self, x, state):
-        raise self._not_ported()
+        if self._stream_nfft is None:
+            return _ns.suppress(x, device=x.device, **self.kw), state
+        return _ns.stream_suppress(x, state,
+                                   **dict(self.kw, nfft=self._stream_nfft))
 
 
 class VolumeFx:
@@ -567,6 +589,15 @@ _cache: dict = {}
 def _chain_key(sample_rate: int, chain) -> str:
     def canon(e):
         name, params = _split_entry(e)
+        if "ir_wav" in params:
+            # an IR file keys by (path, size, mtime): a file rewritten in
+            # place must not reuse the chain built from its old IR
+            path = str(params["ir_wav"])
+            try:
+                st = os.stat(path)
+                params["ir_wav"] = (path, st.st_size, st.st_mtime_ns)
+            except OSError:
+                params["ir_wav"] = path
         return {"name": name, "params": params}
 
     return json.dumps(

@@ -3,6 +3,7 @@ names a device, never on the CPU by default."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from xmtpu_torch.utils.errors import DeviceError
@@ -19,3 +20,15 @@ def resolve_device(device) -> torch.device:
             "device is given; pass device=\"cpu\" to run the kernels' plain "
             "torch twins on the CPU")
     return torch.device("cuda")
+
+
+def to_device(x, device=None) -> torch.Tensor:
+    """``x`` (a tensor, or an array: copied first if read-only, as
+    decoders hand them out) as a tensor on :func:`resolve_device`'s
+    device. The transfer blocks, so the caller may reuse a host buffer
+    once it returns; on the CPU the tensor shares the array's memory."""
+    dev = resolve_device(device)
+    if torch.is_tensor(x):
+        return x.to(dev)
+    a = np.asarray(x)
+    return torch.from_numpy(a if a.flags.writeable else a.copy()).to(dev)

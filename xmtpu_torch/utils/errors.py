@@ -14,6 +14,13 @@ class ConfigError(XmtpuError, ValueError):
     data, and callers that catch ValueError keep working."""
 
 
+class DecodeError(XmtpuError, ValueError):
+    """An input file could not be decoded.
+
+    Also a ValueError, as in the JAX package: decode failures are bad
+    input data, and callers that catch ValueError keep working."""
+
+
 class NotPortedError(XmtpuError, NotImplementedError):
     """A configuration the JAX package supports whose path is not
     ported yet. The message names the ROADMAP.md item that ports it;

@@ -184,9 +184,42 @@ process exits non-zero:
    first block: its launches timed as graph replays, the envelope()
    call from the host beside them) against their twins at the path's
    operands;
-22. a JSON line of the kernels (times, bounds, launches; K1 once per
+22. config 5 (``xmtpu/benchmarks.py:174-252``, nothing cut): a 4 s
+   voice at 44.1 kHz (``0.3 * default_rng(0)`` noise) on a 16 kHz mono
+   bus, 20 ms frames (320 samples), master EQ (300 Hz, +2 dB) then the
+   limiter. Gates: 50 frames of the session on the card against the
+   session on the CPU (-80 dB float32, 1 LSB int16), ``read_many(25)``
+   twice against the reads (-120 dB), against ``api.mix`` and the
+   master chain offline on the card (-80 dB); a ``SessionPool`` of 32
+   8 s voices, every slot against its own session (-80 dB, int16), the
+   kernel engine against the scan engine (-80 dB float32; -60 dB int16
+   over 2 frames). A session's frame and both pools' groups dispatch
+   under ``torch.cuda.set_sync_debug_mode("error")``. Then
+   ``bench.config5_streaming`` (ms a frame at depth 1 and 3,
+   ``read_many(25)`` and the pool's aggregate audio-seconds per second
+   on both engines), each pool's device operations a frame and the
+   card's busy share of a traced ``read(25)``; with the counters at 0,
+   the kernel-engine pool's ``read(4)``: K5 and the envelope kernel must
+   launch, and the last launch of each, on its recorded operands, must
+   read max abs 0 against its twin (times as graph replays and from the
+   host, bounds);
+23. serving: a ``PoolServer`` (8 slots a pool) with two buckets, config
+   5 (five 8 s voices) and the episode's voice chain (noise
+   suppression, the 5-band EQ, the reverb from the IR file, the
+   side-ducked looped BGM, the -1 dB master limiter) at 48 kHz stereo
+   with ``normalize=None``, 8 sessions of 20 s voices; ``open``,
+   ``read`` and ``pump`` with one session closed, one sought and one
+   opened mid-run; every served stream (each part between seeks) must
+   read -80 dB (int16) against a ``StreamSession`` of its source. Then
+   the episode chain as ``SessionPool(effects_backend="pallas")``, the
+   counters at 0: K1 (the folded EQ+reverb over its carried input
+   history) and the envelope kernel must launch; K1's last launch is
+   held against its twin (-100 dB, ``conv1d`` beside it) and the
+   envelope's (max abs 0);
+24. a JSON line of the kernels (times, bounds, launches; K1 once per
    branch; the state-chain kernel beside K5; the episode's K5, K1 and
-   envelope entries with its launch counts), then the contract line
+   envelope entries with its launch counts; the streaming entries of
+   phases 22-23), then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Every step run with fresh counters sets all ten launch counters to 0
@@ -212,6 +245,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -319,6 +353,321 @@ def roofline_ms(n_bytes: float, n_ops: float,
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def streaming_phases(h) -> None:
+    """Phases 22 and 23: config 5 and serving on the card. ``h`` holds
+    main()'s helpers: card, dev, compare, bound, reset_counts, counts,
+    check_k1."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from xmtpu_torch import bench as tbench
+    from xmtpu_torch.bench import median_ms, replay_ms, rms_db
+    from xmtpu_torch.graph import fx as tfx
+    from xmtpu_torch.graph import mixer as tmix
+    from xmtpu_torch.graph.pool import SessionPool
+    from xmtpu_torch.graph.serve import PoolServer
+    from xmtpu_torch.graph.streaming import StreamSession
+    from xmtpu_torch.io import read_wav
+    from xmtpu_torch.kernels import envelope, iir
+    from xmtpu_torch.ops import reverb as treverb
+
+    card = h.card
+
+    def frames(sess, n):
+        return np.concatenate([sess.read() for _ in range(n)], axis=0)
+
+    def pcm_db(got, ref):
+        """RMS error of int16 or float32 PCM against ``ref`` in dB."""
+        g, r = (np.asarray(a, np.float64) / (32768.0 if a.dtype == np.int16
+                                             else 1.0) for a in (got, ref))
+        return rms_db(g - r, r)
+
+    def lsb(got, ref):
+        return int(np.abs(got.astype(np.int32) - ref.astype(np.int32)).max())
+
+    def gate(ok, what):
+        if not ok:
+            raise SystemExit(f"chip_smoke: {what}")
+
+    def recording(mod, name):
+        """Wrap ``mod.name`` (a kernel's one-pass function) so that each
+        call's operands are kept; -> (calls, restore)."""
+        real, calls = getattr(mod, name), []
+
+        def rec(*a, **kw):
+            calls.append((tuple(x.clone() if torch.is_tensor(x) else x
+                                for x in a), kw))
+            return real(*a, **kw)
+
+        setattr(mod, name, rec)
+        return calls, lambda: setattr(mod, name, real)
+
+    def traced(fn, frames_run):
+        """(device operations a frame, kernels a frame, busy share, wall
+        ms) of one traced call of ``fn``."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+        ops = sum(e.count for e in ev)
+        kern = sum(e.count for e in ev if not e.key.startswith("Mem"))
+        busy = sum(e.self_device_time_total for e in ev) / 1e3
+        return ops / frames_run, kern / frames_run, busy / wall, wall
+
+    def check_k5(name, calls, launches):
+        """K5 on a recorded launch's operands against its twin: y and zf
+        max abs 0; its time as a graph replay (on the card) and from the
+        host; the twin's time; the roofline bound."""
+        (x, sos, zi), _ = calls[-1]
+        yk, zfk = iir.sosfilt_pass(x, sos, zi)
+        yp, zfp = iir.sosfilt_plain(x, sos, zi)
+        k = h.compare(name, "cuda", "xmtpu_torch/csrc/iir.cu",
+                      "xmtpu/kernels/iir.py:37", yk, yp)
+        k["max_abs_err"] = max(float((yk - yp).abs().max()),
+                               float((zfk - zfp).abs().max()))
+        gate(k["max_abs_err"] == 0.0, f"K5 {name} differs from its twin "
+             f"by {k['max_abs_err']}")
+        k["ms"] = replay_ms(lambda: iir.sosfilt_pass(x, sos, zi))
+        host = median_ms(lambda: iir.sosfilt_pass(x, sos, zi))
+        k["plain_ms"] = median_ms(lambda: iir.sosfilt_plain(x, sos, zi),
+                                  warmup=1, runs=3)
+        k["launches"] = launches
+        R, n = x.shape
+        ns = sos.shape[0]
+        h.bound(k, 4 * (2 * R * n + 6 * ns + 4 * ns * R), 9 * ns * R * n)
+        print(f"K5 {name} ({R} x {n}, {ns} section{'s' * (ns > 1)}, S = 1): "
+              f"max abs {k['max_abs_err']:.3g} vs the twin (y and zf); "
+              f"{k['ms']:.4f} ms on the card (graph replay), {host:.4f} ms "
+              f"from the host, twin {k['plain_ms']:.2f} ms, bound "
+              f"{k['bound_ms']:.6f} ms ({k['bound_by']}); {launches} "
+              f"launches [{card}]")
+
+    def check_k3(name, calls, launches):
+        """The envelope kernel (envelope-only form) on a recorded launch's
+        operands against its twin: e2 and the finals max abs 0."""
+        a, kw = calls[-1]
+        ek, zfk = envelope.envelope_pass(*a, **kw)
+        ep, zfp = envelope.envelope_plain(*a, **kw)
+        k = h.compare(name, "cuda", "xmtpu_torch/csrc/envelope.cu",
+                      "xmtpu/kernels/envelope.py:108", ek, ep)
+        k["max_abs_err"] = max(float((ek - ep).abs().max()),
+                               float((zfk - zfp).abs().max()))
+        gate(k["max_abs_err"] == 0.0, f"K3 {name} differs from its twin "
+             f"by {k['max_abs_err']}")
+        k["ms"] = replay_ms(lambda: envelope.envelope_pass(*a, **kw))
+        host = median_ms(lambda: envelope.envelope_pass(*a, **kw))
+        k["plain_ms"] = median_ms(lambda: envelope.envelope_plain(*a, **kw),
+                                  warmup=1, runs=3)
+        k["launches"] = launches
+        R, n = a[0].shape
+        h.bound(k, 4 * (2 * R * n + 4 * R), 5 * R * n)
+        print(f"K3 {name} ({R} x {n}, S = 1): max abs {k['max_abs_err']:.3g} "
+              f"vs the twin (e2 and finals); {k['ms']:.4f} ms on the card "
+              f"(graph replay), {host:.4f} ms from the host, twin "
+              f"{k['plain_ms']:.2f} ms, bound {k['bound_ms']:.6f} ms "
+              f"({k['bound_by']}); {launches} launches [{card}]")
+
+    # 22. config 5 at full size (xmtpu/benchmarks.py:174-252): a 4 s
+    # voice at 44.1 kHz on a 16 kHz mono bus, 20 ms frames, master EQ
+    # then limiter; the 32-slot pool of 8 s voices on both engines
+    t22 = time.perf_counter()
+    cfg5 = tbench.config5_config()
+    src5, pool_srcs = tbench.config5_sources()
+    n_gate = 50
+    f32 = {d: frames(StreamSession(cfg5, sources=src5, device=d,
+                                   output_dtype=np.float32), n_gate)
+           for d in ("cuda", "cpu")}
+    i16 = {d: frames(StreamSession(cfg5, sources=src5, device=d), n_gate)
+           for d in ("cuda", "cpu")}
+    db_cc, lsb_cc = pcm_db(f32["cuda"], f32["cpu"]), lsb(i16["cuda"],
+                                                        i16["cpu"])
+    s_many = StreamSession(cfg5, sources=src5, output_dtype=np.float32)
+    many = np.concatenate([s_many.read_many(25), s_many.read_many(25)])
+    db_many = pcm_db(many, f32["cuda"])
+    mixed = tmix.mix([tmix.MixTrack(pcm=src5["v"][0], sr=src5["v"][1])],
+                     16000, normalize=None)
+    offline = tfx.apply_chain(mixed, 16000, list(cfg5.master_effects))
+    db_off = pcm_db(f32["cuda"][:, 0], offline[:n_gate * 320])
+    print(f"config 5: {n_gate} frames of 320; the card against the CPU "
+          f"{db_cc:.1f} dB (float32, gate {GATE_CHAIN_DB}), {lsb_cc} LSB "
+          f"(int16, gate 1); read_many(25) x 2 against the reads "
+          f"{db_many:.1f} dB (gate -120); against the offline mixer and "
+          f"chain on the card {db_off:.1f} dB (gate {GATE_CHAIN_DB}) "
+          f"[{card}]")
+    gate(db_cc <= GATE_CHAIN_DB and lsb_cc <= 1 and db_many <= -120.0
+         and db_off <= GATE_CHAIN_DB, "config 5's session gates failed")
+    K = len(pool_srcs)
+    got = SessionPool(cfg5, K, sources=pool_srcs).read(4)
+    worst = max(pcm_db(got[i], StreamSession(
+        cfg5, sources=s).read_many(4)) for i, s in enumerate(pool_srcs))
+    engines = {be: SessionPool(cfg5, K, sources=pool_srcs,
+                               effects_backend=be, output_dtype=np.float32)
+               for be in ("scan", "pallas")}
+    db_eng = pcm_db(engines["pallas"].read(8), engines["scan"].read(8))
+    db_eng16 = pcm_db(*(SessionPool(cfg5, K, sources=pool_srcs,
+                                    effects_backend=be).read(2)
+                        for be in ("pallas", "scan")))
+    print(f"config 5 pool of {K}: the worst slot against its own session "
+          f"{worst:.1f} dB (int16, gate {GATE_CHAIN_DB}); the kernels "
+          f"against the scan engine {db_eng:.1f} dB (float32, gate "
+          f"{GATE_CHAIN_DB}), {db_eng16:.1f} dB (int16, 2 frames, gate "
+          f"-60) [{card}]")
+    gate(worst <= GATE_CHAIN_DB and db_eng <= GATE_CHAIN_DB
+         and db_eng16 <= -60.0, "config 5's pool gates failed")
+    # no operation of a dispatch waits for the device (tables are copied
+    # at the first frame: each path runs once before the check)
+    sess_sync = StreamSession(cfg5, sources=src5, prefetch_depth=3)
+    sess_sync.read()
+    for p in engines.values():
+        p.read(2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sess_sync._dispatch(sess_sync.frame_idx + 5, sess_sync.fx_state)
+        for p in engines.values():
+            p._dispatch(2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print("config 5: a session's frame and both pools' groups dispatch "
+          "without a synchronisation (torch.cuda.set_sync_debug_mode "
+          "'error')")
+    t0 = time.perf_counter()
+    res5 = tbench.config5_streaming()
+    print(f"config 5 bench ({time.perf_counter() - t0:.1f} s): "
+          + json.dumps(res5))
+    for be, p in engines.items():
+        p.read(25)
+        ops, kern, busy, wall = traced(lambda p=p: p.read(25), 25)
+        print(f"config 5 pool of {K} ({be}): {ops:.0f} device operations "
+              f"a frame ({kern:.0f} kernels); a traced read(25) "
+              f"{wall:.1f} ms, the card busy {100 * busy:.1f}% of it "
+              f"[{card}]")
+    # the kernel engine's launches, counters at 0 just before
+    pk = SessionPool(cfg5, K, sources=pool_srcs, effects_backend="pallas")
+    k5_calls, undo5 = recording(iir, "sosfilt_pass")
+    k3_calls, undo3 = recording(envelope, "envelope_pass")
+    try:
+        h.reset_counts()
+        pk.read(4)
+        torch.cuda.synchronize()
+        got5 = h.counts()
+    finally:
+        undo5()
+        undo3()
+    print(f"config 5 pool ({K} slots, kernels): launches {got5}")
+    gate(got5["iir"] and got5["envelope_seg"],
+         f"the config-5 pool did not launch K5 and the envelope kernel: "
+         f"{got5}")
+    check_k5("iir_stream", k5_calls, got5["iir"])
+    check_k3("envelope_seg_stream", k3_calls, got5["envelope_seg"])
+    del engines, pk, k5_calls, k3_calls
+    print(f"phase 22: {time.perf_counter() - t22:.1f} s")
+
+    # 23. serving: a PoolServer with two buckets (config 5; the
+    # episode's voice chain at 48 kHz stereo, normalize off, 8 sessions
+    # of 20 s), churned by open, read, pump, a close and a seek; every
+    # served stream against a StreamSession of its source
+    t23 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp_:
+        paths = episode_inputs(Path(tmp_), seconds=20.0, bgm_seconds=10.0)
+        cfg_ep = dataclasses.replace(episode_config(paths), normalize=None)
+        voice_ep = read_wav(paths["voice"])[0][:, 0]
+        bgm_ep = read_wav(paths["bgm"])[0]
+        n_ep = 8
+        src_ep = [{str(paths["voice"]): (np.roll(voice_ep, i * 2 * VOICE_SR),
+                                         VOICE_SR),
+                   str(paths["bgm"]): (bgm_ep, BUS_SR)}
+                  for i in range(n_ep)]
+        srv = PoolServer(n_slots=n_ep, max_seconds=20.0)
+        # a segment: (config, sources, first frame, frames served); a
+        # seek or a close ends one
+        live, done = {}, []
+
+        def opened(cfg, src):
+            sid = srv.open(cfg, src)
+            live[sid] = (cfg, src, 0, [])
+            return sid
+
+        def take(out):
+            for sid, a in out.items():
+                live[sid][3].append(a)
+
+        def verify(seg):
+            cfg, src, first, chunks = seg
+            ref_s = StreamSession(cfg, sources=src)
+            ref_s.seek(first * ref_s.frame_out * 1000.0 / cfg.sample_rate)
+            g = np.concatenate(chunks)
+            n = g.shape[0] // ref_s.frame_out
+            return n, pcm_db(g, ref_s.read_many(n))
+
+        eps = [opened(cfg_ep, s) for s in src_ep]
+        c5 = [opened(cfg5, s) for s in pool_srcs[:4]]
+        take({eps[0]: srv.read(eps[0], 10)})
+        take({c5[0]: srv.read(c5[0], 6)})
+        take(srv.pump(4))
+        srv.close(eps[-1])
+        done.append(live.pop(eps[-1]))
+        srv.seek(eps[1], 200.0)
+        done.append(live[eps[1]])
+        live[eps[1]] = (cfg_ep, src_ep[1], 10, [])
+        opened(cfg5, pool_srcs[4])
+        take(srv.pump(4))
+        take({eps[2]: srv.read(eps[2], 5)})
+        take(srv.pump(4))
+        st = srv.stats()
+        results = [verify(seg) for seg in done + list(live.values())]
+        worst23 = max(db for _, db in results)
+        print(f"serving: {st['buckets']} buckets, {st['pools']} pools, "
+              f"{st['sessions']} sessions open (one closed, one sought, "
+              f"one opened mid-run); {len(results)} served streams "
+              f"({sum(n for n, _ in results)} frames) against their own "
+              f"sessions: worst {worst23:.1f} dB (int16, gate "
+              f"{GATE_CHAIN_DB}) [{card}]")
+        gate(st["buckets"] == 2 and worst23 <= GATE_CHAIN_DB
+             and all(n > 0 for n, _ in results),
+             f"the serving gates failed: {results}")
+        del srv
+
+        # the episode chain on the kernels: the folded EQ+reverb on K1
+        # (its input history carried), the master limiter's envelope
+        pe = SessionPool(cfg_ep, n_ep, sources=src_ep, effects_backend="pallas")
+        k1_calls, undo1 = recording(treverb, "fir_convolve")
+        k3e_calls, undo3 = recording(envelope, "envelope_pass")
+        try:
+            h.reset_counts()
+            t0 = time.perf_counter()
+            pe.read(4)
+            torch.cuda.synchronize()
+            pe_ms = (time.perf_counter() - t0) * 1e3
+            got1 = h.counts()
+        finally:
+            undo1()
+            undo3()
+        k1_key = "fftconv_long" if got1["fftconv_long"] else "fftconv"
+        print(f"episode chain pool ({n_ep} slots, kernels): launches {got1}; "
+              f"read(4) {pe_ms:.1f} ms [{card}]")
+        gate(got1[k1_key] and got1["envelope_seg"],
+             f"the episode pool did not launch K1 and the envelope "
+             f"kernel: {got1}")
+        (x1, ir1, row1, col1), _ = k1_calls[-1]
+        k1s = h.check_k1("fftconv_stream_episode", x1, ir1, row1, col1)
+        k1s["launches"] = got1[k1_key]
+        check_k3("envelope_seg_stream_episode", k3e_calls,
+                 got1["envelope_seg"])
+        del pe, k1_calls, k3e_calls
+    print(f"phase 23: {time.perf_counter() - t23:.1f} s")
 
 
 def main() -> None:
@@ -1989,7 +2338,12 @@ def main() -> None:
               f"{k3e['bound_ms']:.5f} ms ({k3e['bound_by']}) [{card}]")
         del bus, vbus, v48, blk, d_ep, e2k, e2p, mixed, passes_e
 
-    # 22. kernels line, then the contract line last
+    # 22-23. config 5 (streaming and the 32-slot pool) and serving
+    streaming_phases(types.SimpleNamespace(
+        card=card, dev=dev, compare=compare, bound=bound,
+        reset_counts=reset_counts, counts=counts, check_k1=check_k1))
+
+    # 24. kernels line, then the contract line last
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

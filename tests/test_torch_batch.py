@@ -405,7 +405,9 @@ def test_port_imports_no_jax():
     ducking, the matmul DFTs and the scan engine (the effects chain on
     its scan backend and under auto on the CPU, the scan step); so do
     loudness, noise suppression, the WAV codec, the config schema, the
-    mixer and the file pipeline (process_file with an ir_wav reverb)."""
+    mixer and the file pipeline (process_file with an ir_wav reverb);
+    so do a streaming Session, a SessionPool on both effect engines and
+    a PoolServer, each reading a frame."""
     code = (
         "import sys, numpy as np, torch\n"
         "from xmtpu_torch import batch, bench\n"
@@ -472,6 +474,20 @@ def test_port_imports_no_jax():
         "                         device='cpu')\n"
         "o, sr = xmtpu_torch.io.read_wav(os.path.join(d, 'o.wav'))\n"
         "assert sr == 48000 and o.shape == (24000, 1), o.shape\n"
+        "scfg = xmtpu_torch.config.config_from_dict({'sampleRate': 16000,\n"
+        "    'normalize': None, 'tracks': [{'url': 'v'}],\n"
+        "    'effects': [{'name': 'noise_suppression'}],\n"
+        "    'masterEffects': [{'name': 'limiter'}]})\n"
+        "src = {'v': (v[0].copy(), 44100)}\n"
+        "f = xmtpu_torch.Session(scfg, sources=src, device='cpu').read()\n"
+        "assert f.shape == (320, 1) and f.dtype == np.int16, f.shape\n"
+        "for be in ('scan', 'pallas'):\n"
+        "    pool = xmtpu_torch.SessionPool(scfg, 2, sources=[src, src],\n"
+        "                                   effects_backend=be, device='cpu')\n"
+        "    assert pool.read(1).shape == (2, 320, 1)\n"
+        "srv = xmtpu_torch.PoolServer(n_slots=2, device='cpu')\n"
+        "sid = srv.open(scfg, src)\n"
+        "assert srv.read(sid, 1).shape == (320, 1)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'xmtpu'))\n"
         "assert not bad, bad\n"

@@ -1266,3 +1266,125 @@ def test_mix_on_card_vs_cpu(cuda):
     db = _db(torch.from_numpy(y - y_cpu), torch.from_numpy(y_cpu))
     print(f"mix card vs CPU: {db:.1f} dB")
     assert y.shape == y_cpu.shape == (96000, 2) and db <= -80.0
+
+
+def _stream_config(effects=(), master=()):
+    from xmtpu_torch.config import EffectConfig, PipelineConfig, TrackConfig
+
+    return PipelineConfig(
+        tracks=(TrackConfig(url="v", fade_in_ms=50.0),
+                TrackConfig(url="b", kind="bgm", volume=0.4, loop=True,
+                            side_duck=True)),
+        effects=tuple(EffectConfig(n, p) for n, p in effects),
+        master_effects=tuple(EffectConfig(n, p) for n, p in master),
+        sample_rate=16000, normalize=None)
+
+
+_STREAM_CHAIN = [("noise_suppression", {}),
+                 ("equalizer", {"bands": [{"freq_hz": 300.0, "gain_db": 2.0,
+                                           "q": 1.0}]}),
+                 ("reverb", {"ir_seconds": 0.1, "wet": 0.2, "dry": 0.8})]
+
+
+def _stream_sources(k, seconds=1.0):
+    rng = np.random.default_rng(41)
+    b = (0.2 * np.sin(np.arange(8000) / 9.0)).astype(np.float32)
+    return [{"v": ((0.3 * rng.standard_normal(int(44100 * seconds)))
+                   .astype(np.float32), 44100), "b": (b, 16000)}
+            for _ in range(k)]
+
+
+@pytest.mark.parametrize("engine", ["scan", "pallas"])
+def test_session_and_pool_on_card_vs_cpu(cuda, engine):
+    """A streaming session (the scan engine; the kernels when the effects
+    name "pallas") and a 4-slot pool on the card against the same on the
+    CPU, 10 frames of float32: -100 dB (the scans), -90 dB (the kernels
+    against their twins); the kernel engine launches K1 (the folded EQ +
+    reverb) and the envelope kernel."""
+    from xmtpu_torch.graph.pool import SessionPool
+    from xmtpu_torch.graph.streaming import StreamSession
+
+    chain = [(n, dict(p, backend=engine) if n != "noise_suppression" else p)
+             for n, p in _STREAM_CHAIN]
+    cfg = _stream_config(chain, [("limiter", {"backend": engine})])
+    src = _stream_sources(4)
+    gate = -100.0 if engine == "scan" else -90.0
+    outs = {}
+    before = _counts()
+    for d in ("cuda", "cpu"):
+        s = StreamSession(cfg, sources=src[0], output_dtype=np.float32,
+                          device=d)
+        outs[d] = np.concatenate([s.read() for _ in range(10)])
+    db = _db(torch.from_numpy(outs["cuda"] - outs["cpu"]),
+             torch.from_numpy(outs["cpu"]))
+    pools = {d: SessionPool(cfg, 4, sources=src, output_dtype=np.float32,
+                            effects_backend=engine, device=d).read(10)
+             for d in ("cuda", "cpu")}
+    torch.cuda.synchronize()
+    db_p = _db(torch.from_numpy(pools["cuda"] - pools["cpu"]),
+               torch.from_numpy(pools["cpu"]))
+    print(f"{engine}: session card vs CPU {db:.1f} dB, pool {db_p:.1f} dB")
+    assert db <= gate and db_p <= gate
+    if engine == "pallas":
+        assert {"fftconv", "envelope_seg"} <= _launched(before)
+
+
+def test_stream_dispatch_does_not_sync(cuda):
+    """After a first frame (which copies the device tables), a session's
+    frames and a pool's groups dispatch on both engines without a
+    synchronisation."""
+    from xmtpu_torch.graph.pool import SessionPool
+    from xmtpu_torch.graph.streaming import StreamSession
+
+    cfg = _stream_config(_STREAM_CHAIN, [("limiter", {})])
+    src = _stream_sources(4)
+    sess = StreamSession(cfg, sources=src[0], prefetch_depth=3)
+    sess.read()
+    pools = [SessionPool(cfg, 4, sources=src, effects_backend=be)
+             for be in ("scan", "pallas")]
+    for p in pools:
+        p.read(2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sess._dispatch(sess.frame_idx + 3, sess.fx_state)
+        for p in pools:
+            p._dispatch(2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("R,n", [(32, 320), (16, 960)])
+def test_stream_shape_kernels_vs_twins(cuda, R, n):
+    """The frame shapes of config 5 (32 rows of 320) and the 48 kHz
+    stereo serving chain (16 rows of 960): K5 with a carried zi and the
+    envelope kernel with a carried init bit for bit against their twins;
+    K1 over an (m - 1) + n input history with a 24,082-tap IR (the long
+    form) at -100 dB."""
+    from xmtpu_torch.ops.reverb import synthetic_ir
+
+    rng = np.random.default_rng(R + n)
+    x = torch.from_numpy((0.3 * rng.standard_normal((R, n))).astype(
+        np.float32)).to(cuda)
+    sos = torch.tensor([[0.9, -1.7, 0.8, 1.0, -1.6, 0.7]],
+                       dtype=torch.float32, device=cuda)
+    zi = torch.from_numpy((0.1 * rng.standard_normal((1, 2, R))).astype(
+        np.float32)).to(cuda)
+    for a, b in zip(iir.sosfilt_pass(x, sos, zi),
+                    iir.sosfilt_plain(x, sos, zi)):
+        assert float((a - b).abs().max()) == 0.0
+    d = x.abs()
+    init = torch.from_numpy(np.abs(0.2 * rng.standard_normal((2, R))).astype(
+        np.float32)).to(cuda)
+    for a, b in zip(envelope.envelope_pass(d, 0.999, 0.06, init),
+                    envelope.envelope_plain(d, 0.999, 0.06, init)):
+        assert float((a - b).abs().max()) == 0.0
+    ir = torch.from_numpy(synthetic_ir(24082 / 48000, 48000)[:24082].astype(
+        np.float32)).to(cuda)
+    xa = torch.from_numpy((0.3 * rng.standard_normal(
+        (R, ir.shape[0] - 1 + n))).astype(np.float32)).to(cuda)
+    ones_r = torch.ones(R, device=cuda)
+    ones_c = torch.ones(xa.shape[1], device=cuda)
+    yk = fftconv.fir_convolve(xa, ir, ones_r, ones_c)
+    yp = fftconv.fir_convolve_plain(xa, ir, ones_r, ones_c)
+    assert _db(yk - yp, yp) <= -100.0

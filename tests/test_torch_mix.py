@@ -208,4 +208,4 @@ def test_bench_configs_1_2(monkeypatch, tracks):
         with pytest.raises(SystemExit, match="takes batch"):
             bench._cli([f"--config={cfg}", "--iir_backend=scan"])
     with pytest.raises(SystemExit, match="are ported"):
-        bench._cli(["--config=5"])
+        bench._cli(["--config=6"])

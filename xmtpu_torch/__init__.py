@@ -12,17 +12,24 @@ flagship batch chain), ``xmtpu_torch.resample(pcm, sr_in, sr_out, ...)``
 ...)`` (the multi-track mixer), ``xmtpu_torch.effects(pcm, sr, chain,
 ...)`` (the public effect chain, BASELINE config 3) and
 ``xmtpu_torch.process_file(inputs, config, out_path)`` (the one-shot
-generator: decode, mix, effects, loudness, encode). ``xmtpu_torch.io``
+generator: decode, mix, effects, loudness, encode);
+``xmtpu_torch.Session`` (streaming frame reads, BASELINE config 5),
+``xmtpu_torch.SessionPool`` (K sessions in one batched step) and
+``xmtpu_torch.PoolServer`` (sessions of many configs over pools).
+``xmtpu_torch.io``
 reads and writes WAV; ``xmtpu_torch.config`` loads pipeline configs.
 """
 
 from xmtpu_torch import config, io
-from xmtpu_torch.api import effects, mix, process_file, resample
+from xmtpu_torch.api import (Session, SessionPool, effects, mix, process_file,
+                             resample)
 from xmtpu_torch.config.schema import EffectConfig, PipelineConfig, TrackConfig
+from xmtpu_torch.graph.serve import PoolServer
 from xmtpu_torch.ops.loudness import lufs_normalize, measure_lufs
 from xmtpu_torch.ops.ns import suppress
 
 __all__ = ["effects", "resample", "mix", "process_file", "measure_lufs",
-           "lufs_normalize", "suppress", "PipelineConfig", "TrackConfig",
-           "EffectConfig", "config", "io"]
+           "lufs_normalize", "suppress", "Session", "SessionPool",
+           "PoolServer", "PipelineConfig", "TrackConfig", "EffectConfig",
+           "config", "io"]
 __version__ = "0.1.0"

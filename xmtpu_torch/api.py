@@ -2,7 +2,8 @@
 rate conversion of BASELINE config 1; :func:`mix`, the multi-track
 mixer; :func:`effects`, the EQ -> reverb -> limiter chain of config 3;
 and :func:`process_file`, the one-shot generator (tracks + config ->
-mixed file).
+mixed file); :class:`Session`, the streaming frame reads of config 5,
+and :class:`SessionPool`, many such sessions in one batched step.
 
 Accepts int16 or float32 PCM shaped ``(n,)``, ``(n, channels)`` (and,
 for :func:`effects`, a batched ``(B, n, channels)`` stack), as a numpy
@@ -130,3 +131,94 @@ def process_file(inputs, config: PipelineConfig, out_path, progress=None,
 
     return pipeline.process_file(inputs, config, out_path,
                                  progress=progress, device=device)
+
+
+class Session:
+    """Streaming session: seek and frame reads with carried DSP state
+    (the reference's mixer handle API). Wraps
+    :class:`xmtpu_torch.graph.streaming.StreamSession`: ``read()`` returns
+    one (frame, ch) frame (``prefetch_depth`` frames dispatched ahead),
+    ``read_many(k)`` k frames with one fetch; the state is a tree of
+    tensors (``state``/``load_state``) or an npz file in the JAX
+    package's layout (``save_state``/``load_state_file``). Runs on
+    ``cuda`` unless ``device=`` names another device. Not thread-safe:
+    one Session per thread; :class:`SessionPool` serves many streams in
+    one process behind a lock."""
+
+    def __init__(self, *a, **kw):
+        from xmtpu_torch.graph.streaming import StreamSession
+
+        self._impl = StreamSession(*a, **kw)
+
+    def seek(self, ms: float):
+        return self._impl.seek(ms)
+
+    def read(self):
+        return self._impl.read()
+
+    @property
+    def state(self):
+        return self._impl.state
+
+    def load_state(self, st):
+        return self._impl.load_state(st)
+
+    def save_state(self, path):
+        return self._impl.save_state(path)
+
+    def load_state_file(self, path):
+        return self._impl.load_state_file(path)
+
+    def read_many(self, k: int):
+        return self._impl.read_many(k)
+
+
+class SessionPool:
+    """Serving mode: K concurrent streaming sessions of one config
+    advanced by one batched device step (the reference's many handles
+    in one process). ``join(slot, sources)``, ``leave(slot)`` and
+    ``seek(slot, ms)`` manage users; ``read(k)`` advances every active
+    slot k frames with one fetch -> (K, k*frame, ch) PCM. Runs on
+    ``cuda`` unless ``device=`` names another device. See
+    :class:`xmtpu_torch.graph.pool.SessionPool`."""
+
+    def __init__(self, *a, **kw):
+        from xmtpu_torch.graph.pool import SessionPool as _Pool
+
+        self._impl = _Pool(*a, **kw)
+
+    @property
+    def n_slots(self):
+        return self._impl.n_slots
+
+    @property
+    def frame_out(self):
+        return self._impl.frame_out
+
+    @property
+    def sr(self):
+        return self._impl.sr
+
+    def join(self, slot: int, sources):
+        return self._impl.join(slot, sources)
+
+    def leave(self, slot: int):
+        return self._impl.leave(slot)
+
+    def seek(self, slot: int, ms: float):
+        return self._impl.seek(slot, ms)
+
+    def active(self):
+        return self._impl.active()
+
+    def read(self, k: int = 1):
+        return self._impl.read(k)
+
+    def save_state(self, path):
+        """Snapshot every slot's DSP state and clock (serving failover);
+        restore with :meth:`load_state_file` after joining the same
+        sources."""
+        return self._impl.save_state(path)
+
+    def load_state_file(self, path):
+        return self._impl.load_state_file(path)

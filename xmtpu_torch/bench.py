@@ -1,14 +1,15 @@
 """Throughput benchmark of the flagship chain on one CUDA GPU
 (counterpart of the root ``bench.py``; same JSON keys), and of the JAX
-harness's configs 1-3 (``--config=1|2|3``, counterparts of
-``xmtpu.benchmarks.config1_resample``, ``config2_mix`` and
-``config3_effects``).
+harness's configs 1-3 and 5 (``--config=1|2|3|5``, counterparts of
+``xmtpu.benchmarks.config1_resample``, ``config2_mix``,
+``config3_effects`` and ``config5_streaming``).
 
     python -m xmtpu_torch.bench [--batch=256] [--clip_seconds=10]
         [--iters=20] [--resample_backend=mixfirst|pallas|rsmix]
         [--limiter_fuse=1] [--iir_backend=pallas|scan] [--envelope_block=0]
     python -m xmtpu_torch.bench --config=1|2|3 [--batch=...]
         [--clip_seconds=10] [--iters=20]
+    python -m xmtpu_torch.bench --config=5
 
 The keys are the root ``bench.py``'s. The step takes the branch the JAX
 package's auto rule picks: fused at the default 256 clips, unfused
@@ -43,12 +44,24 @@ default_rng(0).standard_normal``, public layout (B, n, 2), on the card),
 through 5-band EQ -> the 0.5 s synthetic IR at wet 0.3 / dry 0.7 ->
 the default limiter, and prints the JAX benchmark's keys ``config``, ``desc`` and
 ``audio_sec_per_sec``, and ``device``.
+
+``--config=5`` (no other arguments) times 20 ms streaming frames of
+the JAX benchmark's config 5 (a 4 s voice at 44.1 kHz, ``0.3 *
+default_rng(0)`` noise, on a 16 kHz mono bus; master EQ at 300 Hz +2
+dB, then the limiter): ``ms_per_frame_sequential`` and
+``ms_per_frame_depth3`` (``read()`` at prefetch depth 1 and 3),
+``audio_sec_per_sec`` (``read_many(25)``), and the aggregate rate of a
+32-slot ``SessionPool`` of 8 s voices read 50 frames at a time on the
+float64 scan engine (``pool32_audio_sec_per_sec``, the JAX key) and on
+the kernels (``pool32_pallas_audio_sec_per_sec``). Host clock: every
+read returns host data.
 """
 
 from __future__ import annotations
 
 import json
 import sys
+import time
 
 import numpy as np
 import torch
@@ -253,6 +266,88 @@ def config3_effects(batch: int = 16, seconds: float = 10.0,
             "device": torch.cuda.get_device_name(dev)}
 
 
+def config5_config():
+    """The JAX benchmark's config-5 pipeline: one voice track on a 16 kHz
+    mono bus, a master EQ (300 Hz, +2 dB) then the default limiter."""
+    from xmtpu_torch.config import EffectConfig, PipelineConfig, TrackConfig
+
+    return PipelineConfig(
+        tracks=(TrackConfig(url="v"),),
+        master_effects=(
+            EffectConfig("equalizer", {"bands": [
+                {"freq_hz": 300.0, "gain_db": 2.0, "q": 1.0}]}),
+            EffectConfig("limiter", {})),
+        sample_rate=16000, normalize=None)
+
+
+def config5_sources(seconds: float = 4.0, pool_slots: int = 32,
+                    pool_seconds: float = 8.0):
+    """The JAX benchmark's config-5 inputs, in its draw order from
+    ``default_rng(0)``: the session's voice ``(n,)`` float32 at 44.1 kHz
+    (``0.3 *`` noise), then one voice a pool slot."""
+    rng = np.random.default_rng(0)
+    voice = (0.3 * rng.standard_normal(int(SR_IN * seconds))).astype(
+        np.float32)
+    n_vp = int(SR_IN * pool_seconds)
+    pool = [{"v": ((0.3 * rng.standard_normal(n_vp)).astype(np.float32),
+                   SR_IN)} for _ in range(pool_slots)]
+    return {"v": (voice, SR_IN)}, pool
+
+
+def config5_streaming(seconds: float = 4.0, pool_slots: int = 32) -> dict:
+    """Config 5, 20 ms streaming frames, the JAX benchmark's
+    measurements on the card (host clock; every read returns host
+    data): ``read()`` at prefetch depth 1 and 3 (ms a frame),
+    ``read_many(25)`` (audio-seconds per second), and a ``SessionPool``
+    of ``pool_slots`` 8 s voices read 50 frames at a time (aggregate
+    audio-seconds per second) on the scan engine and on the kernels."""
+    from xmtpu_torch.graph.pool import SessionPool
+    from xmtpu_torch.graph.streaming import StreamSession
+
+    dev = _require_card()
+    cfg = config5_config()
+    src, pool_srcs = config5_sources(seconds, pool_slots)
+    n_frames = int(seconds * 1000 / 20) - 4
+    reads = n_frames // 2
+
+    def per_read(sess, warm: int) -> float:
+        for _ in range(warm):
+            sess.read()
+        t0 = time.perf_counter()
+        for _ in range(reads):
+            sess.read()
+        return (time.perf_counter() - t0) / reads
+
+    sess = StreamSession(cfg, frame_ms=20.0, sources=src, device=dev)
+    dt = per_read(sess, 1)
+    dt_depth = per_read(StreamSession(cfg, frame_ms=20.0, sources=src,
+                                      prefetch_depth=3, device=dev), 4)
+    k = 25
+    sess.seek(0.0)
+    sess.read_many(k)
+    t0 = time.perf_counter()
+    audio = sum(sess.read_many(k).shape[0] / sess.sr
+                for _ in range(max(1, (n_frames - k) // k)))
+    dt_many = time.perf_counter() - t0
+    pool_rate = {}
+    for engine in ("scan", "pallas"):
+        pool = SessionPool(cfg, pool_slots, frame_ms=20.0, sources=pool_srcs,
+                           effects_backend=engine, device=dev)
+        pool.read(50)
+        pool.read(50)
+        t0 = time.perf_counter()
+        audio_pool = sum(o.shape[0] * o.shape[1] / pool.sr
+                         for o in (pool.read(50) for _ in range(3)))
+        pool_rate[engine] = audio_pool / (time.perf_counter() - t0)
+    return {"config": 5, "desc": "20 ms streaming frames",
+            "audio_sec_per_sec": audio / dt_many,
+            "pool32_audio_sec_per_sec": pool_rate["scan"],
+            "pool32_pallas_audio_sec_per_sec": pool_rate["pallas"],
+            "ms_per_frame_sequential": dt * 1e3,
+            "ms_per_frame_depth3": dt_depth * 1e3,
+            "device": torch.cuda.get_device_name(dev)}
+
+
 def main(batch: int = 256, clip_seconds: float = 10.0, iters: int = 20,
          iir_backend: str = "pallas", resample_backend: str = "mixfirst",
          envelope_block: int = 0, limiter_fuse: int = 1) -> dict:
@@ -304,6 +399,11 @@ def _cli(argv) -> dict:
                      "(known: config, batch, iters, clip_seconds, "
                      "iir_backend, resample_backend, envelope_block, "
                      "limiter_fuse)")
+    if config == 5:
+        if kw:
+            sys.exit(f"xmtpu_torch.bench: --config=5 takes no other "
+                     f"arguments; not {sorted(kw)}")
+        return config5_streaming()
     runs = {1: config1_resample, 2: config2_mix, 3: config3_effects}
     if config in runs:
         other = sorted(set(kw) - set(_CONFIG_KEYS))
@@ -315,8 +415,8 @@ def _cli(argv) -> dict:
         return runs[config](**kw)
     if config != 4:
         sys.exit("xmtpu_torch.bench: --config=1 (resample), 2 (mix), 3 "
-                 "(effects) or 4 (the flagship chain, the default) are "
-                 "ported")
+                 "(effects), 4 (the flagship chain, the default) or 5 "
+                 "(streaming) are ported")
     return main(**kw)
 
 

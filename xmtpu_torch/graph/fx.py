@@ -138,6 +138,7 @@ class EqualizerFx:
             raise ConfigError(f"equalizer: bad band: {e}") from e
         self.engine, self.interpret = _resolve_backend(p.get("backend"),
                                                        device_type)
+        self._on = {}
 
     def init_state(self, batch_shape, device="cpu"):
         bs = _as_batch_shape(batch_shape)
@@ -149,7 +150,17 @@ class EqualizerFx:
         if self.engine == "pallas":
             # the segmented biquad kernel, exact zi/zf carry
             return sosfilt(self.sos, x, zi=state)
-        return _biquad.sosfilt_scan(self.sos, x, zi=state)
+        return _biquad.sosfilt_scan(self._sos_on(x.device), x, zi=state)
+
+    def _sos_on(self, device) -> torch.Tensor:
+        """The float64 sections on ``device``, copied once (a copy from
+        pageable host memory per call synchronises the stream, and a
+        streaming session calls this every frame)."""
+        key = str(device)
+        if key not in self._on:
+            self._on[key] = torch.as_tensor(self.sos, dtype=torch.float64,
+                                            device=device)
+        return self._on[key]
 
 
 def _reverb_block_for(m: int) -> int:
@@ -566,6 +577,15 @@ def build_chain(sample_rate: int, chain, default_backend: str | None = None,
     return _pair_conv_limiter(_fold_lti(out)) if fold else out
 
 
+def check_interpret_device(effects, device: torch.device) -> None:
+    """``pallas_interpret`` (the kernels' plain twins) runs on the CPU
+    only: raise :class:`ConfigError` for such an effect elsewhere."""
+    if device.type != "cpu" and any(getattr(fx, "interpret", False)
+                                    for fx in effects):
+        raise ConfigError("backend='pallas_interpret' runs on the CPU only "
+                          "(the kernels' plain twins)")
+
+
 def chain_init_state(effects, batch_shape, device="cpu"):
     """Initial states on ``device``; ``batch_shape`` = x.shape[:-1]."""
     return tuple(fx.init_state(batch_shape, device) for fx in effects)
@@ -660,10 +680,7 @@ def apply_chain(pcm, sample_rate: int, chain, block_size: int | None = None,
         raise ValueError(
             f"pcm must be (n,), (n, ch), or (B, n, ch); got shape "
             f"{tuple(pcm.shape) if hasattr(pcm, 'shape') else ()}")
-    if dev.type != "cpu" and any(getattr(fx, "interpret", False)
-                                 for fx in effects):
-        raise ConfigError("backend='pallas_interpret' runs on the CPU only "
-                          "(the kernels' plain twins)")
+    check_interpret_device(effects, dev)
     x, was_i16, was_1d = _to_f32_device(pcm, dev)
     n = x.shape[-1]
     if block_size is None or block_size >= n:

@@ -30,6 +30,8 @@ the lower one; the default ``noise_frames=8`` is even).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -48,7 +50,15 @@ def _win(nfft: int, dtype=np.float64) -> np.ndarray:
 
 
 def _win_t(nfft: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(_win(nfft), dtype=like.dtype, device=like.device)
+    return _win_on(nfft, like.dtype, str(like.device))
+
+
+@functools.lru_cache(maxsize=16)
+def _win_on(nfft: int, dtype: torch.dtype, device: str) -> torch.Tensor:
+    """The window on ``device``, copied once: streaming suppression asks
+    for it every frame, and a copy from pageable host memory would
+    synchronise the stream."""
+    return torch.as_tensor(_win(nfft), dtype=dtype, device=device)
 
 
 def _frame_count(n: int, nfft: int) -> int:

@@ -285,8 +285,16 @@ def resample_window(xs: torch.Tensor, plan: ResamplePlan,
     A = xs.to(torch.float32).reshape(*batch, rows, M)
     F = torch.cat([A[..., i: i + nj, :] for i in range(rows - nj)],
                   dim=-1)[..., : plan.width]
-    hbank = torch.as_tensor(plan.hbank, dtype=torch.float32, device=xs.device)
-    return torch.matmul(F, hbank).reshape(*batch, nj * L)
+    return torch.matmul(F, _band_on(plan, str(xs.device))).reshape(
+        *batch, nj * L)
+
+
+@lru_cache(maxsize=32)
+def _band_on(plan: ResamplePlan, device: str) -> torch.Tensor:
+    """The plan's dense band as float32 on ``device``, copied once: a
+    copy from pageable host memory per call would synchronise the
+    stream, and streaming calls :func:`resample_window` every frame."""
+    return torch.as_tensor(plan.hbank, dtype=torch.float32, device=device)
 
 
 RESAMPLE_METHODS = ("banded", "conv", "window")

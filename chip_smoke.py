@@ -216,11 +216,40 @@ process exits non-zero:
    history) and the envelope kernel must launch; K1's last launch is
    held against its twin (-100 dB, ``conv1d`` beside it) and the
    envelope's (max abs 0);
-24. a JSON line of the kernels (times, bounds, launches; K1 once per
+24. the native host runtime (``xmtpu_torch.native``): it must build
+   and load (a hard gate: the pure-Python fallback may not stand in);
+   a fresh ``g++`` build timed; the WAV reader and writer bit for bit
+   against the stdlib path (441000 x 2), the int16 <-> float32
+   conversions against their numpy twins (2^20 samples), a
+   ``PcmChannel`` carrying frames of up to ~3 MB through a 1 MiB ring;
+25. config 6 (``xmtpu/benchmarks.py:255-309``, nothing cut): 64 int16
+   WAV clips of 10 s at 44.1 kHz (``default_rng(0)`` noise x 9000)
+   through ``xmtpu_torch.runner.run_batch`` to 16 kHz WAVs: pipelined
+   (cold; then warm with the counters at 0 and the launches' operands
+   recorded: K1, K5 and its state chain, K3 must launch), serial, with
+   4 decode threads and pipelined again: no failed clip, identical
+   bytes; audio-seconds per second of each (wall clock with all I/O),
+   ``peak_hbm_bytes``, the card's busy share in a traced warm pass, one
+   chunk's host stages timed apart (decode, pack + upload + launch, the
+   card finishing, fetch, writes), the step alone (CUDA events) as a
+   share of the warm wall clock; clips
+   0-2 against the same step on the CPU (the kernels' plain twins) and
+   clip 0 against ``flagship_oracle_np``, -80 dB; K1, K5 and K3 on the
+   runner's recorded operands against their twins; then
+   ``bench.config6_file_batch``;
+26. ``python -m xmtpu_torch.cli`` subprocesses (``batch`` on 4 of the
+   clips, ``resample``, ``effects`` with config 3's chain on a 48 kHz
+   stereo clip, ``generate`` with LUFS -16 and a master limiter) and the
+   five ``examples/torch_*.py``, all started together, must exit 0 (the
+   examples print their lines); the command line's outputs against the
+   API's in this process, the compat mixer and voice-effects handles
+   against a ``Session``, the async generator (``GS_COMPLETED``)
+   against ``process_file``: -80 dB;
+27. a JSON line of the kernels (times, bounds, launches; K1 once per
    branch; the state-chain kernel beside K5; the episode's K5, K1 and
    envelope entries with its launch counts; the streaming entries of
-   phases 22-23), then the contract line
-   ``{"ok": true, "device": {...}}`` last.
+   phases 22-23; the runner's K1, K5 and K3 of phase 25), then the
+   contract line ``{"ok": true, "device": {...}}`` last.
 
 Every step run with fresh counters sets all ten launch counters to 0
 just before it and reads them just after.
@@ -246,6 +275,7 @@ import subprocess
 import sys
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 
@@ -256,6 +286,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 F64_OPS_PER_S = 34e12  # H100 SXM, float64 outside the tensor cores
 OP_LATENCY_CYCLES = 4  # one dependent float32 add / multiply / max
+REPO = Path(__file__).resolve().parent
 # the podcast episode (phase 21)
 EPISODE_S, EPISODE_BGM_S, EPISODE_CPU_S = 600.0, 60.0, 20.0
 VOICE_SR, BUS_SR = 44100, 48000
@@ -355,6 +386,142 @@ def roofline_ms(n_bytes: float, n_ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# helpers of the phases from 22 on; ``h`` holds main()'s: card, dev,
+# compare, bound, reset_counts, counts, check_k1
+
+
+def pcm_db(got, ref):
+    """RMS error of int16 or float32 PCM against ``ref`` in dB."""
+    from xmtpu_torch.bench import rms_db
+
+    g, r = (np.asarray(a, np.float64) / (32768.0 if a.dtype == np.int16
+                                         else 1.0) for a in (got, ref))
+    return rms_db(g - r, r)
+
+
+def lsb(got, ref):
+    return int(np.abs(got.astype(np.int32) - ref.astype(np.int32)).max())
+
+
+def gate(ok, what):
+    if not ok:
+        raise SystemExit(f"chip_smoke: {what}")
+
+
+def recording(mod, name):
+    """Wrap ``mod.name`` (a kernel's one-pass function) so that each
+    call's operands are kept; -> (calls, restore)."""
+    import torch
+
+    real, calls = getattr(mod, name), []
+
+    def rec(*a, **kw):
+        calls.append((tuple(x.clone() if torch.is_tensor(x) else x
+                            for x in a), kw))
+        return real(*a, **kw)
+
+    setattr(mod, name, rec)
+    return calls, lambda: setattr(mod, name, real)
+
+
+def traced(fn, frames_run):
+    """(device operations a frame, kernels a frame, busy share, wall
+    ms) of one traced call of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not e.is_user_annotation]
+    ops = sum(e.count for e in ev)
+    kern = sum(e.count for e in ev if not e.key.startswith("Mem"))
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    return ops / frames_run, kern / frames_run, busy / wall, wall
+
+
+def plain_time(fn) -> float:
+    """A plain twin's time in ms: one run (CUDA events) when it takes a
+    second or more, the median of three after a warm-up otherwise."""
+    import torch
+
+    from xmtpu_torch.bench import median_ms
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    once = a.elapsed_time(b)
+    return once if once >= 1000.0 else median_ms(fn, warmup=0, runs=3)
+
+
+def check_k5(h, name, calls, launches):
+    """K5 on a recorded launch's operands against its twin: y and zf
+    max abs 0; its time as a graph replay (on the card) and from the
+    host; the twin's time; the roofline bound."""
+    from xmtpu_torch.bench import median_ms, replay_ms
+    from xmtpu_torch.kernels import iir
+
+    (x, sos, zi), _ = calls[-1]
+    yk, zfk = iir.sosfilt_pass(x, sos, zi)
+    yp, zfp = iir.sosfilt_plain(x, sos, zi)
+    k = h.compare(name, "cuda", "xmtpu_torch/csrc/iir.cu",
+                  "xmtpu/kernels/iir.py:37", yk, yp)
+    k["max_abs_err"] = max(float((yk - yp).abs().max()),
+                           float((zfk - zfp).abs().max()))
+    gate(k["max_abs_err"] == 0.0, f"K5 {name} differs from its twin "
+         f"by {k['max_abs_err']}")
+    k["ms"] = replay_ms(lambda: iir.sosfilt_pass(x, sos, zi))
+    host = median_ms(lambda: iir.sosfilt_pass(x, sos, zi))
+    k["plain_ms"] = plain_time(lambda: iir.sosfilt_plain(x, sos, zi))
+    k["launches"] = launches
+    R, n = x.shape
+    ns = sos.shape[0]
+    h.bound(k, 4 * (2 * R * n + 6 * ns + 4 * ns * R), 9 * ns * R * n)
+    print(f"K5 {name} ({R} x {n}, {ns} section{'s' * (ns > 1)}, S = 1): "
+          f"max abs {k['max_abs_err']:.3g} vs the twin (y and zf); "
+          f"{k['ms']:.4f} ms on the card (graph replay), {host:.4f} ms "
+          f"from the host, twin {k['plain_ms']:.2f} ms, bound "
+          f"{k['bound_ms']:.6f} ms ({k['bound_by']}); {launches} "
+          f"launches [{h.card}]")
+
+
+def check_k3(h, name, calls, launches):
+    """The envelope kernel (envelope-only form) on a recorded launch's
+    operands against its twin: e2 and the finals max abs 0."""
+    from xmtpu_torch.bench import median_ms, replay_ms
+    from xmtpu_torch.kernels import envelope
+
+    a, kw = calls[-1]
+    ek, zfk = envelope.envelope_pass(*a, **kw)
+    ep, zfp = envelope.envelope_plain(*a, **kw)
+    k = h.compare(name, "cuda", "xmtpu_torch/csrc/envelope.cu",
+                  "xmtpu/kernels/envelope.py:108", ek, ep)
+    k["max_abs_err"] = max(float((ek - ep).abs().max()),
+                           float((zfk - zfp).abs().max()))
+    gate(k["max_abs_err"] == 0.0, f"K3 {name} differs from its twin "
+         f"by {k['max_abs_err']}")
+    k["ms"] = replay_ms(lambda: envelope.envelope_pass(*a, **kw))
+    host = median_ms(lambda: envelope.envelope_pass(*a, **kw))
+    k["plain_ms"] = plain_time(lambda: envelope.envelope_plain(*a, **kw))
+    k["launches"] = launches
+    R, n = a[0].shape
+    h.bound(k, 4 * (2 * R * n + 4 * R), 5 * R * n)
+    print(f"K3 {name} ({R} x {n}, S = 1): max abs {k['max_abs_err']:.3g} "
+          f"vs the twin (e2 and finals); {k['ms']:.4f} ms on the card "
+          f"(graph replay), {host:.4f} ms from the host, twin "
+          f"{k['plain_ms']:.2f} ms, bound {k['bound_ms']:.6f} ms "
+          f"({k['bound_by']}); {launches} launches [{h.card}]")
+
+
 def streaming_phases(h) -> None:
     """Phases 22 and 23: config 5 and serving on the card. ``h`` holds
     main()'s helpers: card, dev, compare, bound, reset_counts, counts,
@@ -364,10 +531,8 @@ def streaming_phases(h) -> None:
     from pathlib import Path
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from xmtpu_torch import bench as tbench
-    from xmtpu_torch.bench import median_ms, replay_ms, rms_db
     from xmtpu_torch.graph import fx as tfx
     from xmtpu_torch.graph import mixer as tmix
     from xmtpu_torch.graph.pool import SessionPool
@@ -381,103 +546,6 @@ def streaming_phases(h) -> None:
 
     def frames(sess, n):
         return np.concatenate([sess.read() for _ in range(n)], axis=0)
-
-    def pcm_db(got, ref):
-        """RMS error of int16 or float32 PCM against ``ref`` in dB."""
-        g, r = (np.asarray(a, np.float64) / (32768.0 if a.dtype == np.int16
-                                             else 1.0) for a in (got, ref))
-        return rms_db(g - r, r)
-
-    def lsb(got, ref):
-        return int(np.abs(got.astype(np.int32) - ref.astype(np.int32)).max())
-
-    def gate(ok, what):
-        if not ok:
-            raise SystemExit(f"chip_smoke: {what}")
-
-    def recording(mod, name):
-        """Wrap ``mod.name`` (a kernel's one-pass function) so that each
-        call's operands are kept; -> (calls, restore)."""
-        real, calls = getattr(mod, name), []
-
-        def rec(*a, **kw):
-            calls.append((tuple(x.clone() if torch.is_tensor(x) else x
-                                for x in a), kw))
-            return real(*a, **kw)
-
-        setattr(mod, name, rec)
-        return calls, lambda: setattr(mod, name, real)
-
-    def traced(fn, frames_run):
-        """(device operations a frame, kernels a frame, busy share, wall
-        ms) of one traced call of ``fn``."""
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        ev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.is_user_annotation]
-        ops = sum(e.count for e in ev)
-        kern = sum(e.count for e in ev if not e.key.startswith("Mem"))
-        busy = sum(e.self_device_time_total for e in ev) / 1e3
-        return ops / frames_run, kern / frames_run, busy / wall, wall
-
-    def check_k5(name, calls, launches):
-        """K5 on a recorded launch's operands against its twin: y and zf
-        max abs 0; its time as a graph replay (on the card) and from the
-        host; the twin's time; the roofline bound."""
-        (x, sos, zi), _ = calls[-1]
-        yk, zfk = iir.sosfilt_pass(x, sos, zi)
-        yp, zfp = iir.sosfilt_plain(x, sos, zi)
-        k = h.compare(name, "cuda", "xmtpu_torch/csrc/iir.cu",
-                      "xmtpu/kernels/iir.py:37", yk, yp)
-        k["max_abs_err"] = max(float((yk - yp).abs().max()),
-                               float((zfk - zfp).abs().max()))
-        gate(k["max_abs_err"] == 0.0, f"K5 {name} differs from its twin "
-             f"by {k['max_abs_err']}")
-        k["ms"] = replay_ms(lambda: iir.sosfilt_pass(x, sos, zi))
-        host = median_ms(lambda: iir.sosfilt_pass(x, sos, zi))
-        k["plain_ms"] = median_ms(lambda: iir.sosfilt_plain(x, sos, zi),
-                                  warmup=1, runs=3)
-        k["launches"] = launches
-        R, n = x.shape
-        ns = sos.shape[0]
-        h.bound(k, 4 * (2 * R * n + 6 * ns + 4 * ns * R), 9 * ns * R * n)
-        print(f"K5 {name} ({R} x {n}, {ns} section{'s' * (ns > 1)}, S = 1): "
-              f"max abs {k['max_abs_err']:.3g} vs the twin (y and zf); "
-              f"{k['ms']:.4f} ms on the card (graph replay), {host:.4f} ms "
-              f"from the host, twin {k['plain_ms']:.2f} ms, bound "
-              f"{k['bound_ms']:.6f} ms ({k['bound_by']}); {launches} "
-              f"launches [{card}]")
-
-    def check_k3(name, calls, launches):
-        """The envelope kernel (envelope-only form) on a recorded launch's
-        operands against its twin: e2 and the finals max abs 0."""
-        a, kw = calls[-1]
-        ek, zfk = envelope.envelope_pass(*a, **kw)
-        ep, zfp = envelope.envelope_plain(*a, **kw)
-        k = h.compare(name, "cuda", "xmtpu_torch/csrc/envelope.cu",
-                      "xmtpu/kernels/envelope.py:108", ek, ep)
-        k["max_abs_err"] = max(float((ek - ep).abs().max()),
-                               float((zfk - zfp).abs().max()))
-        gate(k["max_abs_err"] == 0.0, f"K3 {name} differs from its twin "
-             f"by {k['max_abs_err']}")
-        k["ms"] = replay_ms(lambda: envelope.envelope_pass(*a, **kw))
-        host = median_ms(lambda: envelope.envelope_pass(*a, **kw))
-        k["plain_ms"] = median_ms(lambda: envelope.envelope_plain(*a, **kw),
-                                  warmup=1, runs=3)
-        k["launches"] = launches
-        R, n = a[0].shape
-        h.bound(k, 4 * (2 * R * n + 4 * R), 5 * R * n)
-        print(f"K3 {name} ({R} x {n}, S = 1): max abs {k['max_abs_err']:.3g} "
-              f"vs the twin (e2 and finals); {k['ms']:.4f} ms on the card "
-              f"(graph replay), {host:.4f} ms from the host, twin "
-              f"{k['plain_ms']:.2f} ms, bound {k['bound_ms']:.6f} ms "
-              f"({k['bound_by']}); {launches} launches [{card}]")
 
     # 22. config 5 at full size (xmtpu/benchmarks.py:174-252): a 4 s
     # voice at 44.1 kHz on a 16 kHz mono bus, 20 ms frames, master EQ
@@ -570,8 +638,8 @@ def streaming_phases(h) -> None:
     gate(got5["iir"] and got5["envelope_seg"],
          f"the config-5 pool did not launch K5 and the envelope kernel: "
          f"{got5}")
-    check_k5("iir_stream", k5_calls, got5["iir"])
-    check_k3("envelope_seg_stream", k3_calls, got5["envelope_seg"])
+    check_k5(h, "iir_stream", k5_calls, got5["iir"])
+    check_k3(h, "envelope_seg_stream", k3_calls, got5["envelope_seg"])
     del engines, pk, k5_calls, k3_calls
     print(f"phase 22: {time.perf_counter() - t22:.1f} s")
 
@@ -664,10 +732,376 @@ def streaming_phases(h) -> None:
         (x1, ir1, row1, col1), _ = k1_calls[-1]
         k1s = h.check_k1("fftconv_stream_episode", x1, ir1, row1, col1)
         k1s["launches"] = got1[k1_key]
-        check_k3("envelope_seg_stream_episode", k3e_calls,
+        check_k3(h, "envelope_seg_stream_episode", k3e_calls,
                  got1["envelope_seg"])
         del pe, k1_calls, k3e_calls
     print(f"phase 23: {time.perf_counter() - t23:.1f} s")
+
+
+def _spawn(args, cwd):
+    """A ``python`` subprocess of the repo (stdout and stderr piped)."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    return subprocess.Popen([sys.executable, *args], cwd=cwd, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def runner_phases(h, n_clips: int = 64, seconds: float = 10.0) -> None:
+    """Phases 24-26: the native host runtime, config 6 (the file-batch
+    runner) at full size, then the command line, the compat handles and
+    the five examples. ``h`` holds main()'s helpers; ``n_clips`` and
+    ``seconds`` cut config 6 for a rehearsal on the CPU."""
+    import os
+    import tempfile
+    import threading
+    import wave
+
+    import torch
+
+    from xmtpu_torch import batch as tbatch
+    from xmtpu_torch import bench as tbench
+    from xmtpu_torch import compat, native
+    from xmtpu_torch import runner as trunner
+    from xmtpu_torch.api import Session, effects, process_file, resample
+    from xmtpu_torch.bench import median_ms
+    from xmtpu_torch.config import load_config
+    from xmtpu_torch.io import read_wav, write_wav
+    from xmtpu_torch.io import wav as twav
+    from xmtpu_torch.kernels import envelope, iir
+    from xmtpu_torch.ops import convert
+    from xmtpu_torch.ops import reverb as treverb
+
+    card, dev = h.card, h.dev
+    on_card = dev.type == "cuda"
+    dev_args = [] if on_card else ["--device", str(dev)]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # 24. the native host runtime: a hard gate (the pure-Python fallback
+    # must not stand in here), a fresh build timed, every entry point
+    # bit for bit against its stdlib or numpy twin
+    t24 = time.perf_counter()
+    gate(native.available(), "the native library did not build or load")
+    root = native.BUILD_ROOT
+    with tempfile.TemporaryDirectory() as d:
+        native.BUILD_ROOT = Path(d)
+        t0 = time.perf_counter()
+        try:
+            native.build()
+        finally:
+            native.BUILD_ROOT = root
+        build_s = time.perf_counter() - t0
+        rng = np.random.default_rng(24)
+        x = (rng.standard_normal((441000, 2)) * 12000).astype(np.int16)
+        p_std, p_nat = os.path.join(d, "std.wav"), os.path.join(d, "n.wav")
+        with wave.open(p_std, "wb") as w:
+            w.setnchannels(2)
+            w.setsampwidth(2)
+            w.setframerate(44100)
+            w.writeframes(x.astype("<i2").tobytes())
+        got, sr = native.read_wav_native(p_std)
+        ok_read = (sr == 44100 and np.array_equal(got, x)
+                   and np.array_equal(got, twav._read_wav_stdlib(p_std)[0]))
+        native.write_wav_native(p_nat, x, 44100)
+        ok_write = Path(p_nat).read_bytes() == Path(p_std).read_bytes()
+    f32 = (rng.standard_normal(1 << 20) * 0.6).astype(np.float32)
+    i16 = rng.integers(-32768, 32768, 1 << 20).astype(np.int16)
+    ok_conv = (np.array_equal(native.f32_to_i16_native(f32),
+                              convert.f32_to_pcm16_np(f32))
+               and np.array_equal(native.i16_to_f32_native(i16),
+                                  convert.pcm16_to_f32_np(i16)))
+    chan = native.PcmChannel(capacity=1 << 20)
+    gate(chan._fifo is not None, "PcmChannel fell back to the deque")
+    sent = [(rng.standard_normal(int(k)) * 9000).astype(np.int16)
+            for k in rng.integers(1, 1_500_000, 8)]
+
+    def produce():
+        try:
+            for i, a in enumerate(sent):
+                chan.put([a, None], i)
+        finally:
+            chan.close()
+
+    th = threading.Thread(target=produce, daemon=True)
+    th.start()
+    recv = []
+    while (item := chan.get()) is not None:
+        recv.append(item)
+    th.join(30)
+    ok_chan = (len(recv) == len(sent) and all(
+        m == i and b is None and np.array_equal(a, sent[i])
+        for i, ((a, b), m) in enumerate(recv)))
+    print(f"native: g++ build {build_s:.2f} s; WAV read and write bit-exact "
+          f"against the stdlib path (441000 x 2): {ok_read}, {ok_write}; "
+          f"int16 <-> float32 on 2^20 samples: {ok_conv}; PcmChannel, 8 "
+          f"frames of up to {max(a.nbytes for a in sent) / 2**20:.1f} MiB "
+          f"through a 1 MiB ring: {ok_chan}")
+    gate(ok_read and ok_write and ok_conv and ok_chan,
+         "the native runtime differs from its twins")
+    print(f"phase 24: {time.perf_counter() - t24:.1f} s")
+
+    # 25. config 6 at full size (xmtpu/benchmarks.py:255-309): 64 WAV
+    # clips of 10 s at 44.1 kHz -> 16 kHz WAVs through run_batch;
+    # pipelined (cold, then warm with fresh counters and the kernels'
+    # operands recorded), serial and with 4 decode threads: identical
+    # bytes; a traced warm pass; the step alone
+    t25 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        jobs = tbench.config6_jobs(d, n_clips, seconds)
+        audio_s = n_clips * seconds
+        runs = {}
+
+        def run(tag, **kw):
+            js = [dict(j, out=j["out"].replace("out_", f"{tag}_"))
+                  for j in jobs]
+            rep = trunner.run_batch(js, resume=False,
+                                    write_done_markers=False, device=dev,
+                                    **kw)
+            gate(rep.done == n_clips and not rep.failed,
+                 f"config 6 ({tag}) failed: {rep.failed}")
+            runs[tag] = (js, rep)
+            return rep
+
+        cold = run("cold")
+        k1_calls, undo1 = recording(treverb, "fir_convolve")
+        k5_calls, undo5 = recording(iir, "sosfilt_pass")
+        k3_calls, undo3 = recording(envelope, "envelope_pass")
+        try:
+            h.reset_counts()
+            warm = run("pipelined")
+            sync()
+            got = h.counts()
+        finally:
+            undo1()
+            undo5()
+            undo3()
+        serial = run("serial", pipeline=False)
+        thr4 = run("threads4", decode_threads=4)
+        warm2 = run("pipelined2")
+        chunks = -(-n_clips // 64)
+        print(f"config 6 ({n_clips} WAV clips x {seconds:g} s, {chunks} "
+              f"chunk(s) of 64): launches {got}; audio-s/s wall clock: cold "
+              f"{audio_s / cold.wall_sec:.1f}, warm pipelined "
+              f"{audio_s / warm.wall_sec:.1f} and "
+              f"{audio_s / warm2.wall_sec:.1f}, serial "
+              f"{audio_s / serial.wall_sec:.1f}, decode_threads=4 "
+              f"{audio_s / thr4.wall_sec:.1f}; peak_hbm_bytes "
+              f"{warm.peak_hbm_bytes} [{card}]")
+        gate(not on_card or all(got[k] for k in ("fftconv", "iir",
+                                                 "state_chain",
+                                                 "envelope_seg")),
+             f"config 6 did not launch K1, K5, its chain and K3: {got}")
+        gate(not on_card or (warm.peak_hbm_bytes or 0) > 0,
+             "config 6 reported no peak memory on the card")
+        same = all(
+            Path(runs[t][0][i]["out"]).read_bytes()
+            == Path(runs["pipelined"][0][i]["out"]).read_bytes()
+            for t in ("cold", "serial", "threads4", "pipelined2")
+            for i in range(n_clips))
+        print(f"config 6: cold, pipelined, serial, decode_threads=4 and a "
+              f"second pipelined run wrote identical bytes: {same}")
+        gate(same, "config 6's modes wrote different bytes")
+        if on_card:
+            _, kern, busy, wall = traced(lambda: run("traced"), 1)
+            print(f"config 6 traced warm pass: {wall:.1f} ms wall, "
+                  f"{kern:.0f} kernels, the card busy {100 * busy:.2f}% "
+                  f"[{card}]")
+        # the host stages of one chunk, in the serial mode's order
+        edge = trunner._bucket_edge(int(tbench.SR_IN * seconds))
+        disp = trunner._Dispatcher(16000, {}, dev)
+        stage_jobs = [trunner.ClipJob(voice=j["voice"], out=j["out"].replace(
+            "out_", "stage_")) for j in jobs[:64]]
+        sync()
+        t0 = time.perf_counter()
+        chunk = [(j,) + trunner._decode_job(j, tbench.SR_IN, 16000)[:2]
+                 for j in stage_jobs]
+        t1 = time.perf_counter()
+        lens_c, out_dev = disp.dispatch(tbench.SR_IN, edge, chunk)
+        t2 = time.perf_counter()
+        sync()
+        t3 = time.perf_counter()
+        out_c = out_dev.cpu().numpy()
+        t4 = time.perf_counter()
+        rep_c = trunner.BatchReport()
+        trunner._write_chunk(rep_c, chunk, lens_c, out_c, tbench.SR_IN,
+                             16000, True)
+        t5 = time.perf_counter()
+        gate(rep_c.done == len(chunk), f"the stage run failed: {rep_c}")
+        print(f"config 6 host stages of one chunk ({len(chunk)} clips, "
+              f"serial order): decode {(t1 - t0) * 1e3:.1f} ms, pack + "
+              f"upload + launch {(t2 - t1) * 1e3:.1f} ms, the card "
+              f"finishing {(t3 - t2) * 1e3:.1f} ms, fetch "
+              f"{(t4 - t3) * 1e3:.1f} ms, WAV writes and markers "
+              f"{(t5 - t4) * 1e3:.1f} ms; {(t5 - t0) * 1e3:.1f} ms in all "
+              f"[{card}]")
+        del out_dev, out_c, chunk
+        # the step alone on the chunk's device inputs (no upload)
+        pcm = np.zeros((min(n_clips, 64), edge), np.int16)
+        for i in range(pcm.shape[0]):
+            pcm[i, :int(tbench.SR_IN * seconds)] = read_wav(
+                jobs[i]["voice"])[0][:, 0]
+        lens = np.full(pcm.shape[0], int(tbench.SR_IN * seconds), np.int32)
+        step = tbatch.make_batch_step(device=dev)
+        args = (torch.from_numpy(pcm).to(dev),
+                torch.from_numpy(np.zeros_like(pcm)).to(dev),
+                torch.from_numpy(lens).to(dev))
+        if on_card:
+            step_ms = median_ms(lambda: step(*args), warmup=1, runs=5)
+            print(f"config 6 step alone ({pcm.shape[0]} x {edge}): "
+                  f"{step_ms:.3f} ms = {100 * step_ms / 1e3 / warm.wall_sec:.2f}"
+                  f"% of the warm pipelined wall clock "
+                  f"({warm.wall_sec * 1e3:.1f} ms) [{card}]")
+        # clips 0-2 against the same step on the CPU (the kernels' plain
+        # twins), clip 0 against the float64 oracle
+        y3 = tbatch.make_batch_step(device="cpu")(
+            torch.from_numpy(pcm[:3]), torch.from_numpy(np.zeros_like(pcm[:3])),
+            torch.from_numpy(lens[:3])).numpy()
+        worst = -np.inf
+        for i in range(3):
+            out = read_wav(runs["pipelined"][0][i]["out"])[0][:, 0]
+            worst = max(worst, pcm_db(out, y3[i, :out.shape[0]]))
+        out0 = read_wav(runs["pipelined"][0][0]["out"])[0][:, 0]
+        ref0 = tbatch.flagship_oracle_np(pcm[0, :lens[0]],
+                                         np.zeros(lens[0], np.int16))
+        db0 = pcm_db(out0, ref0)
+        print(f"config 6 outputs: clips 0-2 against the CPU twin step worst "
+              f"{worst:.1f} dB, clip 0 against flagship_oracle_np "
+              f"{db0:.1f} dB (gates {GATE_CHAIN_DB}) [{card}]")
+        gate(worst <= GATE_CHAIN_DB and db0 <= GATE_CHAIN_DB,
+             "config 6's outputs failed their gates")
+        del args, step, y3
+        if on_card:
+            k1 = h.check_k1("fftconv_runner", *k1_calls[-1][0])
+            k1["launches"] = got["fftconv"]
+            check_k5(h, "iir_runner", k5_calls, got["iir"])
+            check_k3(h, "envelope_seg_runner", k3_calls, got["envelope_seg"])
+        del k1_calls, k5_calls, k3_calls
+        res6 = tbench.config6_file_batch(n_clips, seconds, device=dev)
+        print(f"bench config 6: {json.dumps(res6)}")
+    print(f"phase 25: {time.perf_counter() - t25:.1f} s")
+
+    # 26. the command line, the compat handles and the five examples:
+    # subprocesses started together, outputs against the API's in this
+    # process
+    t26 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        dd = Path(d)
+        jobs = tbench.config6_jobs(d, 4, seconds)
+        voice = jobs[0]["voice"]
+        (dd / "manifest.json").write_text(json.dumps(
+            [dict(j, out=j["out"].replace("out_", "cli_")) for j in jobs]))
+        x3, _ = tbench.config3_inputs(1, seconds)
+        write_wav(dd / "st48.wav", convert.f32_to_pcm16_np(x3[0]), 48000)
+        chain = [{"name": "equalizer",
+                  "params": {"bands": list(tbatch.DEFAULT_BANDS)}},
+                 {"name": "reverb", "params": {"ir_seconds": 0.5,
+                                               "wet": 0.3, "dry": 0.7}},
+                 {"name": "limiter"}]
+        cfg = {"sampleRate": 48000, "normalize": "lufs",
+               "normalizeTargetDb": -16.0, "tracks": [{"url": voice}],
+               "effects": [chain[0]],
+               "masterEffects": [{"name": "limiter",
+                                  "params": {"threshold_db": -1.0}}]}
+        (dd / "gen.json").write_text(json.dumps(cfg))
+        cli = {
+            "batch": ["batch", str(dd / "manifest.json"), "--no-resume"],
+            "resample": ["resample", voice, str(dd / "rs.wav"), "--rate",
+                         "16000"],
+            "effects": ["effects", str(dd / "st48.wav"), str(dd / "fx.wav"),
+                        "--chain", json.dumps(chain)],
+            "generate": ["generate", str(dd / "gen.json"),
+                         str(dd / "gen.wav")],
+        }
+        examples = {
+            "batch_pipeline": ([str(dd / "ex_batch")], '"failed": []'),
+            "compat_handles": ([str(dd)], "generator: status 2"),
+            "lufs_mastering": ([], "-16.00 LUFS"),
+            "serving_pool": ([], "checkpoint/resume bit-exact: True"),
+            "streaming_session": ([], "group (8000, 1)"),
+        }
+        procs = {k: _spawn(["-m", "xmtpu_torch.cli", *a, *dev_args], d)
+                 for k, a in cli.items()}
+        procs.update({f"example {k}": _spawn(
+            [str(REPO / "examples" / f"torch_{k}.py"), *a, *dev_args], d)
+            for k, (a, _) in examples.items()})
+        # meanwhile, in this process: the API's outputs and the handles
+        rep = trunner.run_batch(
+            [dict(j, out=j["out"].replace("out_", "api_")) for j in jobs],
+            resume=False, device=dev)
+        gate(rep.done == 4 and not rep.failed, "the API batch failed")
+        pcm_v, sr_v = read_wav(voice)
+        rs_api = resample(pcm_v, sr_v, 16000, device=dev)
+        st, _ = read_wav(dd / "st48.wav")
+        fx_api = effects(st, 48000, chain, block_size=131072, device=dev)
+        process_file(None, load_config(str(dd / "gen.json")),
+                     str(dd / "gen_api.wav"), device=dev)
+        sess_cfg = json.dumps({"sampleRate": 16000, "tracks": [
+            {"url": voice, "fadeInTimeMs": 50}],
+            "effects": [{"name": "limiter"}]})
+        hd = compat.XmAudioUtils(device=dev)
+        hd.mixer_init(sess_cfg)
+        def handle_frames(get, limit):
+            out = []
+            while len(out) < limit and (f := get()) is not None:
+                out.append(f)
+            return out
+
+        mixer_frames = handle_frames(hd.mixer_get_frame, 50)
+        ref_sess = Session(json.loads(sess_cfg), device=dev)
+        sess_frames = np.concatenate([ref_sess.read()
+                                      for _ in mixer_frames])
+        mixer_frames = np.concatenate(mixer_frames)
+        hd.effects_init({"effects": chain[:1], "sampleRate": 16000}, voice)
+        hd.effects_seek(250.0)
+        fx_frames = handle_frames(hd.effects_get_frame, 25)
+        ref_fx = Session({"sampleRate": 16000, "effects": chain[:1],
+                          "tracks": [{"url": voice}]}, device=dev)
+        ref_fx.seek(250.0)
+        fx_ref = np.concatenate([ref_fx.read() for _ in fx_frames])
+        fx_frames = np.concatenate(fx_frames)
+        hd.freep()
+        gen = compat.XmAudioGenerator(device=dev)
+        gen.start(str(dd / "gen.json"), str(dd / "gen_compat.wav"))
+        gen_status = gen.wait(300)
+        outs = {k: p.communicate(timeout=600) for k, p in procs.items()}
+        rcs = {k: p.returncode for k, p in procs.items()}
+        bad = {k: outs[k][1][-1500:] for k, rc in rcs.items() if rc != 0}
+        gate(not bad, f"subprocesses failed: {bad}")
+        for k, (_, want) in examples.items():
+            gate(want in outs[f"example {k}"][0],
+                 f"example {k} printed no {want!r}: {outs[f'example {k}']}")
+        worst_b = max(pcm_db(read_wav(j["out"].replace("out_", "cli_"))[0],
+                             read_wav(j["out"].replace("out_", "api_"))[0])
+                      for j in jobs)
+        same_b = all(Path(j["out"].replace("out_", "cli_")).read_bytes()
+                     == Path(j["out"].replace("out_", "api_")).read_bytes()
+                     for j in jobs)
+        dbs = {"batch": worst_b,
+               "resample": pcm_db(read_wav(dd / "rs.wav")[0], rs_api),
+               "effects": pcm_db(read_wav(dd / "fx.wav")[0], fx_api),
+               "generate": pcm_db(read_wav(dd / "gen.wav")[0],
+                                  read_wav(dd / "gen_api.wav")[0]),
+               "compat mixer": pcm_db(mixer_frames, sess_frames),
+               "compat effects": pcm_db(fx_frames, fx_ref),
+               "compat generator": pcm_db(
+                   read_wav(dd / "gen_compat.wav")[0],
+                   read_wav(dd / "gen_api.wav")[0])}
+        print("command line and compat against the API: "
+              + ", ".join(f"{k} {v:.1f} dB" for k, v in dbs.items())
+              + f" (gate {GATE_CHAIN_DB}); batch bytes identical: {same_b}; "
+              f"generator status {gen_status}; subprocesses "
+              f"{sorted(rcs)} exit 0 [{card}]")
+        gate(all(v <= GATE_CHAIN_DB for v in dbs.values())
+             and gen_status == compat.GS_COMPLETED,
+             "the command line or the compat handles differ from the API")
+    print(f"phase 26: {time.perf_counter() - t26:.1f} s")
 
 
 def main() -> None:
@@ -2343,7 +2777,13 @@ def main() -> None:
         card=card, dev=dev, compare=compare, bound=bound,
         reset_counts=reset_counts, counts=counts, check_k1=check_k1))
 
-    # 24. kernels line, then the contract line last
+    # 24-26. the native runtime, config 6 (the file runner), the command
+    # line, the compat handles and the examples
+    runner_phases(types.SimpleNamespace(
+        card=card, dev=dev, compare=compare, bound=bound,
+        reset_counts=reset_counts, counts=counts, check_k1=check_k1))
+
+    # 27. kernels line, then the contract line last
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -407,7 +407,10 @@ def test_port_imports_no_jax():
     loudness, noise suppression, the WAV codec, the config schema, the
     mixer and the file pipeline (process_file with an ir_wav reverb);
     so do a streaming Session, a SessionPool on both effect engines and
-    a PoolServer, each reading a frame."""
+    a PoolServer, each reading a frame; so do the native host runtime
+    (its ring), the file-batch runner (``run_batch``, pipelined), the
+    command line (``resample``) and the compat handles (a mixer frame,
+    the decoder)."""
     code = (
         "import sys, numpy as np, torch\n"
         "from xmtpu_torch import batch, bench\n"
@@ -488,6 +491,21 @@ def test_port_imports_no_jax():
         "srv = xmtpu_torch.PoolServer(n_slots=2, device='cpu')\n"
         "sid = srv.open(scfg, src)\n"
         "assert srv.read(sid, 1).shape == (320, 1)\n"
+        "from xmtpu_torch import cli, compat, native, runner\n"
+        "f = native.Fifo(8); assert f.write(b'abc') == 3 and f.read(3) == b'abc'\n"
+        "rep = runner.run_batch([{'voice': os.path.join(d, 'v.wav'),\n"
+        "    'out': os.path.join(d, 'b.wav')}], device='cpu')\n"
+        "assert rep.done == 1 and not rep.failed, rep\n"
+        "assert cli.main(['resample', os.path.join(d, 'v.wav'),\n"
+        "    os.path.join(d, 'r.wav'), '--rate', '16000', '--device',\n"
+        "    'cpu']) == 0\n"
+        "h = compat.XmAudioUtils(device='cpu')\n"
+        "import json\n"
+        "h.mixer_init(json.dumps({'sampleRate': 16000, 'tracks': [{'url':\n"
+        "    os.path.join(d, 'r.wav')}]}))\n"
+        "assert h.mixer_get_frame().shape == (320, 1)\n"
+        "h.decoder_create(os.path.join(d, 'r.wav'))\n"
+        "assert h.decoder_get_pcm(10).shape == (10, 1)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'xmtpu'))\n"
         "assert not bad, bad\n"

@@ -1388,3 +1388,48 @@ def test_stream_shape_kernels_vs_twins(cuda, R, n):
     yk = fftconv.fir_convolve(xa, ir, ones_r, ones_c)
     yp = fftconv.fir_convolve_plain(xa, ir, ones_r, ones_c)
     assert _db(yk - yp, yp) <= -100.0
+
+
+def _runner_clips(tmp_path, lengths, seed=1717):
+    from xmtpu_torch.io import write_wav
+
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for i, n in enumerate(lengths):
+        p = tmp_path / f"in_{i}.wav"
+        write_wav(p, (rng.standard_normal(n) * 9000).astype(np.int16), 44100)
+        jobs.append({"voice": str(p), "out": str(tmp_path / f"o_{i}.wav")})
+    return jobs
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_run_batch_on_card_vs_cpu(cuda, tmp_path, pipeline):
+    """The file runner on the card (the default device): every clip
+    written, the card's peak memory reported, each output within -85 dB
+    of the same run on the CPU (the ragged step's tolerance)."""
+    from xmtpu_torch.io import read_wav
+    from xmtpu_torch.runner import run_batch
+
+    jobs = _runner_clips(tmp_path, (44100, 60000, 30000, 8000))
+    rep = run_batch(jobs, batch_size=2, pipeline=pipeline)
+    assert rep.done == 4 and not rep.failed, rep.failed
+    assert rep.peak_hbm_bytes is not None and rep.peak_hbm_bytes > 0
+    cpu_jobs = [dict(j, out=j["out"] + ".cpu.wav") for j in jobs]
+    assert run_batch(cpu_jobs, batch_size=2, device="cpu").done == 4
+    for j, c in zip(jobs, cpu_jobs):
+        y, sr = read_wav(j["out"])
+        ref, _ = read_wav(c["out"])
+        assert sr == 16000 and y.shape == ref.shape
+        db = _db(torch.from_numpy(y).double() - torch.from_numpy(ref).double(),
+                 torch.from_numpy(ref).double())
+        print(f"runner on the card vs the CPU, {y.shape[0]} samples: "
+              f"{db:.1f} dB")
+        assert db <= -85.0
+
+
+def test_run_batch_refuses_interpret_on_card(cuda, tmp_path):
+    from xmtpu_torch.runner import run_batch
+
+    jobs = _runner_clips(tmp_path, (8000,))
+    with pytest.raises(ConfigError, match="interpret"):
+        run_batch(jobs, step_kw={"interpret": True})

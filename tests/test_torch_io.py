@@ -1,6 +1,7 @@
 """Parity of the port's WAV/PCM I/O (``xmtpu_torch.io``) with the JAX
-package's stdlib path (``xmtpu.io``, its native C++ parser switched off
-for the comparison: the port has none yet).
+package's stdlib path (``xmtpu.io``): both packages' native C++ parsers
+are switched off here, so these tests hold the two stdlib paths against
+each other; ``tests/test_torch_native.py`` holds the native paths.
 
 One size: 1,000 frames at 16 kHz. Tolerance: none. The bytes written and
 the arrays decoded are identical (8-, 16-, 24- and 32-bit PCM, a
@@ -32,8 +33,9 @@ N = 1000
 
 @pytest.fixture(autouse=True)
 def stdlib_reference(monkeypatch):
-    """The JAX package's stdlib codec (no native library)."""
+    """Both packages' stdlib codecs (no native library)."""
     monkeypatch.setattr(xwav, "_native", lambda: None)
+    monkeypatch.setattr(twav, "_native", lambda: None)
 
 
 @pytest.fixture(scope="module")

@@ -176,7 +176,7 @@ def test_api_resample_device_and_errors(tracks):
 def test_bench_configs_1_2(monkeypatch, tracks):
     """--config=1|2: the JAX harness's inputs, their functions equal to
     the JAX benchmark's on the CPU (a prefix), and the option handling
-    with the card faked absent."""
+    with the card faked absent; config 6's smoke run on the CPU."""
     x = bench.config1_inputs(2, 0.2)
     assert x.shape == (2, N) and x.dtype == np.int16
     np.testing.assert_array_equal(
@@ -207,5 +207,14 @@ def test_bench_configs_1_2(monkeypatch, tracks):
             bench._cli([f"--config={cfg}", "--batch=4"])
         with pytest.raises(SystemExit, match="takes batch"):
             bench._cli([f"--config={cfg}", "--iir_backend=scan"])
-    with pytest.raises(SystemExit, match="are ported"):
+    # config 6, the file-fed batch: exits without a card; its smoke run on
+    # the CPU; an unknown config is refused
+    with pytest.raises(SystemExit, match="no CUDA device"):
         bench._cli(["--config=6"])
+    with pytest.raises(SystemExit, match="takes no other arguments"):
+        bench._cli(["--config=6", "--batch=4"])
+    r = bench.config6_file_batch(n_clips=2, seconds=0.2, device="cpu")
+    assert r["config"] == 6 and r["device"] == "cpu"
+    assert r["audio_sec_per_sec"] > 0 and r["cold_audio_sec_per_sec"] > 0
+    with pytest.raises(SystemExit, match="are ported"):
+        bench._cli(["--config=7"])

@@ -10,6 +10,7 @@ harness's configs 1-3 and 5 (``--config=1|2|3|5``, counterparts of
     python -m xmtpu_torch.bench --config=1|2|3 [--batch=...]
         [--clip_seconds=10] [--iters=20]
     python -m xmtpu_torch.bench --config=5
+    python -m xmtpu_torch.bench --config=6
 
 The keys are the root ``bench.py``'s. The step takes the branch the JAX
 package's auto rule picks: fused at the default 256 clips, unfused
@@ -55,6 +56,16 @@ dB, then the limiter): ``ms_per_frame_sequential`` and
 float64 scan engine (``pool32_audio_sec_per_sec``, the JAX key) and on
 the kernels (``pool32_pallas_audio_sec_per_sec``). Host clock: every
 read returns host data.
+
+``--config=6`` (counterpart of ``xmtpu.benchmarks.config6_file_batch``)
+times the file-fed batch: 64 int16 WAV clips of 10 s at 44.1 kHz
+(``default_rng(0)`` noise x 9000; FLAC where an FFmpeg backend is
+registered, which the port has none of) written to a temporary
+directory, then ``xmtpu_torch.runner.run_batch`` to 16 kHz WAVs: decode
+on the host, the ragged step on the card, WAV writes on the host, wall
+clock with all I/O. Two passes; ``audio_sec_per_sec`` is the warm one,
+``cold_audio_sec_per_sec`` the first (the step's tables, the kernels'
+build when not yet built). Any failed clip raises.
 """
 
 from __future__ import annotations
@@ -348,6 +359,84 @@ def config5_streaming(seconds: float = 4.0, pool_slots: int = 32) -> dict:
             "device": torch.cuda.get_device_name(dev)}
 
 
+def config6_jobs(root, n_clips: int = 64, seconds: float = 10.0,
+                 fmt: str = "wav") -> list:
+    """The JAX benchmark's config-6 clips written under ``root``: int16
+    noise x 9000 from ``default_rng(0)``, 44.1 kHz mono -> the runner's
+    manifest (``in_<i>.<fmt>`` -> ``out_<i>.wav``)."""
+    import os
+
+    from xmtpu_torch.io import encode_audio
+
+    rng = np.random.default_rng(0)
+    n = int(SR_IN * seconds)
+    jobs = []
+    for i in range(n_clips):
+        pcm = (rng.standard_normal(n) * 9000).astype(np.int16)
+        p = os.path.join(root, f"in_{i}.{fmt}")
+        encode_audio(p, pcm, SR_IN)
+        jobs.append({"voice": p, "out": os.path.join(root, f"out_{i}.wav")})
+    return jobs
+
+
+def config6_file_batch(n_clips: int = 64, seconds: float = 10.0,
+                       fmt: str = "flac", decode_threads: int = 1,
+                       step_kw=None, device=None) -> dict:
+    """Config 6, the file-fed batch, end to end on ``device`` (None: the
+    card, else it exits): decode (host) -> the ragged step -> WAV write
+    (host), wall clock with all I/O, the warm pass and the cold one. WAV
+    inputs where no FFmpeg backend is registered."""
+    import shutil
+    import tempfile
+
+    from xmtpu_torch.io import HAVE_FFMPEG
+    from xmtpu_torch.runner import run_batch
+
+    dev = _require_card() if device is None else torch.device(device)
+    if fmt != "wav" and not HAVE_FFMPEG:
+        fmt = "wav"
+    d = tempfile.mkdtemp(prefix="xmtpu_torch_bench6_")
+    try:
+        jobs = config6_jobs(d, n_clips, seconds, fmt)
+        reps = []
+        for _ in range(2):  # cold, then warm
+            rep = run_batch(jobs, sr_in=SR_IN, sr_bus=16000, resume=False,
+                            write_done_markers=False, step_kw=step_kw,
+                            decode_threads=decode_threads, device=dev)
+            if rep.failed:
+                raise RuntimeError(
+                    f"file-batch bench had failures: {rep.failed}")
+            reps.append(rep)
+        cold, warm = reps
+        return {"config": 6,
+                "desc": f"file-fed batch ({fmt}, decode->device->write, "
+                        f"decode_threads={decode_threads})",
+                "audio_sec_per_sec": warm.audio_sec / warm.wall_sec,
+                "cold_audio_sec_per_sec": cold.audio_sec / cold.wall_sec,
+                "peak_hbm_bytes": warm.peak_hbm_bytes,
+                "device": (torch.cuda.get_device_name(dev)
+                           if dev.type == "cuda" else str(dev))}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+CONFIGS = (1, 2, 3, 4, 5, 6)
+
+
+def run_config(config: int, device=None) -> dict:
+    """One config's JSON result at its defaults. Configs 1-5 measure
+    the card (``device`` None or a CUDA device); config 6, the file
+    runner, also runs on ``device="cpu"``."""
+    from xmtpu_torch.utils.errors import ConfigError
+
+    if config == 6:
+        return config6_file_batch(device=device)
+    if device is not None and torch.device(device).type != "cuda":
+        raise ConfigError(f"bench config {config} measures the card; only "
+                          f"config 6 runs on {device}")
+    return _cli([f"--config={config}"])
+
+
 def main(batch: int = 256, clip_seconds: float = 10.0, iters: int = 20,
          iir_backend: str = "pallas", resample_backend: str = "mixfirst",
          envelope_block: int = 0, limiter_fuse: int = 1) -> dict:
@@ -399,11 +488,11 @@ def _cli(argv) -> dict:
                      "(known: config, batch, iters, clip_seconds, "
                      "iir_backend, resample_backend, envelope_block, "
                      "limiter_fuse)")
-    if config == 5:
+    if config in (5, 6):
         if kw:
-            sys.exit(f"xmtpu_torch.bench: --config=5 takes no other "
+            sys.exit(f"xmtpu_torch.bench: --config={config} takes no other "
                      f"arguments; not {sorted(kw)}")
-        return config5_streaming()
+        return config5_streaming() if config == 5 else config6_file_batch()
     runs = {1: config1_resample, 2: config2_mix, 3: config3_effects}
     if config in runs:
         other = sorted(set(kw) - set(_CONFIG_KEYS))
@@ -415,8 +504,8 @@ def _cli(argv) -> dict:
         return runs[config](**kw)
     if config != 4:
         sys.exit("xmtpu_torch.bench: --config=1 (resample), 2 (mix), 3 "
-                 "(effects), 4 (the flagship chain, the default) or 5 "
-                 "(streaming) are ported")
+                 "(effects), 4 (the flagship chain, the default), 5 "
+                 "(streaming) or 6 (the file-fed batch) are ported")
     return main(**kw)
 
 

@@ -1,13 +1,18 @@
-"""Stdlib WAV codec: file -> int16 numpy PCM and back (counterpart of
-``xmtpu.io.wav``'s stdlib path, byte- and bit-identical with it).
+"""WAV codec: file -> int16 numpy PCM and back (counterpart of
+``xmtpu.io.wav``, byte- and bit-identical with it).
 
 PCM layout throughout: ``(num_samples, num_channels)`` int16, C order
-(interleaved on disk, deinterleaved in memory). Reads 8-bit unsigned,
-16-, 24- and 32-bit PCM (converted to int16: 8-bit recentred and
-shifted up, 24- and 32-bit truncated to their top 16 bits); a truncated
-final frame is dropped. Writes 16-bit PCM. The JAX package's native C++
-parser (bit-identical for 16-bit) and its FFmpeg fallback for other
-encodings are not ported; every failure is a :class:`DecodeError`.
+(interleaved on disk, deinterleaved in memory). :func:`read_wav` takes
+the native C++ parser (``xmtpu_torch.native``: 16- and 24-bit PCM and
+float32 WAV) when the library is built, and the stdlib ``wave`` path
+for what the parser refuses (8- and 32-bit PCM, a truncated file) or
+when it cannot be built: 8-bit unsigned is recentred and shifted up,
+24- and 32-bit truncated to their top 16 bits, a truncated final frame
+dropped; both paths give the same int16 for 16- and 24-bit PCM.
+:func:`write_wav` writes 16-bit PCM through the native writer when it
+is built, else through ``wave``: the same bytes. The JAX package's
+FFmpeg fallback for other encodings is not ported; every failure is a
+:class:`DecodeError`.
 """
 
 from __future__ import annotations
@@ -28,9 +33,22 @@ class WavInfo:
     sample_width: int  # bytes per sample on disk
 
 
+def _native():
+    """The native library's module when it is built, else None."""
+    from xmtpu_torch import native
+
+    return native if native.available() else None
+
+
 def read_wav(path) -> tuple[np.ndarray, int]:
     """Read a WAV file -> (int16 array (n, channels), sample_rate);
     :class:`DecodeError` on anything it cannot decode."""
+    n = _native()
+    if n is not None:
+        try:
+            return n.read_wav_native(str(path))
+        except ValueError:
+            pass  # an encoding or a file the parser refuses: stdlib decides
     try:
         return _read_wav_stdlib(path)
     except Exception as e:
@@ -75,6 +93,10 @@ def write_wav(path, pcm: np.ndarray, sample_rate: int) -> None:
         raise TypeError(f"write_wav expects int16 PCM, got {pcm.dtype}")
     if pcm.ndim == 1:
         pcm = pcm[:, None]
+    n = _native()
+    if n is not None:
+        n.write_wav_native(str(path), pcm, int(sample_rate))
+        return
     with wave.open(str(path), "wb") as w:
         w.setnchannels(pcm.shape[1])
         w.setsampwidth(2)

@@ -1,1 +1,1 @@
-"""Errors and profiling helpers of the PyTorch port."""
+"""Errors, the device rule, logging and profiling of the PyTorch port."""

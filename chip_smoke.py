@@ -245,10 +245,44 @@ process exits non-zero:
    API's in this process, the compat mixer and voice-effects handles
    against a ``Session``, the async generator (``GS_COMPLETED``)
    against ``process_file``: -80 dB;
-27. a JSON line of the kernels (times, bounds, launches; K1 once per
+27. sequence parallelism at the clip lengths it exists for: one stereo
+   clip of an hour at 48 kHz (2 x 172,800,000 float32, ``0.3 *
+   default_rng(0)`` noise) through ``xmtpu_torch.parallel.
+   sp_effects_chain`` on 4 virtual shards of the card (the kernel engine
+   by the auto rule: 43.2 M samples a shard), config 3's chain (the
+   5-band EQ, a 0.5 s IR at wet 0.3 / dry 0.7, the default limiter),
+   with the counters at 0: the IIR kernel, its state chain and the
+   envelope core must launch a multiple of 4 times; against the port's
+   single-device chain on the card (-80 dB) and, its first 10 s,
+   against the float64 oracle (scipy ``sosfilt`` and ``fftconvolve``,
+   the linked float64 envelope, the soft knee; -80 dB); both calls'
+   times and peak memory; the IIR kernel and the envelope core on the
+   call's recorded operands (the pass timed at the shard's full shape,
+   then on every row's first 2,048 samples against its twin, max abs
+   0); then a 2 x 2 ``("dp", "sp")`` mesh of 4 mono clips of 10 min and
+   the scan engine against the kernel engine at 2 x 262,144 samples a
+   shard (-80 dB each);
+28. data parallelism and serving on 4 virtual shards:
+   ``batch.flagship_step_sharded`` on 256 clips of 10 s against the
+   unsharded step (-120 dB, max abs printed; the fused branch from the
+   global batch: K1 and K2 launch once a shard, K5 never) and clip 0
+   against the float64 oracle (-80 dB), both steps' audio-s/s; config
+   5's 32-slot pool over a ``dp`` mesh on both engines against the
+   unsharded pool (-80 dB, max abs printed), both pools' audio-s/s, a
+   slot after leave / join / seek against its ``StreamSession``; a
+   ``PoolServer`` with ``mesh=`` bucketing two configs into two pools
+   (every stream against its session); ``dryrun_multichip(4,
+   device="cuda:0")``, all legs;
+29. on a host with several cards (k = min(4, count)), the sp leg on a
+   10 min stereo clip, the dp step and the pool over ``cuda:0..k-1``,
+   each beside the same leg on k virtual shards, with the same gates,
+   then ``dryrun_multichip(k)``; with one card it prints ``phase 29: 1
+   card, not run``;
+30. a JSON line of the kernels (times, bounds, launches; K1 once per
    branch; the state-chain kernel beside K5; the episode's K5, K1 and
    envelope entries with its launch counts; the streaming entries of
-   phases 22-23; the runner's K1, K5 and K3 of phase 25), then the
+   phases 22-23; the runner's K1, K5 and K3 of phase 25; the IIR and
+   envelope kernels at the hour clip's shard, phase 27), then the
    contract line ``{"ok": true, "device": {...}}`` last.
 
 Every step run with fresh counters sets all ten launch counters to 0
@@ -1104,22 +1138,459 @@ def runner_phases(h, n_clips: int = 64, seconds: float = 10.0) -> None:
     print(f"phase 26: {time.perf_counter() - t26:.1f} s")
 
 
-def main() -> None:
+def parallel_phases(h, clip_s: float = 3600.0, clip_2d_s: float = 600.0,
+                    scan_shard: int = 262144, n_clips: int = BATCH,
+                    real_clip_s: float = 600.0, engine: str = "auto",
+                    prefix: int = 2048, phases=(27, 28, 29)) -> None:
+    """Phases 27-29: sequence and data parallelism
+    (``xmtpu_torch.parallel``) on 4 virtual shards of the card, then on
+    the host's real cards where it has several. ``h`` holds main()'s
+    helpers; the sizes cut the phases for a rehearsal on the CPU
+    (``engine="kernel"`` there, where the auto rule would take the
+    scans at a short shard). ``phases``: which of 27-29 to run (a call
+    on a host of several cards may run 29 alone)."""
+    import torch
+    from scipy import signal as sps
+
+    from xmtpu_torch import batch as tbatch
+    from xmtpu_torch import bench as tbench
+    from xmtpu_torch.bench import median_ms, replay_ms, step_seconds
+    from xmtpu_torch.graph.pool import SessionPool
+    from xmtpu_torch.graph.serve import PoolServer
+    from xmtpu_torch.graph.streaming import StreamSession
+    from xmtpu_torch.kernels import envelope, iir
+    from xmtpu_torch.ops import biquad, limiter
+    from xmtpu_torch.ops import reverb as treverb
+    from xmtpu_torch.parallel import Mesh, sp_effects_chain
+    from xmtpu_torch.parallel import sp as tsp
+    from xmtpu_torch.parallel.dryrun import dryrun_multichip
+
+    card, dev = h.card, h.dev
+    on_card = dev.type == "cuda"
+    n_sh = 4
+    sr = 48000
+    sos = biquad.eq_sos(list(tbatch.DEFAULT_BANDS), sr)
+    ir = treverb.synthetic_ir(0.5, sr).astype(np.float32)
+    virt = [str(dev)] * n_sh
+
+    def sync():
+        for i in range(torch.cuda.device_count() if on_card else 0):
+            torch.cuda.synchronize(i)
+
+    def wall(fn):
+        """(seconds, result) of ``fn()`` by the host clock, synchronised."""
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return time.perf_counter() - t0, out
+
+    def db_max(got, ref):
+        """(RMS error in dB, max abs) of ``got`` against ``ref``, in
+        float64 on their device."""
+        err = got.double() - ref.double()
+        p_err = float(err.pow(2).sum())
+        p_ref = float(ref.double().pow(2).sum())
+        db = -math.inf if p_err == 0 else 10.0 * math.log10(p_err / p_ref)
+        return db, float(err.abs().max())
+
+    def single(x):
+        """The port's one-device chain, as tests/test_sp.py builds it:
+        the IIR kernel, the reverb (K1), the limiter (envelope kernel)."""
+        y, _ = iir.sosfilt(sos, x)
+        y = treverb.reverb(y, ir, wet=0.3, dry=0.7)
+        return limiter.limiter(y, sr)[0]
+
+    def sharded(x, mesh, **kw):
+        return sp_effects_chain(x, sr, mesh, bands=sos, ir=ir,
+                                engine=kw.pop("engine", engine), **kw)
+
+    def sp_leg(label, x, mesh, ref_s=None, **kw):
+        """Sharded against single-device: gate -80 dB; both times (the
+        second call of each)."""
+        sharded(x, mesh, **kw)
+        t_sp, y = wall(lambda: sharded(x, mesh, **kw))
+        single(x)
+        t_one, ref = wall(lambda: single(x))
+        db, mx = db_max(y, ref)
+        audio = x.shape[-1] / sr * (x.shape[0] if x.dim() == 3 else 1)
+        print(f"{label} {tuple(x.shape)} over {mesh}: {db:.1f} dB vs the "
+              f"single-device chain (gate {GATE_CHAIN_DB}), max abs {mx:.3g};"
+              f" sharded {t_sp * 1e3:.1f} ms = {audio / t_sp:.0f} audio-s/s,"
+              f" single device {t_one * 1e3:.1f} ms = {audio / t_one:.0f} "
+              f"audio-s/s" + (f"; on virtual shards {ref_s * 1e3:.1f} ms"
+                              if ref_s is not None else "") + f" [{card}]")
+        gate(db <= GATE_CHAIN_DB and bool(torch.isfinite(y).all()),
+             f"{label}: {db:.1f} dB against the single-device chain")
+        return t_sp
+
+    if 27 in phases:
+        # 27. SP at the clip lengths it exists for: one stereo clip of an
+        # hour at 48 kHz, time-sharded over 4 virtual shards of the card,
+        # config 3's chain (the 5-band EQ, a 0.5 s IR at wet 0.3 / dry 0.7,
+        # the default limiter)
+        t27 = time.perf_counter()
+        n = int(clip_s * sr)
+        rng = np.random.default_rng(0)
+        x_host = rng.standard_normal((2, n), dtype=np.float32)
+        x_host *= np.float32(0.3)
+        x = torch.from_numpy(x_host).to(dev)
+        mesh_sp = Mesh(virt, ("sp",))
+        k5_calls, k5_restore = recording(iir, "sosfilt_pass")
+        k3_calls, k3_restore = recording(envelope, "envelope_pass")
+        h.reset_counts()
+        try:
+            sync()
+            y_sp = sharded(x, mesh_sp)
+            sync()
+        finally:
+            k5_restore()
+            k3_restore()
+        got = h.counts()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t_sp, y_sp = wall(lambda: sharded(x, mesh_sp))
+        peak_sp = torch.cuda.max_memory_allocated() if on_card else 0
+        del y_sp
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t_one, ref = wall(lambda: single(x))
+        peak_one = torch.cuda.max_memory_allocated() if on_card else 0
+        y_sp = sharded(x, mesh_sp)
+        db, mx = db_max(y_sp, ref)
+        del ref
+        # the first 10 s against the float64 oracle (every stage is causal)
+        n10 = min(n, 10 * sr)
+        y64 = sps.sosfilt(sos, x_host[:, :n10].astype(np.float64), axis=-1)
+        w64 = sps.fftconvolve(y64, ir.astype(np.float64)[None],
+                              axes=-1)[:, :n10]
+        y64 = 0.7 * y64 + 0.3 * w64
+        d64 = torch.from_numpy(np.abs(y64).max(axis=0))
+        env64, _ = limiter.decaying_max_scan(
+            d64, limiter._release_coeff(100.0, sr), 0.0)
+        e2_64, _ = limiter.onepole_scan(env64, limiter._attack_coeff(1.0, sr),
+                                        0.0)
+        level64 = 20.0 * torch.log10(torch.clamp_min(e2_64, 1e-12))
+        g64 = torch.pow(10.0, limiter.soft_knee_gain_db(level64, -3.0, 6.0)
+                        / 20.0)
+        oracle = np.clip(y64 * g64.numpy()[None], -1.0, 1.0)
+        db10, _ = db_max(y_sp[:, :n10].cpu(), torch.from_numpy(oracle))
+        audio = n / sr
+        print(f"phase 27: one {clip_s:g} s stereo clip at 48 kHz "
+              f"{tuple(x.shape)} ({x.numel() * 4 / 1e9:.2f} GB) through "
+              f"sp_effects_chain over {mesh_sp} ({n // n_sh} samples a "
+              f"shard, engine {engine}): {db:.1f} dB vs the single-device "
+              f"chain, max abs {mx:.3g}; first {n10 / sr:g} s {db10:.1f} dB "
+              f"vs the float64 oracle (gates {GATE_CHAIN_DB}); sharded "
+              f"{t_sp * 1e3:.1f} ms = {audio / t_sp:.0f} audio-s/s, single "
+              f"device {t_one * 1e3:.1f} ms = {audio / t_one:.0f} audio-s/s; "
+              f"peak memory {peak_sp / 2**30:.2f} GiB sharded, "
+              f"{peak_one / 2**30:.2f} GiB single [{card}]")
+        print(f"phase 27 launches in the sharded call: {got}")
+        gate(db <= GATE_CHAIN_DB and db10 <= GATE_CHAIN_DB
+             and bool(torch.isfinite(y_sp).all()),
+             f"the hour clip: {db:.1f} dB vs the single device, {db10:.1f} dB "
+             "vs the oracle")
+        if on_card:
+            for key in ("iir", "state_chain", "envelope_seg"):
+                gate(got[key] >= n_sh and got[key] % n_sh == 0,
+                     f"the sharded chain's {key} launches {got[key]} are not "
+                     f"a positive multiple of its {n_sh} shards")
+        del y_sp
+
+        # K5 and the envelope core at the shard's operands: each at its full
+        # shape (a graph replay), and on the first ``prefix`` samples of
+        # every row of the same operands against its twin (max abs 0; a
+        # row's prefix depends only on itself: the twins' time loops take
+        # ~30 s at a shard's full length)
+        (xk, sk, zk), _ = k5_calls[-1]
+        t_full = replay_ms(lambda: iir.sosfilt_pass(xk, sk, zk)) if on_card \
+            else math.nan
+        shard = x[:, :n // n_sh].contiguous()
+        t_call = median_ms(lambda: iir.sosfilt(sos, shard)) if on_card \
+            else math.nan
+        xp = xk[:, :prefix].contiguous()
+        yk, zfk = iir.sosfilt_pass(xp, sk, zk)
+        yp, zfp = iir.sosfilt_plain(xp, sk, zk)
+        k5 = h.compare("iir_sp_shard", "cuda", "xmtpu_torch/csrc/iir.cu",
+                       "xmtpu/kernels/iir.py:37", yk, yp)
+        k5["max_abs_err"] = max(float((yk - yp).abs().max()),
+                                float((zfk - zfp).abs().max()))
+        gate(k5["max_abs_err"] == 0.0, "K5 at the shard differs from its twin")
+        k5["ms"] = replay_ms(lambda: iir.sosfilt_pass(xp, sk, zk)) if on_card \
+            else math.nan
+        k5["plain_ms"] = plain_time(lambda: iir.sosfilt_plain(xp, sk, zk)) \
+            if on_card else math.nan
+        k5["launches"] = got["iir"]
+        R5, ns = xk.shape[0], sk.shape[0]
+        h.bound(k5, 4 * (2 * R5 * prefix + 6 * ns + 4 * ns * R5),
+                9 * ns * R5 * prefix)
+        print(f"K5 at the hour clip's shard: the pass at {tuple(xk.shape)} "
+              f"{t_full:.3f} ms on the card (graph replay; {len(k5_calls)} "
+              f"passes in the call), the sosfilt() call on the shard "
+              f"{tuple(shard.shape)} {t_call:.3f} ms from the host; on its "
+              f"first {prefix} samples (R = {R5}): max abs "
+              f"{k5['max_abs_err']:.3g} vs the twin, {k5['ms']:.4f} ms, twin "
+              f"{k5['plain_ms']:.1f} ms, bound {k5['bound_ms']:.5f} ms "
+              f"({k5['bound_by']}) [{card}]")
+        del shard
+        k3_ms = []
+        # the last shard's one-pole call (envelope(env, 0, c_att)): 2 launches
+        for a, kw in k3_calls[-2:]:
+            k3_ms.append(replay_ms(lambda a=a, kw=kw: envelope.envelope_pass(
+                *a, **kw)) if on_card else math.nan)
+        a, kw = k3_calls[-1]
+        ap = (a[0][:, :prefix].contiguous(),) + a[1:4] + tuple(
+            t[:prefix] if i == 0 else t for i, t in enumerate(a[4:]))
+        ek, zk3 = envelope.envelope_pass(*ap, **kw)
+        ep, zp3 = envelope.envelope_plain(*ap, **kw)
+        k3 = h.compare("envelope_sp_shard", "cuda",
+                       "xmtpu_torch/csrc/envelope.cu",
+                       "xmtpu/kernels/envelope.py:108", ek, ep)
+        k3["max_abs_err"] = max(float((ek - ep).abs().max()),
+                                float((zk3 - zp3).abs().max()))
+        gate(k3["max_abs_err"] == 0.0, "the envelope core at the shard "
+             "differs from its twin")
+        k3["ms"] = replay_ms(lambda: envelope.envelope_pass(*ap, **kw)) \
+            if on_card else math.nan
+        k3["plain_ms"] = plain_time(
+            lambda: envelope.envelope_plain(*ap, **kw)) if on_card \
+            else math.nan
+        k3["launches"] = got["envelope_seg"]
+        R3 = ap[0].shape[0]
+        h.bound(k3, 4 * (2 * R3 * prefix + 4 * R3 + prefix), 5 * R3 * prefix)
+        print(f"K3 at the hour clip's shard (1 x {n // n_sh}, the detector): "
+              f"{len(k3_calls)} launches in the call, the last shard's "
+              f"one-pole call {' + '.join(f'{t:.3f}' for t in k3_ms)} ms on "
+              f"the card (graph replays, {tuple(a[0].shape)} each); on its "
+              f"first {prefix} samples (R = {R3}): max abs "
+              f"{k3['max_abs_err']:.3g} vs the twin, {k3['ms']:.4f} ms, twin "
+              f"{k3['plain_ms']:.1f} ms, bound {k3['bound_ms']:.5f} ms "
+              f"({k3['bound_by']}) [{card}]")
+        # a shard's FIR, its halo prepended: torch.fft overlap-save (the
+        # sharded chain's, as XLA's FFT is the JAX package's) against K1's
+        # long form on the same operands
+        if on_card:
+            xw = x[:, :n // n_sh + len(ir) - 1].contiguous()
+            ir_d = torch.from_numpy(ir).to(dev)
+            blk = tsp._fir_block_auto(n // n_sh, len(ir))
+            t_os = median_ms(lambda: treverb.fir_convolve_os(xw, ir_d, blk))
+            t_k1 = median_ms(lambda: treverb.reverb(xw, ir_d, wet=1.0,
+                                                    dry=0.0))
+            db_f, _ = db_max(treverb.fir_convolve_os(xw, ir_d, blk),
+                             treverb.reverb(xw, ir_d, wet=1.0, dry=0.0))
+            print(f"phase 27: a shard's FIR {tuple(xw.shape)} x {len(ir)} "
+                  f"taps: torch.fft overlap-save ({blk}-point blocks) "
+                  f"{t_os:.2f} ms, K1's long form {t_k1:.2f} ms, "
+                  f"{db_f:.1f} dB apart [{card}]")
+            del xw
+        del k5_calls, k3_calls, x, x_host
+        # the 2-D leg: 4 mono clips x 10 min over a 2 x 2 virtual mesh
+        mesh_2d = Mesh(np.array(virt, dtype=object).reshape(2, 2),
+                       ("dp", "sp"))
+        xb = torch.from_numpy((0.3 * np.random.default_rng(4).standard_normal(
+            (4, 1, int(clip_2d_s * sr)), dtype=np.float32))).to(dev)
+        sp_leg("phase 27 dp x sp", xb, mesh_2d, dp_axis="dp")
+        del xb
+        # the scan engine against the kernel engine, 2 x 262,144 a shard
+        xs = torch.from_numpy((0.3 * np.random.default_rng(5).standard_normal(
+            (2, n_sh * scan_shard), dtype=np.float32))).to(dev)
+        t_scan, ys = wall(lambda: sharded(xs, mesh_sp, engine="scan"))
+        t_kern, yk = wall(lambda: sharded(xs, mesh_sp, engine="kernel"))
+        db, mx = db_max(yk, ys)
+        print(f"phase 27 engines {tuple(xs.shape)} over {mesh_sp}: the kernel "
+              f"engine {db:.1f} dB vs the scan engine (gate {GATE_CHAIN_DB}), "
+              f"max abs {mx:.3g}; scan {t_scan * 1e3:.1f} ms, kernel "
+              f"{t_kern * 1e3:.1f} ms (first calls) [{card}]")
+        gate(db <= GATE_CHAIN_DB, f"kernel vs scan engine {db:.1f} dB")
+        del xs, ys, yk
+        print(f"phase 27: {time.perf_counter() - t27:.1f} s")
+
+    if 28 in phases:
+        # 28. data parallelism and serving on 4 virtual shards: the sharded
+        # flagship step on the root bench's clips, config 5's pool, a server,
+        # the dryrun twin
+        t28 = time.perf_counter()
+        mesh_dp = Mesh(virt, ("dp",))
+        voice, bgm = tbench.make_inputs(n_clips, CLIP_SECONDS)
+        v = torch.from_numpy(voice).to(dev)
+        b = torch.from_numpy(bgm).to(dev)
+        step_dp = tbatch.flagship_step_sharded(mesh_dp)
+        step_one = tbatch.make_flagship_step(device=dev)
+        h.reset_counts()
+        y_dp = step_dp(v, b)
+        sync()
+        got = h.counts()
+        y_one = step_one(v, b)
+        db, mx = db_max(y_dp.float() / 32768.0, y_one.float() / 32768.0)
+        ref0 = tbatch.flagship_oracle_np(voice[:1], bgm[:1])
+        db0 = pcm_db(y_dp[:1].cpu().numpy(), ref0)
+        iters = 5 if on_card else 1
+        s_dp, _ = step_seconds(step_dp, v, b, iters=iters) if on_card \
+            else (math.nan, None)
+        s_one, _ = step_seconds(step_one, v, b, iters=iters) if on_card \
+            else (math.nan, None)
+        audio = n_clips * CLIP_SECONDS
+        print(f"phase 28: flagship_step_sharded over {mesh_dp} on {n_clips} "
+              f"clips of {CLIP_SECONDS:g} s (the fused branch: "
+              f"{step_dp.fused_for(n_clips)}, {n_clips // n_sh} rows a "
+              f"shard): {db:.1f} dB vs the unsharded step (gate -120), max abs"
+              f" {mx * 32768:.0f} LSB; clip 0 {db0:.1f} dB vs the float64 "
+              f"oracle (gate {GATE_CHAIN_DB}); {audio / s_dp:.0f} audio-s/s "
+              f"sharded, "
+              f"{audio / s_one:.0f} unsharded; launches {got} [{card}]")
+        # on the CPU (a rehearsal) the twins' segment rules and torch.fft
+        # round by batch shape: the chain's gate there
+        gate(db <= (-120.0 if on_card else GATE_CHAIN_DB)
+             and db0 <= GATE_CHAIN_DB,
+             f"the sharded step: {db:.1f} dB vs unsharded, {db0:.1f} vs "
+             "oracle")
+        if on_card:
+            gate(got["fftconv"] == n_sh and got["envelope"] == n_sh
+                 and got["iir"] == 0, f"the sharded step's launches {got}: "
+                 f"K1 and K2 once a shard, K5 never")
+        del v, b, y_dp, y_one
+        # config 5's 32-slot pool over the dp mesh, both engines
+        cfg5 = tbench.config5_config()
+        _, pool_srcs = tbench.config5_sources()
+        rates = {}
+        for be in ("scan", "pallas"):
+            pools = {name: SessionPool(cfg5, len(pool_srcs), frame_ms=20.0,
+                                       sources=pool_srcs, effects_backend=be,
+                                       **kw)
+                     for name, kw in (("sharded", {"mesh": mesh_dp}),
+                                      ("unsharded", {"device": dev}))}
+            outs = {name: np.concatenate([p.read(25), p.read(25)], axis=1)
+                    for name, p in pools.items()}
+            db, mx = (pcm_db(outs["sharded"], outs["unsharded"]),
+                      lsb(outs["sharded"], outs["unsharded"]))
+            for name, p in pools.items():
+                t0 = time.perf_counter()
+                done = sum(o.shape[0] * o.shape[1] / p.sr
+                           for o in (p.read(50) for _ in range(3)))
+                rates[(be, name)] = done / (time.perf_counter() - t0)
+            print(f"phase 28: {len(pool_srcs)}-slot pool ({be}) over "
+                  f"{mesh_dp}: {db:.1f} dB vs the unsharded pool (gate "
+                  f"{GATE_CHAIN_DB}), max abs {mx} LSB; "
+                  f"{rates[(be, 'sharded')]:.1f} audio-s/s sharded, "
+                  f"{rates[(be, 'unsharded')]:.1f} unsharded [{card}]")
+            gate(db <= GATE_CHAIN_DB, f"the sharded pool ({be}): {db:.1f} dB")
+        pool = pools["sharded"]  # the kernels' engine
+        pool.leave(1)
+        gate(not pool.read(4)[1].any(), "a departed slot of the sharded pool "
+             "is not silent")
+        pool.join(1, pool_srcs[1])
+        pool.seek(0, 100.0)
+        sess = StreamSession(cfg5, frame_ms=20.0, sources=pool_srcs[1],
+                             device=dev)
+        db = pcm_db(pool.read(4)[1], sess.read_many(4))
+        print(f"phase 28: the sharded pool's slot 1 after leave / join / "
+              f"seek {db:.1f} dB vs its StreamSession (gate "
+              f"{GATE_CHAIN_DB}) [{card}]")
+        gate(db <= GATE_CHAIN_DB,
+             f"the sharded pool's rejoined slot: {db:.1f} dB")
+        del pools, pool
+        # the server: two configs bucketed into two sharded pools
+        rng = np.random.default_rng(3)
+        pcm = (0.3 * rng.standard_normal(16000)).astype(np.float32)
+        srv = PoolServer(n_slots=n_sh, frame_ms=20.0, mesh=mesh_dp)
+        cfgs = {"a": {"tracks": [{"url": "a"}], "sampleRate": 16000,
+                      "normalize": None,
+                      "masterEffects": [{"name": "limiter"}]},
+                "b": {"tracks": [{"url": "b", "volume": 0.5}],
+                      "sampleRate": 16000, "normalize": None}}
+        sids = {srv.open(c, sources={k: (pcm, 16000)}): (c, k)
+                for k, c in cfgs.items()}
+        for sid, (c, k) in sids.items():
+            got_s = srv.read(sid, 10)
+            ref_s = StreamSession(c, frame_ms=20.0, sources={k: (pcm, 16000)},
+                                  device=dev).read_many(10)
+            db = pcm_db(got_s, ref_s)
+            gate(db <= GATE_CHAIN_DB, f"served stream {k}: {db:.1f} dB")
+        print(f"phase 28: a PoolServer over {mesh_dp}: "
+              f"{srv.stats()['pools']} pools for 2 configs, every stream "
+              f"within {GATE_CHAIN_DB} dB of its session [{card}]")
+        dryrun_multichip(n_sh, device=str(dev))
+        print(f"phase 28: {time.perf_counter() - t28:.1f} s")
+
+    if 29 in phases:
+        # 29. real cards, where the host has them
+        n_cards = torch.cuda.device_count() if on_card else 0
+        if n_cards < 2:
+            print(f"phase 29: {max(n_cards, 1)} card, not run")
+            return
+        t29 = time.perf_counter()
+        k = min(4, n_cards)
+        cards = [f"cuda:{i}" for i in range(k)]
+        mesh_k = Mesh(cards, ("sp",))
+        xr = torch.from_numpy((0.3 * np.random.default_rng(6).standard_normal(
+            (2, int(real_clip_s * sr)), dtype=np.float32))).to(dev)
+        t_virt = sp_leg("phase 29 sp, virtual", xr, Mesh([str(dev)] * k,
+                                                         ("sp",)))
+        sp_leg("phase 29 sp, real cards", xr, mesh_k, ref_s=t_virt)
+        # what the real cards add: moving the clip's shards out of cuda:0
+        # and the result back (peer to peer where the cards allow it)
+        spec = (None, "sp")
+        mesh_k.concat(mesh_k.split(xr, spec), spec, dev)
+        t_move, _ = wall(lambda: mesh_k.concat(mesh_k.split(xr, spec), spec,
+                                               dev))
+        peer = [[i != j and torch.cuda.can_device_access_peer(i, j)
+                 for j in range(k)] for i in range(k)]
+        print(f"phase 29: peer access between the cards {peer}; the 10 min "
+              f"clip split over them and gathered back {t_move * 1e3:.1f} ms "
+              f"[{card}]")
+        del xr
+        mesh_kd = Mesh(cards, ("dp",))
+        voice, bgm = tbench.make_inputs(n_clips, CLIP_SECONDS)
+        v = torch.from_numpy(voice).to(dev)
+        b = torch.from_numpy(bgm).to(dev)
+        ref = tbatch.make_flagship_step(device=dev)(v, b)
+        for label, m in (("virtual", Mesh([str(dev)] * k, ("dp",))),
+                         ("real cards", mesh_kd)):
+            st = tbatch.flagship_step_sharded(m)
+            y = st(v, b)
+            db, mx = db_max(y.float() / 32768.0, ref.float() / 32768.0)
+            s, _ = step_seconds(st, v, b, iters=5)
+            print(f"phase 29 dp, {label}, over {m}: {db:.1f} dB vs the "
+                  f"unsharded step (gate -120), max abs {mx * 32768:.0f} LSB; "
+                  f"{n_clips * CLIP_SECONDS / s:.0f} audio-s/s [{card}]")
+            gate(db <= -120.0, f"phase 29 dp ({label}): {db:.1f} dB")
+        cfg5 = tbench.config5_config()
+        _, pool_srcs = tbench.config5_sources()
+        for label, m in (("virtual", Mesh([str(dev)] * k, ("dp",))),
+                         ("real cards", mesh_kd)):
+            p = SessionPool(cfg5, len(pool_srcs), frame_ms=20.0,
+                            sources=pool_srcs, mesh=m)
+            p1 = SessionPool(cfg5, len(pool_srcs), frame_ms=20.0,
+                             sources=pool_srcs, device=dev)
+            db = pcm_db(p.read(25), p1.read(25))
+            t0 = time.perf_counter()
+            done = sum(o.shape[0] * o.shape[1] / p.sr
+                       for o in (p.read(50) for _ in range(3)))
+            rate = done / (time.perf_counter() - t0)
+            print(f"phase 29 pool, {label}, over {m}: {db:.1f} dB vs the "
+                  f"unsharded pool (gate {GATE_CHAIN_DB}); {rate:.1f} "
+                  f"audio-s/s [{card}]")
+            gate(db <= GATE_CHAIN_DB, f"phase 29 pool ({label}): {db:.1f} dB")
+        dryrun_multichip(k)
+        print(f"phase 29: {k} cards, {time.perf_counter() - t29:.1f} s")
+
+
+def card_helpers() -> types.SimpleNamespace:
+    """Phases 1 and 2 (the card, TF32 off, the kernels built) and the
+    helpers every later phase takes: ``card`` (name and power limit),
+    ``dev``, ``clock_hz``, ``kernels`` (the JSON line's entries),
+    ``compare`` (a kernel's output against its twin's, -100 dB, appended
+    to ``kernels``), ``bound``, ``reset_counts`` and ``counts`` (the ten
+    launch counters)."""
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    from xmtpu_torch import batch as tbatch
-    from xmtpu_torch.bench import (back_to_back_ms, make_inputs, median_ms,
-                                   replay_ms, rms_db, step_seconds)
-    from xmtpu_torch.kernels import _build, _seg, envelope, eq_env, fftconv
-    from xmtpu_torch.kernels import iir
+    from xmtpu_torch.bench import rms_db
+    from xmtpu_torch.kernels import _build, envelope, eq_env, fftconv, iir
     from xmtpu_torch.kernels import resample as kresample
     from xmtpu_torch.kernels import rsmix
-    from xmtpu_torch.ops import convert, limiter
-    from xmtpu_torch.ops import resample as tresample
-    from xmtpu_torch.ops import reverb as treverb
-    from xmtpu_torch.ops.resample import resample_output_len
 
     # 1. device
     def smi(query: str) -> str:
@@ -1133,15 +1604,6 @@ def main() -> None:
     print(f"device: {card}; max SM clock {clock_hz / 1e6:.0f} MHz")
     print(f"tf32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    dev = torch.device("cuda")
-
-    def chain_ms(steps: int, ops_per_step: int) -> float:
-        return steps * ops_per_step * OP_LATENCY_CYCLES / clock_hz * 1e3
-
-    def cycles_at(ms: float, steps: int) -> float:
-        """Cycles per sample of a row chain that took ``ms`` for
-        ``steps`` samples (every row runs at once), at the max clock."""
-        return ms * 1e-3 * clock_hz / steps
 
     def reset_counts() -> None:
         fftconv.launches = envelope.launches = 0
@@ -1182,6 +1644,48 @@ def main() -> None:
 
     def bound(k, n_bytes, n_ops):
         k["bound_ms"], k["bound_by"] = roofline_ms(n_bytes, n_ops)
+
+    return types.SimpleNamespace(
+        card=card, dev=torch.device("cuda"), clock_hz=clock_hz,
+        kernels=kernels, compare=compare, bound=bound,
+        reset_counts=reset_counts, counts=counts)
+
+
+def kernels_line(kernels) -> str:
+    """The JSON line of the kernels' entries, the contract's keys."""
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return json.dumps({"kernels": [{k: kk[k] for k in keys}
+                                   for kk in kernels]})
+
+
+def main() -> None:
+    import torch
+
+    h = card_helpers()
+    card, dev, clock_hz, kernels = h.card, h.dev, h.clock_hz, h.kernels
+    compare, bound = h.compare, h.bound
+    reset_counts, counts = h.reset_counts, h.counts
+    from xmtpu_torch import batch as tbatch
+    from xmtpu_torch.bench import (back_to_back_ms, make_inputs, median_ms,
+                                   replay_ms, rms_db, step_seconds)
+    from xmtpu_torch.kernels import _build, _seg, envelope, eq_env, fftconv
+    from xmtpu_torch.kernels import iir
+    from xmtpu_torch.kernels import resample as kresample
+    from xmtpu_torch.kernels import rsmix
+    from xmtpu_torch.ops import convert, limiter
+    from xmtpu_torch.ops import resample as tresample
+    from xmtpu_torch.ops import reverb as treverb
+    from xmtpu_torch.ops.resample import resample_output_len
+
+    def chain_ms(steps: int, ops_per_step: int) -> float:
+        return steps * ops_per_step * OP_LATENCY_CYCLES / clock_hz * 1e3
+
+    def cycles_at(ms: float, steps: int) -> float:
+        """Cycles per sample of a row chain that took ``ms`` for
+        ``steps`` samples (every row runs at once), at the max clock."""
+        return ms * 1e-3 * clock_hz / steps
 
     def poly_geometry_line(label, plan, n_out, query, tracks):
         """K7's / K8's tiling of this plan on this card."""
@@ -2772,23 +3276,20 @@ def main() -> None:
               f"{k3e['bound_ms']:.5f} ms ({k3e['bound_by']}) [{card}]")
         del bus, vbus, v48, blk, d_ep, e2k, e2p, mixed, passes_e
 
+    h.check_k1 = check_k1
     # 22-23. config 5 (streaming and the 32-slot pool) and serving
-    streaming_phases(types.SimpleNamespace(
-        card=card, dev=dev, compare=compare, bound=bound,
-        reset_counts=reset_counts, counts=counts, check_k1=check_k1))
+    streaming_phases(h)
 
     # 24-26. the native runtime, config 6 (the file runner), the command
     # line, the compat handles and the examples
-    runner_phases(types.SimpleNamespace(
-        card=card, dev=dev, compare=compare, bound=bound,
-        reset_counts=reset_counts, counts=counts, check_k1=check_k1))
+    runner_phases(h)
 
-    # 27. kernels line, then the contract line last
-    keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-    print(json.dumps({"kernels": [{k: kk[k] for k in keys}
-                                  for kk in kernels]}))
+    # 27-29. sequence and data parallelism: the hour clip time-sharded,
+    # the sharded step, pool and server, the dryrun twin; real cards
+    parallel_phases(h)
+
+    # 30. kernels line, then the contract line last
+    print(kernels_line(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

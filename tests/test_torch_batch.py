@@ -410,7 +410,9 @@ def test_port_imports_no_jax():
     a PoolServer, each reading a frame; so do the native host runtime
     (its ring), the file-batch runner (``run_batch``, pipelined), the
     command line (``resample``) and the compat handles (a mixer frame,
-    the decoder)."""
+    the decoder); so do the parallel paths (``xmtpu_torch.parallel``
+    with its dryrun: the SP chain on the kernel engine's twins, the
+    sharded step)."""
     code = (
         "import sys, numpy as np, torch\n"
         "from xmtpu_torch import batch, bench\n"
@@ -506,6 +508,15 @@ def test_port_imports_no_jax():
         "assert h.mixer_get_frame().shape == (320, 1)\n"
         "h.decoder_create(os.path.join(d, 'r.wav'))\n"
         "assert h.decoder_get_pcm(10).shape == (10, 1)\n"
+        "import xmtpu_torch.parallel, xmtpu_torch.parallel.dryrun\n"
+        "mesh = xmtpu_torch.parallel.Mesh(['cpu'] * 2, ('sp',))\n"
+        "y = xmtpu_torch.parallel.sp_effects_chain(torch.from_numpy(\n"
+        "    x[0].T.copy()), 48000, mesh, [{'freq_hz': 1000.0}],\n"
+        "    np.ones(8, np.float32) / 8, engine='kernel')\n"
+        "assert y.shape == (2, 9600), y.shape\n"
+        "mesh, _ = batch.shard_over_batch(2, device='cpu')\n"
+        "y = batch.flagship_step_sharded(mesh)(s, s)\n"
+        "assert y.shape == (2, 1600), y.shape\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'xmtpu'))\n"
         "assert not bad, bad\n"

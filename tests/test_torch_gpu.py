@@ -18,7 +18,10 @@ non-finite masks at edge shapes of both of its twin's branches; the
 public resample, int16 and float32, on the kernel and on the strided
 conv; the effects chain on its float64 scan engine on the card;
 measure_lufs (the K-weighting on the IIR kernel), suppress and the mixer
-with its voice chain on the card against the CPU).
+with its voice chain on the card against the CPU; the parallel paths on
+4 virtual shards of the card against their unsharded forms: the SP
+chain on both engines -80 dB, the sharded flagship step -120 dB, a
+sharded pool -80 dB, the dryrun twin).
 
 Marked ``gpu``; each test skips without a CUDA device. The module
 imports no JAX, so it runs on a machine without it:
@@ -1433,3 +1436,88 @@ def test_run_batch_refuses_interpret_on_card(cuda, tmp_path):
     jobs = _runner_clips(tmp_path, (8000,))
     with pytest.raises(ConfigError, match="interpret"):
         run_batch(jobs, step_kw={"interpret": True})
+
+
+# -- the parallel paths on 4 virtual shards of the card ----------------------
+
+
+def _virtual(cuda, axes=("sp",), shape=(4,)):
+    from xmtpu_torch.parallel import Mesh
+
+    return Mesh(np.array([str(cuda)] * 4, dtype=object).reshape(shape), axes)
+
+
+@pytest.mark.parametrize("engine", ["scan", "kernel"])
+def test_sp_chain_on_virtual_shards_vs_single_device(cuda, engine):
+    """One stereo clip time-sharded over 4 shards of the card, both
+    engines, against the port's single-device chain on the card (the IIR
+    kernel, K1, the envelope kernel): -80 dB; the kernel engine launches
+    K5, its state chain and the envelope core on every shard."""
+    from xmtpu_torch.ops import biquad, limiter, reverb
+    from xmtpu_torch.parallel import sp_effects_chain
+
+    sos = biquad.eq_sos(list(tbatch.DEFAULT_BANDS), 48000)
+    ir = reverb.synthetic_ir(0.1, 48000).astype(np.float32)
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy((0.3 * rng.standard_normal((2, 4 * 65536))).astype(
+        np.float32)).to(cuda)
+    before = (iir.launches, iir.chain_launches, envelope.envelope_launches)
+    got = sp_effects_chain(x, 48000, _virtual(cuda), bands=sos, ir=ir,
+                           engine=engine)
+    torch.cuda.synchronize()
+    after = (iir.launches, iir.chain_launches, envelope.envelope_launches)
+    ref, _ = iir.sosfilt(sos, x)
+    ref = limiter.limiter(reverb.reverb(ref, ir, wet=0.3, dry=0.7),
+                          48000)[0]
+    db = _db(got - ref, ref)
+    print(f"sp chain ({engine}) on 4 virtual shards vs one device: "
+          f"{db:.1f} dB; launches {before} -> {after}")
+    assert got.device == x.device and db <= -80.0
+    if engine == "kernel":
+        assert all(a - b >= 4 and (a - b) % 4 == 0
+                   for a, b in zip(after, before))
+
+
+def test_sharded_step_and_pool_on_virtual_shards(cuda):
+    """The flagship step over 4 dp shards of the card against the
+    unsharded step, the fused branch from the global batch: every sample
+    within 1 LSB and -100 dB: K1 and K2 give every row bit for bit, but
+    the mixfirst front's float32 matmuls round otherwise at 32 rows a
+    shard than at 128 on the card (1-LSB flips, -107.8 dB at 128 x 1 s;
+    chip_smoke.py phase 28's 256 x 10 s reads -inf). A 16-slot pool over them against the unsharded
+    pool on the kernels: -80 dB (on the card the step at 4 slots rounds
+    otherwise than at 16: 1-LSB flips, -96 dB measured at 32 slots; on
+    the CPU the two are bit for bit)."""
+    from xmtpu_torch.bench import config5_config, config5_sources, make_inputs
+    from xmtpu_torch.graph.pool import SessionPool
+
+    mesh = _virtual(cuda, ("dp",))
+    voice, bgm = make_inputs(128, 1.0)
+    v, b = (torch.from_numpy(a).to(cuda) for a in (voice, bgm))
+    before = (fftconv.launches, envelope.launches, iir.launches)
+    got = tbatch.flagship_step_sharded(mesh)(v, b)
+    torch.cuda.synchronize()
+    after = (fftconv.launches, envelope.launches, iir.launches)
+    assert [a - b_ for a, b_ in zip(after, before)] == [4, 4, 0]
+    ref = tbatch.make_flagship_step(device=cuda)(v, b)
+    db = _db(got.double() - ref.double(), ref.double())
+    err = int((got.int() - ref.int()).abs().max())
+    print(f"sharded step (128 x 1 s, 4 virtual shards) vs unsharded: "
+          f"{db:.1f} dB, max abs {err} LSB")
+    assert err <= 1 and db <= -100.0
+    _, srcs = config5_sources(pool_slots=16, pool_seconds=1.0)
+    pools = [SessionPool(config5_config(), 16, sources=srcs,
+                         effects_backend="pallas", **kw)
+             for kw in ({"mesh": mesh}, {"device": cuda})]
+    a, r = (p.read(10).astype(np.float64) for p in pools)
+    db = _db(torch.from_numpy(a - r), torch.from_numpy(r))
+    print(f"16-slot pool on 4 virtual shards vs unsharded: {db:.1f} dB")
+    assert db <= -80.0
+
+
+def test_dryrun_multichip_on_virtual_shards_of_the_card(cuda, capsys):
+    from xmtpu_torch.parallel.dryrun import dryrun_multichip
+
+    dryrun_multichip(4, device=str(cuda))
+    out = capsys.readouterr().out
+    assert out.count(" OK") == 5, out

@@ -27,7 +27,8 @@ from xmtpu_torch import SessionPool as PublicPool
 from xmtpu_torch.config import schema as ts
 from xmtpu_torch.graph import pool as tpool
 from xmtpu_torch.graph import streaming as tstream
-from xmtpu_torch.utils.errors import ConfigError, DeviceError, NotPortedError
+from xmtpu_torch.parallel import Mesh
+from xmtpu_torch.utils.errors import ConfigError, DeviceError
 
 from .conftest import rms_db
 
@@ -211,9 +212,12 @@ def test_geometry_capacity_and_slot_checks():
         p.seek(7, 0.0)
     with pytest.raises(ConfigError, match="sources for slot 0"):
         tpool.SessionPool(_cfg(ts), 2, device="cpu")
-    with pytest.raises(NotPortedError, match="item 7"):
-        tpool.SessionPool(_cfg(ts), 2, sources=srcs, mesh=object(),
-                          device="cpu")
+    mesh = Mesh(["cpu"] * 2, ("dp",))
+    with pytest.raises(ConfigError, match="divide evenly"):
+        tpool.SessionPool(_cfg(ts), 3, sources=srcs, mesh=mesh)
+    with pytest.raises(ConfigError, match="no axis"):
+        tpool.SessionPool(_cfg(ts), 2, sources=srcs, mesh=mesh,
+                          mesh_axis="tp")
 
 
 def test_pool_drops_host_pcm_and_rejoins():

@@ -25,8 +25,8 @@ from xmtpu.graph import streaming as xstream
 from xmtpu_torch import PoolServer
 from xmtpu_torch.config import schema as ts
 from xmtpu_torch.graph import pool as tpool
-from xmtpu_torch.utils.errors import (ConfigError, DeviceError,
-                                      NotPortedError, XmtpuError)
+from xmtpu_torch.parallel import Mesh
+from xmtpu_torch.utils.errors import ConfigError, DeviceError, XmtpuError
 
 SR = 16000
 
@@ -286,8 +286,11 @@ def test_open_rejects_bad_inputs(server):
         server.read(0, k=10**6)
     with pytest.raises(ConfigError, match="max_buffer_frames"):
         server.pump(k=10**6)
-    with pytest.raises(NotPortedError, match="item 7"):
-        PoolServer(mesh=object(), device="cpu")
+    mesh = Mesh(["cpu"] * 2, ("dp",))
+    with pytest.raises(ConfigError, match="divide evenly"):
+        PoolServer(n_slots=3, mesh=mesh)
+    with pytest.raises(ConfigError, match="no axis"):
+        PoolServer(n_slots=2, mesh=mesh, mesh_axis="tp")
 
 
 def test_server_needs_a_card_or_a_device(monkeypatch):

@@ -20,7 +20,11 @@ generator: decode, mix, effects, loudness, encode);
 through the ragged step), ``xmtpu_torch.compat`` (the reference's
 handle-style API) and ``python -m xmtpu_torch.cli`` (the command line).
 ``xmtpu_torch.io`` reads and writes WAV; ``xmtpu_torch.config`` loads
-pipeline configs; ``xmtpu_torch.native`` is the C++ host runtime.
+pipeline configs; ``xmtpu_torch.native`` is the C++ host runtime;
+``xmtpu_torch.parallel`` runs the chains over several devices from one
+process (one long clip sharded along time; with
+``batch.flagship_step_sharded`` and ``mesh=`` of the pool and server,
+clips and streams sharded over devices).
 """
 
 from xmtpu_torch import compat, config, io

@@ -35,7 +35,10 @@ branches (``fused=None``: fused from 128 rows up):
   takes the fused branch.
 
 :func:`make_batch_step` is the ragged-length step (``lengths`` per
-clip; masked fades, peak and output). Everything outside the kernels is
+clip; masked fades, peak and output). :func:`flagship_step_sharded` runs
+the flagship step over the ``dp`` axis of a
+:class:`~xmtpu_torch.parallel.Mesh` (:func:`shard_over_batch` makes one),
+the branch decided from the global batch. Everything outside the kernels is
 plain torch. The ``mixfirst_pad`` probe, deliberately not ported,
 raises :class:`NotPortedError` naming its ROADMAP section. Both
 steps build on ``cuda`` unless ``device=`` names another device;
@@ -537,3 +540,89 @@ def make_batch_step(
         flagship_tables(sr_in, sr_bus, bands, ir_seconds, wet, dry,
                         bgm_gain, fade_ms, threshold_db), device=device,
         fused=fused, lti_fold=lti_fold)
+
+
+def shard_over_batch(n_devices: int | None = None, device=None):
+    """1-D data-parallel mesh over clips (counterpart of
+    ``xmtpu.batch.shard_over_batch``) -> ``(mesh, ("dp", None))``, the
+    mesh and the spec that splits a (B, n) batch over it
+    (``mesh.split(x, spec)``). ``device=None``: the first ``n_devices``
+    cards (all of them when None); fewer cards than asked, or none,
+    raise :class:`DeviceError`. ``device="cpu"`` (or one card): that
+    many virtual shards on it (one when ``n_devices`` is None)."""
+    from xmtpu_torch.parallel.mesh import Mesh
+    from xmtpu_torch.utils.errors import DeviceError
+
+    if device is not None:
+        return Mesh([device] * (n_devices or 1), ("dp",)), ("dp", None)
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    n = n_devices or have
+    if not 1 <= n <= have:
+        raise DeviceError(
+            f"a data-parallel mesh of {n_devices or 'every'} card(s) needs "
+            f"as many CUDA devices; this host has {have}. device=\"cpu\" "
+            "(or \"cuda:0\") gives virtual shards")
+    return Mesh([f"cuda:{i}" for i in range(n)], ("dp",)), ("dp", None)
+
+
+class ShardedFlagshipStep:
+    """The flagship step over the ``dp`` axis of a mesh (counterpart of
+    the callable ``xmtpu.batch.flagship_step_sharded`` returns):
+    ``step(voice_i16 (B, n), bgm_i16 (B, n))`` splits the clips over the
+    ``dp`` shards, runs each shard's rows on its device and concatenates
+    the int16 output on the input's device. Pure data parallelism: no
+    exchange. One :class:`FlagshipStep` per distinct device (and branch),
+    built at first use, serves every shard on that device; every
+    shard's step is launched before the output is gathered."""
+
+    def __init__(self, mesh, **kw):
+        if "device" in kw:
+            raise ConfigError("the mesh names the devices; flagship_step_"
+                              "sharded takes no device=")
+        check_options(kw.get("iir_backend", "pallas"),
+                      kw.get("resample_backend", "mixfirst"),
+                      kw.get("envelope_block"))
+        mesh.axis_size("dp")
+        self.mesh = mesh
+        self.kw = kw
+        self._steps: dict = {}
+
+    def fused_for(self, batch: int) -> bool:
+        """The branch from the GLOBAL batch (``fused=None``: the JAX
+        rule, fused from 128 rows up with ``iir_backend="pallas"``): a
+        global batch of 128 split into shards of fewer rows still runs
+        the fused branch, as it would unsharded."""
+        fused = self.kw.get("fused")
+        if fused is None:
+            fused = (self.kw.get("iir_backend", "pallas") == "pallas"
+                     and batch >= 128)
+        return bool(fused)
+
+    def step_on(self, device, fused: bool) -> FlagshipStep:
+        key = (str(device), fused)
+        if key not in self._steps:
+            self._steps[key] = make_flagship_step(
+                **{**self.kw, "fused": fused}, device=device)
+        return self._steps[key]
+
+    @torch.no_grad()
+    def __call__(self, voice_i16, bgm_i16) -> torch.Tensor:
+        voice = torch.as_tensor(voice_i16)
+        bgm = torch.as_tensor(bgm_i16)
+        fused = self.fused_for(int(np.prod(voice.shape[:-1])))
+        spec = ("dp", None)
+        vs = self.mesh.split(voice, spec)
+        bs = self.mesh.split(bgm, spec)
+        out = np.empty(vs.shape, dtype=object)
+        for idx in np.ndindex(vs.shape):
+            out[idx] = self.step_on(self.mesh.devices[idx], fused)(
+                vs[idx], bs[idx])
+        return self.mesh.concat(out, spec, voice.device)
+
+
+def flagship_step_sharded(mesh, **kw) -> ShardedFlagshipStep:
+    """The flagship step over the mesh's ``dp`` axis (counterpart of
+    ``xmtpu.batch.flagship_step_sharded``); ``kw`` as
+    :func:`make_flagship_step`'s, without ``device`` (the mesh names the
+    devices). See :class:`ShardedFlagshipStep`."""
+    return ShardedFlagshipStep(mesh, **kw)

@@ -29,9 +29,16 @@ cost one sequence of launches a frame instead of K.
   for this group's bytes. There is no compile cache: the JAX package's
   per-k jitted scans (and their LRU) exist only because ``jit``
   compiles.
-* ``mesh=`` keeps its place in the signature and raises
-  :class:`NotPortedError`: multi-GPU data parallelism is ROADMAP item
-  7. One card serves every slot.
+* **``mesh=``** shards the slot axis over a mesh axis (``mesh_axis``,
+  ``"dp"``): slot ``s`` lives on the device of shard ``s // (K/n)``
+  with its source buffers, its state and its clocks' upload, and the
+  session's step runs once per shard at the leading shape ``(K/n,)``.
+  Every shard's group is dispatched before any fetch is waited for; the
+  shards' frames land in one host array in slot order. One process
+  drives every shard (the JAX package's pool is one SPMD program, and
+  its host calls act on global slots), and devices may repeat: virtual
+  shards on one device. Snapshots keep the unsharded layout, so a file
+  loads into a sharded or an unsharded pool alike.
 """
 
 from __future__ import annotations
@@ -45,14 +52,15 @@ import torch
 
 from xmtpu_torch.config.schema import PipelineConfig, config_from_dict
 from xmtpu_torch.graph import fx as _fx
-from xmtpu_torch.graph.streaming import (_TrackStream, _fetch, _fetch_start,
-                                         _session_state0, _session_step_fn,
-                                         _upload, frame_geometry,
+from xmtpu_torch.graph.streaming import (_rebuild, _TrackStream, _fetch,
+                                         _fetch_start, _session_state0,
+                                         _session_step_fn, _upload,
+                                         frame_geometry,
                                          state_leaves_from_jax,
                                          state_paths, state_to_jax_leaves)
 from xmtpu_torch.ops import convert as _convert
 from xmtpu_torch.utils.device import resolve_device
-from xmtpu_torch.utils.errors import ConfigError, NotPortedError
+from xmtpu_torch.utils.errors import ConfigError
 
 EFFECTS_BACKENDS = ("scan", "pallas", "pallas_interpret")
 
@@ -67,12 +75,68 @@ def _locked(method):
     return wrapper
 
 
-def mesh_not_ported(mesh) -> None:
-    if mesh is not None:
-        raise NotPortedError(
-            "mesh= (the slot axis sharded over a device mesh) waits for "
-            "ROADMAP Queue 1 item 7 (multi-GPU data parallelism); one "
-            "card serves every slot")
+def mesh_devices(mesh, mesh_axis: str, n_slots: int, device) -> list:
+    """The device of each slot shard: ``[resolve_device(device)]``
+    without a mesh; with one, the devices along ``mesh_axis`` (the other
+    axes at index 0). A mesh without that axis, ``n_slots`` that does not
+    divide evenly over it, devices of more than one type, or a
+    ``device`` that is not the mesh's raise :class:`ConfigError`."""
+    if mesh is None:
+        return [resolve_device(device)]
+    if mesh_axis not in mesh.axis_names:
+        raise ConfigError(f"mesh has no axis {mesh_axis!r} (axes: "
+                          f"{mesh.axis_names})")
+    n = mesh.shape[mesh_axis]
+    if n_slots % n:
+        raise ConfigError(f"n_slots={n_slots} must divide evenly over mesh "
+                          f"axis {mesh_axis!r} (size {n})")
+    devs = mesh.axis_devices(mesh_axis)
+    if len({d.type for d in devs}) > 1:
+        raise ConfigError(f"the mesh mixes device types: {devs}")
+    if device is not None:
+        want = torch.device(device)
+        if any(d.type != want.type or (want.index is not None
+                                       and d.index != want.index)
+               for d in devs):
+            raise ConfigError(f"device={str(want)!r} disagrees with the "
+                              f"mesh's devices {[str(d) for d in devs]}")
+    return devs
+
+
+def _fetch_start_rows(outs: list):
+    """Start copying each shard's output into its rows of one host
+    array, in slot order -> a handle for ``streaming._fetch``."""
+    if len(outs) == 1:
+        return _fetch_start(outs[0])
+    on_card = [o.device.type == "cuda" for o in outs]
+    host = torch.empty((sum(o.shape[0] for o in outs),) + outs[0].shape[1:],
+                       dtype=outs[0].dtype, pin_memory=any(on_card))
+    events, lo = [], 0
+    for o, card in zip(outs, on_card):
+        host[lo:lo + o.shape[0]].copy_(o, non_blocking=card)
+        lo += o.shape[0]
+        if card:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(o.device))
+            events.append(ev)
+    return host, (_Events(events) if events else None)
+
+
+class _Events(list):
+    """The shards' copy events, waited for together."""
+
+    def synchronize(self) -> None:
+        for ev in self:
+            ev.synchronize()
+
+
+class _Shard:
+    """Slots [lo, hi) of a pool on one device: their source buffers,
+    state and step (set up by the pool)."""
+
+    def __init__(self, device: torch.device, lo: int, hi: int):
+        self.device, self.lo, self.hi = device, lo, hi
+        self.srcbuf = self.states = self.state0 = self.step = None
 
 
 def _slot_axes(init_state) -> list:
@@ -103,8 +167,10 @@ class SessionPool:
     ``"scan"`` (the float64 scans, equal to a :class:`StreamSession`),
     ``"pallas"`` (the kernels on a card, their twins on the CPU) or
     ``"pallas_interpret"`` (the twins; the CPU only). ``device``: where
-    the pool runs, ``cuda`` unless given. ``mesh``/``mesh_axis`` raise
-    :class:`NotPortedError`.
+    the pool runs, ``cuda`` unless given. ``mesh``/``mesh_axis``: a
+    :class:`~xmtpu_torch.parallel.Mesh` whose axis ``mesh_axis`` the
+    slots shard over (``n_slots`` must divide evenly; the module
+    docstring); ``device``, if given too, must be the mesh's.
 
     THREAD SAFETY: every public method holds one internal lock, so a
     serving loop may :meth:`read` on one thread while handlers
@@ -122,16 +188,19 @@ class SessionPool:
             raise ConfigError(
                 f"effects_backend must be scan|pallas|pallas_interpret, "
                 f"got {effects_backend!r}")
-        mesh_not_ported(mesh)
         if isinstance(config, dict):
             config = config_from_dict(config)
         if not isinstance(config, PipelineConfig):
             raise ConfigError("config must be PipelineConfig or dict")
         if n_slots < 1:
             raise ConfigError("n_slots must be >= 1")
-        self.device = resolve_device(device)
-        self.config = config
         self.n_slots = K = int(n_slots)
+        devices = mesh_devices(mesh, mesh_axis, K, device)
+        self.device = devices[0]
+        per = K // len(devices)
+        self._shards = [_Shard(d, i * per, (i + 1) * per)
+                        for i, d in enumerate(devices)]
+        self.config = config
         self.sr = config.sample_rate
         self.output_dtype = output_dtype
         self.frame_ms = float(frame_ms)
@@ -167,10 +236,6 @@ class SessionPool:
                 lm = max(lm, int(math.ceil(max_seconds
                                            * (self.sr * gs.M // gs.L))))
             self._lmax.append(lm)
-        self._srcbuf = [
-            torch.zeros((K, gs.nch, 2 * self._need[j] + self._lmax[j]),
-                        dtype=torch.float32, device=self.device)
-            for j, gs in enumerate(geom)]
         self._n_nat = [np.zeros(K, np.int64) for _ in geom]
         self._n_out = [np.zeros(K, np.float64) for _ in geom]
 
@@ -187,23 +252,47 @@ class SessionPool:
                 e.set_streaming(self.frame_out)
         self.has_duck = any(ts.cfg.side_duck for ts in geom)
         self.duck_params = dict(duck_params or {})
-        self._state0 = self._init_state((self.nch,))
-        self.states = self._init_state((K, self.nch))
         self._slot_axes = _slot_axes(lambda k: self._init_state(
-            (k, self.nch)))
-        self._step = _session_step_fn(
-            geom, self.voice_effects, self.master_effects, self.nch,
-            self.frame_out, self.has_duck, self.duck_params, self.sr,
-            batch=(K,), device=self.device)
+            (k, self.nch), self.device))
+        for sh in self._shards:
+            n = sh.hi - sh.lo
+            sh.srcbuf = [
+                torch.zeros((n, gs.nch, 2 * self._need[j] + self._lmax[j]),
+                            dtype=torch.float32, device=sh.device)
+                for j, gs in enumerate(geom)]
+            sh.state0 = self._init_state((self.nch,), sh.device)
+            sh.states = self._init_state((n, self.nch), sh.device)
+            sh.step = _session_step_fn(
+                geom, self.voice_effects, self.master_effects, self.nch,
+                self.frame_out, self.has_duck, self.duck_params, self.sr,
+                batch=(n,), device=sh.device)
         self._pending = None  # the speculative next group
 
         for i, src in enumerate(sources):
             if src is not None:
                 self.join(i, src, _tracks=built[i])
 
-    def _init_state(self, batch_shape: tuple):
+    def _init_state(self, batch_shape: tuple, device):
         return _session_state0(self.voice_effects, self.master_effects,
-                               batch_shape, self.has_duck, self.device)
+                               batch_shape, self.has_duck, device)
+
+    def _shard_of(self, slot: int):
+        """(the shard holding ``slot``, its index there)."""
+        sh = self._shards[slot // (self._shards[0].hi - self._shards[0].lo)]
+        return sh, slot - sh.lo
+
+    @property
+    def states(self):
+        """The state tree of every slot: the shard's own with one shard,
+        else the shards' leaves concatenated along their slot axes on
+        the first shard's device (a copy)."""
+        if len(self._shards) == 1:
+            return self._shards[0].states
+        per_shard = [[v for _, v in state_paths(sh.states)]
+                     for sh in self._shards]
+        leaves = [torch.cat([v.to(self.device) for v in vs], dim=ax)
+                  for vs, ax in zip(zip(*per_shard), self._slot_axes)]
+        return _rebuild(self._shards[0].states, iter(leaves))
 
     # -- slot lifecycle ------------------------------------------------------
 
@@ -243,12 +332,13 @@ class SessionPool:
                     f"the pool source buffer ({self._lmax[j]}); construct "
                     "the pool with a larger max_seconds")
         self._slot_tracks[slot] = tracks
+        sh, i = self._shard_of(slot)
         for j, ts in enumerate(tracks):
-            need, row = self._need[j], self._srcbuf[j][slot]
+            need, row = self._need[j], sh.srcbuf[j][i]
             row.zero_()
             if ts.n_native:
                 row[:, need: need + ts.n_native].copy_(
-                    _upload(ts.pcm, self.device))
+                    _upload(ts.pcm, sh.device))
             self._n_nat[j][slot] = ts.n_native
             self._n_out[j][slot] = float(ts.n_out)
         for ts in tracks:
@@ -321,10 +411,11 @@ class SessionPool:
     def _reset_state(self, slot: int) -> None:
         """The slot's slice of every state leaf back to the initial
         state, in place, along that leaf's own slot axis."""
-        for (_, S), (_, s0), ax in zip(state_paths(self.states),
-                                       state_paths(self._state0),
+        sh, i = self._shard_of(slot)
+        for (_, S), (_, s0), ax in zip(state_paths(sh.states),
+                                       state_paths(sh.state0),
                                        self._slot_axes):
-            S.select(ax, slot).copy_(s0)
+            S.select(ax, i).copy_(s0)
 
     # -- checkpoint and restore ---------------------------------------------
 
@@ -334,7 +425,9 @@ class SessionPool:
         JAX package's keys and layouts: a snapshot of either package
         restores in the other). Sources are not saved: restore after
         joining the same sources in the same slots."""
-        leaves = state_to_jax_leaves(self.states, self._slot_axes)
+        leaves = [np.concatenate(vs) for vs in zip(*(
+            state_to_jax_leaves(sh.states, self._slot_axes)
+            for sh in self._shards))]
         np.savez(
             path, frame_out=self.frame_out, n_slots=self.n_slots,
             frame_idx=self._frame_idx,
@@ -377,19 +470,25 @@ class SessionPool:
                 raise ConfigError(
                     f"pool snapshot has {n_saved} state leaves, this pool's "
                     f"config builds {n_want} (different effects chain?)")
-            states = state_leaves_from_jax(
-                [z[f"leaf_{i}"] for i in range(n_saved)], self.states,
+            # the whole pool's tree on the host, then each shard's slots
+            full = state_leaves_from_jax(
+                [z[f"leaf_{i}"] for i in range(n_saved)],
+                self._init_state((self.n_slots, self.nch), "cpu"),
                 self._slot_axes)
             frame_idx = z["frame_idx"].copy()
-        self.states = states
+        for sh in self._shards:
+            sh.states = _rebuild(sh.states, iter(
+                v.narrow(ax, sh.lo, sh.hi - sh.lo).to(sh.device).contiguous()
+                for (_, v), ax in zip(state_paths(full), self._slot_axes)))
         self._frame_idx[:] = frame_idx
         self._pending = None
 
     # -- the device step -----------------------------------------------------
 
-    def _windows(self, fi: torch.Tensor, n_nats, active: torch.Tensor):
-        """Every slot's window of every track at frame clocks ``fi`` (K,)
-        int64: one batched gather per track."""
+    def _windows(self, sh, fi: torch.Tensor, n_nats, active: torch.Tensor):
+        """Each slot of shard ``sh``: its window of every track at frame
+        clocks ``fi`` (the shard's slots) int64, one batched gather per
+        track."""
         windows, offsets = [], []
         for j, gs in enumerate(self._geom):
             t0 = fi * self.frame_out - gs.start_bus
@@ -398,18 +497,18 @@ class SessionPool:
             else:
                 c0 = torch.div(t0 - gs.r0, gs.L, rounding_mode="floor")
                 lo = c0 * gs.M + (gs.plan.base - gs.plan.pad_left)
-            windows.append(self._extract(j, lo, n_nats[j], active,
-                                         bool(gs.cfg.loop)))
+            windows.append(self._extract(sh.srcbuf[j], j, lo, n_nats[j],
+                                         active, bool(gs.cfg.loop)))
             offsets.append(t0.to(torch.float64))
         return windows, offsets
 
-    def _extract(self, j: int, lo, n_nat, active, loop: bool):
-        """Track j's (K, ch, need) windows starting at source index
-        ``lo`` (K,). Ordinary tracks: a clipped start into the
-        zero-padded buffer. Loops: the index modulo the clip length (a
+    def _extract(self, src, j: int, lo, n_nat, active, loop: bool):
+        """Track j's (K, ch, need) windows of its source buffer ``src``
+        (a shard's K slots) starting at source index ``lo`` (K,).
+        Ordinary tracks: a clipped start into the zero-padded buffer. Loops: the index modulo the clip length (a
         floor modulo, non-negative for a negative ``lo``), zeros before
         the clip's start. Empty slots read zeros (``active``)."""
-        src, need = self._srcbuf[j], self._need[j]
+        need = self._need[j]
         K, ch, length = src.shape
         ar = torch.arange(need, device=src.device)
         if loop:
@@ -425,10 +524,11 @@ class SessionPool:
         return w * active[:, None, None]
 
     def _dispatch(self, k: int):
-        """Enqueue one K x k group for the current clocks and start its
-        fetch; nothing waits for the device. One upload: a snapshot of
-        the clocks, the active mask and the per-slot lengths (float64
-        holds every integer a clip can reach exactly)."""
+        """Enqueue one K x k group for the current clocks, shard after
+        shard, and start its fetch; nothing waits for a device. One
+        upload a shard: its slots' columns of a snapshot of the clocks,
+        the active mask and the per-slot lengths (float64 holds every
+        integer a clip can reach exactly), each a fresh pinned copy."""
         T = len(self._geom)
         host = np.empty((2 + 2 * T, self.n_slots), np.float64)
         host[0] = self._frame_idx
@@ -436,22 +536,27 @@ class SessionPool:
         for j in range(T):
             host[2 + j] = self._n_nat[j]
             host[2 + T + j] = self._n_out[j]
-        dev = _upload(host, self.device)
-        fi0 = dev[0].to(torch.int64)
-        active = dev[1].to(torch.float32)
-        n_nats = dev[2:2 + T].to(torch.int64)
-        n_outs = list(dev[2 + T:])
-        states, outs = self.states, []
-        for f in range(k):
-            windows, offsets = self._windows(fi0 + f, n_nats, active)
-            out, states = self._step(windows, offsets, states, n_outs)
+        outs, shard_states = [], []
+        for sh in self._shards:
+            dev = _upload(host[:, sh.lo:sh.hi], sh.device)
+            fi0 = dev[0].to(torch.int64)
+            active = dev[1].to(torch.float32)
+            n_nats = dev[2:2 + T].to(torch.int64)
+            n_outs = list(dev[2 + T:])
+            states, frames = sh.states, []
+            for f in range(k):
+                windows, offsets = self._windows(sh, fi0 + f, n_nats, active)
+                out, states = sh.step(windows, offsets, states, n_outs)
+                frames.append(out)
+            # (K, ch, k, frame) -> (K, ch, k*frame)
+            out = torch.stack(frames, dim=2).reshape(
+                sh.hi - sh.lo, self.nch, k * self.frame_out)
+            if self.output_dtype == np.int16:  # on the device: half the fetch
+                out = _convert.f32_to_pcm16(out)
             outs.append(out)
-        # (K, ch, k, frame) -> (K, ch, k*frame)
-        out = torch.stack(outs, dim=2).reshape(self.n_slots, self.nch,
-                                               k * self.frame_out)
-        if self.output_dtype == np.int16:  # on the device: half the fetch
-            out = _convert.f32_to_pcm16(out)
-        return (k, self._frame_idx.copy(), _fetch_start(out), states)
+            shard_states.append(states)
+        return (k, self._frame_idx.copy(), _fetch_start_rows(outs),
+                shard_states)
 
     # -- reading -------------------------------------------------------------
 
@@ -483,7 +588,9 @@ class SessionPool:
             raise ConfigError("read(k) needs k >= 1")
         pend = self._pending_for(k) or self._dispatch(k)
         self._pending = None
-        _, _, handle, self.states = pend
+        _, _, handle, shard_states = pend
+        for sh, states in zip(self._shards, shard_states):
+            sh.states = states
         for i in range(self.n_slots):
             if self._slot_tracks[i] is not None:
                 self._frame_idx[i] += k

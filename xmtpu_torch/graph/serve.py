@@ -28,8 +28,7 @@ import threading
 import numpy as np
 
 from xmtpu_torch.config.schema import PipelineConfig, config_from_dict
-from xmtpu_torch.graph.pool import mesh_not_ported
-from xmtpu_torch.utils.device import resolve_device
+from xmtpu_torch.graph.pool import mesh_devices
 from xmtpu_torch.utils.errors import ConfigError, XmtpuError
 
 
@@ -74,8 +73,10 @@ class PoolServer:
     sources). ``max_buffer_frames``: the unread-frame cap a session (see
     the module docstring). ``duck_params`` and ``output_dtype`` apply to
     every pool. ``device``: where the pools run, ``cuda`` unless given
-    (:class:`DeviceError` without a card). ``mesh``/``mesh_axis`` raise
-    :class:`NotPortedError`.
+    (:class:`DeviceError` without a card). ``mesh``/``mesh_axis``: every
+    pool shards its slots over the mesh's axis ``mesh_axis``
+    (``n_slots`` must divide evenly; checked here, not at the first
+    :meth:`open`; see :class:`~xmtpu_torch.graph.pool.SessionPool`).
 
     THREAD SAFETY: every public method holds one internal lock, as
     :class:`SessionPool`'s do; a pool's source upload in :meth:`open`
@@ -91,8 +92,12 @@ class PoolServer:
             raise ConfigError("n_slots must be >= 1")
         if max_buffer_frames < 1:
             raise ConfigError("max_buffer_frames must be >= 1")
-        mesh_not_ported(mesh)
-        self.device = resolve_device(device)
+        # fail here, not at the first open(), where every open would
+        # found yet another bad pool
+        self.device = mesh_devices(mesh, mesh_axis, int(n_slots), device)[0]
+        # what every pool is given: the mesh names the devices when set
+        self._pool_kw = dict(mesh=mesh, mesh_axis=mesh_axis,
+                             device=self.device if mesh is None else device)
         self.n_slots = int(n_slots)
         self.frame_ms = float(frame_ms)
         self.max_seconds = max_seconds
@@ -185,7 +190,7 @@ class PoolServer:
         pool = _pool.SessionPool(
             config, self.n_slots, frame_ms=self.frame_ms, sources=[srcdict],
             output_dtype=self.output_dtype, duck_params=self.duck_params,
-            max_seconds=self.max_seconds, device=self.device)
+            max_seconds=self.max_seconds, **self._pool_kw)
         with self._lock:
             self._buckets.setdefault(key, []).append(pool)
             self._alloc[id(pool)] = {}

@@ -14,7 +14,7 @@ from xmtpu_torch.kernels import _build
 
 LANES = 128  # the JAX IIR kernel's lane tile, pick_segments' default
 
-_DEVICE_CACHE: dict = {}
+_DEVICE_CACHE: dict = {}  # device name -> {key: tables}
 
 
 def pick_segments(R: int, n: int, min_seglen: int = 4096,
@@ -86,17 +86,28 @@ def card_segments(R: int, n: int, device, query: str, args: tuple,
                         align)
 
 
+def _device_name(device) -> str:
+    """``device`` as a string that names one device: ``cuda`` alone is
+    the current card's index, so it shares that card's tables."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return str(d)
+
+
 def on_device(key, device, make) -> dict:
     """Tensors from ``make()`` cached per (key, device), so a step does
-    not copy its host tables to the card on every call. The least
+    not copy its host tables to the card on every call. Each device
+    keeps its own 32 most recently used entries, so the tables of
+    several cards (a mesh's shards) do not evict each other; the least
     recently used entry goes first, so a call made once before a
     CUDA-graph capture finds every table it needs during the capture."""
-    k = (key, str(device))
-    hit = _DEVICE_CACHE.pop(k, None)
+    cache = _DEVICE_CACHE.setdefault(_device_name(device), {})
+    hit = cache.pop(key, None)
     if hit is None:
         hit = {name: torch.as_tensor(a, device=device)
                for name, a in make().items()}
-        if len(_DEVICE_CACHE) >= 32:
-            _DEVICE_CACHE.pop(next(iter(_DEVICE_CACHE)))
-    _DEVICE_CACHE[k] = hit
+        if len(cache) >= 32:
+            cache.pop(next(iter(cache)))
+    cache[key] = hit
     return hit

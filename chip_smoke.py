@@ -236,7 +236,7 @@ process exits non-zero:
    0-2 against the same step on the CPU (the kernels' plain twins) and
    clip 0 against ``flagship_oracle_np``, -80 dB; K1, K5 and K3 on the
    runner's recorded operands against their twins; then
-   ``bench.config6_file_batch``;
+   ``bench.config6_file_batch(fmt="wav")``;
 26. ``python -m xmtpu_torch.cli`` subprocesses (``batch`` on 4 of the
    clips, ``resample``, ``effects`` with config 3's chain on a 48 kHz
    stereo clip, ``generate`` with LUFS -16 and a master limiter) and the
@@ -278,7 +278,21 @@ process exits non-zero:
    each beside the same leg on k virtual shards, with the same gates,
    then ``dryrun_multichip(k)``; with one card it prints ``phase 29: 1
    card, not run``;
-30. a JSON line of the kernels (times, bounds, launches; K1 once per
+30. ``xmtpu_torch.entry.entry()`` on the card (two int16 clips of 1 s,
+   the small-batch branch), counters set to 0 just before: K5, its
+   state chain, K1 and the envelope core must launch; the output
+   against ``entry(device="cpu")`` and each clip against
+   ``flagship_oracle_np`` (-80 dB); the median of 9 calls. Then
+   ``interpret=True`` must raise ``ConfigError`` on the card in
+   ``make_flagship_step``, ``make_batch_step``,
+   ``flagship_step_sharded`` and ``reverb``, and ``interpret=False`` and
+   None must launch the kernels. Then the FFmpeg shim: ``pkg-config``
+   probes libav; where it (or ``io.HAVE_FFMPEG``) finds it, the shim
+   must build, a 10 s FLAC (bit for bit) and MP3 round trip must decode,
+   and ``bench.config6_file_batch(fmt="flac")`` runs beside phase 25's
+   WAV figure; where it does not, ``HAVE_FFMPEG`` must be False and a
+   ``.flac`` must raise ``DecodeError``;
+31. a JSON line of the kernels (times, bounds, launches; K1 once per
    branch; the state-chain kernel beside K5; the episode's K5, K1 and
    envelope entries with its launch counts; the streaming entries of
    phases 22-23; the runner's K1, K5 and K3 of phase 25; the IIR and
@@ -1017,7 +1031,9 @@ def runner_phases(h, n_clips: int = 64, seconds: float = 10.0) -> None:
             check_k5(h, "iir_runner", k5_calls, got["iir"])
             check_k3(h, "envelope_seg_runner", k3_calls, got["envelope_seg"])
         del k1_calls, k5_calls, k3_calls
-        res6 = tbench.config6_file_batch(n_clips, seconds, device=dev)
+        res6 = tbench.config6_file_batch(n_clips, seconds, fmt="wav",
+                                         device=dev)
+        h.wav6 = res6
         print(f"bench config 6: {json.dumps(res6)}")
     print(f"phase 25: {time.perf_counter() - t25:.1f} s")
 
@@ -1574,6 +1590,158 @@ def parallel_phases(h, clip_s: float = 3600.0, clip_2d_s: float = 600.0,
             gate(db <= GATE_CHAIN_DB, f"phase 29 pool ({label}): {db:.1f} dB")
         dryrun_multichip(k)
         print(f"phase 29: {k} cards, {time.perf_counter() - t29:.1f} s")
+
+
+def entry_phase(h, n_clips: int = 64, seconds: float = 10.0) -> None:
+    """Phase 30: ``xmtpu_torch.entry.entry()`` on the card, the
+    ``interpret=`` rule of the step factories and ``reverb``, and the
+    FFmpeg shim on this machine. ``h`` holds main()'s helpers (and
+    ``wav6``, phase 25's config-6 result); ``n_clips`` and ``seconds``
+    cut the FLAC config 6 for a rehearsal on the CPU, where the refusals
+    of ``interpret=True`` are not checked (the CPU takes it)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from xmtpu_torch import batch as tbatch
+    from xmtpu_torch import bench as tbench
+    from xmtpu_torch import entry as tentry
+    from xmtpu_torch import io as tio
+    from xmtpu_torch.native import ffmpeg
+    from xmtpu_torch.ops import reverb as treverb
+    from xmtpu_torch.parallel import Mesh
+    from xmtpu_torch.utils.errors import ConfigError, DecodeError
+
+    card, dev = h.card, h.dev
+    on_card = dev.type == "cuda"
+    t30 = time.perf_counter()
+
+    # (a) entry() on the card: the small-batch branch
+    fn, args = tentry.entry(device=dev)
+    h.reset_counts()
+    y = fn(*args)
+    if on_card:
+        torch.cuda.synchronize()
+    got = h.counts()
+    path = ("iir", "state_chain", "fftconv", "envelope_seg")
+    print("phase 30: entry() on 2 x 1 s, launches "
+          + ", ".join(f"{k} {got[k]}" for k in path))
+    if on_card:
+        gate(all(got[k] > 0 for k in path),
+             f"entry(): a kernel of its path did not launch: {got}")
+    fn_c, args_c = tentry.entry(device="cpu")
+    y = y.cpu().numpy()
+    db_cpu = pcm_db(y, fn_c(*args_c).numpy())
+    voice, bgm = (a.numpy() for a in args_c)
+    db_or = max(pcm_db(y[i], tbatch.flagship_oracle_np(voice[i], bgm[i]))
+                for i in range(2))
+    ms = (tbench.median_ms(lambda: fn(*args), warmup=2, runs=9) if on_card
+          else float("nan"))
+    print(f"phase 30: entry() {y.shape} {y.dtype}: {db_cpu:.1f} dB against "
+          f"entry(device='cpu'), worst clip {db_or:.1f} dB against "
+          f"flagship_oracle_np (gates {GATE_CHAIN_DB}); a call {ms:.3f} ms "
+          f"(median of 9, CUDA events) [{card}]")
+    gate(db_cpu <= GATE_CHAIN_DB and db_or <= GATE_CHAIN_DB,
+         "entry() failed its gates")
+
+    # (b) interpret=: True refused off the CPU before anything is built,
+    # False and None launch the kernels
+    x = torch.from_numpy(np.random.default_rng(30).standard_normal(
+        (2, 16000), dtype=np.float32)).to(dev)
+    ir = treverb.synthetic_ir(0.05, 16000)
+    if on_card:
+        mesh = Mesh([str(dev)] * 2, ("dp",))
+        refused = []
+        for name, f in (
+                ("make_flagship_step", lambda: tbatch.make_flagship_step(
+                    interpret=True, device=dev)),
+                ("make_batch_step", lambda: tbatch.make_batch_step(
+                    interpret=True)),
+                ("flagship_step_sharded", lambda: tbatch.flagship_step_sharded(
+                    mesh, interpret=True)),
+                ("reverb", lambda: treverb.reverb(x, ir, interpret=True))):
+            try:
+                f()
+            except ConfigError:
+                refused.append(name)
+        print(f"phase 30: interpret=True refused on {dev}: {refused}")
+        gate(len(refused) == 4, "interpret=True was not refused on the card")
+    for it in (False, None):
+        h.reset_counts()
+        treverb.reverb(x, ir, interpret=it)
+        tbatch.make_flagship_step(interpret=it, device=dev)(*args)
+        if on_card:
+            torch.cuda.synchronize()
+        got = h.counts()
+        print(f"phase 30: interpret={it}: launches "
+              + ", ".join(f"{k} {got[k]}" for k in path))
+        if on_card:
+            gate(got["fftconv"] == 2 and all(got[k] > 0 for k in path),
+                 f"interpret={it} did not launch the kernels: {got}")
+
+    # (c) the FFmpeg shim on this machine
+    libs = ("libavcodec", "libavformat", "libavutil", "libswresample")
+    try:
+        pc = subprocess.run(["pkg-config", "--modversion", *libs],
+                            capture_output=True, text=True)
+        found = pc.stdout.split() if pc.returncode == 0 else []
+    except FileNotFoundError:
+        found = []
+    print(f"phase 30: pkg-config {' '.join(libs)}: "
+          + (", ".join(f"{n} {v}" for n, v in zip(libs, found)) if found
+             else "not found")
+          + f"; io.HAVE_FFMPEG {tio.HAVE_FFMPEG}")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ff_"))
+    try:
+        if found or tio.HAVE_FFMPEG:
+            t0 = time.perf_counter()
+            ok = ffmpeg.available()
+            t_build = time.perf_counter() - t0
+            log = ffmpeg.library_path().parent / "build.log"
+            gate(ok, "the FFmpeg shim did not build where libav is: "
+                 + (log.read_text()[-2000:] if log.exists() else "no log"))
+            tone = (np.sin(2 * np.pi * 440.0 * np.arange(441000) / 44100.0)
+                    * 12000).astype(np.int16)
+            for ext in ("flac", "mp3"):
+                p = str(tmp / f"tone.{ext}")
+                tio.encode_audio(p, tone, 44100)
+                with tio.open_audio(p) as d:
+                    back = d.read_all()[:, 0]
+                spec = np.abs(np.fft.rfft(back.astype(np.float64)))
+                f0 = np.fft.rfftfreq(len(back), 1 / 44100.0)[np.argmax(spec)]
+                exact = (len(back) == len(tone)
+                         and np.array_equal(back, tone))
+                print(f"phase 30: {ext} round trip of 10 s: {len(back)} "
+                      f"samples, dominant {f0:.1f} Hz, bit-exact {exact}")
+                gate(abs(len(back) - len(tone)) < 0.06 * 44100
+                     and abs(f0 - 440.0) < 2.0
+                     and (exact or ext != "flac"),
+                     f"the {ext} round trip failed")
+            res = tbench.config6_file_batch(n_clips, seconds, fmt="flac",
+                                            device=dev)
+            wav = getattr(h, "wav6", None)
+            print(f"phase 30: the shim built in {t_build:.1f} s; bench config "
+                  f"6 on FLAC: {res['audio_sec_per_sec']:.1f} audio-s/s warm "
+                  f"({res['cold_audio_sec_per_sec']:.1f} cold), on WAV "
+                  + (f"{wav['audio_sec_per_sec']:.1f}" if wav else "not run")
+                  + f" (phase 25) [{card}]")
+            gate("flac" in res["desc"], f"config 6 did not read FLAC: {res}")
+        else:
+            p = tmp / "x.flac"
+            p.write_bytes(b"fLaC" + bytes(60))
+            try:
+                tio.open_audio(p)
+                raised = False
+            except DecodeError:
+                raised = True
+            print(f"phase 30: no libav here; HAVE_FFMPEG {tio.HAVE_FFMPEG}, "
+                  f"a .flac raises DecodeError: {raised}")
+            gate(not tio.HAVE_FFMPEG and raised,
+                 "without libav a .flac must raise DecodeError")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 30: {time.perf_counter() - t30:.1f} s")
 
 
 def card_helpers() -> types.SimpleNamespace:
@@ -3288,7 +3456,10 @@ def main() -> None:
     # the sharded step, pool and server, the dryrun twin; real cards
     parallel_phases(h)
 
-    # 30. kernels line, then the contract line last
+    # 30. entry(), the interpret= rule and the FFmpeg shim
+    entry_phase(h)
+
+    # 31. kernels line, then the contract line last
     print(kernels_line(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -412,7 +412,9 @@ def test_port_imports_no_jax():
     command line (``resample``) and the compat handles (a mixer frame,
     the decoder); so do the parallel paths (``xmtpu_torch.parallel``
     with its dryrun: the SP chain on the kernel engine's twins, the
-    sharded step)."""
+    sharded step); so do ``entry()``, a step built with
+    ``interpret=True`` and, where the FFmpeg shim is expected to work, a
+    FLAC round trip through ``xmtpu_torch.io``."""
     code = (
         "import sys, numpy as np, torch\n"
         "from xmtpu_torch import batch, bench\n"
@@ -517,6 +519,17 @@ def test_port_imports_no_jax():
         "mesh, _ = batch.shard_over_batch(2, device='cpu')\n"
         "y = batch.flagship_step_sharded(mesh)(s, s)\n"
         "assert y.shape == (2, 1600), y.shape\n"
+        "from xmtpu_torch import entry\n"
+        "fn, ex = entry.entry(device='cpu')\n"
+        "assert fn(*ex).shape == (2, 16000)\n"
+        "y = batch.make_flagship_step(fused=True, interpret=True,\n"
+        "                             device='cpu')(s, s)\n"
+        "assert y.shape == (2, 1600), y.shape\n"
+        "if xmtpu_torch.io.HAVE_FFMPEG:\n"
+        "    xmtpu_torch.io.encode_audio(os.path.join(d, 'v.flac'), v[0],\n"
+        "                                44100)\n"
+        "    with xmtpu_torch.io.open_audio(os.path.join(d, 'v.flac')) as f:\n"
+        "        assert np.array_equal(f.read_all()[:, 0], v[0])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'xmtpu'))\n"
         "assert not bad, bad\n"

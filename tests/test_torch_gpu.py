@@ -21,7 +21,11 @@ measure_lufs (the K-weighting on the IIR kernel), suppress and the mixer
 with its voice chain on the card against the CPU; the parallel paths on
 4 virtual shards of the card against their unsharded forms: the SP
 chain on both engines -80 dB, the sharded flagship step -120 dB, a
-sharded pool -80 dB, the dryrun twin).
+sharded pool -80 dB, the dryrun twin; where the sharded step's and the
+sharded pool's 1-LSB flips come from (the front's and the streaming
+resample's ``torch.matmul``: max abs 0 once they run in the shard's row
+count); ``xmtpu_torch.entry.entry()`` on the card against the CPU and
+the oracle, -80 dB; ``interpret=True`` refused on the card).
 
 Marked ``gpu``; each test skips without a CUDA device. The module
 imports no JAX, so it runs on a machine without it:
@@ -1482,11 +1486,15 @@ def test_sharded_step_and_pool_on_virtual_shards(cuda):
     """The flagship step over 4 dp shards of the card against the
     unsharded step, the fused branch from the global batch: every sample
     within 1 LSB and -100 dB: K1 and K2 give every row bit for bit, but
-    the mixfirst front's float32 matmuls round otherwise at 32 rows a
-    shard than at 128 on the card (1-LSB flips, -107.8 dB at 128 x 1 s;
-    chip_smoke.py phase 28's 256 x 10 s reads -inf). A 16-slot pool over them against the unsharded
-    pool on the kernels: -80 dB (on the card the step at 4 slots rounds
-    otherwise than at 16: 1-LSB flips, -96 dB measured at 32 slots; on
+    the mixfirst front's float32 matmul (``ops.resample.apply_aligned``)
+    rounds otherwise at 32 rows a shard than at 128 on the card (1-LSB
+    flips, -107.8 dB at 128 x 1 s; chip_smoke.py phase 28's 256 x 10 s
+    reads -inf); ``test_sharded_step_flips_come_from_the_front_matmul``
+    pins it. A 16-slot pool over them against the unsharded pool on the
+    kernels: -80 dB (on the card each frame's resample matmul,
+    ``ops.resample.resample_window``, rounds otherwise at 4 slots than
+    at 16: 1-LSB flips, -96.1 dB;
+    ``test_sharded_pool_flips_come_from_the_window_matmul`` pins it; on
     the CPU the two are bit for bit)."""
     from xmtpu_torch.bench import config5_config, config5_sources, make_inputs
     from xmtpu_torch.graph.pool import SessionPool
@@ -1513,6 +1521,178 @@ def test_sharded_step_and_pool_on_virtual_shards(cuda):
     db = _db(torch.from_numpy(a - r), torch.from_numpy(r))
     print(f"16-slot pool on 4 virtual shards vs unsharded: {db:.1f} dB")
     assert db <= -80.0
+
+
+def _in_pieces(fn, rows: int):
+    """``fn(A, *args)`` computed on ``rows`` rows of A's leading axis at
+    a time and concatenated: what a shard of that many rows computes."""
+    def pieces(A, *args):
+        return torch.cat([fn(A[i:i + rows], *args)
+                          for i in range(0, A.shape[0], rows)])
+    return pieces
+
+
+def test_sharded_step_flips_come_from_the_front_matmul(cuda, monkeypatch):
+    """Where the sharded step's 1-LSB flips come from, on the clips of
+    the test above (128 x 1 s, 4 virtual shards of 32 rows):
+
+    - the front (``FlagshipStep.front``) at 128 rows and on each 32-row
+      shard: the ramp is the same, the normalize gain differs only in
+      rows whose ``m`` differs, and ``m`` is the aligned resample's
+      ``torch.matmul`` (``ops.resample.apply_aligned``) on framed input
+      that is bit for bit the same at both row counts, so every
+      difference in ``m`` is that matmul's: cuBLAS picks its kernel by
+      the row count, and the kernels round otherwise;
+    - K1 (the fused branch's reverb with ``pre_row``/``pre_col``) and K2
+      (the fused limiter) on the same rows, once as 128 and once as 4 x
+      32: max abs 0, row for row;
+    - the unsharded step with that matmul computed 32 rows at a time
+      equals the sharded step bit for bit: nothing else in the step
+      rounds by its row count."""
+    from xmtpu_torch.bench import make_inputs
+    from xmtpu_torch.ops import reverb as _reverb
+
+    voice, bgm = make_inputs(128, 1.0)
+    v, b = (torch.from_numpy(a).to(cuda) for a in (voice, bgm))
+    step = tbatch.make_flagship_step(device=cuda)
+    m, scale, ramp = step.front(v, b)
+    parts = [step.front(v[i:i + 32], b[i:i + 32]) for i in range(0, 128, 32)]
+    m4 = torch.cat([p[0] for p in parts])
+    scale4 = torch.cat([p[1] for p in parts])
+    assert all(torch.equal(p[2], ramp) for p in parts)
+    rows_m = (m4 != m).any(-1)
+    rows_s = scale4 != scale
+    assert not bool((rows_s & ~rows_m).any())
+    A = (b.reshape(128, -1, step.M) * step.gain).add_(
+        v.reshape(128, -1, step.M))
+    tables = (step.H1, step.H0, step.H2, step.lo, step.hi, step.r0, step.r2)
+    mm = tres.apply_aligned(A, *tables).reshape(128, -1)
+    mm4 = _in_pieces(tres.apply_aligned, 32)(A, *tables).reshape(128, -1)
+    assert torch.equal(mm, m) and torch.equal(mm4, m4)
+    print(f"front at 128 rows vs 4 x 32 (the aligned resample's matmul): "
+          f"m differs in {int(rows_m.sum())} of 128 rows, max abs "
+          f"{float((m4 - m).abs().max()):.3g}; the normalize gain in "
+          f"{int(rows_s.sum())} rows, max abs "
+          f"{float((scale4 - scale).abs().max()):.3g}; the ramp in none")
+
+    def k1_k2(m_, s_):
+        y = _reverb.reverb(m_, step.ir, wet=1.0, dry=0.0, pre_row=s_,
+                           pre_col=ramp)
+        return y, envelope.limiter(y, step.k_rel, step.c_att, step.curve)[0]
+
+    y, z = k1_k2(m, scale)
+    for i in range(0, 128, 32):
+        yi, zi = k1_k2(m[i:i + 32], scale[i:i + 32])
+        assert torch.equal(yi, y[i:i + 32]) and torch.equal(zi, z[i:i + 32])
+
+    sharded = tbatch.flagship_step_sharded(_virtual(cuda, ("dp",)))(v, b)
+    whole = step(v, b)
+    monkeypatch.setattr(tres, "apply_aligned",
+                        _in_pieces(tres.apply_aligned, 32))
+    pieced = step(v, b)
+    flips = int((sharded != whole).sum())
+    print(f"sharded step vs unsharded: {flips} samples differ (max abs "
+          f"{int((sharded.int() - whole.int()).abs().max())} LSB); with the "
+          f"front's matmul in 32-row pieces: "
+          f"{int((sharded != pieced).sum())}")
+    assert torch.equal(pieced, sharded)
+
+
+def test_sharded_pool_flips_come_from_the_window_matmul(cuda, monkeypatch):
+    """Where the sharded pool's flips come from (config 5's 16-slot pool
+    on the kernels, 4 virtual shards of 4 slots, 10 frames): each
+    frame's resample (``ops.resample.resample_window``, a
+    ``torch.matmul`` of the framed window by the band) at 16 slots
+    against 4 x 4 slots on the same recorded windows; then, with that
+    matmul computed 4 slots at a time, the unsharded pool equals the
+    sharded pool bit for bit: the EQ (K5) and the limiter (the envelope
+    core) add no flip."""
+    from xmtpu_torch.bench import config5_config, config5_sources
+    from xmtpu_torch.graph.pool import SessionPool
+
+    _, srcs = config5_sources(pool_slots=16, pool_seconds=1.0)
+    mesh = _virtual(cuda, ("dp",))
+    window = tres.resample_window
+
+    def pools():
+        return [SessionPool(config5_config(), 16, sources=srcs,
+                            effects_backend="pallas", **kw)
+                for kw in ({"mesh": mesh}, {"device": cuda})]
+
+    calls = []
+
+    def recording(xs, plan, nj):
+        y = window(xs, plan, nj)
+        calls.append((xs, plan, nj, y))
+        return y
+
+    sharded, whole = pools()
+    a = sharded.read(10)
+    with monkeypatch.context() as mp:
+        mp.setattr(tres, "resample_window", recording)
+        r = whole.read(10)
+    calls = [c for c in calls if c[0].shape[0] == 16]
+    assert calls
+    diff = [float((_in_pieces(window, 4)(xs, plan, nj) - y).abs().max())
+            for xs, plan, nj, y in calls]
+    monkeypatch.setattr(tres, "resample_window", _in_pieces(window, 4))
+    a2, r2 = (p.read(10) for p in pools())
+    print(f"16-slot pool vs 4 x 4: {int((a != r).sum())} samples differ; "
+          f"resample_window at 16 vs 4 x 4 slots: {sum(d > 0 for d in diff)} "
+          f"of {len(diff)} frames differ, max abs {max(diff):.3g}; with "
+          f"the window's matmul 4 slots at a time: "
+          f"{int((a2 != r2).sum())} samples differ")
+    assert np.array_equal(a2, a) and np.array_equal(a2, r2)
+
+
+def test_entry_on_the_card_vs_cpu(cuda):
+    """``entry()`` builds on the card with its clips there, runs the
+    small-batch branch (K5, its state chain, K1 and the envelope core
+    launch) and reads -80 dB against ``entry(device="cpu")`` and, clip
+    by clip, against the float64 oracle."""
+    from xmtpu_torch import entry as tentry
+
+    fn, args = tentry.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    keys = ("launches", "chain_launches")
+    before = ([getattr(iir, k) for k in keys]
+              + [fftconv.launches, envelope.envelope_launches])
+    y = fn(*args)
+    torch.cuda.synchronize()
+    after = ([getattr(iir, k) for k in keys]
+             + [fftconv.launches, envelope.envelope_launches])
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    fn_c, args_c = tentry.entry(device="cpu")
+    ref = fn_c(*args_c)
+    y = y.cpu()
+    db = _db(y.double() - ref.double(), ref.double())
+    print(f"entry() on the card vs the CPU: {db:.1f} dB; launches "
+          f"{before} -> {after}")
+    assert y.shape == (2, 16000) and db <= -80.0
+    for i in range(2):
+        o = torch.from_numpy(tbatch.flagship_oracle_np(
+            args_c[0][i].numpy(), args_c[1][i].numpy())).double()
+        assert _db(y[i].double() - o, o) <= -80.0
+
+
+def test_interpret_true_refused_on_the_card(cuda):
+    """``interpret=True`` raises on the card in the step factories and
+    ``reverb``; False and None launch the kernels."""
+    from xmtpu_torch.ops import reverb as treverb
+
+    x = torch.zeros(2, 4000, device=cuda)
+    for f in (lambda: tbatch.make_flagship_step(interpret=True, device=cuda),
+              lambda: tbatch.make_batch_step(interpret=True),
+              lambda: tbatch.flagship_step_sharded(
+                  _virtual(cuda, ("dp",)), interpret=True),
+              lambda: treverb.reverb(x, np.ones(8), interpret=True)):
+        with pytest.raises(ConfigError, match="CPU only"):
+            f()
+    before = fftconv.launches
+    for it in (False, None):
+        treverb.reverb(x, np.ones(8), interpret=it)
+    torch.cuda.synchronize()
+    assert fftconv.launches == before + 2
 
 
 def test_dryrun_multichip_on_virtual_shards_of_the_card(cuda, capsys):

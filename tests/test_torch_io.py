@@ -33,9 +33,16 @@ N = 1000
 
 @pytest.fixture(autouse=True)
 def stdlib_reference(monkeypatch):
-    """Both packages' stdlib codecs (no native library)."""
+    """Both packages' stdlib codecs (no native library, and no FFmpeg
+    shim for what the stdlib refuses; ``tests/test_torch_ffmpeg.py``
+    holds the shims)."""
+    from xmtpu.native import ffmpeg as xff
+    from xmtpu_torch.native import ffmpeg as tff
+
     monkeypatch.setattr(xwav, "_native", lambda: None)
     monkeypatch.setattr(twav, "_native", lambda: None)
+    monkeypatch.setattr(xff, "available", lambda: False)
+    monkeypatch.setattr(tff, "available", lambda: False)
 
 
 @pytest.fixture(scope="module")
@@ -192,15 +199,20 @@ def test_raw_pcm_argument_errors(tmp_path):
 
 @pytest.mark.parametrize("ext", ["mp3", "m4a", "xyzcodec"])
 def test_compressed_and_unknown_extensions(tmp_path, pcm, ext):
-    """No FFmpeg shim: decoding raises DecodeError, encoding raises and
-    writes nothing, as the JAX package does without its shim."""
-    assert tio.HAVE_FFMPEG is False
+    """With the FFmpeg shim unavailable (the fixture) a compressed
+    extension's registered backends raise: decoding a DecodeError,
+    encoding a ConfigError that writes nothing, as the JAX package does
+    without its shim; an extension with no backend raises the same
+    types."""
+    known = ext != "xyzcodec"
     p = tmp_path / f"x.{ext}"
     p.write_bytes(b"\x00" * 64)
-    with pytest.raises(DecodeError, match="no decoder backend"):
+    with pytest.raises(DecodeError, match="shim unavailable" if known
+                       else "no decoder backend"):
         tio.open_audio(p)
     q = tmp_path / f"out.{ext}"
-    with pytest.raises(ConfigError, match="no encoder backend"):
+    with pytest.raises(ConfigError, match="shim unavailable" if known
+                       else "no encoder backend"):
         tio.encode_audio(q, pcm, SR)
     assert not q.exists()
     if ext == "xyzcodec":  # the JAX package's own registries agree

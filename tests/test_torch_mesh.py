@@ -25,7 +25,8 @@ from xmtpu_torch.graph.serve import PoolServer
 from xmtpu_torch.graph.streaming import StreamSession
 from xmtpu_torch.parallel import Mesh
 from xmtpu_torch.parallel import mesh as tmesh
-from xmtpu_torch.parallel.dryrun import _example_batch, dryrun_multichip
+from xmtpu_torch.entry import example_batch
+from xmtpu_torch.parallel.dryrun import dryrun_multichip
 from xmtpu_torch.utils.errors import ConfigError, DeviceError
 
 from .conftest import rms_db
@@ -45,7 +46,7 @@ def _voices(k, seed=2):
 
 
 def _clips(batch):
-    return (torch.from_numpy(a) for a in _example_batch(batch, 4410))
+    return (torch.from_numpy(a) for a in example_batch(batch, 4410))
 
 
 @pytest.fixture(scope="module")

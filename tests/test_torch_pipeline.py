@@ -280,7 +280,12 @@ def test_master_noise_suppression_runs_whole_clip(sources):
         tpipe.process({"v": voice}, ts.config_from_dict(doc), device="cpu")
 
 
-def test_bitrate_reaches_the_encoder_and_missing_url(tmp_path, sources):
+def test_bitrate_reaches_the_encoder_and_missing_url(tmp_path, sources,
+                                                     monkeypatch):
+    """The config's bitrate reaches a registered encoder; an m4a output
+    with the FFmpeg shim unavailable raises and writes nothing."""
+    from xmtpu_torch.native import ffmpeg
+
     voice, _, _ = sources
     seen = []
     register_encoder("fakeaac", lambda path, pcm, sr, **kw: seen.append(
@@ -293,7 +298,8 @@ def test_bitrate_reaches_the_encoder_and_missing_url(tmp_path, sources):
     with pytest.raises(ConfigError, match="no url"):
         tpipe.process(None, ts.config_from_dict({"tracks": [{}]}),
                       device="cpu")
-    with pytest.raises(ConfigError, match="no encoder backend"):
+    monkeypatch.setattr(ffmpeg, "available", lambda: False)
+    with pytest.raises(ConfigError, match="shim unavailable"):
         api.process_file({"v": voice}, cfg, tmp_path / "o.m4a", device="cpu")
     assert not (tmp_path / "o.m4a").exists()
 

@@ -19,8 +19,11 @@ generator: decode, mix, effects, loudness, encode);
 ``xmtpu_torch.run_batch`` (the file-batch runner: a manifest of clips
 through the ragged step), ``xmtpu_torch.compat`` (the reference's
 handle-style API) and ``python -m xmtpu_torch.cli`` (the command line).
-``xmtpu_torch.io`` reads and writes WAV; ``xmtpu_torch.config`` loads
-pipeline configs; ``xmtpu_torch.native`` is the C++ host runtime;
+``xmtpu_torch.entry.entry()`` returns the flagship step and its example
+clips for a one-device check (``python -m xmtpu_torch.entry``).
+``xmtpu_torch.io`` reads and writes WAV, and compressed formats through
+the FFmpeg shim (``xmtpu_torch.native.ffmpeg``); ``xmtpu_torch.config``
+loads pipeline configs; ``xmtpu_torch.native`` is the C++ host runtime;
 ``xmtpu_torch.parallel`` runs the chains over several devices from one
 process (one long clip sharded along time; with
 ``batch.flagship_step_sharded`` and ``mesh=`` of the pool and server,

@@ -64,7 +64,7 @@ from xmtpu_torch.ops import limiter as _limiter
 from xmtpu_torch.ops import mix as _mix
 from xmtpu_torch.ops import resample as _resample
 from xmtpu_torch.ops import reverb as _reverb
-from xmtpu_torch.utils.device import resolve_device
+from xmtpu_torch.utils.device import check_interpret, resolve_device
 from xmtpu_torch.utils.errors import ConfigError, NotPortedError
 from xmtpu_torch.utils.profiling import stage
 
@@ -427,6 +427,7 @@ def make_flagship_step(
     threshold_db: float = -3.0,
     iir_backend: str = "pallas",
     resample_backend: str = "mixfirst",
+    interpret: bool | None = None,
     fused: bool | None = None,
     lti_fold: bool = True,
     envelope_block: int | None = None,
@@ -443,7 +444,11 @@ def make_flagship_step(
     ``ops.limiter.limiter``; the kernels step per sample, the same
     function in exact arithmetic as any block lookahead. See
     :class:`FlagshipStep` for ``resample_backend``, ``lti_fold`` and
-    ``iir_backend``."""
+    ``iir_backend``. ``interpret``: the JAX package's Pallas interpret
+    mode; True means the kernels' plain twins, which run on the CPU only
+    (:class:`ConfigError` on any other device, the default included,
+    before anything is built); None and False let the device decide."""
+    check_interpret(interpret, device)
     check_options(iir_backend, resample_backend, envelope_block)
     return FlagshipStep(
         flagship_tables(sr_in, sr_bus, bands, ir_seconds, wet, dry,
@@ -529,13 +534,16 @@ def make_batch_step(
     bgm_gain: float = 0.4,
     fade_ms: float = 250.0,
     threshold_db: float = -3.0,
+    interpret: bool | None = None,
     fused: bool | None = None,
     lti_fold: bool = True,
     device=None,
 ) -> BatchStep:
     """Build the ragged-length step on ``device`` (None = ``cuda``;
     ``device="cpu"`` runs the kernels' plain twins). The arguments
-    mirror ``xmtpu.batch.make_batch_step``."""
+    mirror ``xmtpu.batch.make_batch_step``; ``interpret`` as in
+    :func:`make_flagship_step`."""
+    check_interpret(interpret, device)
     return BatchStep(
         flagship_tables(sr_in, sr_bus, bands, ir_seconds, wet, dry,
                         bgm_gain, fade_ms, threshold_db), device=device,
@@ -573,12 +581,17 @@ class ShardedFlagshipStep:
     the int16 output on the input's device. Pure data parallelism: no
     exchange. One :class:`FlagshipStep` per distinct device (and branch),
     built at first use, serves every shard on that device; every
-    shard's step is launched before the output is gathered."""
+    shard's step is launched before the output is gathered. On a card
+    the output can differ from the unsharded step's by 1 LSB: the
+    ``mixfirst`` front's ``torch.matmul`` (``ops.resample.apply_aligned``)
+    gets a cuBLAS kernel by its row count, which rounds otherwise at
+    B/n rows than at B; K1 and K2 give every row bit for bit."""
 
     def __init__(self, mesh, **kw):
         if "device" in kw:
             raise ConfigError("the mesh names the devices; flagship_step_"
                               "sharded takes no device=")
+        check_interpret(kw.get("interpret"), *mesh.devices.flat)
         check_options(kw.get("iir_backend", "pallas"),
                       kw.get("resample_backend", "mixfirst"),
                       kw.get("envelope_block"))
@@ -624,5 +637,6 @@ def flagship_step_sharded(mesh, **kw) -> ShardedFlagshipStep:
     """The flagship step over the mesh's ``dp`` axis (counterpart of
     ``xmtpu.batch.flagship_step_sharded``); ``kw`` as
     :func:`make_flagship_step`'s, without ``device`` (the mesh names the
-    devices). See :class:`ShardedFlagshipStep`."""
+    devices); ``interpret=True`` is refused unless every device of the
+    mesh is the CPU. See :class:`ShardedFlagshipStep`."""
     return ShardedFlagshipStep(mesh, **kw)

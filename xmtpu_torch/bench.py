@@ -29,6 +29,13 @@ target), ``accuracy_db`` (clip 0 against the float64 oracle) and
 gap the host leaves between kernels. There is no CPU fallback: without
 a CUDA device the command fails.
 
+:func:`run` runs one config or all six at their defaults (config 4 is
+:func:`config4_full_chain`, the JAX harness's 32 clips of 10 s) and
+prints one JSON line each. The command, :func:`main` and :func:`run`
+hold an exclusive lock on a file in the temporary directory
+(:func:`hold_chip_lock`) until the process exits, so two measuring
+processes never time one card at once.
+
 ``--config=1`` times 32 int16 mono clips of 10 s at 44.1 kHz
 (``default_rng(0)`` noise x 9000) through ``pcm16_to_f32`` and the
 resample kernel (K7) to 16 kHz, and beside it the same conversion by
@@ -59,8 +66,8 @@ read returns host data.
 
 ``--config=6`` (counterpart of ``xmtpu.benchmarks.config6_file_batch``)
 times the file-fed batch: 64 int16 WAV clips of 10 s at 44.1 kHz
-(``default_rng(0)`` noise x 9000; FLAC where an FFmpeg backend is
-registered, which the port has none of) written to a temporary
+(``default_rng(0)`` noise x 9000; FLAC, the JAX harness's default,
+where the FFmpeg shim can build, else WAV) written to a temporary
 directory, then ``xmtpu_torch.runner.run_batch`` to 16 kHz WAVs: decode
 on the host, the ragged step on the card, WAV writes on the host, wall
 clock with all I/O. Two passes; ``audio_sec_per_sec`` is the warm one,
@@ -385,7 +392,8 @@ def config6_file_batch(n_clips: int = 64, seconds: float = 10.0,
     """Config 6, the file-fed batch, end to end on ``device`` (None: the
     card, else it exits): decode (host) -> the ragged step -> WAV write
     (host), wall clock with all I/O, the warm pass and the cold one. WAV
-    inputs where no FFmpeg backend is registered."""
+    inputs where the FFmpeg shim is not expected to work
+    (``io.HAVE_FFMPEG`` False)."""
     import shutil
     import tempfile
 
@@ -420,7 +428,63 @@ def config6_file_batch(n_clips: int = 64, seconds: float = 10.0,
         shutil.rmtree(d, ignore_errors=True)
 
 
+def config4_full_chain(batch: int = 32, seconds: float = 10.0) -> dict:
+    """Config 4 (counterpart of ``xmtpu.benchmarks.config4_full_chain``):
+    :func:`main`'s flagship step at the JAX harness's 32 clips of 10 s,
+    which the auto rule runs on the unfused branch."""
+    r = main(batch=batch, clip_seconds=seconds)
+    return {"config": 4, "desc": "full chain decode->resample->mix->FX",
+            "audio_sec_per_sec": r["value"], "accuracy_db": r["accuracy_db"],
+            "device": r["device"]}
+
+
 CONFIGS = (1, 2, 3, 4, 5, 6)
+_CONFIG_RUNS = {1: config1_resample, 2: config2_mix, 3: config3_effects,
+                4: config4_full_chain, 5: config5_streaming,
+                6: config6_file_batch}
+CHIP_LOCK_NAME = "xmtpu_torch_chip.lock"
+_chip_lock = None  # the open lock file, held until the process exits
+
+
+def hold_chip_lock():
+    """Take, once per process, an exclusive ``flock`` on
+    ``CHIP_LOCK_NAME`` in the temporary directory and hold it until the
+    process exits: two processes timing one card skew each other's
+    numbers without any sign, so a second measuring process waits here
+    for the first (the JAX harness's ``_acquire_chip_lock``)."""
+    global _chip_lock
+    if _chip_lock is None:
+        import fcntl
+        import os
+        import tempfile
+
+        f = open(os.path.join(tempfile.gettempdir(), CHIP_LOCK_NAME), "w")
+        try:
+            fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError:
+            print("xmtpu_torch.bench: the chip lock is held by another "
+                  "measuring process; waiting", file=sys.stderr)
+            fcntl.flock(f, fcntl.LOCK_EX)
+        _chip_lock = f
+    return _chip_lock
+
+
+def run(config: int | None = None) -> list:
+    """Run one config, or all six in order (counterpart of
+    ``xmtpu.benchmarks.run``), under the chip lock; print one JSON line
+    each with ``audio_sec_per_sec`` (rounded to 0.1) and ``x_realtime``
+    (the same number: audio seconds per second is times real time).
+    Publishable numbers come from one process a config: configs run
+    one after another on a card share its state."""
+    hold_chip_lock()
+    results = []
+    for k in CONFIGS if config is None else [config]:
+        r = _CONFIG_RUNS[k]()
+        r["audio_sec_per_sec"] = round(r["audio_sec_per_sec"], 1)
+        r["x_realtime"] = r["audio_sec_per_sec"]
+        print(json.dumps(r))
+        results.append(r)
+    return results
 
 
 def run_config(config: int, device=None) -> dict:
@@ -448,6 +512,7 @@ def main(batch: int = 256, clip_seconds: float = 10.0, iters: int = 20,
                 envelope_block=envelope_block or None)
     tbatch.check_options(**opts)
     dev = _require_card()
+    hold_chip_lock()
     voice, bgm = make_inputs(batch, clip_seconds)
     # the JAX auto rule, as the root bench.py: fused from 128 rows up
     step = tbatch.make_flagship_step(sr_in=SR_IN, sr_bus=16000, device=dev,
@@ -511,4 +576,5 @@ def _cli(argv) -> dict:
 
 if __name__ == "__main__":
     torch.backends.cuda.matmul.allow_tf32 = False
+    hold_chip_lock()
     print(json.dumps(_cli(sys.argv[1:])))

@@ -146,8 +146,10 @@ class XmAudioUtils:
     # -- decoder path (audio_decoder_create / seekTo /
     #    get_decoded_frame / freep) --
     def decoder_create(self, path) -> int:
-        """Open a decoder handle on an audio file (WAV or raw PCM; the
-        port has no FFmpeg backend). A previous handle is closed."""
+        """Open a decoder handle on an audio file. Compressed formats
+        stream at constant memory through the FFmpeg shim's handle
+        (``native.ffmpeg.StreamDecoder``); WAV and raw PCM are read
+        into memory. A previous handle is closed."""
         from xmtpu_torch.io import open_audio
 
         self.decoder_freep()

@@ -48,7 +48,7 @@ from xmtpu_torch.ops import biquad as _biquad
 from xmtpu_torch.ops import limiter as _limiter
 from xmtpu_torch.ops import ns as _ns
 from xmtpu_torch.ops import reverb as _reverb
-from xmtpu_torch.utils.device import resolve_device
+from xmtpu_torch.utils.device import check_interpret, resolve_device
 from xmtpu_torch.utils.errors import ConfigError
 
 _SCAN_BACKENDS = ("scan", "oracle", "xla")
@@ -577,15 +577,6 @@ def build_chain(sample_rate: int, chain, default_backend: str | None = None,
     return _pair_conv_limiter(_fold_lti(out)) if fold else out
 
 
-def check_interpret_device(effects, device: torch.device) -> None:
-    """``pallas_interpret`` (the kernels' plain twins) runs on the CPU
-    only: raise :class:`ConfigError` for such an effect elsewhere."""
-    if device.type != "cpu" and any(getattr(fx, "interpret", False)
-                                    for fx in effects):
-        raise ConfigError("backend='pallas_interpret' runs on the CPU only "
-                          "(the kernels' plain twins)")
-
-
 def chain_init_state(effects, batch_shape, device="cpu"):
     """Initial states on ``device``; ``batch_shape`` = x.shape[:-1]."""
     return tuple(fx.init_state(batch_shape, device) for fx in effects)
@@ -680,7 +671,8 @@ def apply_chain(pcm, sample_rate: int, chain, block_size: int | None = None,
         raise ValueError(
             f"pcm must be (n,), (n, ch), or (B, n, ch); got shape "
             f"{tuple(pcm.shape) if hasattr(pcm, 'shape') else ()}")
-    check_interpret_device(effects, dev)
+    check_interpret(any(getattr(fx, "interpret", False) for fx in effects),
+                    dev)
     x, was_i16, was_1d = _to_f32_device(pcm, dev)
     n = x.shape[-1]
     if block_size is None or block_size >= n:

@@ -38,7 +38,12 @@ cost one sequence of launches a frame instead of K.
   drives every shard (the JAX package's pool is one SPMD program, and
   its host calls act on global slots), and devices may repeat: virtual
   shards on one device. Snapshots keep the unsharded layout, so a file
-  loads into a sharded or an unsharded pool alike.
+  loads into a sharded or an unsharded pool alike. On a card a sharded
+  pool can differ from the unsharded one by 1 LSB: each frame's resample
+  (``ops.resample.resample_window``) is a ``torch.matmul`` whose cuBLAS
+  kernel, and so its rounding, depends on the row count (K/n slots
+  against K); the EQ and limiter kernels give every row bit for bit. On
+  the CPU the two are bit for bit.
 """
 
 from __future__ import annotations
@@ -59,7 +64,7 @@ from xmtpu_torch.graph.streaming import (_rebuild, _TrackStream, _fetch,
                                          state_leaves_from_jax,
                                          state_paths, state_to_jax_leaves)
 from xmtpu_torch.ops import convert as _convert
-from xmtpu_torch.utils.device import resolve_device
+from xmtpu_torch.utils.device import check_interpret, resolve_device
 from xmtpu_torch.utils.errors import ConfigError
 
 EFFECTS_BACKENDS = ("scan", "pallas", "pallas_interpret")
@@ -245,8 +250,9 @@ class SessionPool:
         self.master_effects = _fx.build_chain(
             self.sr, list(config.master_effects),
             default_backend=effects_backend, device_type=self.device.type)
-        _fx.check_interpret_device(self.voice_effects + self.master_effects,
-                                   self.device)
+        check_interpret(any(getattr(fx, "interpret", False) for fx in
+                            self.voice_effects + self.master_effects),
+                        self.device)
         for e in self.voice_effects + self.master_effects:
             if hasattr(e, "set_streaming"):
                 e.set_streaming(self.frame_out)

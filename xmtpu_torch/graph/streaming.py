@@ -47,7 +47,7 @@ from xmtpu_torch.graph import fx as _fx
 from xmtpu_torch.ops import convert as _convert
 from xmtpu_torch.ops import mix as _mix
 from xmtpu_torch.ops import resample as _resample
-from xmtpu_torch.utils.device import resolve_device
+from xmtpu_torch.utils.device import check_interpret, resolve_device
 from xmtpu_torch.utils.errors import ConfigError
 
 NS_COUNTER = "count"  # the noise-suppression state's lead-in counter
@@ -451,8 +451,9 @@ class StreamSession:
         self.master_effects = _fx.build_chain(
             self.sr, list(config.master_effects), default_backend="scan",
             device_type=self.device.type)
-        _fx.check_interpret_device(self.voice_effects + self.master_effects,
-                                   self.device)
+        check_interpret(any(getattr(fx, "interpret", False) for fx in
+                            self.voice_effects + self.master_effects),
+                        self.device)
         for e in self.voice_effects + self.master_effects:
             if hasattr(e, "set_streaming"):  # needs the frame geometry
                 e.set_streaming(self.frame_out)

@@ -10,9 +10,9 @@ when it cannot be built: 8-bit unsigned is recentred and shifted up,
 24- and 32-bit truncated to their top 16 bits, a truncated final frame
 dropped; both paths give the same int16 for 16- and 24-bit PCM.
 :func:`write_wav` writes 16-bit PCM through the native writer when it
-is built, else through ``wave``: the same bytes. The JAX package's
-FFmpeg fallback for other encodings is not ported; every failure is a
-:class:`DecodeError`.
+is built, else through ``wave``: the same bytes. What neither parser
+decodes goes to the FFmpeg shim (``xmtpu_torch.native.ffmpeg``) where it
+works, as in the JAX package; every failure is a :class:`DecodeError`.
 """
 
 from __future__ import annotations
@@ -52,8 +52,18 @@ def read_wav(path) -> tuple[np.ndarray, int]:
     try:
         return _read_wav_stdlib(path)
     except Exception as e:
-        raise DecodeError(
-            f"cannot decode WAV {path}: {type(e).__name__}: {e}") from e
+        err = e
+    # what neither parser decodes (a-law, mu-law, float64, extensible
+    # headers, ...): the FFmpeg shim where it works, as in the JAX package
+    from xmtpu_torch.native import ffmpeg
+
+    if ffmpeg.available():
+        try:
+            return ffmpeg.decode(path)
+        except DecodeError:
+            pass
+    raise DecodeError(
+        f"cannot decode WAV {path}: {type(err).__name__}: {err}") from err
 
 
 def _read_wav_stdlib(path) -> tuple[np.ndarray, int]:

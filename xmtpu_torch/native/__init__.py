@@ -13,6 +13,9 @@ compiles into a private temporary file and renames it into place, so
 concurrent workers compile once and none loads a half-written file. The
 lock dies with its process, so a build cut off midway blocks nobody.
 
+The FFmpeg shim, :mod:`xmtpu_torch.native.ffmpeg`, builds the same way
+(:func:`build_shared`) into ``xmtpu_torch/_build/ffmpeg/<key>/``.
+
 Without a compiler the entry points raise and :func:`available` is
 False; the WAV codec then takes its stdlib path and :class:`PcmChannel`
 a bounded deque. Nothing here runs at import.
@@ -60,9 +63,18 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the library unless it exists for the current source;
     return its path. Raises ``OSError`` or ``subprocess`` errors when
-    ``g++`` is missing or fails. Each compile appends its command to
-    ``build.log`` beside the library."""
-    out = library_path()
+    ``g++`` is missing or fails."""
+    return build_shared(SOURCE, library_path(), CXX_FLAGS)
+
+
+def build_shared(source: Path, out: Path, flags, libs=()) -> Path:
+    """Compile ``source`` with ``g++ flags ... libs`` into the shared
+    library ``out`` unless it exists; return ``out``. Safe under
+    concurrent first use (module docstring): an exclusive ``fcntl``
+    lock on ``out``'s directory, a private temporary file renamed into
+    place. Each compile appends its command and output to ``build.log``
+    beside the library; a failed one raises
+    ``subprocess.CalledProcessError``."""
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -70,8 +82,8 @@ def build() -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released on close, or on exit
         if out.exists():  # another process built it while this one waited
             return out
-        tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-        cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = ["g++", *flags, "-o", str(tmp), str(source), *libs]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True,
                                   timeout=BUILD_TIMEOUT_S)

@@ -26,6 +26,8 @@ import numpy as np
 import torch
 
 from xmtpu_torch.kernels.fftconv import fir_convolve
+from xmtpu_torch.utils.device import check_interpret
+from xmtpu_torch.utils.errors import ConfigError
 
 
 def trim_ir_tail(h: np.ndarray, rel: float = 1e-6) -> np.ndarray:
@@ -115,7 +117,8 @@ REVERB_BACKENDS = ("pallas", "xla", "mxu")
 
 def reverb(x: torch.Tensor, ir, wet: float = 0.3, dry: float = 0.7,
            prescale=None, pre_row=None, pre_col=None, block: int | None = None,
-           backend: str = "pallas") -> torch.Tensor:
+           backend: str = "pallas",
+           interpret: bool | None = None) -> torch.Tensor:
     """Same-length causal reverb of ``x`` (..., n):
     ``prescale * (dry * x + wet * conv(pre_row[..., None] * pre_col * x,
     ir))``, in the JAX package's operation order.
@@ -129,10 +132,17 @@ def reverb(x: torch.Tensor, ir, wet: float = 0.3, dry: float = 0.7,
     batch-shaped, ``pre_col`` is (n,); either may be None (1); they scale
     only the convolution's input and need ``"pallas"``, as in the JAX
     package. ``prescale`` (broadcastable) scales both terms. ``dry=0``
-    emits no dry term."""
+    emits no dry term. ``interpret=True`` (the JAX package's Pallas
+    interpret mode) means the kernel's plain twin: it needs
+    ``"pallas"`` and ``x`` on the CPU, else :class:`ConfigError`; None
+    and False let x's device decide."""
     if backend not in REVERB_BACKENDS:
         raise ValueError(f"unknown reverb backend {backend!r}; accepted: "
                          + ", ".join(REVERB_BACKENDS))
+    if interpret and backend != "pallas":
+        raise ConfigError(f"interpret applies to backend='pallas' only, got "
+                          f"backend={backend!r}")
+    check_interpret(interpret, x.device)
     n = x.shape[-1]
     dev = x.device
     if backend == "pallas":

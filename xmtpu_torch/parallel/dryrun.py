@@ -29,15 +29,9 @@ import argparse
 import numpy as np
 import torch
 
+from xmtpu_torch.entry import example_batch
+
 LEGS = ("dp", "sp", "pool", "2d", "serve")
-
-
-def _example_batch(batch: int, n: int):
-    rng = np.random.default_rng(0)
-    voice = (rng.standard_normal((batch, n)) * 9000).astype(np.int16)
-    bgm = (np.sin(np.arange(n) / 50.0)[None].repeat(batch, 0) * 12000
-           ).astype(np.int16)
-    return voice, bgm
 
 
 def _devices(n_devices: int, device) -> list:
@@ -71,7 +65,7 @@ def dryrun_multichip(n_devices: int, device=None, legs=LEGS) -> None:
     host = devs[0]
 
     if "dp" in legs:
-        voice, bgm = _example_batch(batch=2 * n_devices, n=4410)
+        voice, bgm = example_batch(batch=2 * n_devices, n=4410)
         out = step(torch.from_numpy(voice).to(host),
                    torch.from_numpy(bgm).to(host)).cpu().numpy()
         assert out.shape == (2 * n_devices, 1600), out.shape

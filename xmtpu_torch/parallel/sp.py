@@ -45,6 +45,7 @@ from xmtpu_torch.ops import limiter as _lim
 from xmtpu_torch.ops.resample import require_fp32_matmul
 from xmtpu_torch.ops.reverb import fir_convolve_full, fir_convolve_os
 from xmtpu_torch.parallel.mesh import all_gather, shift_right
+from xmtpu_torch.utils.device import check_interpret
 from xmtpu_torch.utils.errors import ConfigError
 
 ENGINES = ("auto", "scan", "kernel")
@@ -71,15 +72,6 @@ def _engine(engine: str, n_shard: int) -> str:
     if engine == "auto":
         return "kernel" if n_shard >= KERNEL_MIN_SHARD else "scan"
     return engine
-
-
-def _check_interpret(interpret, mesh) -> None:
-    """``interpret=True`` (the JAX kernels' interpret mode) means the
-    kernels' plain twins, which run on the CPU: refused on a card. None
-    and False let each shard's device decide."""
-    if interpret and any(d.type != "cpu" for d in mesh.devices.flat):
-        raise ConfigError("interpret=True runs the kernels' plain twins, "
-                          "on the CPU only")
 
 
 def _shard_map(mesh, x, spec, body):
@@ -257,7 +249,7 @@ def sp_biquad(sos, x: torch.Tensor, mesh, state_dtype=torch.float64,
     single-device ``ops.biquad.sosfilt_scan`` (the scans exactly, the
     kernel to the float32 sequential floor). ``interpret=True``: the
     kernels' twins, refused off the CPU."""
-    _check_interpret(interpret, mesh)
+    check_interpret(interpret, *mesh.devices.flat)
     x = torch.as_tensor(x)
     engine = _engine(engine, _n_shard(x, mesh))
     sos = np.asarray(sos, np.float64)
@@ -383,7 +375,7 @@ def sp_envelope(d: torch.Tensor, sr: int, mesh, attack_ms: float = 1.0,
                 interpret: bool | None = None) -> torch.Tensor:
     """The limiter's smoothed envelope of the detector ``d`` (..., n),
     time-sharded over the ``sp`` axis (engines as :func:`sp_biquad`)."""
-    _check_interpret(interpret, mesh)
+    check_interpret(interpret, *mesh.devices.flat)
     d = torch.as_tensor(d)
     k_rel = _lim._release_coeff(release_ms, sr)
     c_att = _lim._attack_coeff(attack_ms, sr)
@@ -426,7 +418,7 @@ def sp_effects_chain(x: torch.Tensor, sr: int, mesh, bands, ir, wet=0.3,
     The output equals the single-device chain to float32 tolerance (the
     scan engine exactly, the kernel engine to the sequential float32
     floor, <= -80 dB) and lands on x's device."""
-    _check_interpret(interpret, mesh)
+    check_interpret(interpret, *mesh.devices.flat)
     x = torch.as_tensor(x)
     sos = (np.asarray(bands, np.float64) if np.ndim(bands) == 2
            else _biquad.eq_sos(list(bands), sr))

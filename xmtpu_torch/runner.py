@@ -36,7 +36,7 @@ import torch
 
 from xmtpu_torch.io import open_audio
 from xmtpu_torch.io.wav import write_wav
-from xmtpu_torch.utils.device import resolve_device
+from xmtpu_torch.utils.device import check_interpret, resolve_device
 from xmtpu_torch.utils.errors import (ConfigError, DeviceError,
                                       KernelBuildError, XmtpuError)
 
@@ -212,9 +212,7 @@ def run_batch(
     check_rates(sr_in, sr_bus)
     dev = resolve_device(device)
     step_kw = dict(step_kw or {})
-    if step_kw.pop("interpret", None) and dev.type != "cpu":
-        raise ConfigError("step_kw interpret=True runs the kernels' plain "
-                          "twins, on the CPU only; drop it on " + str(dev))
+    check_interpret(step_kw.get("interpret"), dev)
     if isinstance(jobs, (str, bytes, dict)):
         raise ConfigError(
             f"jobs must be a list of {{voice, bgm?, out}} entries, got "

@@ -292,7 +292,23 @@ process exits non-zero:
    and ``bench.config6_file_batch(fmt="flac")`` runs beside phase 25's
    WAV figure; where it does not, ``HAVE_FFMPEG`` must be False and a
    ``.flac`` must raise ``DecodeError``;
-31. a JSON line of the kernels (times, bounds, launches; K1 once per
+31. (``precision_phase``, also ``tools/torch_precision.py`` alone) the
+   matmul precision rungs: the default step's ``mixfirst`` front at
+   HIGHEST / HIGH / DEFAULT as a probe (front ms split into the mix
+   passes and the matmuls; the step's clip 0 against
+   ``flagship_oracle_np``, -80 dB at HIGHEST and HIGH; the rungs must
+   round apart; the default step unchanged after), the resample ops'
+   rungs and bf16 against the CPU (-120 dB; bf16 -80), K7 at each rung
+   against its split twin on the card (-120 dB; 1, 3, 1 launches) and
+   its non-finite masks, ``fir_convolve_os_mxu`` at each variant x
+   gauss x rung against float64 and the CPU; K1 ``trim=False`` (short
+   form at the step's operands, long form at 32 x 480000 x 24,000 taps)
+   against its twin (-120 dB) with its first n samples max abs 0
+   against ``trim=True``, and K1 at ``gp`` 1, 2, 4, 16 (checked and
+   capped, not a parameter of the card's launch) max abs 0 against
+   ``gp=None``, with times; the ``mixfirst_pad`` step against
+   ``mixfirst`` (1 LSB, -120 dB);
+32. a JSON line of the kernels (times, bounds, launches; K1 once per
    branch; the state-chain kernel beside K5; the episode's K5, K1 and
    envelope entries with its launch counts; the streaming entries of
    phases 22-23; the runner's K1, K5 and K3 of phase 25; the IIR and
@@ -329,6 +345,11 @@ import numpy as np
 
 GATE_KERNEL_DB = -100.0
 GATE_CHAIN_DB = -80.0
+# phase 31, card against CPU: bf16 outputs (an ulp flip is -48 dB at a
+# sample; -90.0 to -91.0 dB measured on an H100), and the matmul DFTs'
+# bf16 rungs, whose stages re-split intermediates that the two devices
+# sum in another order (HIGH -106.5 to -115.6, DEFAULT -71.1 to -85.7)
+GATE_BF16_DB, GATE_MXU_HIGH_DB, GATE_MXU_DEFAULT_DB = -80.0, -100.0, -60.0
 BATCH, SMALL_BATCH, RAGGED_BATCH, CLIP_SECONDS = 256, 32, 64, 10.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -1742,6 +1763,291 @@ def entry_phase(h, n_clips: int = 64, seconds: float = 10.0) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 30: {time.perf_counter() - t30:.1f} s")
+
+
+def precision_phase(h, n_clips: int = BATCH, seconds: float = CLIP_SECONDS,
+                    long_rows: int = 32, long_n: int = 480000,
+                    ops_rows: int = 8, ops_n: int = 88200) -> None:
+    """Phase 31: the JAX package's last surface on the card. The
+    matmul precision rungs (``ops.precision``): the ``mixfirst`` front
+    of the default step at HIGHEST / HIGH / DEFAULT as a probe (the
+    front's ``apply_aligned`` wrapped for the run, the default step
+    checked unchanged after it), the resample ops' rungs and
+    ``dtype=bfloat16`` against their CPU plain versions, K7 at each rung
+    against its split twin (also on non-finite input),
+    ``fir_convolve_os_mxu`` at each variant x gauss x rung; K1's
+    ``trim=False`` (short and long form) against its twin with its first
+    n samples against ``trim=True``, and K1 at ``gp`` 1, 2, 4, 16
+    against ``gp=None``; the ``mixfirst_pad`` step against ``mixfirst``.
+    ``h`` holds main()'s helpers. The sizes cut it for a rehearsal on
+    the CPU (``h.dev = torch.device("cpu")``), where times read nan."""
+    import functools
+
+    import torch
+
+    from xmtpu_torch import batch as tbatch
+    from xmtpu_torch.bench import make_inputs, median_ms, rms_db, step_seconds
+    from xmtpu_torch.kernels import fftconv
+    from xmtpu_torch.kernels import resample as kresample
+    from xmtpu_torch.ops import convert, fftmm
+    from xmtpu_torch.ops import precision as tprec
+    from xmtpu_torch.ops import resample as tresample
+    from xmtpu_torch.ops import reverb as treverb
+
+    card, dev = h.card, h.dev
+    on_card = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    rungs = tprec.RUNGS
+    t31 = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def ms(fn):
+        return median_ms(fn) if on_card else float("nan")
+
+    def db(got, ref):
+        g, r = (t.double().cpu().numpy() for t in (got, ref))
+        return rms_db(g - r, r)
+
+    def maxabs(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    # (a) the mixfirst front at each rung, as a probe
+    voice, bgm = make_inputs(n_clips, seconds)
+    v = torch.from_numpy(voice).to(dev)
+    b = torch.from_numpy(bgm).to(dev)
+    step = tbatch.make_flagship_step(fused=True, device=dev)
+    y_ref = step(v, b)
+    ref0 = tbatch.flagship_oracle_np(voice[0], bgm[0])
+    B, M = v.shape[0], step.M
+    tabs = (step.H1, step.H0, step.H2, step.lo, step.hi, step.r0, step.r2)
+    m3 = (b.reshape(B, -1, M) * step.gain).add_(v.reshape(B, -1, M))
+    m3p = torch.nn.functional.pad(m3, (0, -(-M // tbatch.LANE_PAD)
+                                       * tbatch.LANE_PAD - M))
+    t_mix = ms(lambda: (b.reshape(B, -1, M) * step.gain).add_(
+        v.reshape(B, -1, M)))
+    real = tresample.apply_aligned
+    fronts, front_db, step_db = {}, {}, {}
+    try:
+        for rung in rungs:
+            tresample.apply_aligned = functools.partial(real, precision=rung)
+            fronts[rung], _, _ = step.front(v, b)
+            front_db[rung] = db(fronts[rung], fronts[rungs[0]])
+            t_front = ms(lambda: step.front(v, b))
+            t_mm = ms(lambda: real(m3, *tabs, precision=rung))
+            # the same matmuls on the lane-padded (mixfirst_pad) operand:
+            # K = 512, aligned for the bf16 tensor-core kernels
+            t_mm_pad = ms(lambda: real(m3p, *tabs, precision=rung))
+            split_line = ""
+            if rung != "highest":  # the main product: split, then passes
+                a_hi, a_lo = tprec.split(m3)
+                h_hi, h_lo = tprec.split(step.H1)
+
+                def passes(r=rung):
+                    out = tprec.bf16_pass(a_hi, h_hi)
+                    if r == "high":
+                        out += tprec.bf16_pass(a_hi, h_lo)
+                        out += tprec.bf16_pass(a_lo, h_hi)
+                    return out
+
+                split_line = (f"; of the main product, the bf16 split of "
+                              f"the operand {ms(lambda: tprec.split(m3)):.3f}"
+                              f" ms and its tensor-core passes "
+                              f"{ms(passes):.3f} ms")
+                del a_hi, a_lo
+            y = step(v, b)
+            sync()
+            step_db[rung] = pcm_db(y[0].cpu().numpy(), ref0)
+            sec = (step_seconds(step, v, b, iters=5)[0] * 1e3 if on_card
+                   else float("nan"))
+            print(f"phase 31: mixfirst front at {rung}: front "
+                  f"{t_front:.3f} ms = mix passes {t_mix:.3f} + the "
+                  f"aligned resample's matmuls {t_mm:.3f} (+ ramp and "
+                  f"normalize; the matmuls on the {m3p.shape[-1]}-lane "
+                  f"operand {t_mm_pad:.3f}{split_line}); front "
+                  f"{front_db[rung]:.1f} dB "
+                  f"against the "
+                  f"FP32 front; the default step with this front "
+                  f"{sec:.3f} ms, clip 0 {step_db[rung]:.1f} dB against "
+                  f"flagship_oracle_np ({B} x {seconds:g} s) [{card}]")
+    finally:
+        tresample.apply_aligned = real
+    gate(all(step_db[r] <= GATE_CHAIN_DB for r in ("highest", "high")),
+         f"the step's HIGHEST/HIGH fronts failed the chain gate: {step_db}")
+    gate(front_db["highest"] == -np.inf
+         and -np.inf < front_db["high"] < front_db["default"],
+         f"the front's rungs do not round apart: {front_db}")
+    gate(torch.equal(step(v, b), y_ref),
+         "the default step changed after the precision probe")
+    del fronts, m3, m3p
+
+    # (b) the resample ops at each rung and in bf16, card against CPU
+    xr = torch.from_numpy((0.5 * np.random.default_rng(31).standard_normal(
+        (ops_rows, ops_n))).astype(np.float32))
+    for method, n in (("banded", ops_n), ("banded", ops_n - 200),
+                      ("conv", ops_n - 200), ("window", ops_n - 200)):
+        x64 = tresample.resample_oracle_np(xr[:, :n].double().numpy(),
+                                           44100, 16000)
+        out = []
+        for rung in rungs + ("bf16",):
+            kw = ({"dtype": torch.bfloat16} if rung == "bf16"
+                  else {"precision": rung})
+            yc = tresample.polyphase_resample(xr[:, :n].to(dev), 44100,
+                                              16000, method=method, **kw)
+            yp = tresample.polyphase_resample(xr[:, :n], 44100, 16000,
+                                              method=method, **kw)
+            d = db(yc.float(), yp.float())
+            d64 = rms_db(yc.double().cpu().numpy() - x64, x64)
+            out.append(f"{rung} {d:.1f} ({d64:.1f})")
+            gate(yc.dtype == (torch.bfloat16 if rung == "bf16"
+                              else torch.float32)
+                 and d <= (GATE_BF16_DB if rung == "bf16" else -120.0),
+                 f"polyphase_resample({method}, {rung}) on {dev} vs the "
+                 f"CPU: {d:.1f} dB")
+        print(f"phase 31: polyphase_resample(method={method!r}) "
+              f"{ops_rows} x {n} 44.1k -> 16k, {dev} against the CPU, dB "
+              "(against float64): " + ", ".join(out))
+
+    # (c) K7 at each rung against its split twin, on the pallas front's
+    # operand (both tracks as 2B rows), and on non-finite rows
+    x7 = convert.pcm16_to_f32(torch.cat([v, b], 0))
+    k7_db = {}
+    for rung in rungs:
+        kresample.launches = 0
+        yk = kresample.resample(x7, 44100, 16000, precision=rung)
+        sync()
+        got = kresample.launches
+        yp = tresample.polyphase_resample(x7, 44100, 16000, precision=rung)
+        d, e = db(yk, yp), maxabs(yk, yp)
+        k7_db[rung] = db(yk, kresample.resample(x7, 44100, 16000))
+        t_k = ms(lambda: kresample.resample(x7, 44100, 16000,
+                                            precision=rung))
+        t_p = ms(lambda: tresample.polyphase_resample(x7, 44100, 16000,
+                                                      precision=rung))
+        print(f"phase 31: K7 {tuple(x7.shape)} at {rung}: {got} launches, "
+              f"{d:.1f} dB against its twin (gate -120), max abs {e:.3g}; "
+              f"{k7_db[rung]:.1f} dB against K7 at highest; kernel "
+              f"{t_k:.3f} ms, twin {t_p:.3f} ms [{card}]")
+        gate(got == (3 if rung == "high" else 1) if on_card else True,
+             f"K7 at {rung} launched {got} times")
+        gate(d <= -120.0, f"K7 at {rung} against its twin: {d:.1f} dB")
+    gate(-np.inf < k7_db["high"] < k7_db["default"],
+         f"K7's rungs do not round apart: {k7_db}")
+    del yk, yp
+    n_al = min(x7.shape[1], 2 * 44100) // 441 * 441
+    for n in (n_al, n_al - 100):  # the twin's aligned / windowed branch
+        xn = x7[:2, :n].repeat(4, 1)  # 8 rows
+        xn[1, n // 7], xn[3, n // 2] = float("nan"), float("inf")
+        xn[5, n // 3], xn[5, n // 3 + 100] = float("-inf"), float("nan")
+        nan_rows = [1]  # NaN and no inf: isnan masks must agree too
+        for rung in rungs:
+            yk = kresample.resample(xn, 44100, 16000, precision=rung)
+            yp = tresample.polyphase_resample(xn, 44100, 16000,
+                                              precision=rung)
+            fin = torch.isfinite(yk) & torch.isfinite(yp)
+            same = (torch.equal(~torch.isfinite(yk), ~torch.isfinite(yp))
+                    and torch.equal(yk[nan_rows].isnan(),
+                                    yp[nan_rows].isnan()))
+            d = db(yk[fin], yp[fin])
+            print(f"phase 31: K7 non-finite {tuple(xn.shape)} at {rung}: "
+                  f"masks equal {same}, {int((~fin).sum())} non-finite "
+                  f"outputs, finite ones {d:.1f} dB against the twin")
+            gate(same and d <= -120.0, f"K7's non-finite masks at {rung}")
+    del x7, xn
+
+    # (d) the matmul DFTs at each variant x gauss x rung
+    xm = torch.from_numpy((0.3 * np.random.default_rng(32).standard_normal(
+        (4, 16000 * max(1, int(seconds)))).astype(np.float32)))
+    irm = treverb.synthetic_ir(0.05, 16000).astype(np.float32)
+    ref_m = treverb.reverb_np(xm.numpy(), irm, wet=1.0, dry=0.0)
+    for variant in ("fused", "four_step"):
+        for gauss in (False, True):
+            cells = {}
+            for rung in rungs:
+                def run(x, r=rung):
+                    return fftmm.fir_convolve_os_mxu(
+                        x, irm, precision=r, variant=variant, gauss=gauss)
+                yc = run(xm.to(dev))
+                d_cpu = db(yc, run(xm))
+                d64 = rms_db(yc.double().cpu().numpy() - ref_m, ref_m)
+                cells[rung] = (d64, d_cpu, ms(lambda: run(xm.to(dev))))
+            print(f"phase 31: fir_convolve_os_mxu {tuple(xm.shape)} x "
+                  f"{len(irm)} taps, {variant}, gauss={gauss}: "
+                  + ", ".join(f"{r} {c[0]:.1f} dB vs float64, {c[1]:.1f} "
+                              f"vs the CPU, {c[2]:.3f} ms"
+                              for r, c in cells.items()) + f" [{card}]")
+            d64s = [cells[r][0] for r in rungs]
+            gate(d64s[0] <= -120.0 and d64s[0] < d64s[1] < d64s[2]
+                 and cells["highest"][1] <= -120.0
+                 and cells["high"][1] <= GATE_MXU_HIGH_DB
+                 and cells["default"][1] <= GATE_MXU_DEFAULT_DB,
+                 f"fir_convolve_os_mxu {variant} gauss={gauss}: {cells}")
+
+    # (e) K1: trim=False against its twin, its first n samples against
+    # trim=True, and gp against None; the default step's operands (short
+    # form) and a 0.5 s 48 kHz IR (long form)
+    m, scale, ramp = step.front(v, b)
+    rng = np.random.default_rng(33)
+    x_l = torch.from_numpy((0.3 * rng.standard_normal(
+        (long_rows, long_n))).astype(np.float32)).to(dev)
+    ir_l = torch.from_numpy(treverb.synthetic_ir(0.5, 48000).astype(
+        np.float32)).to(dev)
+    for form, ops, block in (
+            ("short", (m.contiguous(), step.ir, scale.contiguous(),
+                       ramp.contiguous()), 32768),
+            ("long", (x_l, ir_l, torch.ones(long_rows, device=dev),
+                      torch.ones(long_n, device=dev)), 65536)):
+        R, n = ops[0].shape
+        taps = ops[1].shape[0]
+        n_pad = fftconv.padded_length(n, taps, block)
+        y_trim = fftconv.fir_convolve(*ops)
+        y_pad = fftconv.fir_convolve(*ops, trim=False, block=block)
+        twin = fftconv.fir_convolve_plain(*ops, n_out=n_pad)
+        d = db(y_pad, twin)
+        e0 = maxabs(y_pad[:, :n], y_trim)
+        t_trim = ms(lambda: fftconv.fir_convolve(*ops))
+        t_pad = ms(lambda: fftconv.fir_convolve(*ops, trim=False,
+                                                block=block))
+        print(f"phase 31: K1 {form} form ({R}, {n}) x {taps} taps, "
+              f"trim=False (block {block}) -> ({R}, {n_pad}): {d:.1f} dB "
+              f"against its twin (gate -120), its first {n} samples max "
+              f"abs {e0:.3g} against trim=True (gate 0); {t_pad:.3f} ms, "
+              f"trim=True {t_trim:.3f} ms [{card}]")
+        gate(tuple(y_pad.shape) == (R, n_pad) and d <= -120.0 and e0 == 0.0,
+             f"K1 {form} trim=False")
+        gp_line = []
+        for gp in (1, 2, 4, 16):
+            e = maxabs(fftconv.fir_convolve(*ops, gp=gp), y_trim)
+            t_gp = ms(lambda g=gp: fftconv.fir_convolve(*ops, gp=g))
+            gp_line.append(f"gp {gp}: max abs {e:.3g}, {t_gp:.3f} ms")
+            gate(e == 0.0, f"K1 {form} at gp={gp} differs from gp=None")
+        print(f"phase 31: K1 {form} form against gp=None "
+              f"({t_trim:.3f} ms): " + "; ".join(gp_line) + f" [{card}]")
+    del y_trim, y_pad, twin, x_l, ir_l, m, scale, ramp
+
+    # (f) the mixfirst_pad step against mixfirst
+    pad = tbatch.make_flagship_step(fused=True, device=dev,
+                                    resample_backend="mixfirst_pad")
+    y_pad = pad(v, b)
+    sync()
+    d = pcm_db(y_pad.cpu().numpy(), y_ref.cpu().numpy())
+    e = lsb(y_pad.cpu().numpy(), y_ref.cpu().numpy())
+    em = maxabs(pad.front(v, b)[0], step.front(v, b)[0])
+    t_pad = (step_seconds(pad, v, b, iters=5)[0] * 1e3 if on_card
+             else float("nan"))
+    t_ref = (step_seconds(step, v, b, iters=5)[0] * 1e3 if on_card
+             else float("nan"))
+    print(f"phase 31: the mixfirst_pad step {tuple(y_pad.shape)} against "
+          f"mixfirst: {e} LSB, {d:.1f} dB (gates 1 LSB, -120 dB); the "
+          f"fronts' max abs {em:.3g}; step {t_pad:.3f} ms, mixfirst "
+          f"{t_ref:.3f} ms [{card}]")
+    # the dB gate at the card's full size (one LSB of a short rehearsal's
+    # output already reads about -105 dB)
+    gate(e <= 1 and (d <= -120.0 or not on_card),
+         "the mixfirst_pad step against mixfirst")
+    print(f"phase 31: {time.perf_counter() - t31:.1f} s")
 
 
 def card_helpers() -> types.SimpleNamespace:
@@ -3459,7 +3765,10 @@ def main() -> None:
     # 30. entry(), the interpret= rule and the FFmpeg shim
     entry_phase(h)
 
-    # 31. kernels line, then the contract line last
+    # 31. the precision rungs, K1's trim=False and gp, mixfirst_pad
+    precision_phase(h)
+
+    # 32. kernels line, then the contract line last
     print(kernels_line(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

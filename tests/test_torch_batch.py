@@ -33,7 +33,7 @@ from xmtpu import batch as xbatch
 from xmtpu.ops import limiter as xlimiter
 from xmtpu.ops import resample as xresample
 from xmtpu_torch import batch as tbatch
-from xmtpu_torch.utils.errors import ConfigError, DeviceError, NotPortedError
+from xmtpu_torch.utils.errors import ConfigError, DeviceError
 
 from .conftest import rms_db
 
@@ -182,20 +182,36 @@ def test_front_matches_jax_operation_order(clips):
     {"envelope_block": 8, "resample_backend": "mixfirst_pad"},
 ])
 def test_unported_options_refused(kw, clips, y_jax_scan):
-    """What stays refused names its ROADMAP section: the mixfirst_pad
-    probe, whatever the other options. The scan IIR backend runs: with
-    any valid envelope_block, lti_fold, limiter_fuse, fused=False or the
-    "pallas" front it is the JAX scan step's unfused chain (nothing
-    folds, the auto rule never fuses), to -80 dB and 1 LSB (the JAX
-    step's front and reverb are its float32 kernels). lti_fold=False,
-    the "pallas"/"rsmix" fronts and block lookahead run
+    """Nothing of these is refused any more (the name is kept from when
+    the mixfirst_pad probe was). The mixfirst_pad front (the JAX
+    package's lane-padding front: 441 -> 512 zero lanes and zero filter
+    rows) runs with every other option: against the JAX step built with
+    the same options (Pallas in interpret mode), 1 LSB and -80 dB, and
+    against the port's own mixfirst step, 1 LSB. The scan IIR backend
+    runs: with any valid envelope_block, lti_fold, limiter_fuse,
+    fused=False or the "pallas" front it is the JAX scan step's unfused
+    chain (nothing folds, the auto rule never fuses), to -80 dB and 1 LSB
+    (the JAX step's front and reverb are its float32 kernels).
+    lti_fold=False, the "pallas"/"rsmix" fronts and block lookahead run
     (tests/test_torch_fronts.py, tests/test_torch_unfolded.py,
     test_envelope_block_runs_per_sample)."""
-    if kw.get("resample_backend") == "mixfirst_pad":
-        with pytest.raises(NotPortedError, match="ROADMAP"):
-            tbatch.make_flagship_step(device="cpu", **kw)
-        return
     v, b = (torch.from_numpy(a) for a in clips)
+    if kw.get("resample_backend") == "mixfirst_pad":
+        y_j = np.asarray(jax.jit(xbatch.make_flagship_step(
+            sr_in=SR_IN, sr_bus=SR_BUS, interpret=True, **kw))(
+                jnp.asarray(clips[0]), jnp.asarray(clips[1])))
+        step = tbatch.make_flagship_step(device="cpu", **kw)
+        y = step(v, b).numpy()
+        y_mf = tbatch.make_flagship_step(
+            device="cpu", **{**kw, "resample_backend": "mixfirst"})(v, b)
+        diff = np.abs(y.astype(np.int32) - y_j.astype(np.int32))
+        db = rms_db((y - y_j.astype(np.float64)) / 32768.0,
+                    y_j.astype(np.float64) / 32768.0)
+        print(f"mixfirst_pad step {kw} vs JAX: {db:.1f} dB, {diff.max()} LSB")
+        assert y.shape == y_j.shape and diff.max() <= 1 and db <= -80.0
+        assert np.abs(y.astype(np.int32) - y_mf.numpy().astype(
+            np.int32)).max() <= 1
+        return
     step = tbatch.make_flagship_step(device="cpu", **kw)
     assert step.iir_backend == "scan" and not step.fold
     y = step(v, b).numpy()
@@ -414,7 +430,11 @@ def test_port_imports_no_jax():
     with its dryrun: the SP chain on the kernel engine's twins, the
     sharded step); so do ``entry()``, a step built with
     ``interpret=True`` and, where the FFmpeg shim is expected to work, a
-    FLAC round trip through ``xmtpu_torch.io``."""
+    FLAC round trip through ``xmtpu_torch.io``; so do the precision
+    rungs (``ops.precision``: the resample ops, K7's twin, the matmul
+    DFTs' variants and gauss form), bf16 resampling, the hop-padded
+    ``reverb(trim=False, gp=)``, the ``mixfirst_pad`` step and
+    ``pick_segments(aligned=True)``."""
     code = (
         "import sys, numpy as np, torch\n"
         "from xmtpu_torch import batch, bench\n"
@@ -530,6 +550,28 @@ def test_port_imports_no_jax():
         "                                44100)\n"
         "    with xmtpu_torch.io.open_audio(os.path.join(d, 'v.flac')) as f:\n"
         "        assert np.array_equal(f.read_all()[:, 0], v[0])\n"
+        "from xmtpu_torch.ops import precision, resample as ores\n"
+        "from xmtpu_torch.ops import reverb as orv\n"
+        "from xmtpu_torch.kernels import iir\n"
+        "xr = torch.ones((2, 4410))\n"
+        "for p in ('high', 'default', 'bfloat16_3x'):\n"
+        "    assert ores.polyphase_resample(xr, 44100, 16000,\n"
+        "        precision=p).shape == (2, 1600)\n"
+        "    assert resample.resample(xr, 44100, 16000,\n"
+        "        precision=p).shape == (2, 1600)\n"
+        "assert ores.polyphase_resample(xr, 44100, 16000,\n"
+        "    dtype=torch.bfloat16).dtype == torch.bfloat16\n"
+        "y = fftmm.fir_convolve_os_mxu(torch.from_numpy(x[0].T.copy()),\n"
+        "    np.ones(64), 1024, precision='high', variant='four_step',\n"
+        "    gauss=True)\n"
+        "assert y.shape == (2, 9600), y.shape\n"
+        "y = orv.reverb(torch.from_numpy(x[0].T.copy()), np.ones(64),\n"
+        "    dry=0.0, trim=False, gp=2, block=1024)\n"
+        "assert y.shape == (2, 9984), y.shape\n"
+        "y = batch.make_flagship_step(fused=True, device='cpu',\n"
+        "    resample_backend='mixfirst_pad')(s, s)\n"
+        "assert y.shape == (2, 1600), y.shape\n"
+        "assert iir.pick_segments(16, 480000, lanes=256, aligned=True) == 15\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'xmtpu'))\n"
         "assert not bad, bad\n"

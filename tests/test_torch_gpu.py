@@ -25,7 +25,12 @@ sharded pool -80 dB, the dryrun twin; where the sharded step's and the
 sharded pool's 1-LSB flips come from (the front's and the streaming
 resample's ``torch.matmul``: max abs 0 once they run in the shard's row
 count); ``xmtpu_torch.entry.entry()`` on the card against the CPU and
-the oracle, -80 dB; ``interpret=True`` refused on the card).
+the oracle, -80 dB; ``interpret=True`` refused on the card; the
+matmul precision rungs card against CPU, -120 dB, rounding apart; K1's
+hop-padded ``trim=False`` against its twin, -120 dB, its first n samples
+and every ``gp`` bit for bit; K7 at each rung against its split twin,
+-120 dB, and its non-finite masks; the ``mixfirst_pad`` step against
+``mixfirst``, 1 LSB, -100 dB).
 
 Marked ``gpu``; each test skips without a CUDA device. The module
 imports no JAX, so it runs on a machine without it:
@@ -1701,3 +1706,113 @@ def test_dryrun_multichip_on_virtual_shards_of_the_card(cuda, capsys):
     dryrun_multichip(4, device=str(cuda))
     out = capsys.readouterr().out
     assert out.count(" OK") == 5, out
+
+
+# ------------------------------------------- precision rungs, trim, gp
+
+
+@pytest.mark.parametrize("shape_a,shape_b", [
+    ((3, 1000, 441), (441, 160)),   # (..., k) @ (k, n): the front's form
+    ((64, 64), (5, 64, 128)),       # (m, k) @ (..., k, n): a left DFT
+    ((4, 64, 128), (64, 128, 128)),  # the fused middle, batched over k1
+])
+def test_precision_rungs_card_vs_cpu(cuda, shape_a, shape_b):
+    """ops.precision.matmul on the card (tensor-core bf16 passes with
+    float32 output) against the CPU plain version (the same parts
+    through FP32 matmuls): the same products, float32 sums in another
+    order, -120 dB at every rung; HIGH and DEFAULT round apart from
+    HIGHEST (a rung equal to FP32 fails)."""
+    from xmtpu_torch.ops import precision as tprec
+
+    rng = np.random.default_rng(17)
+    a = torch.from_numpy(rng.standard_normal(shape_a).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(shape_b).astype(np.float32))
+    if len(shape_a) == 3 and len(shape_b) == 3:  # batched over the first
+        a = a.transpose(0, 1)
+        b = b.transpose(1, 2)
+    exact = torch.matmul(a.double(), b.double())
+    dbs = {}
+    for rung in tprec.RUNGS:
+        yc = tprec.matmul(a.to(cuda), b.to(cuda), rung)
+        yp = tprec.matmul(a, b, rung)
+        assert yc.dtype == torch.float32 and yc.shape == yp.shape
+        assert _db(yc.cpu() - yp, yp) <= -120.0, rung
+        dbs[rung] = _db(yc.cpu().double() - exact, exact)
+    assert dbs["highest"] < dbs["high"] < dbs["default"], dbs
+
+
+@pytest.mark.parametrize("R,n,m,block", [
+    (3, 30000, 4093, 32768),   # short form, odd rows
+    (4, 50000, 24082, 65536),  # long form (3 partitions)
+    (2, 100, 50, 1024),        # a signal shorter than one hop
+])
+def test_fftconv_trim_false_and_gp(cuda, R, n, m, block):
+    """K1's hop-padded output (the JAX trim=False) against its twin,
+    -120 dB over the whole padded length, its first n samples equal to
+    trim=True (max abs 0), and the output at every gp equal to gp=None
+    (max abs 0)."""
+    rng = np.random.default_rng(m)
+    x = torch.from_numpy((0.3 * rng.standard_normal((R, n))).astype(
+        np.float32)).to(cuda)
+    h = torch.from_numpy((rng.standard_normal(m) * np.exp(
+        -np.arange(m) / (m / 5))).astype(np.float32)).to(cuda)
+    pr = torch.from_numpy(rng.uniform(0.5, 2.0, R).astype(np.float32)).to(cuda)
+    pc = torch.from_numpy(rng.uniform(0.0, 1.0, n).astype(np.float32)).to(cuda)
+    n_pad = fftconv.padded_length(n, m, block)
+    y = fftconv.fir_convolve(x, h, pr, pc)
+    y_pad = fftconv.fir_convolve(x, h, pr, pc, trim=False, block=block)
+    torch.cuda.synchronize()
+    assert y_pad.shape == (R, n_pad)
+    twin = fftconv.fir_convolve_plain(x, h, pr, pc, n_out=n_pad)
+    assert _db(y_pad - twin, twin) <= -120.0
+    assert torch.equal(y_pad[:, :n], y)
+    for gp in (1, 2, 3, 16, 1000):
+        assert torch.equal(fftconv.fir_convolve(x, h, pr, pc, gp=gp), y), gp
+    assert torch.equal(fftconv.fir_convolve(x, h, pr, pc, trim=False,
+                                            block=block, gp=2), y_pad)
+
+
+def test_resample_kernel_rungs(cuda):
+    """K7 at HIGH (three launches over the split operands) and DEFAULT
+    (one launch on bf16-rounded operands) against the twin's split
+    matmuls on the card: -120 dB; the non-finite masks equal the twin's
+    at every rung (isnan too for NaN input)."""
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy((0.5 * rng.standard_normal((5, 44100))).astype(
+        np.float32)).to(cuda)
+    for rung, launches in (("highest", 1), ("high", 3), ("default", 1)):
+        resample.launches = 0
+        yk = resample.resample(x, 44100, 16000, precision=rung)
+        torch.cuda.synchronize()
+        assert resample.launches == launches
+        yp = tres.polyphase_resample(x, 44100, 16000, precision=rung)
+        assert _db(yk - yp, yp) <= -120.0, rung
+        for n in (44100, 44000):
+            xn = x[:, :n].clone()
+            xn[1, 300] = float("nan")
+            xn[3, 2000] = float("inf")
+            yk = resample.resample(xn, 44100, 16000, precision=rung)
+            yp = tres.polyphase_resample(xn, 44100, 16000, precision=rung)
+            assert torch.equal(~torch.isfinite(yk), ~torch.isfinite(yp))
+            assert torch.equal(yk[1].isnan(), yp[1].isnan())
+    with pytest.raises(ConfigError, match="precision"):
+        resample.resample(x, 44100, 16000, precision="tf64")
+
+
+def test_mixfirst_pad_step_vs_mixfirst(cuda):
+    """The mixfirst_pad front (441 -> 512 zero lanes) against mixfirst on
+    the card: the same FP32 matmuls at another depth, so at most 1 LSB
+    at the int16 output and -100 dB (cuBLAS may take another kernel for
+    K = 512)."""
+    rng = np.random.default_rng(5)
+    v = torch.from_numpy((rng.standard_normal((128, 44100)) * 8000).astype(
+        np.int16)).to(cuda)
+    b = torch.from_numpy((rng.standard_normal((128, 44100)) * 6000).astype(
+        np.int16)).to(cuda)
+    y = tbatch.make_flagship_step(fused=True, device=cuda)(v, b)
+    y_pad = tbatch.make_flagship_step(fused=True, device=cuda,
+                                      resample_backend="mixfirst_pad")(v, b)
+    d = (y_pad.int() - y.int()).abs().max().item()
+    assert d <= 1
+    assert _db((y_pad.double() - y.double()) / 32768.0,
+               y.double() / 32768.0) <= -100.0

@@ -355,3 +355,122 @@ def test_build_key_covers_sources():
     key = _build.source_key()
     assert len(key) == 16 and key == _build.source_key()
     assert _build.library_path().parent.parent == _build.BUILD_DIR
+
+
+# ------------------------------------------------- fftconv trim=False, gp
+
+
+def _pallas_padded(data, **kw):
+    x, pre_row, pre_col, ir = data
+    blk, gp = xbatch._reverb_block(ir.shape[-1])
+    return np.asarray(fir_convolve_os_pallas(
+        jnp.asarray(x), ir, blk, gp=gp, interpret=True,
+        pre_row=jnp.asarray(pre_row), pre_col=jnp.asarray(pre_col),
+        trim=False, **kw)), blk
+
+
+def test_fftconv_trim_false_twin_vs_pallas(data):
+    """The twin's whole hop-padded output against the Pallas kernel's
+    trim=False in interpret mode. Over the padded length the reference
+    itself reads -94.9 dB against a float64 direct convolution (its tail
+    past n -57.6 dB: the 3-pass bf16 error is absolute and the tail
+    holds little energy; its first n samples -99.3), so the gate there
+    is -94 dB, and -95 dB on the first n samples as for trim=True. The
+    twin against float64 over the whole padded output: -120 dB (it
+    reads -133.4). Its first n samples equal trim=True bit for bit."""
+    x, pre_row, pre_col, ir = data
+    y_j, blk = _pallas_padded(data)
+    args = _t(x, ir, pre_row, pre_col)
+    y_t = fftconv.fir_convolve(*args, trim=False, block=blk).numpy()
+    assert y_t.shape == y_j.shape == (R, fftconv.padded_length(
+        N, ir.shape[-1], blk))
+    xin = (x.astype(np.float64) * pre_row[:, None]) * pre_col
+    L = y_t.shape[-1]
+    ref = np.stack([np.convolve(r, ir.astype(np.float64))[:L] for r in xin])
+    ref = np.pad(ref, ((0, 0), (0, L - ref.shape[-1])))
+    d, d_n, d64 = (rms_db(y_t - y_j, y_j),
+                   rms_db(y_t[:, :N] - y_j[:, :N], y_j[:, :N]),
+                   rms_db(y_t - ref, ref))
+    print(f"trim=False twin vs Pallas {d:.1f} dB (first n {d_n:.1f}), vs "
+          f"float64 {d64:.1f} dB; Pallas vs float64 "
+          f"{rms_db(y_j - ref, ref):.1f}")
+    assert d <= -94.0 and d_n <= -95.0 and d64 <= -120.0
+    assert np.array_equal(y_t[:, :N], fftconv.fir_convolve(*args).numpy())
+
+
+@pytest.mark.parametrize("gp", [None, 1, 2, 3, 16, 0, -4])
+def test_fftconv_gp_invariance(data, gp):
+    """Output does not depend on gp (the JAX kernel's row pairs a TPU
+    grid step, not a parameter of the card's launch), as the JAX
+    kernel's does not; gp is capped as the JAX kernel caps it."""
+    x, pre_row, pre_col, ir = data
+    args = _t(x, ir, pre_row, pre_col)
+    y = fftconv.fir_convolve(*args)
+    assert torch.equal(fftconv.fir_convolve(*args, gp=gp), y)
+    assert fftconv.pairs_per_block(gp, R) == (
+        1 if gp is None else max(1, min(gp, -(-R // 2))))
+    with pytest.raises(TypeError):
+        fftconv.fir_convolve(*args, gp=1.5)
+
+
+@pytest.mark.parametrize("m", [2, 50, 4093, 24082])
+def test_fftconv_padded_length_is_the_jax_geometry(m):
+    """padded_length against the JAX kernel's trim=False output length
+    at its own blocks (interpret mode, a short signal), and its block
+    refusals."""
+    rng = np.random.default_rng(m)
+    h = rng.standard_normal(m)
+    for block, n in ((65536, 1000), (32768, 70000), (16384, 3000)):
+        try:
+            y = fir_convolve_os_pallas(jnp.zeros((1, n), jnp.float32), h,
+                                       block, interpret=True, trim=False)
+        except ValueError as e:  # the JAX refusal, in the same words
+            assert "too small" in str(e)
+            with pytest.raises(ValueError, match="too small"):
+                fftconv.padded_length(n, m, block)
+            continue
+        assert fftconv.padded_length(n, m, block) == y.shape[-1]
+    with pytest.raises(ValueError, match="power of two"):
+        fftconv.padded_length(1000, 50, 6000)
+
+
+def test_fftconv_gp_table():
+    for block in (1024, 16384, 32768, 65536, 131072):
+        assert fftconv.fftconv_gp(block) == xreverb.fftconv_gp(block)
+        assert reverb.fftconv_gp(block) == xreverb.fftconv_gp(block)
+
+
+def test_reverb_trim_false_and_gp_vs_jax(data):
+    """reverb(backend="pallas", trim=False, dry=0, gp=) against the JAX
+    reverb in interpret mode over the padded length (-94 dB, the
+    reference's floor above), and the JAX refusals."""
+    x, pre_row, pre_col, ir = data
+    blk, gp = xbatch._reverb_block(ir.shape[-1])
+    y_j = np.asarray(xreverb.reverb(
+        jnp.asarray(x), ir, wet=0.5, dry=0.0, block=blk, backend="pallas",
+        gp=gp, interpret=True, trim=False, pre_row=jnp.asarray(pre_row)))
+    y_t = reverb.reverb(torch.from_numpy(x), ir, wet=0.5, dry=0.0, block=blk,
+                        gp=gp, trim=False, pre_row=torch.from_numpy(pre_row))
+    assert y_t.shape == y_j.shape and rms_db(y_t.numpy() - y_j, y_j) <= -94.0
+    xt = torch.from_numpy(x)
+    for kw in ({"trim": False}, {"trim": False, "backend": "xla", "dry": 0.0},
+               {"trim": False, "backend": "mxu", "dry": 0.0}):
+        with pytest.raises(ValueError, match="trim=False requires"):
+            reverb.reverb(xt, ir, **kw)
+    for kw in ({"gp": 2, "backend": "xla"}, {"gp": 1, "backend": "mxu"}):
+        with pytest.raises(ValueError, match="gp/interpret apply to"):
+            reverb.reverb(xt, ir, **kw)
+    for kw in ({"precision": "high"}, {"precision": "high", "backend": "xla"}):
+        with pytest.raises(ValueError, match="precision applies to"):
+            reverb.reverb(xt, ir, **kw)
+    # a given block is checked whatever trim is, in the JAX kernel's words
+    args = _t(x, ir, pre_row, pre_col)
+    for bad, words in ((6000, "must be a power of two"),
+                       (4096, "too small for")):
+        with pytest.raises(ValueError, match=words):
+            xreverb.reverb(jnp.asarray(x), ir, block=bad, backend="pallas",
+                           interpret=True)
+        with pytest.raises(ValueError, match=words):
+            reverb.reverb(xt, ir, block=bad)
+        with pytest.raises(ValueError, match=words):
+            fftconv.fir_convolve(*args, block=bad)

@@ -27,7 +27,8 @@ from xmtpu.ops import limiter as xlimiter
 from xmtpu.ops import mix as xmix
 from xmtpu.ops import resample as xresample
 from xmtpu.ops import reverb as xreverb
-from xmtpu_torch.ops import biquad, convert, limiter, mix, resample, reverb
+from xmtpu_torch.ops import (biquad, convert, limiter, mix, precision,
+                              resample, reverb)
 from xmtpu_torch.utils.errors import ConfigError
 
 from .conftest import rms_db
@@ -215,8 +216,9 @@ def test_resample_oracle_bit_exact(sig):
 def test_resample_refuses_unported():
     """A band wider than 2M (8k -> 48k) runs the strided conv, the JAX
     package's path there, to -120 dB against it (its own gate,
-    tests/test_resample.py:84); the framed form still refuses a last
-    axis other than M."""
+    tests/test_resample.py:84); the framed form refuses a last axis
+    below M, as the JAX one does, and takes one above M as lane padding
+    (zero filter rows: the output of the first M lanes)."""
     x = np.random.default_rng(3).standard_normal((1, 1000)).astype(
         np.float32)
     y_t = resample.polyphase_resample(torch.from_numpy(x), 8000,
@@ -225,9 +227,18 @@ def test_resample_refuses_unported():
                                                   48000))
     assert y_t.shape == y_j.shape == (1, 6000)
     assert rms_db(y_t - y_j, y_j) <= -120.0
-    with pytest.raises(ValueError):
-        resample.polyphase_resample_framed(torch.zeros(1, 4, 512), SR_IN,
+    with pytest.raises(ValueError, match="< M=441"):
+        resample.polyphase_resample_framed(torch.zeros(1, 4, 440), SR_IN,
                                            SR_BUS)
+    with pytest.raises(ValueError, match="< M=441"):
+        xresample.polyphase_resample_framed(jnp.zeros((1, 4, 440)), SR_IN,
+                                            SR_BUS)
+    a = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, 4, 441)).astype(np.float32))
+    padded = torch.nn.functional.pad(a, (0, 512 - 441), value=3.0)
+    y = resample.polyphase_resample_framed(a, SR_IN, SR_BUS)
+    y_pad = resample.polyphase_resample_framed(padded, SR_IN, SR_BUS)
+    assert rms_db((y_pad - y).numpy(), y.numpy()) <= -130.0
 
 
 def test_require_fp32_matmul_refuses_tf32():
@@ -238,16 +249,16 @@ def test_require_fp32_matmul_refuses_tf32():
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
-        resample.require_fp32_matmul(torch.device("cuda"))
+        precision.require_fp32_matmul(torch.device("cuda"))
         torch.backends.cuda.matmul.allow_tf32 = True
         with pytest.raises(ConfigError):
-            resample.require_fp32_matmul(torch.device("cuda"))
+            precision.require_fp32_matmul(torch.device("cuda"))
         assert torch.backends.cuda.matmul.allow_tf32  # not flipped back
-        resample.require_fp32_matmul(torch.device("cpu"))  # CPU: no TF32
+        precision.require_fp32_matmul(torch.device("cpu"))  # CPU: no TF32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("high")
         with pytest.raises(ConfigError):
-            resample.require_fp32_matmul(torch.device("cuda"))
+            precision.require_fp32_matmul(torch.device("cuda"))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old[0]
         torch.set_float32_matmul_precision(old[1])

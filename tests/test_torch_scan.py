@@ -255,6 +255,59 @@ def test_fir_convolve_os_mxu_vs_jax(sig, ir, block):
         fftmm.fir_convolve_os_mxu(torch.from_numpy(x32), ir, 6000)
 
 
+# fir_convolve_os_mxu's rungs on sig[0] (3 x 8820) and the 2205-tap IR,
+# block 8192, measured first: HIGHEST -127.7..-134.8 dB against float64
+# (bit-equal to JAX's four_step), HIGH -101.1..-105.0, DEFAULT
+# -45.5..-49.8 (gauss a few dB worse). The JAX form on the CPU computes
+# every precision in float32, so it is held at the rung's own error.
+MXU_VS_JAX = {"highest": -120.0, "high": -95.0, "default": -40.0}
+MXU_WINDOWS = {"highest": (-200.0, -120.0), "high": (-110.0, -95.0),
+               "default": (-55.0, -40.0)}
+
+
+@pytest.mark.parametrize("variant", ["auto", "fused", "four_step"])
+@pytest.mark.parametrize("gauss", [False, True])
+@pytest.mark.parametrize("rung", ["highest", "high", "default"])
+def test_fir_convolve_os_mxu_rungs_vs_jax(sig, ir, variant, gauss, rung):
+    """Every variant x gauss x precision rung against the JAX form, and
+    against float64 in a window that proves the rung rounded."""
+    x32 = sig[0].astype(np.float32)
+    y_j = np.asarray(xfftmm.fir_convolve_os_mxu(
+        jnp.asarray(x32), ir, 8192, precision=rung, variant=variant,
+        gauss=gauss))
+    y_t = fftmm.fir_convolve_os_mxu(torch.from_numpy(x32), ir, 8192,
+                                    precision=rung, variant=variant,
+                                    gauss=gauss)
+    ref = reverb.reverb_np(x32, ir, wet=1.0, dry=0.0)
+    d, d64 = _db(y_t, y_j), _db(y_t, ref)
+    print(f"mxu {variant} gauss={gauss} {rung}: {d:.1f} dB vs JAX, "
+          f"{d64:.1f} vs float64")
+    lo, hi = MXU_WINDOWS[rung]
+    assert y_t.dtype == torch.float32 and d <= MXU_VS_JAX[rung]
+    assert lo <= d64 <= hi
+
+
+def test_fir_convolve_os_mxu_refusals(sig, ir):
+    """The JAX errors: an unknown variant, ``fused`` past the bake limit
+    (block 32768: 64 MB of circulant constants), an unknown precision;
+    and reverb(backend="mxu", precision=) against the JAX reverb."""
+    x = torch.from_numpy(sig[0].astype(np.float32))
+    for kw, match in (({"variant": "radix2"}, "unknown variant"),
+                      ({"variant": "fused", "block": 32768}, "bakes 64 MB"),
+                      ({"precision": "tf64"}, "precision")):
+        kw = {"block": 8192, **kw}
+        with pytest.raises(ValueError, match=match):
+            fftmm.fir_convolve_os_mxu(x, ir, **kw)
+        if "precision" not in kw:
+            with pytest.raises(ValueError, match=match):
+                xfftmm.fir_convolve_os_mxu(jnp.asarray(x.numpy()), ir, **kw)
+    y_j = np.asarray(xreverb.reverb(jnp.asarray(x.numpy()), ir, block=8192,
+                                    backend="mxu", precision="high"))
+    y_t = reverb.reverb(x, ir, block=8192, backend="mxu", precision="high")
+    assert _db(y_t, y_j) <= MXU_VS_JAX["high"]
+    assert _db(y_t, reverb.reverb(x, ir, block=8192, backend="mxu")) > -120.0
+
+
 @pytest.fixture(scope="module")
 def clip():
     """(N, 2) float32 stereo clip with a hot burst."""

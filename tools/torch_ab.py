@@ -28,6 +28,15 @@ the same seeded operands. WORKLOAD is one of:
   form's curve branches on the level, so K4' runs on config 3's own
   signal. Each launch is timed as a CUDA-graph replay (``card``) and from
   the host (``host``, CUDA events around one call).
+- ``steps``: the default flagship step (``make_flagship_step`` with its
+  defaults on the root bench's 256 clips of 10 s: one call, and back to
+  back as ``bench.step_seconds`` times it, with its audio-s/s); config
+  6's ragged batch step alone (``make_batch_step``, the 64 clips' voice
+  at the runner's bucket edge: one call, the median of 21, and back to
+  back); and config 6 end to end (``run_batch`` on
+  ``bench.config6_jobs``' 64 WAV clips of 10 s: decode, the step and the
+  WAV writes on the host's clock), one cold pass and the median of five
+  warm ones, in audio-s/s.
 
 Every time is in ms, the median of 7 after 2 warm-ups. The timers and
 the inputs are this checkout's (``xmtpu_torch/bench.py`` beside this
@@ -157,7 +166,55 @@ def envelope(dev, T) -> dict:
     return out
 
 
-WORKLOADS = {"k7": k7, "envelope": envelope}
+def steps(dev, T) -> dict:
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from xmtpu_torch import batch as tbatch
+    from xmtpu_torch import runner as trunner
+    from xmtpu_torch.runner import run_batch
+
+    voice, bgm = T.make_inputs(256, 10.0)
+    v, b = torch.from_numpy(voice).to(dev), torch.from_numpy(bgm).to(dev)
+    step = tbatch.make_flagship_step(sr_in=T.SR_IN, sr_bus=16000, device=dev)
+    sec, _ = T.step_seconds(step, v, b, iters=20)
+    out = {"default_step": {"call": T.median_ms(lambda: step(v, b)),
+                            "back_to_back": sec * 1e3,
+                            "audio_s_per_s": 256 * 10.0 / sec}}
+    del step, v, b
+    n = int(T.SR_IN * 10.0)
+    pcm = np.zeros((64, trunner._bucket_edge(n)), np.int16)
+    pcm[:, :n] = voice[:64]
+    args = (torch.from_numpy(pcm).to(dev),
+            torch.zeros(pcm.shape, dtype=torch.int16, device=dev),
+            torch.full((64,), n, dtype=torch.int32, device=dev))
+    step6 = tbatch.make_batch_step(device=dev)
+    out["config6_step"] = {"call": T.median_ms(lambda: step6(*args),
+                                               runs=21),
+                           "back_to_back": T.back_to_back_ms(
+                               lambda: step6(*args), calls=50)}
+    del step6, args
+    d = tempfile.mkdtemp(prefix="xmtpu_torch_ab6_")
+    try:
+        jobs = T.config6_jobs(d, 64, 10.0, "wav")
+        rates = []
+        for _ in range(6):  # cold, then five warm passes
+            rep = run_batch(jobs, sr_in=T.SR_IN, sr_bus=16000, resume=False,
+                            write_done_markers=False, device=dev)
+            if rep.failed:
+                raise RuntimeError(f"config 6 had failures: {rep.failed}")
+            rates.append(rep.audio_sec / rep.wall_sec)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out["config6"] = {"warm_audio_s_per_s": float(np.median(rates[1:])),
+                      "cold_audio_s_per_s": rates[0]}
+    return out
+
+
+WORKLOADS = {"k7": k7, "envelope": envelope, "steps": steps}
 
 
 def child(workload: str, tree: str) -> dict:

@@ -8,6 +8,11 @@ as the JAX step picks it:
 - ``"mixfirst"`` (default): mix the int16 tracks at the input rate, then
   the banded polyphase resample (FP32 matmuls); the fade ramp is
   deferred to the next stage;
+- ``"mixfirst_pad"``: the same, with the framed operand's minor
+  dimension zero-padded to a multiple of 128 (441 -> 512) and zero rows
+  in the filter, the JAX package's lane-padding front; the same FP32
+  matmuls, so it may differ from ``"mixfirst"`` only by the matmul's
+  rounding at another depth;
 - ``"pallas"``: convert both tracks, resample them as 2B rows on the
   resample kernel, then fade and gain each and sum;
 - ``"rsmix"``: the fused int16 resample + fade + mix kernel, or the
@@ -39,10 +44,8 @@ clip; masked fades, peak and output). :func:`flagship_step_sharded` runs
 the flagship step over the ``dp`` axis of a
 :class:`~xmtpu_torch.parallel.Mesh` (:func:`shard_over_batch` makes one),
 the branch decided from the global batch. Everything outside the kernels is
-plain torch. The ``mixfirst_pad`` probe, deliberately not ported,
-raises :class:`NotPortedError` naming its ROADMAP section. Both
-steps build on ``cuda`` unless ``device=`` names another device;
-``device="cpu"`` runs the kernels' plain twins.
+plain torch. Both steps build on ``cuda`` unless ``device=`` names another
+device; ``device="cpu"`` runs the kernels' plain twins.
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ from xmtpu_torch.ops import mix as _mix
 from xmtpu_torch.ops import resample as _resample
 from xmtpu_torch.ops import reverb as _reverb
 from xmtpu_torch.utils.device import check_interpret, resolve_device
-from xmtpu_torch.utils.errors import ConfigError, NotPortedError
+from xmtpu_torch.utils.errors import ConfigError
 from xmtpu_torch.utils.profiling import stage
 
 DEFAULT_BANDS = (
@@ -80,7 +83,9 @@ DEFAULT_BANDS = (
 LIM_RELEASE_MS = 100.0
 LIM_ATTACK_MS = 1.0
 
-RESAMPLE_BACKENDS = ("mixfirst", "pallas", "rsmix")
+RESAMPLE_BACKENDS = ("mixfirst", "pallas", "rsmix", "mixfirst_pad")
+MIXFIRST = ("mixfirst", "mixfirst_pad")
+LANE_PAD = 128  # mixfirst_pad's multiple for the framed operand's width
 IIR_BACKENDS = ("pallas", "scan")
 
 
@@ -162,11 +167,6 @@ def flagship_tables(sr_in: int = 44100, sr_bus: int = 16000,
 
 
 def _check_resample_backend(name: str) -> None:
-    if name == "mixfirst_pad":
-        raise NotPortedError(
-            "resample_backend='mixfirst_pad' is a TPU lane-padding probe, "
-            "deliberately not ported (ROADMAP.md Queue 1, 'Deliberately "
-            "not ported')")
     if name not in RESAMPLE_BACKENDS:
         raise ConfigError(f"unknown resample_backend {name!r}; accepted: "
                           + ", ".join(map(repr, RESAMPLE_BACKENDS)))
@@ -260,8 +260,8 @@ class FlagshipStep(_Chain):
     unfused branch's EQ and limiter as float64 scans; module
     docstring).
     ``resample_backend``: the front (module docstring); anything but
-    ``"mixfirst"``, ``"pallas"`` and ``"rsmix"`` raises
-    :class:`ConfigError` (``"mixfirst_pad"``: :class:`NotPortedError`)."""
+    ``"mixfirst"``, ``"pallas"``, ``"rsmix"`` and ``"mixfirst_pad"``
+    raises :class:`ConfigError`."""
 
     def __init__(self, tables: dict, device=None, fused: bool | None = None,
                  limiter_fuse: bool = True, lti_fold: bool = True,
@@ -317,6 +317,11 @@ class FlagshipStep(_Chain):
         v3 = voice_i16.reshape(B, n_in // M, M)
         b3 = bgm_i16.reshape(B, n_in // M, M)
         m3 = (b3 * self.gain).add_(v3)  # int16 * f32 0-dim -> f32
+        if self.resample_backend == "mixfirst_pad":
+            # lanes M..Mp are zero, and apply_aligned gives H1 zero rows
+            # there: they never reach the output
+            Mp = -(-M // LANE_PAD) * LANE_PAD
+            m3 = torch.nn.functional.pad(m3, (0, Mp - M))
         return _resample.apply_aligned(
             m3, self.H1, self.H0, self.H2, self.lo, self.hi,
             self.r0, self.r2).reshape(B, -1)
@@ -354,7 +359,7 @@ class FlagshipStep(_Chain):
                 m = resample_mix(voice_i16.contiguous(), bgm_i16.contiguous(),
                                  self.sr_in, self.sr_bus, self.bgm_gain,
                                  self.fade) * float(np.float32(1.0 / 32768.0))
-        elif self.resample_backend == "mixfirst":
+        elif self.resample_backend in MIXFIRST:
             with stage("mixfirst"):
                 m = self._mixfirst(voice_i16, bgm_i16)
                 nb = m.shape[-1]
@@ -406,7 +411,6 @@ def check_options(iir_backend: str = "pallas",
                   resample_backend: str = "mixfirst",
                   envelope_block: int | None = None) -> None:
     """Raise for the flagship step's option values that do not run:
-    :class:`NotPortedError` for the ``mixfirst_pad`` probe, or
     :class:`ConfigError` for an unknown ``iir_backend`` or
     ``resample_backend`` or an ``envelope_block`` that is not a power of
     two (the limiter's own validation)."""

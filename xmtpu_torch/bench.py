@@ -5,7 +5,7 @@ harness's configs 1-3 and 5 (``--config=1|2|3|5``, counterparts of
 ``config3_effects`` and ``config5_streaming``).
 
     python -m xmtpu_torch.bench [--batch=256] [--clip_seconds=10]
-        [--iters=20] [--resample_backend=mixfirst|pallas|rsmix]
+        [--iters=20] [--resample_backend=mixfirst|pallas|rsmix|mixfirst_pad]
         [--limiter_fuse=1] [--iir_backend=pallas|scan] [--envelope_block=0]
     python -m xmtpu_torch.bench --config=1|2|3 [--batch=...]
         [--clip_seconds=10] [--iters=20]

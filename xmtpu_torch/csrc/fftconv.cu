@@ -2,7 +2,13 @@
 // gains: the EQ+reverb stage of the flagship chain.
 //
 //   y[r, t] = sum_k ir[k] * (x[r, t-k] * pre_row[r] * pre_col[t-k]),
-//   t in [0, n), zero history before t = 0.
+//   t in [0, n_out), x zero before t = 0 and from t = n on.
+//
+// n_out = n is the chain's same-length output; n_out > n is the JAX
+// kernel's hop-padded trim=False output, whose samples [n, n_out) are
+// the valid convolution tail of the zero-padded input. Both come from
+// the same frames and the same stores: a frame's output at t < n does
+// not depend on n_out, so the first n samples are bit-identical.
 //
 // Replaces the TPU kernel xmtpu/kernels/fftconv.py:_fftconv_kernel
 // (reached through fir_convolve_os_pallas), and keeps its algorithm:
@@ -400,7 +406,7 @@ __global__ void __launch_bounds__(Pl::T, 1)
 fft_conv_kernel(const float* __restrict__ x, const float* __restrict__ pre_row,
                 const float* __restrict__ pre_col,
                 const float2* __restrict__ h, const float2* __restrict__ tw,
-                float* __restrict__ y, int rows, int n, int m) {
+                float* __restrict__ y, int rows, int n, int m, int n_out) {
   extern __shared__ float2 smem[];
   const int hop = Pl::N - (m - 1);
   const int ra = 2 * blockIdx.y;  // rows ra (real part), ra+1 (imaginary)
@@ -410,15 +416,15 @@ fft_conv_kernel(const float* __restrict__ x, const float* __restrict__ pre_row,
   const float gb = has_b ? pre_row[ra + 1] : 0.f;
   const int g0 = blockIdx.x * hop - (m - 1);  // input index of point 0
 
-  float* ya = y + static_cast<size_t>(ra) * n;
+  float* ya = y + static_cast<size_t>(ra) * n_out;
   dif_head<Pl>(smem, tw, Window{xa, xa + n, pre_col, ga, gb, has_b, g0, n});
   turn<Pl>(smem, h, tw);
   // y = conj(v) over the frame's valid points [m-1, N)
   dit_tail<Pl>(smem, tw, [&](int, int, int p, float2 v) {
     const int t = g0 + p;
-    if (p >= m - 1 && t < n) {
+    if (p >= m - 1 && t < n_out) {
       ya[t] = v.x;
-      if (has_b) ya[n + t] = -v.y;
+      if (has_b) ya[n_out + t] = -v.y;
     }
   });
 }
@@ -437,7 +443,7 @@ fft_conv_long_kernel(const float* __restrict__ x,
                      const float* __restrict__ pre_col,
                      const float2* __restrict__ h,
                      const float2* __restrict__ tw, float* __restrict__ y,
-                     int rows, int n, int parts) {
+                     int rows, int n, int parts, int n_out) {
   extern __shared__ float2 smem[];
   constexpr int R0 = Pl::R0;
   constexpr int Q0 = Pl::P / R0;
@@ -468,15 +474,15 @@ fft_conv_long_kernel(const float* __restrict__ x,
       }
     });
   }
-  float* ya = y + static_cast<size_t>(ra) * n;
+  float* ya = y + static_cast<size_t>(ra) * n_out;
 #pragma unroll
   for (int q = 0; q < Q0; ++q)
 #pragma unroll
     for (int k = 0; k < kHalf; ++k) {
       const int t = t0 + position<Pl, 0>(q, kHalf + k) - kPart;
-      if (t < n) {
+      if (t < n_out) {
         ya[t] = acc_a[q][k];
-        if (has_b) ya[n + t] = acc_b[q][k];
+        if (has_b) ya[n_out + t] = acc_b[q][k];
       }
     }
 }
@@ -500,7 +506,7 @@ cudaError_t launch_spectra(const float* ir, int m, int part, int parts,
 template <int LogN>
 int run_short(const float* x, const float* pre_row, const float* pre_col,
               const float* ir, float2* work, float* y, int rows, int n,
-              int m, cudaStream_t st) {
+              int m, int n_out, cudaStream_t st) {
   using Pl = Plan<LogN>;
   cudaError_t err = cudaFuncSetAttribute(
       fft_conv_kernel<Pl>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -508,45 +514,51 @@ int run_short(const float* x, const float* pre_row, const float* pre_col,
   if (err == cudaSuccess) err = launch_spectra<Pl>(ir, m, m, 1, work, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int hop = Pl::N - (m - 1);
-  const dim3 grid((n + hop - 1) / hop, (rows + 1) / 2);
+  const dim3 grid((n_out + hop - 1) / hop, (rows + 1) / 2);
   fft_conv_kernel<Pl><<<grid, Pl::T, Pl::kSmem, st>>>(
-      x, pre_row, pre_col, work, work + Pl::N, y, rows, n, m);
+      x, pre_row, pre_col, work, work + Pl::N, y, rows, n, m, n_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x, y: (rows, n) row-major; pre_row: (rows,); pre_col: (n,); ir: (m,);
-// work: 2*N float2 scratch, N = 2^log_n >= 2*(m-1), 10 <= log_n <= 14.
+// x: (rows, n), y: (rows, n_out) row-major, n_out >= n; pre_row:
+// (rows,); pre_col: (n,); ir: (m,); work: 2*N float2 scratch, N = 2^log_n
+// >= 2*(m-1), 10 <= log_n <= 14.
 // Launches the three kernels on `stream`; returns cudaGetLastError()
 // after them.
 extern "C" int xm_fir_convolve_f32(const float* x, const float* pre_row,
                                    const float* pre_col, const float* ir,
                                    float* work, float* y, int rows, int n,
-                                   int m, int log_n, void* stream) {
+                                   int m, int log_n, int n_out,
+                                   void* stream) {
   if (log_n < kMinLogN || log_n > kMaxLogN) return cudaErrorInvalidValue;
   const int n_fft = 1 << log_n;
   if (m < 1 || 2 * (n_fft - (m - 1)) < n_fft) return cudaErrorInvalidValue;
+  if (n_out < n) return cudaErrorInvalidValue;
   auto* w2 = reinterpret_cast<float2*>(work);
   const auto st = static_cast<cudaStream_t>(stream);
   switch (log_n) {
-    case 10: return run_short<10>(x, pre_row, pre_col, ir, w2, y, rows, n, m, st);
-    case 11: return run_short<11>(x, pre_row, pre_col, ir, w2, y, rows, n, m, st);
-    case 12: return run_short<12>(x, pre_row, pre_col, ir, w2, y, rows, n, m, st);
-    case 13: return run_short<13>(x, pre_row, pre_col, ir, w2, y, rows, n, m, st);
-    default: return run_short<14>(x, pre_row, pre_col, ir, w2, y, rows, n, m, st);
+    case 10: return run_short<10>(x, pre_row, pre_col, ir, w2, y, rows, n, m, n_out, st);
+    case 11: return run_short<11>(x, pre_row, pre_col, ir, w2, y, rows, n, m, n_out, st);
+    case 12: return run_short<12>(x, pre_row, pre_col, ir, w2, y, rows, n, m, n_out, st);
+    case 13: return run_short<13>(x, pre_row, pre_col, ir, w2, y, rows, n, m, n_out, st);
+    default: return run_short<14>(x, pre_row, pre_col, ir, w2, y, rows, n, m, n_out, st);
   }
 }
 
-// The partitioned form, any m >= 1: x, y, pre_row, pre_col, ir as above;
-// work: (parts + 1) * N float2 scratch, N = 16384, parts = ceil(m/8192).
+// The partitioned form, any m >= 1: x, y, pre_row, pre_col, ir and n_out
+// as above; work: (parts + 1) * N float2 scratch, N = 16384, parts =
+// ceil(m/8192).
 // Launches the three kernels on `stream`; returns cudaGetLastError()
 // after them.
 extern "C" int xm_fir_convolve_long_f32(const float* x, const float* pre_row,
                                         const float* pre_col, const float* ir,
                                         float* work, float* y, int rows,
-                                        int n, int m, void* stream) {
-  if (m < 1 || rows < 1 || n < 1) return cudaErrorInvalidValue;
+                                        int n, int m, int n_out,
+                                        void* stream) {
+  if (m < 1 || rows < 1 || n < 1 || n_out < n)
+    return cudaErrorInvalidValue;
   using Pl = LongPlan;
   const int parts = (m + kPart - 1) / kPart;
   auto* w2 = reinterpret_cast<float2*>(work);
@@ -557,10 +569,10 @@ extern "C" int xm_fir_convolve_long_f32(const float* x, const float* pre_row,
   if (err == cudaSuccess)
     err = launch_spectra<Pl>(ir, m, kPart, parts, w2, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kLongHop - 1) / kLongHop, (rows + 1) / 2);
+  const dim3 grid((n_out + kLongHop - 1) / kLongHop, (rows + 1) / 2);
   fft_conv_long_kernel<Pl><<<grid, Pl::T, Pl::kSmem, st>>>(
       x, pre_row, pre_col, w2, w2 + static_cast<size_t>(parts) * Pl::N, y,
-      rows, n, parts);
+      rows, n, parts, n_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,22 +12,36 @@ import torch
 
 from xmtpu_torch.kernels import _build
 
-LANES = 128  # the JAX IIR kernel's lane tile, pick_segments' default
+# the JAX package's lane tile (xmtpu.kernels.iir / envelope / eq_env
+# LANES), pick_segments' default; the card's kernels tile by their own
+# rules (gpu_segments)
+LANES = 128
 
 _DEVICE_CACHE: dict = {}  # device name -> {key: tables}
 
 
 def pick_segments(R: int, n: int, min_seglen: int = 4096,
-                  lanes: int = LANES) -> int:
+                  lanes: int = LANES, aligned: bool = False) -> int:
     """Segment count that (a) keeps R*S <= lanes, (b) divides n exactly
     (exact state math needs equal segments), and (c) leaves segments of
     at least ``min_seglen`` samples. The JAX package's rule, kept so
     both packages segment alike on the CPU; a card's rule is
-    :func:`gpu_segments`."""
+    :func:`gpu_segments`. ``aligned=True`` is the JAX probe's
+    lane-aligned pick, bit for bit: where the power of two leaves
+    ``n/S % 128 != 0``, the largest S <= lanes/R that divides n into
+    segments of at least ``min_seglen`` and a multiple of 128 samples,
+    if it keeps 3/4 of the power of two's S, else the power of two."""
     s = 1
     while (R * s * 2 <= lanes and n % (s * 2) == 0
            and n // (s * 2) >= min_seglen):
         s *= 2
+    if aligned and s > 1 and (n // s) % 128:
+        for cand in range(lanes // R, 1, -1):
+            if (n % cand == 0 and n // cand >= min_seglen
+                    and (n // cand) % 128 == 0):
+                if 4 * cand >= 3 * s:  # occupancy within 25% of pow2
+                    return cand
+                break
     return s
 
 

@@ -67,7 +67,13 @@ import numpy as np
 import torch
 
 from xmtpu_torch.kernels import _build
+from xmtpu_torch.kernels._seg import LANES  # noqa: F401  (the JAX value)
 from xmtpu_torch.kernels._seg import card_segments, on_device, pick_segments
+
+# the JAX package's default block lookahead of its envelope kernel
+# (xmtpu.kernels.envelope.DEFAULT_BLOCK); the card's kernels step per
+# sample, the same function in exact arithmetic at any block
+DEFAULT_BLOCK = 8
 
 # Launches of the CUDA kernel in this process, by form (the fused
 # limiter, the envelope alone, the gain form); callers may reset them.

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from xmtpu_torch.kernels import _build, envelope, iir
+from xmtpu_torch.kernels._seg import LANES  # noqa: F401  (the JAX value)
 from xmtpu_torch.kernels._seg import card_segments, on_device
 
 # Launches of the CUDA kernel in this process, both instances; callers

@@ -14,17 +14,31 @@ registers). On a CPU tensor it runs :func:`fir_convolve_plain`, a
 float32 ``torch.fft`` overlap-save with the same gains at any length,
 which the CPU tests and the on-card comparison use.
 
-The JAX kernel's ``trim=False`` hop-padded output does not carry over:
-it saved a slice copy between two opaque TPU calls, while this kernel
-writes exactly the n samples the limiter reads, so no ``n_valid=``
-exists downstream.
+``trim=False`` returns the JAX kernel's hop-padded output, (R,
+nblk*hop) by the JAX hop geometry (:func:`padded_length`, ``block``
+65536 by default): samples [n, nblk*hop) are the valid convolution tail
+of the zero-padded input. The kernel writes that length itself (input
+past n reads as zero), in the same frames and stores, so the first n
+samples are bit-identical to ``trim=True``. The port's chains keep
+``trim=True``: the kernel writes exactly the n samples the limiter
+reads. A ``block`` that is given is checked as the JAX kernel checks it
+(a power of two with room for the IR) whatever ``trim`` is; the
+kernel's own frame size does not depend on it. ``gp`` is the JAX
+kernel's row pairs a TPU grid step: validated and capped as the JAX
+kernel caps it (:func:`pairs_per_block`), and, like the JAX kernel's
+``wide``, not a parameter of the card's launch, whose grid is one row
+pair a block; the JAX output does not depend on it either.
+:func:`fftconv_gp` is the JAX package's block -> gp table.
 """
 
 from __future__ import annotations
 
+import operator
+
 import torch
 
 from xmtpu_torch.kernels import _build
+from xmtpu_torch.utils.device import check_interpret
 
 # Launches of the CUDA kernel in this process, by form (short IRs, the
 # partitioned long-IR form); callers may reset them.
@@ -37,6 +51,44 @@ MAX_SHORT_TAPS = (1 << (_MAX_LOG_N - 1)) + 1  # 8193: one transform
 LONG_LOG_N = _MAX_LOG_N  # the partitioned form's transform
 LONG_PART = 1 << (LONG_LOG_N - 1)  # taps per partition, 8192
 LONG_HOP = (1 << LONG_LOG_N) - LONG_PART  # outputs per frame, 8192
+
+
+DEFAULT_OS_BLOCK = 65536  # the JAX kernel's default overlap-save block
+
+
+def padded_length(n: int, m: int, block: int = DEFAULT_OS_BLOCK) -> int:
+    """Length of the JAX kernel's ``trim=False`` output for an m-tap IR
+    over n samples: nblk*hop with the JAX hop geometry, ``hop = (block -
+    (m-1)) // (8*n2) * (8*n2)`` (n2 the larger power-of-two factor of
+    ``block``), nblk = ceil(n / hop); its ValueErrors for a block that
+    is not a power of two or too small for the IR."""
+    if block < 2 or block & (block - 1):
+        raise ValueError(f"block must be a power of two, got {block}")
+    p = block.bit_length() - 1
+    n1, n2 = 1 << (p // 2), 1 << (p - p // 2)
+    hop = (block - (m - 1)) // (8 * n2) * (8 * n2)
+    if hop <= 0 or 2 * (block - hop) > n1 * n2:
+        raise ValueError(
+            f"block {block} too small for {m}-tap IR (needs an aligned "
+            f"hop >= block/2; got hop={hop})")
+    return -(-n // hop) * hop
+
+
+def pairs_per_block(gp, R: int) -> int:
+    """``gp`` as the JAX kernel takes it: None = 1, else capped as the
+    JAX kernel caps it, ``max(1, min(gp, ceil(R/2)))``; an integer, else
+    TypeError."""
+    if gp is None:
+        return 1
+    return max(1, min(operator.index(gp), -(-R // 2)))
+
+
+def fftconv_gp(block: int) -> int:
+    """The JAX package's pair-group count for its fftconv kernel at an
+    overlap-save block size (``xmtpu.ops.reverb.fftconv_gp``): 16 at
+    32768, 4 at 65536, 1 otherwise. A TPU tuning table; the card's
+    launch does not read it."""
+    return {32768: 16, 65536: 4}.get(block, 1)
 
 
 def fft_log_size(m: int) -> int:
@@ -108,46 +160,74 @@ def os_block(m: int) -> int:
 
 
 def fir_convolve_plain(x: torch.Tensor, ir: torch.Tensor,
-                       pre_row: torch.Tensor,
-                       pre_col: torch.Tensor) -> torch.Tensor:
-    """Plain float32 overlap-save twin of the kernel (``torch.fft``)."""
+                       pre_row: torch.Tensor, pre_col: torch.Tensor,
+                       n_out: int | None = None) -> torch.Tensor:
+    """Plain float32 overlap-save twin of the kernel (``torch.fft``):
+    (R, n_out) with the input zero from n on (n_out None: n). The frames
+    that cover [0, n) go through one transform batch whatever n_out is,
+    so the first n samples do not depend on it, as in the kernel."""
     R, n = x.shape
+    n_out = n if n_out is None else n_out
     m = ir.shape[0]
     block = os_block(m)
     hop = block - (m - 1)
-    nblk = -(-n // hop)
+    nblk, nblk_n = -(-n_out // hop), -(-n // hop)
     xin = x * pre_row[:, None] * pre_col
     xp = torch.nn.functional.pad(xin, (m - 1, nblk * hop - n))
     frames = xp.unfold(-1, block, hop)  # (R, nblk, block)
     H = torch.fft.rfft(ir, n=block)
-    Y = torch.fft.irfft(torch.fft.rfft(frames, dim=-1) * H, n=block, dim=-1)
-    return Y[..., m - 1:].reshape(R, nblk * hop)[:, :n].contiguous()
+
+    def conv(f):
+        return torch.fft.irfft(torch.fft.rfft(f, dim=-1) * H, n=block, dim=-1)
+
+    Y = conv(frames[:, :nblk_n])
+    if nblk > nblk_n:
+        Y = torch.cat([Y, conv(frames[:, nblk_n:])], dim=1)
+    return Y[..., m - 1:].reshape(R, nblk * hop)[:, :n_out].contiguous()
 
 
 def fir_convolve(x: torch.Tensor, ir: torch.Tensor, pre_row: torch.Tensor,
-                 pre_col: torch.Tensor) -> torch.Tensor:
+                 pre_col: torch.Tensor, trim: bool = True,
+                 block: int | None = None, gp=None,
+                 interpret: bool | None = None) -> torch.Tensor:
     """x (R, n), ir (m,), pre_row (R,), pre_col (n,): contiguous float32
-    on one device -> y (R, n) float32."""
+    on one device -> y (R, n) float32, or with ``trim=False`` (R,
+    :func:`padded_length` (n, m, block)), ``block`` None meaning the JAX
+    default 65536. A given ``block`` and ``gp`` are checked as the JAX
+    kernel checks them (module docstring). ``interpret=True`` means the
+    twin and needs x on the CPU (``utils.device.check_interpret``)."""
+    check_interpret(interpret, x.device)
     _check(x, ir, pre_row, pre_col)
+    R, n = x.shape
+    m = ir.shape[0]
+    n_out = n
+    if block is not None or not trim:
+        n_pad = padded_length(n, m, DEFAULT_OS_BLOCK if block is None
+                              else block)
+        n_out = n if trim else n_pad
+    pairs_per_block(gp, R)
     if x.device.type == "cpu":
-        return fir_convolve_plain(x, ir, pre_row, pre_col)
+        return fir_convolve_plain(x, ir, pre_row, pre_col, n_out)
     if x.device.type != "cuda":
         raise ValueError(f"no fftconv kernel for device {x.device}")
-    m = ir.shape[0]
     return _launch(x, ir, pre_row, pre_col,
-                   LONG_LOG_N if m > MAX_SHORT_TAPS else fft_log_size(m))
+                   LONG_LOG_N if m > MAX_SHORT_TAPS else fft_log_size(m),
+                   n_out)
 
 
-def _launch(x, ir, pre_row, pre_col, log_n: int) -> torch.Tensor:
+def _launch(x, ir, pre_row, pre_col, log_n: int,
+            n_out: int | None = None) -> torch.Tensor:
     """The kernel on checked CUDA operands, the short form at a
     transform of 2^log_n points (>= 2*(m-1)) or, past
-    ``MAX_SHORT_TAPS``, the partitioned form."""
+    ``MAX_SHORT_TAPS``, the partitioned form; (R, n_out) out (None:
+    n)."""
     global launches, long_launches
     R, n = x.shape
+    n_out = n if n_out is None else n_out
     m = ir.shape[0]
     long = m > MAX_SHORT_TAPS
     lib = _build.load()
-    y = torch.empty_like(x)
+    y = torch.empty((R, n_out), dtype=torch.float32, device=x.device)
     # the IR spectra (one per partition, N complex each) and the N
     # twiddles, filled in-kernel
     spectra = long_parts(m) if long else 1
@@ -158,9 +238,11 @@ def _launch(x, ir, pre_row, pre_col, log_n: int) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if long:
-            rc = lib.xm_fir_convolve_long_f32(*ptrs, R, n, m, stream)
+            rc = lib.xm_fir_convolve_long_f32(*ptrs, R, n, m, n_out,
+                                              stream)
         else:
-            rc = lib.xm_fir_convolve_f32(*ptrs, R, n, m, log_n, stream)
+            rc = lib.xm_fir_convolve_f32(*ptrs, R, n, m, log_n, n_out,
+                                         stream)
     _build.check(rc, "fftconv")
     if long:
         long_launches += 1

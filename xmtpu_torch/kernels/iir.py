@@ -33,8 +33,9 @@ import numpy as np
 import torch
 
 from xmtpu_torch.kernels import _build
+from xmtpu_torch.kernels._seg import LANES  # noqa: F401  (the JAX value)
 from xmtpu_torch.kernels._seg import card_segments, on_device, pick_segments
-from xmtpu_torch.ops.resample import require_fp32_matmul
+from xmtpu_torch.ops.precision import require_fp32_matmul
 
 # Launches of the CUDA kernels in this process (the cascade, the float64
 # state chain); callers may reset them.

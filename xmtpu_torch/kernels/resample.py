@@ -17,6 +17,16 @@ XLA's. ``resample_pallas`` also leaves ``M < 64`` to XLA, a limit of
 its TPU tiling; the direct FIR has no such limit and runs there too. On
 a CPU tensor it runs ``polyphase_resample``, the kernel's plain twin.
 
+``precision=`` takes the rungs of ``ops.precision`` (the JAX
+``resample_pallas(precision=)``, which sets the rung of K7's own dots).
+HIGHEST (the default) is the kernel as it is. DEFAULT runs it on
+operands rounded to bf16: the host taps rounded once
+(:func:`poly_tables` ``part="hi"``), the input by one elementwise pass;
+the kernel's float32 products of bf16 values are exact, so that is one
+bf16 pass with float32 sums. HIGH is the three-term split by linearity,
+three launches: K7(x_hi, h_lo) + K7(x_lo, h_hi) + K7(x_hi, h_hi), the
+twin's order. The twin splits the same way (``ops.precision``).
+
 Non-finite input: an output is non-finite exactly where the twin's is.
 The twin multiplies whole frames by the band, so a NaN or inf reaches
 every output of a frame whose band holds it: in the twin's aligned
@@ -42,7 +52,9 @@ import torch
 
 from xmtpu_torch.kernels import _build, _seg
 from xmtpu_torch.kernels._seg import on_device
+from xmtpu_torch.ops import precision as _prec
 from xmtpu_torch.ops import resample as _ops
+from xmtpu_torch.utils.device import check_interpret
 
 # Launches of the CUDA kernel in this process (this module's and the
 # fused front's wrappers count separately); callers may reset it.
@@ -78,14 +90,19 @@ class PolyGeometry:
         return self.pair_skew <= PAIR_SKEW
 
 
-def poly_tables(plan: _ops.ResamplePlan) -> dict:
+def poly_tables(plan: _ops.ResamplePlan, part: str | None = None) -> dict:
     """The kernel's host tables: ``hsel`` (L, K2p) float32 taps, K2p =
     K2 rounded up to a multiple of 4 (zeros past K2, so a phase's taps
     load 16 bytes at a time), and ``soff`` (L,) int32 window starts
-    relative to ``c*M``."""
+    relative to ``c*M``. ``part``: None (the float32 taps), ``"hi"`` or
+    ``"lo"``, the bf16 head or tail of the float32 taps
+    (``ops.precision.split``), held as float32."""
     K2p = -(-plan.K2 // 4) * 4
     hsel = np.zeros((plan.L, K2p), np.float32)
     hsel[:, :plan.K2] = plan.hsel
+    if part is not None:
+        parts = _prec.split(torch.from_numpy(hsel))
+        hsel = parts[("hi", "lo").index(part)].float().numpy()
     soff = plan.col_start + (plan.base - plan.pad_left)
     return {"hsel": hsel, "soff": soff.astype(np.int32)}
 
@@ -169,9 +186,10 @@ def poly_geometry(plan: _ops.ResamplePlan, nj: int,
                         smem=smem, pair_skew=pair_skew(plan, G))
 
 
-def device_tables(plan: _ops.ResamplePlan, device) -> dict:
-    key = ("polyphase", plan.L, plan.M, plan.K2, plan.taps.tobytes())
-    return on_device(key, device, lambda: poly_tables(plan))
+def device_tables(plan: _ops.ResamplePlan, device,
+                  part: str | None = None) -> dict:
+    key = ("polyphase", plan.L, plan.M, plan.K2, plan.taps.tobytes(), part)
+    return on_device(key, device, lambda: poly_tables(plan, part))
 
 
 def persistent_blocks(query: str, geo: PolyGeometry, R: int,
@@ -207,14 +225,15 @@ def twin_branch(plan: _ops.ResamplePlan, n: int,
 
 
 def resample_pass(x2d: torch.Tensor, plan: _ops.ResamplePlan,
-                  out_len: int) -> torch.Tensor:
+                  out_len: int, part: str | None = None) -> torch.Tensor:
     """The kernel over contiguous float32 CUDA rows (R, n) -> (R,
-    out_len), then the launch that writes NaN where the twin's would be
-    (module docstring; a no-op for finite input)."""
+    out_len), with the taps :func:`poly_tables` gives for ``part``,
+    then the launch that writes NaN where the twin's would be (module
+    docstring; a no-op for finite input)."""
     global launches
     R, n = x2d.shape
     x2d = aligned16(x2d)
-    tabs = device_tables(plan, x2d.device)
+    tabs = device_tables(plan, x2d.device, part)
     nj = -(-out_len // plan.L)
     geo = poly_geometry(plan, nj)
     y = torch.empty((R, out_len), dtype=torch.float32, device=x2d.device)
@@ -240,10 +259,14 @@ def resample_pass(x2d: torch.Tensor, plan: _ops.ResamplePlan,
 
 
 def resample(x: torch.Tensor, sr_in: int, sr_out: int,
-             taps_per_phase: int = 24, beta: float = 9.0) -> torch.Tensor:
+             taps_per_phase: int = 24, beta: float = 9.0,
+             interpret: bool | None = None, precision=None) -> torch.Tensor:
     """Resample the last axis of ``x`` (..., n) -> (..., ceil(n*L/M))
-    float32: the kernel on CUDA, ``polyphase_resample`` on the CPU
-    (module docstring)."""
+    float32: the kernel on CUDA, ``polyphase_resample`` on the CPU, at
+    ``precision`` (module docstring). ``interpret=True`` means the twin
+    and needs x on the CPU (``utils.device.check_interpret``)."""
+    check_interpret(interpret, x.device)
+    rung = _prec.resolve(precision)
     g = math.gcd(int(sr_in), int(sr_out))
     L, M = sr_out // g, sr_in // g
     x = x.to(torch.float32)
@@ -253,7 +276,7 @@ def resample(x: torch.Tensor, sr_in: int, sr_out: int,
     if plan.width > 2 * M or x.device.type == "cpu":
         # the twin (the strided conv for the wide band)
         return _ops.polyphase_resample(x, sr_in, sr_out, taps_per_phase,
-                                       beta)
+                                       beta, precision=precision)
     if x.device.type != "cuda":
         raise ValueError(f"no resample kernel for device {x.device}")
     batch, n = x.shape[:-1], x.shape[-1]
@@ -261,5 +284,15 @@ def resample(x: torch.Tensor, sr_in: int, sr_out: int,
         raise ValueError(f"empty x {tuple(x.shape)}")
     R = int(np.prod(batch)) if batch else 1
     out_len = _ops.resample_output_len(n, L, M)
-    y = resample_pass(x.reshape(R, n).contiguous(), plan, out_len)
+    x2d = x.reshape(R, n).contiguous()
+    if rung == _prec.HIGHEST:
+        y = resample_pass(x2d, plan, out_len)
+    elif rung == _prec.DEFAULT:  # the head alone: one rounding pass
+        y = resample_pass(x2d.to(torch.bfloat16).float(), plan, out_len,
+                          "hi")
+    else:
+        x_hi, x_lo = (p.float() for p in _prec.split(x2d))
+        y = resample_pass(x_hi, plan, out_len, "lo")
+        y += resample_pass(x_lo, plan, out_len, "hi")
+        y += resample_pass(x_hi, plan, out_len, "hi")
     return y.reshape(*batch, out_len)

@@ -1,11 +1,12 @@
 """Overlap-save FIR filtering whose DFTs are matmuls (counterpart of
 ``xmtpu.ops.fftmm``, the JAX ``reverb(backend="mxu")``).
 
-The JAX package writes these transforms as XLA einsums at HIGHEST
-precision, never as a Pallas kernel, so the port runs them as FP32
-``torch.matmul`` (``torch.einsum``); on CUDA they refuse TF32
-(``ops.resample.require_fp32_matmul``). The constants are host numpy,
-as the JAX package builds them.
+The JAX package writes these transforms as XLA einsums, never as a
+Pallas kernel, so the port runs them as plain matmuls at the rung
+``precision=`` names (``ops.precision``): HIGHEST (the default) as FP32
+``torch.matmul``, which refuses TF32 on CUDA; HIGH and DEFAULT as bf16
+products with float32 sums (tensor cores on CUDA). The constants are
+host numpy, as the JAX package builds them.
 
 Size-B complex DFT with B = N1*N2, input index n = n1*N2 + n2, output
 index k = k2*N1 + k1 kept in the scrambled layout [k1, k2]:
@@ -28,7 +29,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from xmtpu_torch.ops.resample import require_fp32_matmul
+from xmtpu_torch.ops import precision as _prec
 
 
 def _split_factors(block: int) -> tuple[int, int]:
@@ -63,32 +64,50 @@ def _on(c: dict, device) -> dict:
             else v for k, v in c.items()}
 
 
-def _cmatmul(ar, ai, br, bi, sub: str):
-    """Complex einsum from real and imaginary parts."""
-    m1 = torch.einsum(sub, ar, br)
-    m2 = torch.einsum(sub, ai, bi)
-    ri = torch.einsum(sub, ar, bi)
-    ir = torch.einsum(sub, ai, br)
+def _cmatmul(ar, ai, br, bi, mm, gauss: bool = False):
+    """Complex product from real and imaginary parts, ``mm`` the real
+    contraction (at the call's precision). ``gauss``: Gauss's
+    three-multiplication form, re = m1 - m2, im = m3 - m1 - m2 with m3 =
+    (ar + ai)(br + bi), as the JAX ``_cmatmul``."""
+    m1 = mm(ar, br)
+    m2 = mm(ai, bi)
+    if gauss:
+        m3 = mm(ar + ai, br + bi)
+        return m1 - m2, m3 - m1 - m2
+    ri = mm(ar, bi)
+    ir = mm(ai, br)
     return m1 - m2, ri + ir
 
 
-def _dft_scrambled(zr, zi, c):
+def _left(prec):
+    """[k, n] x [r, n, m] -> [r, k, m] (the JAX "kn,rnm->rkm")."""
+    return lambda w, z: _prec.matmul(w, z, prec)
+
+
+def _right(prec):
+    """[l, m] x [r, k, m] -> [r, k, l] (the JAX "lm,rkm->rkl")."""
+    return lambda w, z: _prec.matmul(z, w.transpose(0, 1), prec)
+
+
+def _dft_scrambled(zr, zi, c, prec=None, gauss: bool = False):
     """(R, block) complex -> (R, n1, n2) scrambled spectrum."""
     r = zr.shape[0]
     zr = zr.reshape(r, c["n1"], c["n2"])
     zi = zi.reshape(r, c["n1"], c["n2"])
-    ar, ai = _cmatmul(c["w1r"], c["w1i"], zr, zi, "kn,rnm->rkm")
+    ar, ai = _cmatmul(c["w1r"], c["w1i"], zr, zi, _left(prec), gauss)
     br = ar * c["twr"] - ai * c["twi"]
     bi = ar * c["twi"] + ai * c["twr"]
-    return _cmatmul(c["w2r"], c["w2i"], br, bi, "lm,rkm->rkl")
+    return _cmatmul(c["w2r"], c["w2i"], br, bi, _right(prec), gauss)
 
 
-def _idft_scrambled(xr, xi, c):
-    """(R, n1, n2) scrambled spectrum -> (R, block) complex (scaled)."""
-    ar, ai = _cmatmul(c["w2r"], -c["w2i"], xr, xi, "ml,rkl->rkm")
+def _idft_scrambled(xr, xi, c, prec=None, gauss: bool = False):
+    """(R, n1, n2) scrambled spectrum -> (R, block) complex (scaled):
+    the JAX "ml,rkl->rkm" (a right product) and "nk,rkm->rnm" (a left
+    one) on the conjugate matrices."""
+    ar, ai = _cmatmul(c["w2r"], -c["w2i"], xr, xi, _right(prec), gauss)
     br = ar * c["twr"] + ai * c["twi"]
     bi = -ar * c["twi"] + ai * c["twr"]
-    yr, yi = _cmatmul(c["w1r"], -c["w1i"], br, bi, "nk,rkm->rnm")
+    yr, yi = _cmatmul(c["w1r"], -c["w1i"], br, bi, _left(prec), gauss)
     r = yr.shape[0]
     block = c["n1"] * c["n2"]
     s = float(np.float32(1.0 / block))
@@ -142,38 +161,59 @@ def _fused_consts(block: int, ir_np: np.ndarray) -> dict:
     return consts
 
 
-def _convolve_fused(zr, zi, c):
+def _convolve_fused(zr, zi, c, prec=None, gauss: bool = False):
     """(R, block) complex rows -> (R, block) filtered rows (scaled)."""
     r = zr.shape[0]
     n1, n2 = c["n1"], c["n2"]
     zr = zr.reshape(r, n1, n2)
     zi = zi.reshape(r, n1, n2)
-    ar, ai = _cmatmul(c["w1r"], c["w1i"], zr, zi, "kn,rnm->rkm")
-    dr, di = _cmatmul(ar, ai, c["Mr"], c["Mi"], "rkn,kmn->rkm")
-    yr, yi = _cmatmul(c["w1r"], -c["w1i"], dr, di, "nk,rkm->rnm")
+    ar, ai = _cmatmul(c["w1r"], c["w1i"], zr, zi, _left(prec), gauss)
+
+    def middle(a, m):  # "rkn,kmn->rkm": batched over k1
+        return _prec.matmul(a.transpose(0, 1), m.transpose(1, 2),
+                            prec).transpose(0, 1)
+
+    dr, di = _cmatmul(ar, ai, c["Mr"], c["Mi"], middle, gauss)
+    yr, yi = _cmatmul(c["w1r"], -c["w1i"], dr, di, _left(prec), gauss)
     return yr.reshape(r, -1), yi.reshape(r, -1)
 
 
-def fir_convolve_os_mxu(x: torch.Tensor, ir,
-                        block: int = 16384) -> torch.Tensor:
+def fir_convolve_os_mxu(x: torch.Tensor, ir, block: int = 16384,
+                        precision=None, variant: str = "auto",
+                        gauss: bool = False) -> torch.Tensor:
     """Same-length causal convolution of ``x`` (..., n) float32 with a
-    host-known 1-D IR by overlap-save blocks whose DFTs are FP32
-    matmuls. ``block``: a power of two > 2*(len(ir)-1). The variant
-    follows the JAX package's ``"auto"``: ``fused`` (three matmul
-    stages, the filter in the middle one) while its middle matrix stays
-    within 48 MB, else ``four_step`` (the forward and inverse DFT pair).
-    """
-    require_fp32_matmul(x.device)
+    host-known 1-D IR by overlap-save blocks whose DFTs are matmuls.
+    ``block``: a power of two > 2*(len(ir)-1). ``precision``: the
+    matmuls' rung (``ops.precision``; None = HIGHEST). ``variant``:
+    ``"fused"`` (three matmul stages, the filter baked into the middle
+    one), ``"four_step"`` (the forward and inverse DFT pair) or
+    ``"auto"`` (fused while its (N1, N2, N2) complex middle matrix stays
+    within 48 MB, else four_step), with the JAX package's errors.
+    ``gauss``: the three-multiplication complex product."""
+    _prec.resolve(precision)
     ir_np = np.asarray(ir.detach().cpu() if torch.is_tensor(ir) else ir,
                        np.float64)
     m = ir_np.shape[-1]
     n = x.shape[-1]
     if block <= 2 * (m - 1):
         raise ValueError(f"block {block} too small for {m}-tap IR")
-    n1, n2 = _split_factors(block)
-    fused = n1 * n2 * n2 * 8 <= _BAKE_LIMIT_BYTES
+    if variant == "auto":
+        n1, n2 = _split_factors(block)
+        variant = ("fused" if n1 * n2 * n2 * 8 <= _BAKE_LIMIT_BYTES
+                   else "four_step")
+    if variant not in ("fused", "four_step"):
+        raise ValueError(f"unknown variant {variant!r}; "
+                         "use 'fused', 'four_step' or 'auto'")
     dev = x.device
-    if fused:
+    if variant == "fused":
+        n1, n2 = _split_factors(block)
+        baked = n1 * n2 * n2 * 8
+        if baked > _BAKE_LIMIT_BYTES:
+            raise ValueError(
+                f"variant='fused' at block {block} bakes "
+                f"{baked >> 20} MB of circulant constants "
+                f"(limit {_BAKE_LIMIT_BYTES >> 20} MB); use "
+                f"variant='four_step' or a smaller block")
         c = _on(_fused_consts(block, ir_np), dev)
     else:
         c = _on(_dft_consts(block), dev)
@@ -190,13 +230,13 @@ def fir_convolve_os_mxu(x: torch.Tensor, ir,
         rows = torch.cat([rows, rows.new_zeros(1, block)])
     zr, zi = rows[0::2], rows[1::2]
 
-    if fused:
-        yr, yi = _convolve_fused(zr, zi, c)
+    if variant == "fused":
+        yr, yi = _convolve_fused(zr, zi, c, precision, gauss)
     else:
-        xr_s, xi_s = _dft_scrambled(zr, zi, c)
+        xr_s, xi_s = _dft_scrambled(zr, zi, c, precision, gauss)
         yr_s = xr_s * hr - xi_s * hi
         yi_s = xr_s * hi + xi_s * hr
-        yr, yi = _idft_scrambled(yr_s, yi_s, c)
+        yr, yi = _idft_scrambled(yr_s, yi_s, c, precision, gauss)
 
     y = torch.stack([yr, yi], dim=1).reshape(-1, block)[:r]
     y = y.reshape(*batch, nblk, block)[..., m - 1:]  # valid region

@@ -7,7 +7,7 @@ package's. The device part is plain torch, as the JAX package leaves it
 to XLA outside any kernel; :func:`polyphase_resample` takes its three
 methods:
 
-* ``"banded"`` (default), at most two float32 matmuls. Where n divides
+* ``"banded"`` (default), at most three matmuls. Where n divides
   by M, output frame ``c = A[c] @ H1`` for the framed input ``A`` (...,
   nc, M), with two narrow edge corrections against the neighbour
   frames: ``A[c-1]``'s last ``|lo|`` samples patch output phases [0,
@@ -25,12 +25,18 @@ Pinned semantics: odd-length symmetric Kaiser filter, output sample
 ``out_len = ceil(n * L / M)`` (``scipy.signal.resample_poly``'s rule for
 odd-length filters).
 
-Precision: every DSP matmul and convolution runs in full float32. A
-TF32 product keeps 10 mantissa bits, which costs the chain its -80 dB
-margin, so on CUDA :func:`require_fp32_matmul` refuses to run matmuls
-while TF32 is enabled, and the strided conv turns cuDNN's TF32 off
-(:func:`_cudnn_fp32`) for its own call, since
-``torch.backends.cudnn.allow_tf32`` is True by default.
+Precision: ``precision=`` takes the JAX package's three rungs
+(``ops.precision``), HIGHEST (full float32) by default, as in the JAX
+package. A TF32 product keeps 10 mantissa bits, which costs the chain
+its -80 dB margin, so on CUDA the FP32 rung refuses to run matmuls while
+TF32 is enabled (``ops.precision.require_fp32_matmul``), and the strided
+conv turns cuDNN's TF32 off (:func:`_cudnn_fp32`) for its own call, since
+``torch.backends.cudnn.allow_tf32`` is True by default. HIGH and
+DEFAULT are bf16 products with float32 sums (tensor cores on CUDA); the
+strided conv takes them on the bf16 parts through FP32 convolutions,
+which compute the same rung exactly. ``dtype=torch.bfloat16`` casts the
+operand and the tables to bf16, as the JAX ``_apply_plan`` does, and
+returns bf16.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import numpy as np
 import torch
 from scipy import signal as _sig
 
+from xmtpu_torch.ops import precision as _prec
 from xmtpu_torch.utils.errors import ConfigError
 
 
@@ -187,23 +194,6 @@ def aligned_supported(n: int, sr_in: int, sr_out: int,
     return plan.width <= 2 * M and _cdiv(out_len, L) * L == out_len
 
 
-def require_fp32_matmul(device: torch.device) -> None:
-    """Refuse to run DSP matmuls on CUDA while TF32 is enabled.
-
-    The port does not flip global flags itself: the caller sets
-    ``torch.backends.cuda.matmul.allow_tf32 = False`` (and keeps
-    ``torch.get_float32_matmul_precision() == "highest"``)."""
-    if torch.device(device).type != "cuda":
-        return
-    if (torch.backends.cuda.matmul.allow_tf32
-            or torch.get_float32_matmul_precision() != "highest"):
-        raise ConfigError(
-            "TF32 matmuls are enabled (torch.backends.cuda.matmul."
-            "allow_tf32 / set_float32_matmul_precision); the DSP matmuls "
-            "need full float32 — TF32's 10 mantissa bits cost the chain "
-            "its -80 dB accuracy margin")
-
-
 @contextmanager
 def _cudnn_fp32():
     """cuDNN convolutions in full float32 inside the block, whatever the
@@ -217,20 +207,53 @@ def _cudnn_fp32():
         torch.backends.cudnn.allow_tf32 = old
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def work_dtype(dtype) -> torch.dtype:
+    """The resample ops' ``dtype=``: float32 (the default) or bfloat16,
+    as a torch dtype or by name (a numpy or JAX dtype's ``name`` /
+    ``__name__`` too); else :class:`ConfigError`."""
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).removeprefix("torch.")
+    else:
+        name = (dtype if isinstance(dtype, str) else getattr(
+            dtype, "name", None) or getattr(dtype, "__name__", None))
+    if name not in _DTYPES:
+        raise ConfigError(f"resample dtype {dtype!r} is not supported; "
+                          "accepted: float32, bfloat16")
+    return _DTYPES[name]
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, precision) -> torch.Tensor:
+    """``a @ b`` at ``precision`` in a's dtype (float32 or bf16: the
+    float32 sums rounded once, as XLA's bf16 dot)."""
+    return _prec.matmul(a, b, precision).to(a.dtype)
+
+
 def apply_aligned(A: torch.Tensor, H1: torch.Tensor, H0: torch.Tensor,
                   H2: torch.Tensor, lo: int, hi: int, r0: int,
-                  r2: int) -> torch.Tensor:
-    """Aligned banded resample of framed float32 ``A`` (..., nc, M) ->
-    (..., nc, L) output frames, with the tables already on A's device.
-    The two edge corrections add in place into the main product."""
-    require_fp32_matmul(A.device)
+                  r2: int, precision=None) -> torch.Tensor:
+    """Aligned banded resample of framed ``A`` (..., nc, Mp) -> (..., nc,
+    L) output frames in A's dtype (float32 or bf16), with the tables
+    (M = ``H1.shape[0]`` rows) already on A's device, at ``precision``
+    (``ops.precision``; HIGHEST by default). Lanes of A past M are pad:
+    H1 takes zero rows there and the corrections read real lanes only,
+    so pad values never reach the output. The two edge corrections add
+    in place into the main product."""
     M = H1.shape[0]
-    out = torch.matmul(A, H1)
+    Mp = A.shape[-1]
+    if Mp < M:
+        raise ValueError(f"framed input last axis {Mp} < M={M}")
+    if Mp > M:
+        H1 = torch.nn.functional.pad(H1, (0, 0, 0, Mp - M))
+    dt = A.dtype
+    out = _dot(A, H1.to(dt), precision)
     if lo < 0:
-        C0 = torch.matmul(A[..., M + lo: M], H0)
+        C0 = _dot(A[..., M + lo: M], H0.to(dt), precision)
         out[..., 1:, :r0] += C0[..., :-1, :]
     if hi > 0:
-        C2 = torch.matmul(A[..., :hi], H2)
+        C2 = _dot(A[..., :hi], H2.to(dt), precision)
         out[..., :-1, r2:] += C2[..., 1:, :]
     return out
 
@@ -243,15 +266,17 @@ def device_tables(t: AlignedTables, device=None) -> tuple[torch.Tensor, ...]:
 
 def polyphase_resample_framed(A: torch.Tensor, sr_in: int, sr_out: int,
                               taps_per_phase: int = 24,
-                              beta: float = 9.0) -> torch.Tensor:
+                              beta: float = 9.0, dtype=torch.float32,
+                              precision=None) -> torch.Tensor:
     """Aligned banded resample of pre-framed input (..., nc, M) ->
-    (..., nc, L) frames. Check applicability with
-    :func:`aligned_supported` on n = nc*M first. The JAX package's lane
-    padding (last axis > M) belongs to the ``mixfirst_pad`` probe, which
-    is not ported: the last axis must be exactly M."""
+    (..., nc, L) frames in ``dtype`` at ``precision`` (module
+    docstring). Check applicability with :func:`aligned_supported` on n
+    = nc*M first. The last axis may exceed M (lane padding, the
+    ``mixfirst_pad`` front's 441 -> 512): lanes past M are ignored (zero
+    filter rows)."""
     L, M = _ratio(sr_in, sr_out)
-    if A.shape[-1] != M:
-        raise ValueError(f"framed input last axis {A.shape[-1]} != M={M}")
+    if A.shape[-1] < M:
+        raise ValueError(f"framed input last axis {A.shape[-1]} < M={M}")
     plan = make_plan(L, M, taps_per_phase, beta)
     if plan.width > 2 * M:
         raise ValueError(
@@ -260,8 +285,8 @@ def polyphase_resample_framed(A: torch.Tensor, sr_in: int, sr_out: int,
             "formulation; use polyphase_resample() instead")
     t = aligned_tables(plan)
     H1, H0, H2 = device_tables(t, A.device)
-    return apply_aligned(A.to(torch.float32), H1, H0, H2,
-                         t.lo, t.hi, t.r0, t.r2)
+    return apply_aligned(A.to(work_dtype(dtype)), H1, H0, H2,
+                         t.lo, t.hi, t.r0, t.r2, precision)
 
 
 def plan_rows(plan: ResamplePlan, nj: int) -> int:
@@ -269,24 +294,25 @@ def plan_rows(plan: ResamplePlan, nj: int) -> int:
     return nj + _cdiv(plan.width, plan.M) + 1
 
 
-def resample_window(xs: torch.Tensor, plan: ResamplePlan,
-                    nj: int) -> torch.Tensor:
-    """Contiguous input window -> nj*L float32 output samples, by the
-    explicit frame matrix: ``xs`` (..., plan_rows(plan, nj) * M) holds
-    input samples ``x[k + c0*M + base - pad_left]`` for the first output
-    block c0 (zeros where that index is out of range); frames F[..., c,
-    u] = xs[..., c*M + u], u < width, times the dense band (width, L).
-    Shared by the offline path (c0 = 0) and streaming (c0 = the block
-    clock), so the two agree block for block."""
-    require_fp32_matmul(xs.device)
+def resample_window(xs: torch.Tensor, plan: ResamplePlan, nj: int,
+                    dtype=torch.float32, precision=None) -> torch.Tensor:
+    """Contiguous input window -> nj*L output samples in ``dtype`` at
+    ``precision``, by the explicit frame matrix: ``xs`` (...,
+    plan_rows(plan, nj) * M) holds input samples ``x[k + c0*M + base -
+    pad_left]`` for the first output block c0 (zeros where that index
+    is out of range); frames F[..., c, u] = xs[..., c*M + u], u < width,
+    times the dense band (width, L). Shared by the offline path (c0 =
+    0) and streaming (c0 = the block clock), so the two agree block for
+    block."""
+    dt = work_dtype(dtype)
     L, M = plan.L, plan.M
     batch = xs.shape[:-1]
     rows = plan_rows(plan, nj)
-    A = xs.to(torch.float32).reshape(*batch, rows, M)
+    A = xs.to(dt).reshape(*batch, rows, M)
     F = torch.cat([A[..., i: i + nj, :] for i in range(rows - nj)],
                   dim=-1)[..., : plan.width]
-    return torch.matmul(F, _band_on(plan, str(xs.device))).reshape(
-        *batch, nj * L)
+    band = _band_on(plan, str(xs.device)).to(dt)
+    return _dot(F, band, precision).reshape(*batch, nj * L)
 
 
 @lru_cache(maxsize=32)
@@ -297,21 +323,48 @@ def _band_on(plan: ResamplePlan, device: str) -> torch.Tensor:
     return torch.as_tensor(plan.hbank, dtype=torch.float32, device=device)
 
 
+def _conv(xs: torch.Tensor, w: torch.Tensor, M: int,
+          precision) -> torch.Tensor:
+    """The stride-M convolution of rows ``xs`` (R, 1, k) with ``w`` (L,
+    1, width) at ``precision`` -> float32 (R, L, frames). Every rung
+    runs FP32 convolutions: HIGHEST on the operands, HIGH and DEFAULT on
+    their bf16 parts (exact products in float32, as in
+    ``ops.precision``); bf16 operands take one pass."""
+    def conv(a, b):
+        with _cudnn_fp32():
+            return torch.nn.functional.conv1d(a.float(), b.float(),
+                                              stride=M)
+
+    rung = _prec.resolve(precision)
+    if xs.dtype == torch.bfloat16 or rung == _prec.HIGHEST:
+        return conv(xs, w)
+    x_hi, x_lo = _prec.split(xs)
+    w_hi, w_lo = _prec.split(w)
+    if rung == _prec.DEFAULT:
+        return conv(x_hi, w_hi)
+    return conv(x_hi, w_lo) + conv(x_lo, w_hi) + conv(x_hi, w_hi)
+
+
 RESAMPLE_METHODS = ("banded", "conv", "window")
 
 
 def polyphase_resample(x: torch.Tensor, sr_in: int, sr_out: int,
                        taps_per_phase: int = 24, beta: float = 9.0,
-                       method: str = "banded") -> torch.Tensor:
+                       dtype=torch.float32, method: str = "banded",
+                       precision=None) -> torch.Tensor:
     """Resample the last axis of float ``x`` (..., n) from sr_in to
-    sr_out -> (..., ceil(n*L/M)) float32, by ``method`` (module
-    docstring): ``"banded"`` (its band within 2M, else the conv),
-    ``"conv"`` or ``"window"``."""
+    sr_out -> (..., ceil(n*L/M)) in ``dtype`` (float32 or bfloat16), by
+    ``method`` (module docstring): ``"banded"`` (its band within 2M,
+    else the conv), ``"conv"`` or ``"window"``, at ``precision``
+    (``ops.precision``; None = HIGHEST). The JAX package's argument
+    order."""
     if method not in RESAMPLE_METHODS:
         raise ValueError(f"unknown resample method {method!r}; accepted: "
                          + ", ".join(RESAMPLE_METHODS))
+    _prec.resolve(precision)
+    dt = work_dtype(dtype)
     L, M = _ratio(sr_in, sr_out)
-    x = x.to(torch.float32)
+    x = x.to(dt)
     if L == M:
         return x
     plan = make_plan(L, M, taps_per_phase, beta)
@@ -326,7 +379,8 @@ def polyphase_resample(x: torch.Tensor, sr_in: int, sr_out: int,
         A = x.reshape(*bshape, n // M, M)
         t = aligned_tables(plan)
         H1, H0, H2 = device_tables(t, x.device)
-        out = apply_aligned(A, H1, H0, H2, t.lo, t.hi, t.r0, t.r2)
+        out = apply_aligned(A, H1, H0, H2, t.lo, t.hi, t.r0, t.r2,
+                            precision)
         return out.reshape(*bshape, nj * L)
     # window xs[k] = x[k + base - pad_left], zeros outside [0, n)
     need = plan_rows(plan, nj) * M
@@ -334,28 +388,25 @@ def polyphase_resample(x: torch.Tensor, sr_in: int, sr_out: int,
     xpad = torch.nn.functional.pad(x, (plan.pad_left, pad_r))
     xs = xpad[..., plan.base: plan.base + need]
     if method == "banded":
-        require_fp32_matmul(x.device)
         hbank = torch.as_tensor(plan.hbank, dtype=torch.float32,
-                                device=x.device)
+                                device=x.device).to(dt)
         A = xs[..., : nj * M].reshape(*bshape, nj, M)
-        out = torch.matmul(A, hbank[:M])
+        out = _dot(A, hbank[:M], precision)
         if plan.width > M:
             k2 = plan.width - M
             A1 = xs[..., M: (nj + 1) * M].reshape(*bshape, nj, M)[..., :k2]
-            out = out + torch.matmul(A1, hbank[M:])
+            out = out + _dot(A1, hbank[M:], precision)
         return out.reshape(*bshape, nj * L)[..., :out_len]
     if method == "conv":
         # out[.., c, r] = sum_u xs[.., c*M + u] * hbank[u, r]: a stride-M
         # convolution with L output channels (conv1d correlates)
         R = int(np.prod(bshape)) if bshape else 1
         w = torch.as_tensor(plan.hbank.T[:, None, :], dtype=torch.float32,
-                            device=x.device)  # (L, 1, width)
-        with _cudnn_fp32():
-            out = torch.nn.functional.conv1d(xs.reshape(R, 1, -1), w,
-                                             stride=M)
+                            device=x.device).to(dt)  # (L, 1, width)
+        out = _conv(xs.reshape(R, 1, -1), w, M, precision).to(dt)
         out = out[:, :, :nj].transpose(1, 2).reshape(*bshape, nj * L)
         return out[..., :out_len]
-    return resample_window(xs, plan, nj)[..., :out_len]
+    return resample_window(xs, plan, nj, dt, precision)[..., :out_len]
 
 
 def resample_oracle_np(

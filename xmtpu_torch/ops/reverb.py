@@ -13,8 +13,15 @@ convolution (``dry=0``, the folded EQ+reverb IR), with an optional gain
 * ``"xla"``: ``torch.fft`` (:func:`fir_convolve_full`, or overlap-save
   blocks with ``block``: :func:`fir_convolve_os`), in float32, or float64
   for float64 input; the scan engine's reverb;
-* ``"mxu"``: overlap-save whose DFTs are FP32 matmuls
-  (``ops.fftmm.fir_convolve_os_mxu``).
+* ``"mxu"``: overlap-save whose DFTs are matmuls
+  (``ops.fftmm.fir_convolve_os_mxu``), at ``precision=`` (FP32 by
+  default).
+
+The JAX package's engine knobs, each refused on the other backends as
+the JAX ``reverb`` refuses it: ``precision`` (``"mxu"`` only), ``gp``
+and ``interpret`` (``"pallas"`` only), ``trim=False`` (``"pallas"``
+with ``dry=0``: the kernel's hop-padded output, samples past n the
+convolution tail). :func:`fftconv_gp` is the JAX block -> gp table.
 
 :func:`reverb_block` carries the output tail across blocks (the scan
 engine's streaming form).
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 
 from xmtpu_torch.kernels.fftconv import fir_convolve
+from xmtpu_torch.kernels.fftconv import fftconv_gp  # noqa: F401
 from xmtpu_torch.utils.device import check_interpret
 from xmtpu_torch.utils.errors import ConfigError
 
@@ -117,31 +125,44 @@ REVERB_BACKENDS = ("pallas", "xla", "mxu")
 
 def reverb(x: torch.Tensor, ir, wet: float = 0.3, dry: float = 0.7,
            prescale=None, pre_row=None, pre_col=None, block: int | None = None,
-           backend: str = "pallas",
-           interpret: bool | None = None) -> torch.Tensor:
+           backend: str = "pallas", interpret: bool | None = None,
+           precision=None, gp: int | None = None,
+           trim: bool = True) -> torch.Tensor:
     """Same-length causal reverb of ``x`` (..., n):
     ``prescale * (dry * x + wet * conv(pre_row[..., None] * pre_col * x,
     ir))``, in the JAX package's operation order.
 
     ``ir`` is a host array or a 1-D tensor. ``backend`` (module
     docstring): ``"pallas"`` (the port's default, float32) runs the
-    fftconv kernel, whose frame size is its own (``block`` does not
-    change what it computes); ``"xla"`` the ``torch.fft`` forms (one
-    transform, or overlap-save blocks of ``block`` points); ``"mxu"``
-    the matmul DFTs (``block`` or 16384 points). ``pre_row`` is
-    batch-shaped, ``pre_col`` is (n,); either may be None (1); they scale
-    only the convolution's input and need ``"pallas"``, as in the JAX
-    package. ``prescale`` (broadcastable) scales both terms. ``dry=0``
-    emits no dry term. ``interpret=True`` (the JAX package's Pallas
-    interpret mode) means the kernel's plain twin: it needs
-    ``"pallas"`` and ``x`` on the CPU, else :class:`ConfigError`; None
-    and False let x's device decide."""
+    fftconv kernel, whose frame size is its own (a given ``block`` is
+    checked as the JAX kernel checks it, and changes what it computes
+    only with ``trim=False``, where it sets the JAX hop geometry of the
+    padded length, 65536 by default); ``"xla"`` the
+    ``torch.fft`` forms (one transform, or overlap-save blocks of
+    ``block`` points); ``"mxu"`` the matmul DFTs (``block`` or 16384
+    points) at ``precision`` (``ops.precision``; None = FP32).
+    ``pre_row`` is batch-shaped, ``pre_col`` is (n,); either may be None
+    (1); they scale only the convolution's input and need ``"pallas"``,
+    as in the JAX package. ``prescale`` (broadcastable) scales both
+    terms. ``dry=0`` emits no dry term. ``gp``: the JAX kernel's row
+    pairs a grid step, checked and capped as there and not a parameter
+    of the card's launch (``kernels.fftconv``). ``trim=False`` (with
+    ``"pallas"`` and ``dry=0``) returns (..., nblk*hop), the convolution
+    tail past n. ``interpret=True`` (the JAX package's Pallas interpret
+    mode) means the kernel's plain twin: it needs ``"pallas"`` and ``x``
+    on the CPU, else :class:`ConfigError`; None and False let x's device
+    decide."""
     if backend not in REVERB_BACKENDS:
         raise ValueError(f"unknown reverb backend {backend!r}; accepted: "
                          + ", ".join(REVERB_BACKENDS))
-    if interpret and backend != "pallas":
-        raise ConfigError(f"interpret applies to backend='pallas' only, got "
-                          f"backend={backend!r}")
+    if not trim and (backend != "pallas" or dry != 0.0):
+        raise ValueError("trim=False requires backend='pallas', dry=0")
+    if backend != "pallas" and (gp is not None or interpret):
+        raise ConfigError(f"gp/interpret apply to backend='pallas' only, "
+                          f"got backend={backend!r}")
+    if precision is not None and backend != "mxu":
+        raise ValueError(f"precision applies to backend='mxu' only, got "
+                         f"backend={backend!r}")
     check_interpret(interpret, x.device)
     n = x.shape[-1]
     dev = x.device
@@ -155,13 +176,15 @@ def reverb(x: torch.Tensor, ir, wet: float = 0.3, dry: float = 0.7,
         pc = (torch.ones(n, dtype=f32, device=dev) if pre_col is None
               else torch.as_tensor(pre_col, dtype=f32, device=dev).reshape(n))
         w = fir_convolve(x.reshape(R, n).to(f32).contiguous(), h,
-                         pr.contiguous(), pc.contiguous()).reshape(*batch, n)
+                         pr.contiguous(), pc.contiguous(), trim=trim,
+                         block=block, gp=gp)
+        w = w.reshape(*batch, w.shape[-1])
     elif pre_row is not None or pre_col is not None:
         raise ValueError("pre_row/pre_col require backend='pallas'")
     elif backend == "mxu":
         from xmtpu_torch.ops.fftmm import fir_convolve_os_mxu
 
-        w = fir_convolve_os_mxu(x, ir, block or 16384)
+        w = fir_convolve_os_mxu(x, ir, block or 16384, precision=precision)
     elif block is not None:
         w = fir_convolve_os(x, ir, block)
     else:

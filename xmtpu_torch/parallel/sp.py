@@ -42,7 +42,7 @@ from xmtpu_torch.kernels import iir as _kiir
 from xmtpu_torch.kernels._seg import on_device
 from xmtpu_torch.ops import biquad as _biquad
 from xmtpu_torch.ops import limiter as _lim
-from xmtpu_torch.ops.resample import require_fp32_matmul
+from xmtpu_torch.ops.precision import require_fp32_matmul
 from xmtpu_torch.ops.reverb import fir_convolve_full, fir_convolve_os
 from xmtpu_torch.parallel.mesh import all_gather, shift_right
 from xmtpu_torch.utils.device import check_interpret

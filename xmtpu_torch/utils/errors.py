@@ -21,12 +21,6 @@ class DecodeError(XmtpuError, ValueError):
     input data, and callers that catch ValueError keep working."""
 
 
-class NotPortedError(XmtpuError, NotImplementedError):
-    """A configuration the JAX package supports whose path is not
-    ported yet. The message names the ROADMAP.md item that ports it;
-    the port never substitutes another path silently."""
-
-
 class DeviceError(XmtpuError, RuntimeError):
     """No CUDA device for an entry point that builds on ``cuda`` unless
     the caller names a device; ``device="cpu"`` asks for the plain

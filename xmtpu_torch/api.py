@@ -23,6 +23,7 @@ from xmtpu_torch.config.schema import (EffectConfig,  # noqa: F401
                                        PipelineConfig, TrackConfig)
 from xmtpu_torch.ops import convert as _convert
 from xmtpu_torch.utils.device import resolve_device, to_device
+from xmtpu_torch.utils.profiling import stage
 
 
 def _to_f32_device(pcm, device) -> tuple[torch.Tensor, bool, bool]:
@@ -40,9 +41,10 @@ def _to_f32_device(pcm, device) -> tuple[torch.Tensor, bool, bool]:
         raise ValueError(
             f"PCM must be (n,), (n, channels) or (B, n, channels), "
             f"got {tuple(arr.shape)}")
-    if arr.dtype == torch.int16:
-        return _convert.pcm16_to_f32(arr).contiguous(), True, was_1d
-    return arr.to(torch.float32).contiguous(), False, was_1d
+    with stage("layout"):
+        if arr.dtype == torch.int16:
+            return _convert.pcm16_to_f32(arr).contiguous(), True, was_1d
+        return arr.to(torch.float32).contiguous(), False, was_1d
 
 
 def _from_f32_device(y: torch.Tensor, was_int16: bool, was_1d: bool,
@@ -53,7 +55,8 @@ def _from_f32_device(y: torch.Tensor, was_int16: bool, was_1d: bool,
     out = out.transpose(-1, -2)  # back to (..., n, channels)
     if was_1d:
         out = out[..., 0]
-    out = out.contiguous()
+    with stage("layout"):
+        out = out.contiguous()
     return out.cpu().numpy() if to_host else out
 
 

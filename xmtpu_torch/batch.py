@@ -379,6 +379,10 @@ class FlagshipStep(_Chain):
     @torch.no_grad()
     def forward(self, voice_i16: torch.Tensor,
                 bgm_i16: torch.Tensor) -> torch.Tensor:
+        with stage("step"):
+            return self._forward(voice_i16, bgm_i16)
+
+    def _forward(self, voice_i16, bgm_i16):
         fused = (self.fused if self.fused is not None
                  else self.iir_backend == "pallas"
                  and voice_i16.shape[0] >= 128)
@@ -481,6 +485,10 @@ class BatchStep(_Chain):
     @torch.no_grad()
     def forward(self, voice_i16: torch.Tensor, bgm_i16: torch.Tensor,
                 lengths) -> torch.Tensor:
+        with stage("step"):
+            return self._forward(voice_i16, bgm_i16, lengths)
+
+    def _forward(self, voice_i16, bgm_i16, lengths):
         if bgm_i16.shape != voice_i16.shape:
             raise ValueError(f"voice {tuple(voice_i16.shape)} and bgm "
                              f"{tuple(bgm_i16.shape)} differ")

@@ -69,6 +69,7 @@ import torch
 from xmtpu_torch.kernels import _build
 from xmtpu_torch.kernels._seg import LANES  # noqa: F401  (the JAX value)
 from xmtpu_torch.kernels._seg import card_segments, on_device, pick_segments
+from xmtpu_torch.utils.profiling import stage
 
 # the JAX package's default block lookahead of its envelope kernel
 # (xmtpu.kernels.envelope.DEFAULT_BLOCK); the card's kernels step per
@@ -259,12 +260,15 @@ def _limiter_seg(x, k_rel, c_att, curve, init2, S, run):
     (e_in, s_in), is then the unsegmented recurrence in exact
     arithmetic. zf is the state after each row's last segment."""
     R, n = x.shape
-    env0, _, e_in, ktab = _seg_pass_a(x, k_rel, init2, S, run,
-                                      abs_detector=True)
-    s_in, _ = _seg_e2_carries(env0, e_in, ktab, c_att, init2[1], S)
-    y, zf_b = limiter_pass(x.reshape(R * S, n // S), k_rel, c_att, curve,
-                           torch.stack([e_in, s_in]))
-    return y.reshape(R, n), zf_b.reshape(2, R, S)[:, :, -1].contiguous()
+    with stage("limiter_pass_a"):
+        env0, _, e_in, ktab = _seg_pass_a(x, k_rel, init2, S, run,
+                                          abs_detector=True)
+    with stage("limiter_carries"):
+        s_in, _ = _seg_e2_carries(env0, e_in, ktab, c_att, init2[1], S)
+    with stage("limiter_pass_b"):
+        y, zf_b = limiter_pass(x.reshape(R * S, n // S), k_rel, c_att, curve,
+                               torch.stack([e_in, s_in]))
+        return y.reshape(R, n), zf_b.reshape(2, R, S)[:, :, -1].contiguous()
 
 
 # ------------------------------------------------ the envelope alone

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from xmtpu_torch.utils.profiling import stage
+
 PCM16_SCALE = 32768.0
 INT16_MIN = -32768
 INT16_MAX = 32767
@@ -27,9 +29,10 @@ def pcm16_to_f32(x: torch.Tensor) -> torch.Tensor:
 
 def f32_to_pcm16(x: torch.Tensor) -> torch.Tensor:
     """float32 -> int16 PCM: scale, round half away from zero, clip."""
-    scaled = x.to(torch.float32) * PCM16_SCALE
-    rounded = torch.sign(scaled) * torch.floor(torch.abs(scaled) + 0.5)
-    return torch.clamp(rounded, INT16_MIN, INT16_MAX).to(torch.int16)
+    with stage("to_pcm16"):
+        scaled = x.to(torch.float32) * PCM16_SCALE
+        rounded = torch.sign(scaled) * torch.floor(torch.abs(scaled) + 0.5)
+        return torch.clamp(rounded, INT16_MIN, INT16_MAX).to(torch.int16)
 
 
 def pcm16_to_f32_np(x: np.ndarray) -> np.ndarray:

@@ -7,7 +7,7 @@ into a directory; the CLI's ``bench --profile DIR`` goes through it.
 Each stage of a step runs inside :func:`stage`, a
 ``torch.profiler.record_function`` range, so a trace groups its CPU ops
 and their CUDA kernels under ``xmtpu_torch.<stage>``. Outside a
-profiler the range costs one no-op context manager per stage.
+profiler a stage costs one flag check and a shared no-op context.
 """
 
 from __future__ import annotations
@@ -49,6 +49,14 @@ def trace(trace_dir: str | None):
                  time.perf_counter() - t0)
 
 
+_OFF = contextlib.nullcontext()
+
+
 def stage(name: str):
-    """Named profiler range around one pipeline stage."""
+    """Named profiler range around one pipeline stage:
+    ``record_function("xmtpu_torch.<name>")`` while the profiler records
+    on the calling thread, else the shared no-op context (an unguarded
+    ``record_function`` enters an operator even with no profiler)."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
     return torch.profiler.record_function(f"xmtpu_torch.{name}")

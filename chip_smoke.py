@@ -109,11 +109,11 @@ process exits non-zero:
    kernel); each: clip 0 <= -80 dB against the float64 oracle on its
    own length; every sample past each clip's length must be 0;
    throughput in audio-seconds of the true lengths;
-13. K1's long-IR (partitioned) form at config 3's operands: the
-   24,082-tap folded EQ+reverb IR over 32 rows (16 stereo clips of 10 s
-   at 48 kHz, the JAX benchmark's input) against its twin (gate -100
-   dB), both times, ``conv1d`` as the library yardstick, the bound and
-   the partition count;
+13. K1's long-IR form (the frequency-domain delay line) at config 3's
+   operands: the 24,082-tap folded EQ+reverb IR over 32 rows (16 stereo
+   clips of 10 s at 48 kHz, the JAX benchmark's input) against its twin
+   (gate -100 dB), both times, ``conv1d`` as the library yardstick, the
+   bound and the partition count;
 14. K4', the envelope core's gain form, through the channel-linked
    limiter at config 3's detector (16 x 480000 from the K1 output) at
    the card's S (printed; 64 on an H100: 1,024 segment rows of 7,500)
@@ -2208,13 +2208,14 @@ def main() -> None:
             log_n = fftconv.fft_log_size(taps)
             n_fft = 1 << log_n
             hop, parts = n_fft - (taps - 1), 1
-        else:  # the partitioned form: one transform pair per partition
+        else:  # the long form: one transform pair a frame, P products
             log_n = fftconv.LONG_LOG_N
             n_fft = 1 << log_n
             hop, parts = fftconv.LONG_HOP, fftconv.long_parts(taps)
         radices = "x".join(str(r) for r, _, _ in fftconv.fft_plan(log_n)[2])
-        frames = -(-n // hop) * -(-R // 2) * parts
-        own_ops = frames * (2 * 5 * n_fft * math.log2(n_fft) + 6 * n_fft)
+        frames = -(-n // hop) * -(-R // 2)
+        own_ops = frames * (2 * 5 * n_fft * math.log2(n_fft)
+                            + (6 if parts == 1 else 8 * parts) * n_fft)
         bound(k, 4 * (2 * R * n + taps + R + n), fir_fft_ops(R, n, taps))
         print(f"K1 {name} {tuple(x.shape)} x {taps} taps ({parts} "
               f"partition{'s' if parts > 1 else ''} of {n_fft} points, "

@@ -5,7 +5,8 @@ section, carried state; the IIR kernel at 1 to 8 sections, bit for
 bit, the float64 state-chain kernel, and the
 segmented IIR with NaN; the fftconv kernel at every transform size
 (1024 to 16384 points) and the long-IR form at 8193 / 8194 / 24,082 /
-65,537 taps, odd rows and a signal shorter than its hop; the envelope
+65,537 taps, odd rows, a signal shorter than its hop or than its
+partitions' frames, and its window spectra as a ring; the envelope
 kernel's gain form with NaN input and a carried init, segmented and at
 S = 1; the |x| detector of the segmented fused limiter's pass A and the
 segmented limiter itself, with NaN too; the segmented eq_env path and
@@ -738,26 +739,54 @@ def test_batch_step_on_card_matches_cpu(cuda, kw, kernels):
     (2, 40000, 8194),     # the first partitioned one: a 2-tap last part
     (3, 30000, 24082),    # config 3's folded IR (3 parts), odd rows
     (2, 5000, 24082),     # n < hop: one partial frame, all parts padding
+    (3, 10000, 24082),    # fewer frames (2) than parts (3), odd rows
     (2, 100000, 65537),   # 9 parts: the JAX kernel's largest block's IR
 ])
 def test_fftconv_long_kernel_vs_twin(cuda, R, n, m):
+    """The long form runs one forward transform a frame and row pair
+    (``long_forward_transforms``), not one a partition too."""
+    args = _fir_operands(cuda, R, n, m)
+    before = _counts()
+    fwd = fftconv.long_forward_transforms
+    y = fftconv.fir_convolve(*args)
+    torch.cuda.synchronize()
+    long = m > fftconv.MAX_SHORT_TAPS
+    assert _launched(before) == {"fftconv_long" if long else "fftconv"}
+    assert fftconv.long_forward_transforms - fwd == (
+        -(-R // 2) * -(-n // fftconv.LONG_HOP) if long else 0)
+    ref = fftconv.fir_convolve_plain(*args)
+    db = _db(y - ref, ref)
+    print(f"fftconv ({R}, {n}) x {m} taps vs twin: {db:.1f} dB")
+    assert y.shape == (R, n) and bool(torch.isfinite(y).all())
+    assert db <= -100.0
+
+
+def _fir_operands(cuda, R, n, m):
     rng = np.random.default_rng(R * n + m)
     x = torch.from_numpy(rng.standard_normal((R, n)).astype(np.float32))
     ir = torch.from_numpy((rng.standard_normal(m) * np.exp(
         -np.arange(m) / (m / 4 + 1))).astype(np.float32))
     pr = torch.from_numpy(rng.uniform(0.5, 2.0, R).astype(np.float32))
     pc = torch.from_numpy(rng.uniform(0.0, 1.0, n).astype(np.float32))
-    args = [t.to(cuda) for t in (x, ir, pr, pc)]
-    before = _counts()
+    return [t.to(cuda) for t in (x, ir, pr, pc)]
+
+
+@pytest.mark.parametrize("R,n,m,cap", [
+    (4, 100000, 24082, 2 << 20),   # a ring of 8 spectra a pair, chunks of 6
+    (3, 120000, 65537, 1 << 10),   # room for none: 9 slots, 1 frame a chunk
+])
+def test_fftconv_long_ring_vs_twin(cuda, monkeypatch, R, n, m, cap):
+    """Past ``LONG_SPECTRA_BYTES`` the window spectra run as a ring and
+    the frames in chunks: bit for bit the output with all windows kept."""
+    args = _fir_operands(cuda, R, n, m)
+    y_all = fftconv.fir_convolve(*args)
+    monkeypatch.setattr(fftconv, "LONG_SPECTRA_BYTES", cap)
+    assert fftconv.long_schedule(R, n, m)[0] < -(-n // fftconv.LONG_HOP)
     y = fftconv.fir_convolve(*args)
     torch.cuda.synchronize()
-    assert _launched(before) == (
-        {"fftconv"} if m <= fftconv.MAX_SHORT_TAPS else {"fftconv_long"})
+    assert torch.equal(y, y_all)
     ref = fftconv.fir_convolve_plain(*args)
-    db = _db(y - ref, ref)
-    print(f"fftconv ({R}, {n}) x {m} taps vs twin: {db:.1f} dB")
-    assert y.shape == (R, n) and bool(torch.isfinite(y).all())
-    assert db <= -100.0
+    assert _db(y - ref, ref) <= -100.0
 
 
 def _gain_operands(cuda, R, n, corr, seed):

@@ -84,42 +84,70 @@ def test_fftconv_twin_vs_direct_f64(data, m):
     assert rms_db(y_t - ref, ref) <= -120.0
 
 
-def _partitioned_model(x, ir, pre_row, pre_col, log_n, part):
-    """Torch model of the long-IR kernel's partition loop, index for
-    index: frames of ``hop = N - part`` outputs; for each partition p
-    the gained input window from t0 - (p+1)*part, zero outside [0, n),
-    through an N-point FFT times the spectrum of ir[p*part,
-    (p+1)*part), and the window's samples [part, N) summed over the
-    partitions (float64, so only the indexing is on trial)."""
+def _fdl_model(x, ir, pre_row, pre_col, log_n, part, n_out=None,
+               slots=None, chunk=None):
+    """float64 torch model of the long-IR kernel's frequency-domain delay
+    line, index for index: the gained rows in complex pairs (row 2i the
+    real part, 2i+1 the imaginary); window j the N points from (j-1)*part,
+    zero outside [0, n), its spectrum taken once into slot j % slots of
+    the pair's spectra; frame f, outputs [f*part, (f+1)*part), the points
+    [part, N) of one inverse of sum_{p <= min(f, P-1)} X_{f-p} H_p; the
+    frames in chunks, each chunk's windows before its frames (slots =
+    chunk = frames unless given). Asserts that every spectrum a frame
+    reads is the window it wants. Returns (y (R, n_out), forward and
+    inverse transforms run, one per pair each)."""
     R, n = x.shape
     N = 1 << log_n
-    hop = N - part
+    assert N == 2 * part  # window f-p of frame f starts at f*part - (p+1)*part
+    n_out = n if n_out is None else n_out
     xin = x.double() * pre_row.double()[:, None] * pre_col.double()
+    xin = torch.cat([xin, torch.zeros((R % 2, n), dtype=torch.float64)])
+    z = torch.complex(xin[0::2], xin[1::2])
+    pairs = z.shape[0]
     parts = -(-ir.shape[0] // part)
     H = [torch.fft.fft(ir[p * part:(p + 1) * part].double(), n=N)
          for p in range(parts)]
-    y = torch.zeros((R, -(-n // hop) * hop), dtype=torch.float64)
-    for f in range(-(-n // hop)):
-        t0 = f * hop
-        for p in range(parts):
-            g = torch.arange(N) + (t0 - (p + 1) * part)
+    frames = -(-n_out // part)
+    slots = frames if slots is None else slots
+    chunk = frames if chunk is None else chunk
+    X = torch.zeros((slots, pairs, N), dtype=torch.complex128)
+    held = [None] * slots
+    y = torch.zeros((pairs, frames * part), dtype=torch.complex128)
+    forward = inverse = 0
+    for f0 in range(0, frames, chunk):
+        run = range(f0, min(frames, f0 + chunk))
+        for j in run:
+            g = torch.arange(N) + (j - 1) * part
             ok = (g >= 0) & (g < n)
-            win = torch.where(ok, xin[:, g.clamp(0, n - 1)], 0.0)
-            out = torch.fft.ifft(torch.fft.fft(win, dim=-1) * H[p]).real
-            y[:, t0:t0 + hop] += out[:, part:]
-    return y[:, :n]
+            win = torch.where(ok, z[:, g.clamp(0, n - 1)], 0.0)
+            X[j % slots], held[j % slots] = torch.fft.fft(win, dim=-1), j
+            forward += pairs
+        for f in run:
+            acc = torch.zeros((pairs, N), dtype=torch.complex128)
+            for p in range(min(f + 1, parts)):
+                assert held[(f - p) % slots] == f - p
+                acc += X[(f - p) % slots] * H[p]
+            y[:, f * part:(f + 1) * part] = torch.fft.ifft(acc)[:, part:]
+            inverse += pairs
+    out = torch.stack([y.real, y.imag], dim=1).reshape(2 * pairs, -1)
+    return out[:R, :n_out], forward, inverse
 
 
 @pytest.mark.parametrize("R,n,m,log_n,part", [
     (3, 1500, 1000, 8, 128),     # 8 partitions, a short last one, R odd
     (2, 100, 700, 9, 256),       # n < hop: one partial frame
     (2, 20000, 24082, 14, 8192),  # the kernel's geometry at config 3's IR
+    (3, 10000, 24082, 14, 8192),  # fewer frames (2) than partitions (3)
+    (1, 70000, 65537, 14, 8192),  # 9 partitions, the last of one tap
 ])
 def test_fftconv_partition_loop_model(data, R, n, m, log_n, part):
-    """The long-IR kernel's index arithmetic, as a torch model, against
-    the twin and a float64 direct convolution: -120 dB."""
+    """The long-IR kernel's frequency-domain delay line, as a float64
+    torch model, against the twin and a float64 direct convolution: -120
+    dB. Run again on the tightest ring of spectra (P slots a pair, one
+    frame a chunk), the model reads the same windows and gives the same
+    output bit for bit."""
     if part == fftconv.LONG_PART:
-        assert (log_n, fftconv.long_parts(m)) == (fftconv.LONG_LOG_N, 3)
+        assert log_n == fftconv.LONG_LOG_N
         assert fftconv.LONG_HOP == (1 << log_n) - part
     rng = np.random.default_rng(m)
     x = (0.3 * rng.standard_normal((R, n))).astype(np.float32)
@@ -127,15 +155,76 @@ def test_fftconv_partition_loop_model(data, R, n, m, log_n, part):
         np.float32)
     pre_row = rng.uniform(0.5, 2.0, R).astype(np.float32)
     pre_col = rng.uniform(0.0, 1.0, n).astype(np.float32)
-    y_m = _partitioned_model(*_t(x, h, pre_row, pre_col), log_n,
-                             part).numpy()
+    args = _t(x, h, pre_row, pre_col)
+    y_m = _fdl_model(*args, log_n, part)[0]
+    frames, parts = -(-n // part), -(-m // part)
+    if frames > parts:
+        y_ring = _fdl_model(*args, log_n, part, slots=parts, chunk=1)[0]
+        assert torch.equal(y_ring, y_m)
     xin = (x.astype(np.float64) * pre_row[:, None]) * pre_col
-    ref = np.stack([np.convolve(r, h.astype(np.float64))[:n] for r in xin])
-    y_t = fftconv.fir_convolve_plain(*_t(x, h, pre_row, pre_col)).numpy()
-    db_m, db_t = rms_db(y_m - ref, ref), rms_db(y_t - ref, ref)
-    print(f"partition model ({R}, {n}) x {m} taps: {db_m:.1f} dB vs "
+    h64 = h[:n].astype(np.float64)  # y[:n] reads no tap past n
+    ref = np.stack([np.convolve(r, h64)[:n] for r in xin])
+    y_t = fftconv.fir_convolve_plain(*args).numpy()
+    db_m, db_t = rms_db(y_m.numpy() - ref, ref), rms_db(y_t - ref, ref)
+    print(f"FDL model ({R}, {n}) x {m} taps: {db_m:.1f} dB vs "
           f"float64 (gate -120); twin {db_t:.1f} dB (gate -120)")
     assert db_m <= -120.0 and db_t <= -120.0
+
+
+@pytest.mark.parametrize("R,n,n_out,m", [
+    (3, 5000, 5000, 24082),      # R odd, n < LONG_HOP: one frame
+    (5, 5000, 40000, 24082),     # n_out > n: 5 frames, 4 past the input
+    (1, 30000, 40000, 65537),    # 9 partitions, 5 frames
+    (7, 100, 8193, 8194),        # n_out one past a frame: 2 frames
+])
+def test_fftconv_long_transform_count(R, n, n_out, m):
+    """The long form's counter arithmetic (``long_transforms``, which
+    the wrapper adds to ``long_forward_transforms`` a call): the forward
+    and inverse transforms the float64 model of the kernel runs, pairs x
+    frames whatever the partitions, on the wrapper's schedule and on the
+    tightest ring; and the first n outputs do not depend on n_out."""
+    pairs, frames = -(-R // 2), -(-n_out // fftconv.LONG_HOP)
+    assert fftconv.long_transforms(R, n_out) == pairs * frames
+    rng = np.random.default_rng(R * n_out + m)
+    args = _t((0.3 * rng.standard_normal((R, n))).astype(np.float32),
+              (rng.standard_normal(m) * 0.01).astype(np.float32),
+              rng.uniform(0.5, 2.0, R).astype(np.float32),
+              rng.uniform(0.0, 1.0, n).astype(np.float32))
+    geo = (fftconv.LONG_LOG_N, fftconv.LONG_PART)
+    slots, chunk = fftconv.long_schedule(R, n_out, m)
+    y, fwd, inv = _fdl_model(*args, *geo, n_out=n_out, slots=slots,
+                             chunk=chunk)
+    assert fwd == inv == fftconv.long_transforms(R, n_out)
+    parts = fftconv.long_parts(m)
+    if frames > parts:
+        ring = _fdl_model(*args, *geo, n_out=n_out, slots=parts, chunk=1)
+        assert ring[1:] == (fwd, inv) and torch.equal(ring[0], y)
+    y_n = _fdl_model(*args, *geo)[0]
+    assert y.shape == (R, n_out) and torch.equal(y[:, :n], y_n)
+
+
+@pytest.mark.parametrize("R,n_out,m,cap,want", [
+    (128, 480000, 24082, None, (59, 59)),   # the effects cell: no ring
+    (2, 28_800_000, 24164, None, (3516, 3516)),  # the episode's voice
+    (2, 172_800_000, 24082, None, (4096, 4094)),  # the hour clip: a ring
+    (4, 100000, 24082, 2 << 20, (8, 6)),   # a ring of 8 spectra a pair
+    (256, 100000, 65537, 1 << 20, (9, 1)),  # room for none: P slots
+    (256, 30000, 65537, 1 << 20, (4, 4)),   # frames <= P: all windows
+])
+def test_fftconv_long_schedule(monkeypatch, R, n_out, m, cap, want):
+    """The long form's workspace of window spectra: all windows' while
+    they fit ``LONG_SPECTRA_BYTES``, else a ring whose chunks of frames
+    read no window that a later chunk overwrote (slots >= chunk + P -
+    1), within the cap unless P spectra a pair already exceed it."""
+    if cap is not None:
+        monkeypatch.setattr(fftconv, "LONG_SPECTRA_BYTES", cap)
+    slots, chunk = fftconv.long_schedule(R, n_out, m)
+    frames, parts = -(-n_out // fftconv.LONG_HOP), fftconv.long_parts(m)
+    assert (slots, chunk) == want and 1 <= chunk <= frames
+    assert slots == frames or frames > slots >= chunk + parts - 1
+    spectrum = 8 << fftconv.LONG_LOG_N
+    assert (-(-R // 2) * slots * spectrum <= fftconv.LONG_SPECTRA_BYTES
+            or slots == min(frames, parts))
 
 
 def _plan_stages(z, log_n, dit):

@@ -89,20 +89,35 @@
 // Longer IRs (xm_fir_convolve_long_f32; the TPU kernel runs them at
 // blocks of 32768 to 131072 points, e.g. the 24,082-tap folded EQ+reverb
 // of the public effects chain at 48 kHz) would need a frame of up to 1 MB
-// here. Instead the IR is uniformly partitioned, in the same launch
-// sequence and with the 16384-point transform: h_p = ir[p*Lp, (p+1)*Lp),
-// Lp = 8192, P = ceil(m / Lp) partitions, and
-//   y[t] = sum_p conv(x delayed by p*Lp, h_p)[t].
-// fft_conv_long_kernel, one block per (frame of 8192 outputs, row pair),
-// loops over the partitions: the gained input window that starts at
-// t0 - (p+1)*Lp (zero before t = 0 and past n, the gains applied to real
-// samples only), dif, times H_p, dit, and the window's samples [Lp, N)
-// (the first stage's points k >= R0/2) added to register accumulators;
-// one store at the end. Each partition costs a forward and an inverse
-// transform, so the work per output is about P times the short form's:
-// the frequency-domain delay line (one forward transform per frame,
-// spectra accumulated before one inverse) is the known faster design,
-// left to later work.
+// here. Instead the IR is uniformly partitioned and run as a
+// frequency-domain delay line on the 16384-point transform: h_p =
+// ir[p*Lp, (p+1)*Lp), Lp = N/2 = 8192, P = ceil(m / Lp) partitions with
+// spectra H_p / N (spectrum_kernel); window j is the gained input
+// [(j-1)*Lp, (j+1)*Lp), zero before t = 0 and from n on, with spectrum
+// X_j; and output frame f, samples [f*Lp, (f+1)*Lp), is the points
+// [Lp, N) of conj(dit(conj(sum_{p <= min(f, P-1)} X_{f-p} * H_p / N))).
+// - window_spectrum_kernel, one block per (window, row pair): dif of the
+//   window, X_j written to a workspace of spectra in dif order and in the
+//   register-slot layout;
+// - fdl_inverse_kernel, one block per (frame, row pair): each thread reads
+//   its own slots of X_f .. X_{f-P+1} and of H_0 .. H_{P-1}, sums the
+//   products in registers (no exchange: the slots a thread writes in one
+//   kernel are the ones it reads in the other), conjugates, runs dit and
+//   stores the points [Lp, N) (the first stage's points k >= R0/2).
+// A frame costs one forward and one inverse transform whatever P is: each
+// window's spectrum serves the P frames that read it, and the P products
+// are summed before the inverse. The grid's x is the frame, so neighbouring
+// frames of one pair run together and the P reads of a spectrum after its
+// first mostly hit the L2. The workspace holds `slots` spectra a pair: all
+// windows' when they fit under the wrapper's cap, else a ring (window j at
+// slot j % slots, slots >= chunk + P - 1) with the frames run in chunks,
+// each chunk's windows before its frames, so a chunk overwrites only
+// windows that no later frame reads. What bounds it: the two transforms a
+// frame, run at the core's rate (each block holds the whole frame, so one
+// block an SM and its latencies unhidden). The spectra's traffic, 128 KB
+// written and P x 128 KB of X and of H read a frame and pair (the H reads
+// and all but the first X read from the L2), costs little beside them
+// (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -297,6 +312,26 @@ __device__ __forceinline__ void dif_head(float2* a,
   __syncthreads();
 }
 
+// The last stage of dif from the shared frame, its outputs (the spectrum
+// in digit-reversed order) written to `out` in the register-slot layout:
+// slot q*R + k of thread t at (q*R + k)*T + t.
+template <class Pl>
+__device__ __forceinline__ void dif_store(const float2* a,
+                                          const float2* __restrict__ tw,
+                                          float2* __restrict__ out) {
+  constexpr int s = Pl::S - 1;
+  constexpr int R = Pl::radix(s);
+#pragma unroll
+  for (int q = 0; q < Pl::P / R; ++q) {
+    float2 x[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) x[k] = a[padded<Pl, s>(q, k)];
+    butterfly<Pl, s, false>(x, q, tw);
+#pragma unroll
+    for (int k = 0; k < R; ++k) out[(q * R + k) * Pl::T + threadIdx.x] = x[k];
+  }
+}
+
 // The turn between the transforms, in registers: the last stage of dif
 // (the spectrum in digit-reversed order), v -> conj(v * H) with H in the
 // register-slot layout (slot q*16 + k of thread t at (q*16 + k)*T + t),
@@ -381,24 +416,13 @@ __global__ void __launch_bounds__(Pl::T)
 spectrum_kernel(const float* __restrict__ ir, int m, int part,
                 const float2* __restrict__ tw, float2* __restrict__ h) {
   extern __shared__ float2 smem[];
-  constexpr int s = Pl::S - 1;
-  constexpr int R = Pl::radix(s);
   const float* hp = ir + static_cast<size_t>(blockIdx.x) * part;
   const int len = min(part, m - static_cast<int>(blockIdx.x) * part);
   const float scale = 1.0f / static_cast<float>(Pl::N);  // exact: N = 2^k
   dif_head<Pl>(smem, tw, [&](int p) {
     return make_float2(p < len ? hp[p] * scale : 0.f, 0.f);
   });
-  float2* out = h + static_cast<size_t>(blockIdx.x) * Pl::N;
-#pragma unroll
-  for (int q = 0; q < Pl::P / R; ++q) {
-    float2 x[R];
-#pragma unroll
-    for (int k = 0; k < R; ++k) x[k] = smem[padded<Pl, s>(q, k)];
-    butterfly<Pl, s, false>(x, q, tw);
-#pragma unroll
-    for (int k = 0; k < R; ++k) out[(q * R + k) * Pl::T + threadIdx.x] = x[k];
-  }
+  dif_store<Pl>(smem, tw, h + static_cast<size_t>(blockIdx.x) * Pl::N);
 }
 
 template <class Pl>
@@ -429,62 +453,86 @@ fft_conv_kernel(const float* __restrict__ x, const float* __restrict__ pre_row,
   });
 }
 
-// The partitioned form for long IRs (see the note at the top).
+// The frequency-domain delay line for long IRs (see the note at the top).
 using LongPlan = Plan<kMaxLogN>;
 constexpr int kPart = LongPlan::N / 2;            // taps per partition (Lp)
 constexpr int kLongHop = LongPlan::N - kPart;     // outputs per frame
 static_assert(LongPlan::R0 % 2 == 0,
               "the outputs [N/2, N) are stage 0's points k >= R0/2");
 
+// Block (i, pair): X_j of window j = j0 + i, the pair's gained input
+// [(j-1)*Lp, (j+1)*Lp), at slot j % slots of the pair's spectra.
 template <class Pl>
 __global__ void __launch_bounds__(Pl::T, 1)
-fft_conv_long_kernel(const float* __restrict__ x,
-                     const float* __restrict__ pre_row,
-                     const float* __restrict__ pre_col,
-                     const float2* __restrict__ h,
-                     const float2* __restrict__ tw, float* __restrict__ y,
-                     int rows, int n, int parts, int n_out) {
+window_spectrum_kernel(const float* __restrict__ x,
+                       const float* __restrict__ pre_row,
+                       const float* __restrict__ pre_col,
+                       const float2* __restrict__ tw, float2* __restrict__ xs,
+                       int rows, int n, int j0, int slots) {
   extern __shared__ float2 smem[];
-  constexpr int R0 = Pl::R0;
-  constexpr int Q0 = Pl::P / R0;
-  constexpr int kHalf = R0 / 2;
   const int ra = 2 * blockIdx.y;  // rows ra (real part), ra+1 (imaginary)
   const bool has_b = ra + 1 < rows;
   const float* xa = x + static_cast<size_t>(ra) * n;
   const float ga = pre_row[ra];
   const float gb = has_b ? pre_row[ra + 1] : 0.f;
-  const int t0 = blockIdx.x * kLongHop;  // the frame's first output
+  const int j = j0 + blockIdx.x;
+  dif_head<Pl>(smem, tw, Window{xa, xa + n, pre_col, ga, gb, has_b,
+                                (j - 1) * kPart, n});
+  dif_store<Pl>(smem, tw,
+                xs + (static_cast<size_t>(blockIdx.y) * slots + j % slots) *
+                         Pl::N);
+}
 
-  float acc_a[Q0][kHalf], acc_b[Q0][kHalf];
+// Block (i, pair): output frame f = f0 + i of the pair's rows, samples
+// [f*Lp, (f+1)*Lp), from the sum of X_{f-p} * H_p / N over p <= min(f,
+// P-1), conjugated, through dit.
+template <class Pl>
+__global__ void __launch_bounds__(Pl::T, 1)
+fdl_inverse_kernel(const float2* __restrict__ xs,
+                   const float2* __restrict__ h,
+                   const float2* __restrict__ tw, float* __restrict__ y,
+                   int rows, int parts, int n_out, int f0, int slots) {
+  extern __shared__ float2 smem[];
+  constexpr int s = Pl::S - 1;
+  constexpr int R = Pl::radix(s);
+  constexpr int kHalf = Pl::R0 / 2;
+  const int ra = 2 * blockIdx.y;
+  const bool has_b = ra + 1 < rows;
+  const int f = f0 + blockIdx.x;
+  const int used = min(parts, f + 1);  // X_j = 0 for j < 0
+  const float2* xp = xs + static_cast<size_t>(blockIdx.y) * slots * Pl::N;
 #pragma unroll
-  for (int q = 0; q < Q0; ++q)
+  for (int q = 0; q < Pl::P / R; ++q) {
+    const int i0 = q * R * Pl::T + static_cast<int>(threadIdx.x);
+    float2 v[R];
 #pragma unroll
-    for (int k = 0; k < kHalf; ++k) acc_a[q][k] = acc_b[q][k] = 0.f;
-
-  for (int p = 0; p < parts; ++p) {
-    // point i of the window is input t0 - (p+1)*Lp + i; its outputs
-    // i in [Lp, N) are t0 + i - Lp
-    dif_head<Pl>(smem, tw, Window{xa, xa + n, pre_col, ga, gb, has_b,
-                                  t0 - (p + 1) * kPart, n});
-    turn<Pl>(smem, h + static_cast<size_t>(p) * Pl::N, tw);
-    dit_tail<Pl>(smem, tw, [&](int q, int k, int, float2 v) {
-      if (k >= kHalf) {
-        acc_a[q][k - kHalf] += v.x;
-        acc_b[q][k - kHalf] -= v.y;
-      }
-    });
-  }
-  float* ya = y + static_cast<size_t>(ra) * n_out;
+    for (int k = 0; k < R; ++k) v[k] = make_float2(0.f, 0.f);
+    for (int p = 0; p < used; ++p) {
+      const float2* xw =
+          xp + static_cast<size_t>((f - p) % slots) * Pl::N + i0;
+      const float2* hw = h + static_cast<size_t>(p) * Pl::N + i0;
 #pragma unroll
-  for (int q = 0; q < Q0; ++q)
-#pragma unroll
-    for (int k = 0; k < kHalf; ++k) {
-      const int t = t0 + position<Pl, 0>(q, kHalf + k) - kPart;
-      if (t < n_out) {
-        ya[t] = acc_a[q][k];
-        if (has_b) ya[n_out + t] = acc_b[q][k];
+      for (int k = 0; k < R; ++k) {
+        const float2 u = cmul(__ldg(xw + k * Pl::T), __ldg(hw + k * Pl::T));
+        v[k] = make_float2(v[k].x + u.x, v[k].y + u.y);
       }
     }
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k].y = -v[k].y;
+    butterfly<Pl, s, true>(v, q, tw);
+#pragma unroll
+    for (int k = 0; k < R; ++k) smem[padded<Pl, s>(q, k)] = v[k];
+  }
+  // point i of the frame is output f*Lp + i - Lp; y = conj(v) on [Lp, N)
+  float* ya = y + static_cast<size_t>(ra) * n_out;
+  const int t0 = f * kLongHop - kPart;
+  dit_tail<Pl>(smem, tw, [&](int, int k, int p, float2 w) {
+    const int t = t0 + p;
+    if (k >= kHalf && t < n_out) {
+      ya[t] = w.x;
+      if (has_b) ya[n_out + t] = -w.y;
+    }
+  });
 }
 
 // work: [H_p / N for p < parts (parts*N) | twiddles (N)] float2.
@@ -547,32 +595,50 @@ extern "C" int xm_fir_convolve_f32(const float* x, const float* pre_row,
   }
 }
 
-// The partitioned form, any m >= 1: x, y, pre_row, pre_col, ir and n_out
-// as above; work: (parts + 1) * N float2 scratch, N = 16384, parts =
-// ceil(m/8192).
-// Launches the three kernels on `stream`; returns cudaGetLastError()
-// after them.
+// The frequency-domain delay line, any m >= 1: x, y, pre_row, pre_col,
+// ir and n_out as above; F = ceil(n_out / 8192) frames, P = ceil(m /
+// 8192) partitions, pairs = ceil(rows / 2); slots: window spectra kept a
+// pair, chunk: frames run a launch pair, with 1 <= chunk <= F and slots ==
+// F (no ring) or F > slots >= chunk + P - 1 (a ring); work: (P + 1 +
+// pairs * slots) * N float2 scratch, N = 16384.
+// Launches the twiddles, the IR spectra, then for each chunk its window
+// spectra and its frames, on `stream`; returns cudaGetLastError() after
+// them.
 extern "C" int xm_fir_convolve_long_f32(const float* x, const float* pre_row,
                                         const float* pre_col, const float* ir,
                                         float* work, float* y, int rows,
-                                        int n, int m, int n_out,
-                                        void* stream) {
+                                        int n, int m, int n_out, int slots,
+                                        int chunk, void* stream) {
   if (m < 1 || rows < 1 || n < 1 || n_out < n)
     return cudaErrorInvalidValue;
   using Pl = LongPlan;
-  const int parts = (m + kPart - 1) / kPart;
-  auto* w2 = reinterpret_cast<float2*>(work);
+  const int parts = (m - 1) / kPart + 1;
+  const int frames = (n_out - 1) / kLongHop + 1;
+  if (chunk < 1 || chunk > frames || slots > frames ||
+      (slots < frames && slots < chunk + parts - 1))
+    return cudaErrorInvalidValue;
+  auto* h = reinterpret_cast<float2*>(work);
+  float2* tw = h + static_cast<size_t>(parts) * Pl::N;
+  float2* xs = tw + Pl::N;
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(
-      fft_conv_long_kernel<Pl>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      window_spectrum_kernel<Pl>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Pl::kSmem);
   if (err == cudaSuccess)
-    err = launch_spectra<Pl>(ir, m, kPart, parts, w2, st);
+    err = cudaFuncSetAttribute(fdl_inverse_kernel<Pl>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Pl::kSmem);
+  if (err == cudaSuccess)
+    err = launch_spectra<Pl>(ir, m, kPart, parts, h, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_out + kLongHop - 1) / kLongHop, (rows + 1) / 2);
-  fft_conv_long_kernel<Pl><<<grid, Pl::T, Pl::kSmem, st>>>(
-      x, pre_row, pre_col, w2, w2 + static_cast<size_t>(parts) * Pl::N, y,
-      rows, n, parts, n_out);
+  const int pairs = (rows + 1) / 2;
+  for (int f0 = 0; f0 < frames; f0 += chunk) {
+    const dim3 grid(frames - f0 < chunk ? frames - f0 : chunk, pairs);
+    window_spectrum_kernel<Pl><<<grid, Pl::T, Pl::kSmem, st>>>(
+        x, pre_row, pre_col, tw, xs, rows, n, f0, slots);
+    fdl_inverse_kernel<Pl><<<grid, Pl::T, Pl::kSmem, st>>>(
+        xs, h, tw, y, rows, parts, n_out, f0, slots);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

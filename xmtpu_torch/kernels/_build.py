@@ -43,7 +43,7 @@ _L = ctypes.c_longlong
 # C interface of csrc/*.cu: name -> (argtypes, restype)
 _SIGNATURES = {
     "xm_fir_convolve_f32": ([_P] * 6 + [_I] * 5 + [_P], _I),
-    "xm_fir_convolve_long_f32": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "xm_fir_convolve_long_f32": ([_P] * 6 + [_I] * 6 + [_P], _I),
     "xm_limiter_f32": ([_P, _P, _P, _P, _I, _I] + [_F] * 11 + [_P], _I),
     "xm_envelope_f32": ([_P] * 6 + [_I, _I, _F, _F, _I, _P], _I),
     "xm_limiter_blocks_per_sm": ([], _I),

@@ -8,11 +8,14 @@ of ``csrc/fftconv.cu`` (FFT overlap-save, two rows per complex
 transform, the frame in registers through mixed-radix stages that
 :func:`fft_plan` describes; see the note at the top of that file): for
 IRs of up to 8193 taps one transform of at most 16384 points per frame,
-for longer ones the partitioned form (:func:`long_parts` partitions of
-``LONG_PART`` taps, each through the 16384-point transform, summed in
-registers). On a CPU tensor it runs :func:`fir_convolve_plain`, a
-float32 ``torch.fft`` overlap-save with the same gains at any length,
-which the CPU tests and the on-card comparison use.
+for longer ones the long form, a frequency-domain delay line
+(:func:`long_parts` partitions of ``LONG_PART`` taps; each input
+window's 16384-point spectrum taken once, the partitions' products
+summed in registers before one inverse a frame; :func:`long_schedule`
+sizes its workspace of spectra). On a CPU tensor it runs
+:func:`fir_convolve_plain`, a float32 ``torch.fft`` overlap-save with
+the same gains at any length, which the CPU tests and the on-card
+comparison use.
 
 ``trim=False`` returns the JAX kernel's hop-padded output, (R,
 nblk*hop) by the JAX hop geometry (:func:`padded_length`, ``block``
@@ -41,16 +44,22 @@ from xmtpu_torch.kernels import _build
 from xmtpu_torch.utils.device import check_interpret
 
 # Launches of the CUDA kernel in this process, by form (short IRs, the
-# partitioned long-IR form); callers may reset them.
+# long form), and the long form's forward transforms of input windows
+# (:func:`long_transforms`; the IR's spectra aside); callers may reset
+# them.
 launches = 0
 long_launches = 0
+long_forward_transforms = 0
 
 _MAX_ROWS = 2 * 65535  # grid.y of the launch counts row pairs
 _MAX_LOG_N = 14  # the kernel's largest FFT block (16384 points)
 MAX_SHORT_TAPS = (1 << (_MAX_LOG_N - 1)) + 1  # 8193: one transform
-LONG_LOG_N = _MAX_LOG_N  # the partitioned form's transform
+LONG_LOG_N = _MAX_LOG_N  # the long form's transform
 LONG_PART = 1 << (LONG_LOG_N - 1)  # taps per partition, 8192
 LONG_HOP = (1 << LONG_LOG_N) - LONG_PART  # outputs per frame, 8192
+# the long form's window spectra may take this much before they run as
+# a ring (:func:`long_schedule`)
+LONG_SPECTRA_BYTES = 1 << 29
 
 
 DEFAULT_OS_BLOCK = 65536  # the JAX kernel's default overlap-save block
@@ -128,6 +137,30 @@ def exchanges(log_n: int) -> int:
 def long_parts(m: int) -> int:
     """Partitions of the long-IR form for an m-tap IR."""
     return -(-m // LONG_PART)
+
+
+def long_transforms(R: int, n_out: int) -> int:
+    """Forward transforms of input windows in a long-form call over R
+    rows to n_out outputs, and as many inverse ones: one of each per
+    frame of ``LONG_HOP`` outputs and row pair, whatever the
+    partitions."""
+    return -(-R // 2) * -(-n_out // LONG_HOP)
+
+
+def long_schedule(R: int, n_out: int, m: int) -> tuple[int, int]:
+    """(slots, chunk) of a long-form call: the window spectra kept a row
+    pair and the frames run a launch pair. All windows' (slots = chunk =
+    frames) if they fit ``LONG_SPECTRA_BYTES`` or the frames are no more
+    than the partitions P; else a ring of as many as fit, at least P:
+    window j at slot j % slots, the frames in chunks of slots - P + 1,
+    each chunk's windows computed before its frames, so that a chunk
+    overwrites only windows that no later frame reads."""
+    frames, parts = -(-n_out // LONG_HOP), long_parts(m)
+    fit = LONG_SPECTRA_BYTES // (-(-R // 2) * (8 << LONG_LOG_N))
+    if frames <= max(fit, parts):
+        return frames, frames
+    slots = max(fit, parts)
+    return slots, slots - parts + 1
 
 
 def _check(x, ir, pre_row, pre_col) -> None:
@@ -219,18 +252,20 @@ def _launch(x, ir, pre_row, pre_col, log_n: int,
             n_out: int | None = None) -> torch.Tensor:
     """The kernel on checked CUDA operands, the short form at a
     transform of 2^log_n points (>= 2*(m-1)) or, past
-    ``MAX_SHORT_TAPS``, the partitioned form; (R, n_out) out (None:
-    n)."""
-    global launches, long_launches
+    ``MAX_SHORT_TAPS``, the long form; (R, n_out) out (None: n)."""
+    global launches, long_launches, long_forward_transforms
     R, n = x.shape
     n_out = n if n_out is None else n_out
     m = ir.shape[0]
     long = m > MAX_SHORT_TAPS
     lib = _build.load()
     y = torch.empty((R, n_out), dtype=torch.float32, device=x.device)
-    # the IR spectra (one per partition, N complex each) and the N
-    # twiddles, filled in-kernel
-    spectra = long_parts(m) if long else 1
+    # the IR spectra (one per partition), the twiddles and, in the long
+    # form, the window spectra: N complex each, filled in-kernel
+    spectra = 1
+    if long:
+        slots, chunk = long_schedule(R, n_out, m)
+        spectra = long_parts(m) + -(-R // 2) * slots
     work = torch.empty((2 * spectra + 2) << log_n, dtype=torch.float32,
                        device=x.device)
     ptrs = (x.data_ptr(), pre_row.data_ptr(), pre_col.data_ptr(),
@@ -239,13 +274,14 @@ def _launch(x, ir, pre_row, pre_col, log_n: int,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if long:
             rc = lib.xm_fir_convolve_long_f32(*ptrs, R, n, m, n_out,
-                                              stream)
+                                              slots, chunk, stream)
         else:
             rc = lib.xm_fir_convolve_f32(*ptrs, R, n, m, log_n, n_out,
                                          stream)
     _build.check(rc, "fftconv")
     if long:
         long_launches += 1
+        long_forward_transforms += long_transforms(R, n_out)
     else:
         launches += 1
     return y

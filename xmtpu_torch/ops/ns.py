@@ -26,6 +26,11 @@ as the JAX package's ``lax.scan``.
 The median of an even count is the mean of the two middle values, as
 ``jnp.median`` and ``np.median`` give it (``torch.median`` would give
 the lower one; the default ``noise_frames=8`` is even).
+
+Under a profiler :func:`suppress` opens one range for each part
+(``utils.profiling.stage``): ``ns_stft`` (item 1's analysis), ``ns_psd``
+(|X|^2 and item 3), ``ns_noise`` (item 2), ``ns_gain`` (item 4 and X*G)
+and ``ns_istft`` (item 5).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch
 from xmtpu_torch.ops import convert as _convert
 from xmtpu_torch.ops._scan import associative_scan
 from xmtpu_torch.utils.device import to_device
+from xmtpu_torch.utils.profiling import stage
 
 _DEF_NFFT = 512
 _DEF_FLOOR = 0.1
@@ -166,29 +172,36 @@ def suppress(x, nfft: int = _DEF_NFFT, noise_frames: int = 8,
     x = to_device(x, device)
     in_dtype = x.dtype
     was_i16 = in_dtype == torch.int16
-    if was_i16:
-        x = _convert.pcm16_to_f32(x)
     _check_mode(noise_update)
     if noise_psd is not None and noise_update == "adaptive":
         raise ValueError("noise_psd pins the estimate; it cannot be "
                          "combined with noise_update='adaptive'")
-    X = stft(x.to(torch.float32), nfft)
-    psd = torch.square(torch.abs(X))
-    P = _onepole_frames(psd, float(smooth))
-    if noise_psd is not None:
-        noise = torch.as_tensor(noise_psd, dtype=torch.float32,
-                                device=x.device)[..., None, :]
-    elif noise_update == "adaptive":
-        noise = _adaptive_noise_track(psd, noise_frames, float(noise_smooth),
-                                      float(presence_thresh), float(up_leak))
-    else:
-        noise = median(psd[..., :noise_frames, :], dim=-2)[..., None, :]
-    snr = torch.clamp_min(P / torch.clamp_min(noise, 1e-20) - 1.0, 0.0)
-    G = torch.clamp_min(snr / (1.0 + snr), float(floor))
-    y = istft(X * G, x.shape[-1], nfft)
-    if was_i16:
-        return _convert.f32_to_pcm16(y)
-    return y.to(in_dtype)
+    # each device operation lies in one of the five ranges: the int16
+    # conversions go with the transforms beside them
+    with stage("ns_stft"):
+        xf = _convert.pcm16_to_f32(x) if was_i16 else x.to(torch.float32)
+        X = stft(xf, nfft)
+    with stage("ns_psd"):
+        psd = torch.square(torch.abs(X))
+        P = _onepole_frames(psd, float(smooth))
+    with stage("ns_noise"):
+        if noise_psd is not None:
+            noise = torch.as_tensor(noise_psd, dtype=torch.float32,
+                                    device=x.device)[..., None, :]
+        elif noise_update == "adaptive":
+            noise = _adaptive_noise_track(psd, noise_frames,
+                                          float(noise_smooth),
+                                          float(presence_thresh),
+                                          float(up_leak))
+        else:
+            noise = median(psd[..., :noise_frames, :], dim=-2)[..., None, :]
+    with stage("ns_gain"):
+        snr = torch.clamp_min(P / torch.clamp_min(noise, 1e-20) - 1.0, 0.0)
+        G = torch.clamp_min(snr / (1.0 + snr), float(floor))
+        Y = X * G
+    with stage("ns_istft"):
+        y = istft(Y, x.shape[-1], nfft)
+        return _convert.f32_to_pcm16(y) if was_i16 else y.to(in_dtype)
 
 
 # ---------------------------------------------------------------------------

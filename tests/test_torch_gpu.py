@@ -87,8 +87,8 @@ import torch
 import xmtpu_torch
 from xmtpu_torch import batch as tbatch
 from xmtpu_torch.bench import config3_chain, config3_inputs
-from xmtpu_torch.kernels import (_build, envelope, eq_env, fftconv, iir,
-                                  resample, rsmix)
+from xmtpu_torch.kernels import (_build, _seg, envelope, eq_env, fftconv,
+                                  iir, resample, rsmix)
 from xmtpu_torch.ops import resample as tres
 from xmtpu_torch.utils.errors import ConfigError
 
@@ -1207,6 +1207,33 @@ def test_envelope_call_at_the_card_rule_vs_twin_path(cuda):
     torch.testing.assert_close(e2, e2_p, rtol=0, atol=0)
     for a, b in zip(st, st_p):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_envelope_at_a_divisor_of_n_vs_the_power_of_two(cuda):
+    """The voice cell's 32 x 2,646,000 (n = 2^4 x 165,375): the card's
+    rule leaves the powers of two (S = 4, four blocks) for a divisor
+    that fills the card, and envelope() there matches the same call at
+    segments=4 from a carried init: -100 dB, states rtol 3e-5 (the
+    segment joins round differently). The effects cell's 64 x 480,000
+    keeps S = 64."""
+    R, n = 32, 2646000
+    k_rel, c_att = 0.99977327, 0.02242057  # 100 ms / 1 ms at 44.1 kHz
+    rng = np.random.default_rng(35)
+    d = torch.from_numpy(np.abs(0.3 * rng.standard_normal((R, n))).astype(
+        np.float32)).to(cuda)
+    init = (torch.rand(R, device=cuda), torch.rand(R, device=cuda))
+    before = _seg.wide_picks
+    S = envelope.envelope_segments(R, n, cuda)
+    assert _seg.wide_picks == before + 1
+    assert S & (S - 1) and n % S == 0 and n // S % 4 == 0
+    e2, st = envelope.envelope(d, k_rel, c_att, init=init)
+    e2_4, st_4 = envelope.envelope(d, k_rel, c_att, init=init, segments=4)
+    db = _db(e2 - e2_4, e2_4)
+    print(f"envelope() at the card's S = {S} vs S = 4: {db:.1f} dB")
+    assert db <= -100.0
+    for a, b in zip(st, st_4):
+        torch.testing.assert_close(a, b, rtol=3e-5, atol=0)
+    assert envelope.envelope_segments(64, 480000, cuda) == 64
 
 
 def test_linked_limiter_at_the_card_rule_vs_twin_path(cuda):

@@ -11,7 +11,9 @@ on the CPU under a CPU-only ``torch.profiler``.
   inside a stage range below it. Ops that only make views, allocate or
   dispatch to an op that does the work are exempt: the work shows as
   their children, which are checked too.
-- The segmented fused limiter opens its three sub-ranges in order.
+- The segmented fused limiter opens its three sub-ranges in order; the
+  segmented envelope opens one range around each pass's launch, with
+  its segment chains outside them.
 """
 
 from __future__ import annotations
@@ -139,6 +141,24 @@ def test_segmented_limiter_opens_its_passes_in_order():
     assert _ranges(prof) == ["xmtpu_torch.limiter_pass_a",
                              "xmtpu_torch.limiter_carries",
                              "xmtpu_torch.limiter_pass_b"]
+
+
+def test_segmented_envelope_ranges_hold_its_passes_alone():
+    sr = 16000
+    d = torch.from_numpy(np.abs(np.random.default_rng(21).normal(
+        0.0, 0.5, (2, 8000))).astype(np.float32))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        envelope.envelope(d, _release_coeff(100.0, sr),
+                          _attack_coeff(1.0, sr), segments=5,
+                          run=envelope.envelope_plain)
+    assert _ranges(prof) == ["xmtpu_torch.envelope_pass_a",
+                             "xmtpu_torch.envelope_pass_b"]
+    passes = [e.time_range for e in prof.events()
+              if e.name.startswith("xmtpu_torch.")]
+    chains = [e.time_range for e in prof.events()
+              if e.name in ("aten::amax", "aten::sum")]
+    assert chains and not any(p.start <= c.start <= p.end
+                              for p in passes for c in chains)
 
 
 @pytest.mark.parametrize("entry", ["step", "effects"])

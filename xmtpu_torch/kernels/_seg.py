@@ -19,6 +19,19 @@ LANES = 128
 
 _DEVICE_CACHE: dict = {}  # device name -> {key: tables}
 
+# Picks of gpu_segments in this process that are not a power of two (a
+# divisor of n where the powers of two starve the card); callers may
+# reset it, as the drivers' launch counters.
+wide_picks = 0
+
+# How many times shorter a divisor's chain must be than the power of
+# two's waves x chain before gpu_segments takes the divisor: the powers
+# of two stand wherever they come near one (config 3's 16 x 480,000:
+# 7,500 steps against 2,400 at S = 200), and give way where a length's
+# odd factors leave the card nearly idle (the voice cell's 32 x
+# 2,646,000: 661,500 steps at S = 4 against 21,000 at S = 126)
+_STARVED = 8
+
 
 def pick_segments(R: int, n: int, min_seglen: int = 4096,
                   lanes: int = LANES, aligned: bool = False) -> int:
@@ -55,18 +68,65 @@ def gpu_segments(R: int, n: int, sm_count: int, blocks_per_sm: int,
     blocks_per_sm`` resident slots so that the chain a block runs (n / S
     steps) times the waves it takes is least; on a tie the larger S,
     which spreads the blocks' other work (the curve, the copies) over
-    more of the slots. 1 when n is odd."""
-    slots = sm_count * blocks_per_sm
-    best, best_cost, s = 1, None, 1
-    while True:
-        blocks = -(-R * s // rows_per_block)
-        cost = -(-blocks // slots) * (n // s)  # waves x chain
-        if best_cost is None or cost <= best_cost:
-            best, best_cost = s, cost
-        if (n % (2 * s) or n // (2 * s) < min_seglen
-                or n // (2 * s) % align):
-            return best
+    more of the slots. 1 when n is odd. Where the powers of two starve
+    the card, a divisor of n that is none (:func:`_pick`);
+    :data:`wide_picks` counts those picks."""
+    global wide_picks
+    S, wide = _pick(R, n, sm_count, blocks_per_sm, rows_per_block,
+                    min_seglen, align)
+    wide_picks += wide
+    return S
+
+
+@functools.lru_cache(maxsize=256)
+def _pick(R: int, n: int, sm_count: int, blocks_per_sm: int,
+          rows_per_block: int, min_seglen: int,
+          align: int) -> tuple[int, bool]:
+    """:func:`gpu_segments`' S, and whether it is a divisor taken over
+    the powers of two. After the powers of two, the largest allowed
+    divisor of n whose blocks fit one an SM: past that the envelope
+    core's launch is bound by its bytes, not its chain, while the glue
+    between the passes (the segment chains, the corrections) grows with
+    S (the envelope() call at 32 x 2,646,000 on an H100: the two
+    launches 0.52-0.60 ms from S = 105 to 1,050, the glue 0.18 ms at S
+    = 126 and 0.73 at 525). It is taken where its chain is at least
+    :data:`_STARVED` times shorter than the power of two's waves x
+    chain."""
+    def blocks(s):
+        return -(-R * s // rows_per_block)
+
+    def cost(s):
+        return -(-blocks(s) // (sm_count * blocks_per_sm)) * (n // s)
+
+    def allowed(s):
+        return n % s == 0 and n // s >= min_seglen and n // s % align == 0
+
+    best, s = 1, 1
+    while allowed(2 * s):
         s *= 2
+        if cost(s) <= cost(best):
+            best = s
+    wide = max((d for d in _divisors(n)
+                if d > 1 and allowed(d) and blocks(d) <= sm_count),
+               default=1)
+    if _STARVED * cost(wide) <= cost(best):
+        return wide, True
+    return best, False
+
+
+def _divisors(n: int) -> list[int]:
+    """The divisors of n, from its prime factors."""
+    divs, m, p = [1], n, 2
+    while p * p <= m:
+        e = 0
+        while m % p == 0:
+            m //= p
+            e += 1
+        divs = [d * p ** k for d in divs for k in range(e + 1)]
+        p += 1
+    if m > 1:
+        divs += [d * m for d in divs]
+    return sorted(divs)
 
 
 @functools.cache

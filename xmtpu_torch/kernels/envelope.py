@@ -519,11 +519,23 @@ def _seg_pass_b(env0, e_in, ktab, c_att, s0, S, run):
     return e2, s[:, S]
 
 
+def _in_stage(name: str, run):
+    """``run`` with each call inside the range ``xmtpu_torch.<name>``."""
+    def staged(*args, **kw):
+        with stage(name):
+            return run(*args, **kw)
+    return staged
+
+
 def _envelope_seg(d2d, k_rel, c_att, init2, S, run):
-    """Segmented exact envelope: d2d (R, n) -> (e2 (R, n), zf (2, R))."""
+    """Segmented exact envelope: d2d (R, n) -> (e2 (R, n), zf (2, R)).
+    Each pass's launch runs inside its own range (``envelope_pass_a``,
+    ``envelope_pass_b``); the segment chains and the correction do not."""
     R, n = d2d.shape
-    env0, e_last, e_in, ktab = _seg_pass_a(d2d, k_rel, init2, S, run)
-    e2, e2_last = _seg_pass_b(env0, e_in, ktab, c_att, init2[1], S, run)
+    env0, e_last, e_in, ktab = _seg_pass_a(
+        d2d, k_rel, init2, S, _in_stage("envelope_pass_a", run))
+    e2, e2_last = _seg_pass_b(env0, e_in, ktab, c_att, init2[1], S,
+                              _in_stage("envelope_pass_b", run))
     return e2.reshape(R, n), torch.stack([e_last, e2_last])
 
 

@@ -319,10 +319,13 @@ Every step run with fresh counters sets all ten launch counters to 0
 just before it and reads them just after.
 
 ``bound_ms`` is the roofline bound: the larger of the bytes each kernel
-must move (inputs read once, outputs written once) over 3.35 TB/s and
-its operations over the 67 TFLOP/s float32 peak (H100 SXM data sheet;
-the state chain's over the 34 TFLOP/s float64 peak); K1's operations
-are the FIR's least FFT work (``fir_fft_ops``).
+must move (inputs read once, outputs written once) over the memory
+bandwidth and its operations over the float32 peak (H100 SXM data
+sheet, ``perfbench.roofline``'s yardstick; the state chain's over the
+34 TFLOP/s float64 peak); K1's operations are the FIR's least FFT work
+(``perfbench.roofline.fir_fft_ops``). So ``bound_ms`` follows
+``perfbench.roofline``: an edit there to ``PEAKS`` or ``fir_fft_ops``
+moves every bound this prints, and PERF.md's per-kernel bounds with it.
 The recurrence kernels' text lines also print their chain bound: the
 longest chain's steps times the loop-carried latency of a step (4
 cycles per dependent float32 operation) at the card's maximum SM clock.
@@ -343,6 +346,8 @@ from pathlib import Path
 
 import numpy as np
 
+from perfbench.roofline import PEAKS, fir_fft_ops
+
 GATE_KERNEL_DB = -100.0
 GATE_CHAIN_DB = -80.0
 # phase 31, card against CPU: bf16 outputs (an ulp flip is -48 dB at a
@@ -351,8 +356,7 @@ GATE_CHAIN_DB = -80.0
 # sum in another order (HIGH -106.5 to -115.6, DEFAULT -71.1 to -85.7)
 GATE_BF16_DB, GATE_MXU_HIGH_DB, GATE_MXU_DEFAULT_DB = -80.0, -100.0, -60.0
 BATCH, SMALL_BATCH, RAGGED_BATCH, CLIP_SECONDS = 256, 32, 64, 10.0
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+H100 = PEAKS["NVIDIA H100 80GB HBM3"]
 F64_OPS_PER_S = 34e12  # H100 SXM, float64 outside the tensor cores
 OP_LATENCY_CYCLES = 4  # one dependent float32 add / multiply / max
 REPO = Path(__file__).resolve().parent
@@ -360,27 +364,6 @@ REPO = Path(__file__).resolve().parent
 EPISODE_S, EPISODE_BGM_S, EPISODE_CPU_S = 600.0, 60.0, 20.0
 VOICE_SR, BUS_SR = 44100, 48000
 GATE_LU_ORACLE, GATE_LU_TARGET = 0.02, 0.05
-
-
-def fir_fft_ops(R: int, n: int, taps: int) -> float:
-    """The least float32 operations of a same-length causal FIR of
-    ``taps`` taps over R rows of n samples by FFT, whatever the kernel
-    does: the cheaper, over power-of-two transform sizes N, of overlap-
-    save with the whole IR (one transform pair per frame, hop N - taps +
-    1, 6 per bin for the spectral product) and of a frequency-domain
-    delay line (one transform pair per frame, hop N/2, the IR in
-    ceil(taps / (N/2)) partitions, 8 per bin and partition for the
-    multiply-add). Two real rows share one complex transform of 5 N
-    log2 N operations."""
-    pairs, best = -(-R // 2), math.inf
-    for lg in range(4, max(n + taps, 16).bit_length() + 1):
-        N = 1 << lg
-        fft_pair = 2 * 5 * N * lg
-        if N >= taps:  # the whole IR in one block
-            best = min(best, -(-n // (N - taps + 1)) * (fft_pair + 6 * N))
-        parts = -(-taps // (N // 2))
-        best = min(best, -(-n // (N // 2)) * (fft_pair + 8 * N * parts))
-    return pairs * best
 
 
 def episode_inputs(root, seconds: float = EPISODE_S,
@@ -449,8 +432,9 @@ def episode_config(paths):
 
 
 def roofline_ms(n_bytes: float, n_ops: float,
-                ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+                ops_per_s: float = H100["f32_ops_per_s"]
+                ) -> tuple[float, str]:
+    t_bytes = n_bytes / H100["bytes_per_s"] * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 

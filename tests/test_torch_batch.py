@@ -35,7 +35,7 @@ from xmtpu.ops import resample as xresample
 from xmtpu_torch import batch as tbatch
 from xmtpu_torch.utils.errors import ConfigError, DeviceError
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 SR_IN, SR_BUS = 44100, 16000
 B, N_IN = 2, 22050
@@ -122,8 +122,7 @@ def test_flagship_tables_bit_exact():
 def test_step_vs_jax_step(y_port, y_jax):
     assert y_port.shape == y_jax.shape == (B, 8000)
     assert y_port.dtype == np.int16
-    db = rms_db((y_port - y_jax.astype(np.float64)) / 32768.0,
-                y_jax.astype(np.float64) / 32768.0)
+    db = refs.db(y_port, y_jax)
     print(f"port step vs JAX step: {db:.1f} dB (gate -80, margin "
           f"{-80 - db:.1f} dB)")
     assert db <= -80.0
@@ -137,8 +136,7 @@ def test_step_vs_oracles(clips, y_port):
     ref_j = xbatch.flagship_oracle_np(v, b, sr_in=SR_IN, sr_bus=SR_BUS)
     assert np.array_equal(ref, ref_j)
     for i in range(B):
-        db = rms_db((y_port[i] - ref[i].astype(np.float64)) / 32768.0,
-                    ref[i].astype(np.float64) / 32768.0)
+        db = refs.db(y_port[i], ref[i])
         print(f"clip {i}: {db:.1f} dB vs float64 oracle (gate -80, "
               f"margin {-80 - db:.1f} dB)")
         assert db <= -80.0
@@ -205,8 +203,7 @@ def test_unported_options_refused(kw, clips, y_jax_scan):
         y_mf = tbatch.make_flagship_step(
             device="cpu", **{**kw, "resample_backend": "mixfirst"})(v, b)
         diff = np.abs(y.astype(np.int32) - y_j.astype(np.int32))
-        db = rms_db((y - y_j.astype(np.float64)) / 32768.0,
-                    y_j.astype(np.float64) / 32768.0)
+        db = refs.db(y, y_j)
         print(f"mixfirst_pad step {kw} vs JAX: {db:.1f} dB, {diff.max()} LSB")
         assert y.shape == y_j.shape and diff.max() <= 1 and db <= -80.0
         assert np.abs(y.astype(np.int32) - y_mf.numpy().astype(
@@ -216,8 +213,7 @@ def test_unported_options_refused(kw, clips, y_jax_scan):
     assert step.iir_backend == "scan" and not step.fold
     y = step(v, b).numpy()
     diff = np.abs(y.astype(np.int32) - y_jax_scan.astype(np.int32))
-    db = rms_db((y - y_jax_scan.astype(np.float64)) / 32768.0,
-                y_jax_scan.astype(np.float64) / 32768.0)
+    db = refs.db(y, y_jax_scan)
     print(f"scan step {kw} vs JAX scan step: {db:.1f} dB, {diff.max()} LSB")
     assert diff.max() <= 1 and db <= -80.0
 
@@ -381,15 +377,13 @@ def test_unfused_step_vs_jax_step(clips_unfused):
     y_t = tbatch.make_flagship_step(device="cpu")(
         torch.from_numpy(v), torch.from_numpy(b)).numpy()
     assert y_t.shape == y_j.shape == (B, 32000) and y_t.dtype == np.int16
-    db = rms_db((y_t - y_j.astype(np.float64)) / 32768.0,
-                y_j.astype(np.float64) / 32768.0)
+    db = refs.db(y_t, y_j)
     print(f"unfused port step vs JAX step: {db:.1f} dB (gate -80, margin "
           f"{-80 - db:.1f} dB)")
     assert db <= -80.0
     ref = tbatch.flagship_oracle_np(v, b, sr_in=SR_IN, sr_bus=SR_BUS)
     for i in range(B):
-        dbi = rms_db((y_t[i] - ref[i].astype(np.float64)) / 32768.0,
-                     ref[i].astype(np.float64) / 32768.0)
+        dbi = refs.db(y_t[i], ref[i])
         print(f"unfused clip {i}: {dbi:.1f} dB vs float64 oracle")
         assert dbi <= -80.0
 
@@ -405,8 +399,7 @@ def test_unfused_limiter_on_fused_branch_vs_jax(clips):
     y_t = tbatch.make_flagship_step(fused=True, limiter_fuse=False,
                                     device="cpu")(
         torch.from_numpy(v), torch.from_numpy(b)).numpy()
-    db = rms_db((y_t - y_j.astype(np.float64)) / 32768.0,
-                y_j.astype(np.float64) / 32768.0)
+    db = refs.db(y_t, y_j)
     print(f"limiter_fuse=False step vs JAX step: {db:.1f} dB (gate -80)")
     assert db <= -80.0
 

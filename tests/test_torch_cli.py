@@ -25,7 +25,7 @@ from xmtpu.cli import main as xmain
 from xmtpu_torch.cli import main as tmain
 from xmtpu_torch.io.wav import read_wav, write_wav
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 REPO = Path(__file__).resolve().parent.parent
 SR = 44100
@@ -45,7 +45,7 @@ def _close(a_path, b_path, rate):
     b, sb = read_wav(b_path)
     assert sa == sb == rate and a.shape == b.shape
     lsb = int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
-    db = rms_db(a.astype(np.float64) - b, b.astype(np.float64))
+    db = refs.db(a, b.astype(np.float64))
     print(f"{Path(a_path).name}: {lsb} LSB, {db:.1f} dB")
     assert lsb <= 1 and db <= -80.0
     return a

@@ -23,7 +23,7 @@ from xmtpu_torch.graph import pipeline as tpipeline
 from xmtpu_torch.io.wav import read_wav, write_wav
 from xmtpu_torch.utils.errors import DeviceError, XmtpuError
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 SR = 16000
 CHAIN = [{"name": "equalizer",
@@ -44,7 +44,7 @@ def voice(tmp_path):
 def _close(a, b):
     assert a.shape == b.shape and a.dtype == b.dtype == np.int16
     lsb = int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
-    db = rms_db(a.astype(np.float64) - b, b.astype(np.float64))
+    db = refs.db(a, b.astype(np.float64))
     print(f"{a.shape}: {lsb} LSB, {db:.1f} dB")
     assert lsb <= 1 and db <= -80.0
 

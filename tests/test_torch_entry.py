@@ -22,14 +22,9 @@ from xmtpu_torch import entry as tentry
 from xmtpu_torch.batch import flagship_oracle_np
 from xmtpu_torch.utils.errors import DeviceError
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _db(got, ref) -> float:
-    return rms_db(np.asarray(got, np.float64) / 32768.0,
-                  np.asarray(ref, np.float64) / 32768.0)
 
 
 def test_entry_on_cpu_vs_graft_entry():
@@ -41,13 +36,13 @@ def test_entry_on_cpu_vs_graft_entry():
     y_j = np.asarray(jax.jit(fn_j)(*args_j))
     y_t = fn_t(*args_t).numpy()
     assert y_t.shape == y_j.shape == (2, 16000) and y_t.dtype == np.int16
-    db = _db(y_t - y_j.astype(np.float64), y_j)
+    db = refs.db(y_t, y_j)
     print(f"entry(device='cpu') vs __graft_entry__.entry(): {db:.1f} dB")
     assert db <= -80.0
     voice, bgm = (a.numpy() for a in args_t)
     for i in range(2):
         ref = flagship_oracle_np(voice[i], bgm[i])
-        dbi = _db(y_t[i] - ref.astype(np.float64), ref)
+        dbi = refs.db(y_t[i], ref)
         print(f"entry clip {i} vs the float64 oracle: {dbi:.1f} dB")
         assert dbi <= -80.0
 

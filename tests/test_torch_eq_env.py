@@ -39,7 +39,7 @@ from xmtpu.ops import biquad as xbiquad
 from xmtpu.ops import limiter as xlimiter
 from xmtpu_torch.kernels import _build, envelope, eq_env, iir
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 SR = 16000
 R, N = 3, 9000
@@ -56,12 +56,6 @@ def sos():
 def x():
     rng = np.random.default_rng(20261016)
     return (0.3 * rng.standard_normal((R, N))).astype(np.float32)
-
-
-def _db(a, ref) -> float:
-    a = np.asarray(a, np.float64)
-    ref = np.asarray(ref, np.float64)
-    return rms_db(a - ref, ref)
 
 
 @pytest.mark.parametrize("with_state", [False, True])
@@ -85,8 +79,9 @@ def test_eq_env_vs_pallas(sos, x, with_state):
         env_init=None if ei is None else tuple(map(torch.from_numpy, ei)))
     assert y.shape == e2.shape == (R, N) and zf.shape == (5, R, 2)
     assert el.shape == sl.shape == (R,)
-    dbs = {"y": _db(y, y_j), "e2": _db(e2, e2_j), "zf": _db(zf, zf_j),
-           "env_last": _db(el, el_j), "e2_last": _db(sl, sl_j)}
+    dbs = {"y": refs.db(y, y_j), "e2": refs.db(e2, e2_j),
+           "zf": refs.db(zf, zf_j), "env_last": refs.db(el, el_j),
+           "e2_last": refs.db(sl, sl_j)}
     print("eq_env twin vs Pallas (gates: zf -85 dB, the others -90 dB): "
           + ", ".join(f"{k} {v:.1f}" for k, v in dbs.items()))
     assert dbs.pop("zf") <= -85.0

@@ -30,7 +30,7 @@ import torch
 from xmtpu import batch as xbatch
 from xmtpu_torch import batch as tbatch
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 B, N_IN = 2, 22050
 
@@ -44,11 +44,6 @@ def clips():
     return v, b
 
 
-def _db16(y, ref) -> float:
-    return rms_db((y.astype(np.float64) - ref) / 32768.0,
-                  np.asarray(ref, np.float64) / 32768.0)
-
-
 def _check_vs_jax_and_oracle(v, b, label, **kw):
     y_j = np.asarray(jax.jit(xbatch.make_flagship_step(interpret=True,
                                                        **kw))(
@@ -57,9 +52,9 @@ def _check_vs_jax_and_oracle(v, b, label, **kw):
         torch.from_numpy(v), torch.from_numpy(b)).numpy()
     assert y_t.shape == y_j.shape == (B, -(-v.shape[1] * 160 // 441))
     assert y_t.dtype == np.int16
-    db = _db16(y_t, y_j)
+    db = refs.db(y_t, y_j)
     ref = tbatch.flagship_oracle_np(v, b)
-    dbo = [_db16(y_t[i], ref[i]) for i in range(B)]
+    dbo = [refs.db(y_t[i], ref[i]) for i in range(B)]
     print(f"{label}: {db:.1f} dB vs the JAX step, clips "
           + ", ".join(f"{d:.1f}" for d in dbo)
           + " dB vs float64 (gate -80)")

@@ -44,7 +44,7 @@ from xmtpu_torch.ops import convert
 from xmtpu_torch.ops.reverb import synthetic_ir
 from xmtpu_torch.utils.errors import ConfigError, DeviceError
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 SR = 48000
 FIVE_BANDS = [
@@ -83,11 +83,6 @@ def clips_small():
     return x
 
 
-def _db(got, ref):
-    return rms_db(np.asarray(got, np.float64) - ref, np.asarray(ref,
-                                                                 np.float64))
-
-
 @pytest.mark.parametrize("case,chain,gate", [
     ("(n, ch) float32", PCHAIN, -85.0),
     ("(n, ch) int16, linked", LINKED, -80.0),
@@ -102,8 +97,7 @@ def test_effects_vs_jax_pallas_chain(clips, case, chain, gate):
     y_j = xfx.apply_chain(x, SR, chain, backend="pallas")
     y_t = xmtpu_torch.effects(x, SR, chain, device="cpu", backend="pallas")
     assert y_t.shape == y_j.shape == x.shape and y_t.dtype == x.dtype
-    scale = 32768.0 if x.dtype == np.int16 else 1.0
-    db = _db(y_t / scale, np.asarray(y_j, np.float64) / scale)
+    db = refs.db(y_t, y_j)
     print(f"effects {case} vs JAX pallas chain: {db:.1f} dB (gate {gate})")
     assert db <= gate
 
@@ -115,8 +109,8 @@ def test_effects_vs_jax_scan_chain(clips):
     ref = np.asarray(xfx.apply_chain(x, SR, PCHAIN, backend="scan"),
                      np.float64)
     for chain in (PCHAIN, LINKED):
-        db = _db(xmtpu_torch.effects(x, SR, chain, device="cpu",
-                                     backend="pallas"), ref)
+        db = refs.db(xmtpu_torch.effects(x, SR, chain, device="cpu",
+                                         backend="pallas"), ref)
         print(f"effects vs JAX scan chain (linked_fuse="
               f"{chain[2].get('linked_fuse', False)}): {db:.1f} dB (gate "
               "-100)")
@@ -132,7 +126,7 @@ def test_block_size_invariance(clips, chain):
     for blk in (4096, 16384):
         got = xmtpu_torch.effects(x, SR, chain, device="cpu",
                                   backend="pallas", block_size=blk)
-        db = _db(got, whole)
+        db = refs.db(got, whole)
         print(f"block {blk} vs whole clip: {db:.1f} dB (gate -100)")
         assert got.shape == whole.shape and db <= -100.0
 
@@ -148,7 +142,7 @@ def test_unfolded_chain_and_blocked_eq(clips):
     unfolded = tfx.build_chain(SR, PCHAIN, fold=False)
     y_f, _ = tfx.chain_apply(folded, x, (None,))
     y_u, _ = tfx.chain_apply(unfolded, x, (None,) * 3)
-    db = _db(y_u.numpy(), y_f.numpy())
+    db = refs.db(y_u.numpy(), y_f.numpy())
     print(f"unfolded vs folded chain: {db:.1f} dB (gate -80)")
     assert db <= -80.0
     states = tfx.chain_init_state(unfolded, x.shape[:-1])
@@ -156,7 +150,7 @@ def test_unfolded_chain_and_blocked_eq(clips):
     for i in range(0, x.shape[-1], 12000):
         y, states = tfx.chain_apply(unfolded, x[..., i:i + 12000], states)
         outs.append(y)
-    db = _db(torch.cat(outs, -1).numpy(), y_u.numpy())
+    db = refs.db(torch.cat(outs, -1).numpy(), y_u.numpy())
     print(f"unfolded, blocks of 12000 vs whole: {db:.1f} dB (gate -100)")
     assert db <= -100.0
 
@@ -218,12 +212,12 @@ def test_long_ir_auto_runs_explicit_pallas_refused():
     chain = [{"name": "reverb", "params": {"ir": ir, "wet": 1.0,
                                            "dry": 0.0}}]
     y = xmtpu_torch.effects(x, SR, chain, device="cpu")
-    ref = np.convolve(x.astype(np.float64), ir.astype(np.float64))[:6000]
-    assert _db(y, ref) <= -120.0
+    ref = refs.direct_conv(x, ir, 6000)
+    assert refs.db(y, ref) <= -120.0
     (rv,) = tfx.build_chain(SR, chain)  # the auto pick on the card
     assert rv.engine == "pallas"
     y_k, _ = rv.apply(torch.from_numpy(x)[None], None)
-    assert _db(y_k[0].numpy(), ref) <= -120.0
+    assert refs.db(y_k[0].numpy(), ref) <= -120.0
 
 
 def test_chain_cache_is_lru_and_keys_on_content():
@@ -317,7 +311,7 @@ def test_typed_errors():
     xs = clips_small()
     y_t = xmtpu_torch.effects(xs, SR, PCHAIN, device="cpu", backend="oracle")
     y_j = xfx.apply_chain(xs, SR, PCHAIN, backend="oracle")
-    assert _db(y_t, np.asarray(y_j, np.float64)) <= -120.0
+    assert refs.db(y_t, np.asarray(y_j, np.float64)) <= -120.0
     x = np.zeros(4800, np.float32)
     y = xmtpu_torch.effects(x, SR, [{"name": "ns"}], device="cpu")
     assert y.shape == x.shape and not y.any()
@@ -360,7 +354,7 @@ def test_reverb_ir_wav_equal_ir(tmp_path, monkeypatch, ir_sr):
     x = clips_small()
     y_t = xmtpu_torch.effects(x, SR, chain, device="cpu")
     y_j = np.asarray(xfx.apply_chain(x, SR, chain))
-    assert _db(y_t, y_j) <= -100.0
+    assert refs.db(y_t, y_j) <= -100.0
 
 
 def test_ir_wav_rewritten_in_place_rebuilds_chain(tmp_path):

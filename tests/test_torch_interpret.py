@@ -28,7 +28,7 @@ from xmtpu_torch.io import write_wav
 from xmtpu_torch.ops import reverb as treverb
 from xmtpu_torch.utils.errors import ConfigError
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 SR_IN, N = 44100, 22050
 
@@ -100,8 +100,7 @@ def test_fused_interpret_step_vs_jax(clips):
                                     device="cpu")(
         torch.from_numpy(v), torch.from_numpy(b)).numpy()
     assert y_t.shape == y_j.shape == (2, 8000)
-    db = rms_db((y_t - y_j.astype(np.float64)) / 32768.0,
-                y_j.astype(np.float64) / 32768.0)
+    db = refs.db(y_t, y_j)
     print(f"fused step, interpret=True: port vs JAX {db:.1f} dB")
     assert db <= -80.0
 

@@ -37,7 +37,7 @@ from xmtpu_torch.kernels import _build, envelope, fftconv
 from xmtpu_torch.ops import reverb
 from xmtpu_torch.ops.limiter import _attack_coeff, _release_coeff
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 R, N, SR_BUS = 2, 8000, 16000
 
@@ -69,7 +69,7 @@ def test_fftconv_twin_vs_pallas(data):
         jnp.asarray(x), ir, blk, gp=gp, interpret=True,
         pre_row=jnp.asarray(pre_row), pre_col=jnp.asarray(pre_col)))[..., :N]
     y_t = fftconv.fir_convolve(*_t(x, ir, pre_row, pre_col)).numpy()
-    db = rms_db(y_t - y_j, y_j)
+    db = refs.db(y_t, y_j)
     print(f"fftconv twin vs Pallas (interpret): {db:.1f} dB")
     assert y_t.shape == (R, N) and db <= -95.0
 
@@ -80,8 +80,8 @@ def test_fftconv_twin_vs_direct_f64(data, m):
     h = np.ascontiguousarray(ir[:m])
     y_t = fftconv.fir_convolve_plain(*_t(x, h, pre_row, pre_col)).numpy()
     xin = (x.astype(np.float64) * pre_row[:, None]) * pre_col
-    ref = np.stack([np.convolve(r, h.astype(np.float64))[:N] for r in xin])
-    assert rms_db(y_t - ref, ref) <= -120.0
+    ref = refs.direct_conv(xin, h, N)
+    assert refs.db(y_t, ref) <= -120.0
 
 
 def _fdl_model(x, ir, pre_row, pre_col, log_n, part, n_out=None,
@@ -162,10 +162,9 @@ def test_fftconv_partition_loop_model(data, R, n, m, log_n, part):
         y_ring = _fdl_model(*args, log_n, part, slots=parts, chunk=1)[0]
         assert torch.equal(y_ring, y_m)
     xin = (x.astype(np.float64) * pre_row[:, None]) * pre_col
-    h64 = h[:n].astype(np.float64)  # y[:n] reads no tap past n
-    ref = np.stack([np.convolve(r, h64)[:n] for r in xin])
+    ref = refs.direct_conv(xin, h[:n], n)  # y[:n] reads no tap past n
     y_t = fftconv.fir_convolve_plain(*args).numpy()
-    db_m, db_t = rms_db(y_m.numpy() - ref, ref), rms_db(y_t - ref, ref)
+    db_m, db_t = refs.db(y_m.numpy(), ref), refs.db(y_t, ref)
     print(f"FDL model ({R}, {n}) x {m} taps: {db_m:.1f} dB vs "
           f"float64 (gate -120); twin {db_t:.1f} dB (gate -120)")
     assert db_m <= -120.0 and db_t <= -120.0
@@ -318,12 +317,12 @@ def test_reverb_op_vs_jax(data):
         **kw))
     y_t = reverb.reverb(torch.from_numpy(x), ir,
                         prescale=torch.tensor([[1.5], [0.5]]), **kw).numpy()
-    assert rms_db(y_t - y_j, y_j) <= -95.0  # the Pallas kernel's own floor
+    assert refs.db(y_t, y_j) <= -95.0  # the Pallas kernel's own floor
     y_j = np.asarray(xreverb.reverb(jnp.asarray(x), ir, wet=0.25, dry=0.75,
                                     block=blk, gp=gp, backend="pallas",
                                     interpret=True))
     y_t = reverb.reverb(torch.from_numpy(x), ir, wet=0.25, dry=0.75).numpy()
-    assert rms_db(y_t - y_j, y_j) <= -95.0
+    assert refs.db(y_t, y_j) <= -95.0
 
 
 def test_reverb_wet_dry_vs_jax():
@@ -346,7 +345,7 @@ def test_reverb_wet_dry_vs_jax():
             torch.from_numpy(x), ir, wet=0.25, dry=0.75,
             prescale=None if prescale is None else torch.from_numpy(
                 prescale)).numpy()
-        db = rms_db(y_t - y_j, y_j)
+        db = refs.db(y_t, y_j)
         print(f"wet/dry reverb vs Pallas (prescale "
               f"{prescale is not None}): {db:.1f} dB (gate -95)")
         assert db <= -95.0
@@ -370,7 +369,7 @@ def test_limiter_twin_vs_pallas(data, init):
         [[init[0]] * R, [init[1]] * R], dtype=torch.float32)
     y_t, zf_t = envelope.limiter(torch.from_numpy(x), k_rel, c_att,
                                  envelope.curve_of(-3.0), init=init_t)
-    db = rms_db(y_t.numpy() - y_j, y_j)
+    db = refs.db(y_t.numpy(), y_j)
     print(f"limiter twin vs Pallas (interpret): {db:.1f} dB")
     assert db <= -100.0
     assert np.abs(y_t.numpy()).max() <= 1.0
@@ -388,7 +387,7 @@ def test_limiter_twin_vs_oracle(data):
                               _release_coeff(100.0, SR_BUS),
                               _attack_coeff(1.0, SR_BUS),
                               envelope.curve_of(-3.0))
-    assert rms_db(y_t.numpy() - y_ref[:, 0], y_ref[:, 0]) <= -100.0
+    assert refs.db(y_t.numpy(), y_ref[:, 0]) <= -100.0
 
 
 # ------------------------------------------------------- wrapper contract
@@ -475,14 +474,14 @@ def test_fftconv_trim_false_twin_vs_pallas(data):
         N, ir.shape[-1], blk))
     xin = (x.astype(np.float64) * pre_row[:, None]) * pre_col
     L = y_t.shape[-1]
-    ref = np.stack([np.convolve(r, ir.astype(np.float64))[:L] for r in xin])
+    ref = refs.direct_conv(xin, ir, L)
     ref = np.pad(ref, ((0, 0), (0, L - ref.shape[-1])))
-    d, d_n, d64 = (rms_db(y_t - y_j, y_j),
-                   rms_db(y_t[:, :N] - y_j[:, :N], y_j[:, :N]),
-                   rms_db(y_t - ref, ref))
+    d, d_n, d64 = (refs.db(y_t, y_j),
+                   refs.db(y_t[:, :N], y_j[:, :N]),
+                   refs.db(y_t, ref))
     print(f"trim=False twin vs Pallas {d:.1f} dB (first n {d_n:.1f}), vs "
           f"float64 {d64:.1f} dB; Pallas vs float64 "
-          f"{rms_db(y_j - ref, ref):.1f}")
+          f"{refs.db(y_j, ref):.1f}")
     assert d <= -94.0 and d_n <= -95.0 and d64 <= -120.0
     assert np.array_equal(y_t[:, :N], fftconv.fir_convolve(*args).numpy())
 
@@ -540,7 +539,7 @@ def test_reverb_trim_false_and_gp_vs_jax(data):
         gp=gp, interpret=True, trim=False, pre_row=jnp.asarray(pre_row)))
     y_t = reverb.reverb(torch.from_numpy(x), ir, wet=0.5, dry=0.0, block=blk,
                         gp=gp, trim=False, pre_row=torch.from_numpy(pre_row))
-    assert y_t.shape == y_j.shape and rms_db(y_t.numpy() - y_j, y_j) <= -94.0
+    assert y_t.shape == y_j.shape and refs.db(y_t.numpy(), y_j) <= -94.0
     xt = torch.from_numpy(x)
     for kw in ({"trim": False}, {"trim": False, "backend": "xla", "dry": 0.0},
                {"trim": False, "backend": "mxu", "dry": 0.0}):

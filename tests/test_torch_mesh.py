@@ -29,7 +29,7 @@ from xmtpu_torch.entry import example_batch
 from xmtpu_torch.parallel.dryrun import dryrun_multichip
 from xmtpu_torch.utils.errors import ConfigError, DeviceError
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 SR = 16000
 CFG = {"tracks": [{"url": "v", "fadeInTimeMs": 30.0}], "sampleRate": SR,
@@ -99,7 +99,7 @@ def test_flagship_step_sharded_equals_unsharded(dp4):
     ref = tbatch.make_flagship_step(device="cpu")(v, b)
     assert got.shape == (8, 1600) and got.dtype == torch.int16
     err = int((got.int() - ref.int()).abs().max())
-    db = rms_db((got.double() - ref.double()).numpy(), ref.double().numpy())
+    db = refs.db(got, ref)
     print(f"sharded step (8 clips, 4 shards): max abs {err}, {db:.1f} dB")
     assert err <= 1  # the CPU twin's torch.fft rounds by batch shape
     with pytest.raises(ConfigError, match="device"):
@@ -117,7 +117,7 @@ def test_flagship_step_sharded_takes_the_global_batch_branch(dp4):
     assert len(step._steps) == 1  # one step per distinct device
     ref = tbatch.make_flagship_step(device="cpu")(v, b)
     err = int((got.int() - ref.int()).abs().max())
-    db = rms_db((got.double() - ref.double()).numpy(), ref.double().numpy())
+    db = refs.db(got, ref)
     print(f"sharded fused step (128 clips): max abs {err}, {db:.1f} dB")
     assert err <= 1
 

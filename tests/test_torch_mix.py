@@ -32,16 +32,10 @@ from xmtpu_torch.ops import convert
 from xmtpu_torch.ops import mix as tmix
 from xmtpu_torch.utils.errors import ConfigError, DeviceError
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 N = 8820
 SR = 16000
-
-
-def _db(got, ref) -> float:
-    got = np.asarray(got, np.float64)
-    ref = np.asarray(ref, np.float64)
-    return rms_db(got - ref, ref)
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +53,7 @@ def test_mix_sum(tracks):
     for arg in (torch.from_numpy(tracks), list(torch.from_numpy(tracks))):
         y_t = tmix.mix_sum(arg).numpy()
         assert y_t.shape == y_j.shape and y_t.dtype == np.float32
-        assert _db(y_t, y_j) <= -120.0
+        assert refs.db(y_t, y_j) <= -120.0
 
 
 @pytest.mark.parametrize("fn", ["peak_normalize", "rms_normalize"])
@@ -93,7 +87,7 @@ def test_normalize_vs_jax(tracks, fn, case):
     if not np.any(np.asarray(y_j)):
         assert not y_t.any()
     else:
-        assert _db(y_t.numpy(), np.asarray(y_j)) <= -120.0
+        assert refs.db(y_t.numpy(), np.asarray(y_j)) <= -120.0
 
 
 def test_mix_oracle_bit_exact(tracks):
@@ -113,9 +107,9 @@ def test_duck_gain_vs_jax_and_oracle(tracks):
     g_j = np.asarray(xmix.duck_gain(jnp.asarray(voice), SR, **kw))
     g_t = tmix.duck_gain(torch.from_numpy(voice), SR, **kw)
     assert g_t.dtype == torch.float64 and g_t.shape == voice.shape
-    db_j = _db(g_t.numpy(), g_j)
+    db_j = refs.db(g_t.numpy(), g_j)
     oracle = xmix.duck_gain_np(voice, SR, **kw)
-    db_o = _db(g_t.numpy(), oracle)
+    db_o = refs.db(g_t.numpy(), oracle)
     print(f"duck_gain vs JAX {db_j:.1f} dB (gate -200), vs oracle "
           f"{db_o:.1f} dB (gate -100)")
     assert db_j <= -200.0 and db_o <= -100.0
@@ -126,9 +120,9 @@ def test_duck_gain_vs_jax_and_oracle(tracks):
             torch.from_numpy(voice[:, i:i + 2940]), SR, state, **kw)
         parts.append(g)
     g_b, st_j = xmix.duck_gain_block(jnp.asarray(voice), SR, None, **kw)
-    assert _db(torch.cat(parts, -1).numpy(), g_t.numpy()) <= -200.0
+    assert refs.db(torch.cat(parts, -1).numpy(), g_t.numpy()) <= -200.0
     for a, b in zip(state, st_j):
-        assert _db(a.numpy(), np.asarray(b)) <= -200.0
+        assert refs.db(a.numpy(), np.asarray(b)) <= -200.0
 
 
 @pytest.mark.parametrize("rates", [(44100, 16000), (48000, 44100),
@@ -145,7 +139,7 @@ def test_api_resample_vs_jax(tracks, rates, layout, dtype):
     y_t = xmtpu_torch.resample(x, *rates, device="cpu")
     assert xmtpu_torch.resample is api.resample
     assert y_t.shape == y_j.shape and y_t.dtype == y_j.dtype == x.dtype
-    db = _db(y_t, y_j)
+    db = refs.db(y_t, y_j)
     print(f"api.resample {rates} {layout} {dtype}: {db:.1f} dB")
     if dtype == "int16":
         diff = np.abs(y_t.astype(np.int32) - y_j.astype(np.int32))
@@ -186,7 +180,7 @@ def test_bench_configs_1_2(monkeypatch, tracks):
     y_b = bench.config1_step(torch.from_numpy(x), banded=True).numpy()
     ref = np.asarray(xapi._resample_op.polyphase_resample(
         xapi._convert.pcm16_to_f32(jnp.asarray(x)), 44100, 16000))
-    assert _db(y, ref) <= -120.0 and _db(y_b, ref) <= -120.0
+    assert refs.db(y, ref) <= -120.0 and refs.db(y_b, ref) <= -120.0
     v, b = bench.config2_inputs(2, 0.5)
     assert v.shape == b.shape == (2, 8000) and not np.array_equal(v, b)
     out = bench.config2_step(torch.from_numpy(v), torch.from_numpy(b))
@@ -196,11 +190,11 @@ def test_bench_configs_1_2(monkeypatch, tracks):
     peak = jnp.max(jnp.abs(ref), axis=-1, keepdims=True)
     ref = np.asarray(ref * jnp.where(peak > 0, xmix.db_to_amp(-1.0) / peak,
                                      1.0))
-    assert _db(out.numpy(), ref) <= -120.0
+    assert refs.db(out.numpy(), ref) <= -120.0
     oracle = tmix.mix_oracle_np([v[0], b[0]], [0.9, 0.4], [fade] * 2,
                                 [fade] * 2, normalize="peak",
                                 target_amp=tmix.db_to_amp(-1.0))
-    assert _db(out[0].numpy(), oracle) <= -100.0
+    assert refs.db(out[0].numpy(), oracle) <= -100.0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for cfg in ("1", "2"):
         with pytest.raises(SystemExit, match="no CUDA device"):

@@ -27,7 +27,7 @@ from xmtpu.ops import ns as xns
 from xmtpu_torch.graph import fx as tfx
 from xmtpu_torch.ops import ns as tns
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 SR = 16000
 N = 16384
@@ -43,12 +43,6 @@ def noisy():
     return (clean + 0.03 * rng.standard_normal(N)).astype(np.float32)
 
 
-def _db(got, ref):
-    got = got.numpy() if torch.is_tensor(got) else got
-    return rms_db(np.asarray(got, np.float64) - np.asarray(ref, np.float64),
-                  np.asarray(ref, np.float64))
-
-
 @pytest.mark.parametrize("nfft", [256, 512])
 def test_stft_istft_roundtrip(noisy, nfft):
     """Identity reconstruction (COLA), and the frames equal the JAX
@@ -57,9 +51,9 @@ def test_stft_istft_roundtrip(noisy, nfft):
     X = tns.stft(x, nfft)
     Xj = np.asarray(xns.stft(jnp.asarray(noisy), nfft))
     assert X.shape == Xj.shape == (tns._frame_count(N, nfft), nfft // 2 + 1)
-    assert _db(torch.view_as_real(X), np.stack([Xj.real, Xj.imag], -1)) \
+    assert refs.db(torch.view_as_real(X), np.stack([Xj.real, Xj.imag], -1)) \
         <= -100.0
-    assert _db(tns.istft(X, N, nfft), noisy) <= -100.0
+    assert refs.db(tns.istft(X, N, nfft), noisy) <= -100.0
 
 
 @pytest.mark.parametrize("shape", ["(n,)", "(2, n)"])
@@ -70,9 +64,9 @@ def test_suppress_vs_jax_and_oracle(noisy, mode, shape):
     yj = np.asarray(xns.suppress(jnp.asarray(x), noise_update=mode))
     yn = tns.suppress_np(x, noise_update=mode)
     assert y.shape == x.shape and y.dtype == torch.float32
-    print(f"{mode} {shape}: {_db(y, yj):.1f} dB vs JAX, {_db(y, yn):.1f} "
-          "vs float64")
-    assert _db(y, yj) <= -80.0 and _db(y, yn) <= -80.0
+    print(f"{mode} {shape}: {refs.db(y, yj):.1f} dB vs JAX, "
+          f"{refs.db(y, yn):.1f} vs float64")
+    assert refs.db(y, yj) <= -80.0 and refs.db(y, yn) <= -80.0
 
 
 @pytest.mark.parametrize("noise_frames", [7, 8])
@@ -93,7 +87,7 @@ def test_median_of_even_count_is_the_mean_of_the_middle_two(noisy,
     yj = np.asarray(xns.suppress(jnp.asarray(noisy),
                                  noise_frames=noise_frames))
     yn = tns.suppress_np(noisy, noise_frames=noise_frames)
-    assert _db(y, yj) <= -80.0 and _db(y, yn) <= -80.0
+    assert refs.db(y, yj) <= -80.0 and refs.db(y, yn) <= -80.0
     # what the lower median would give: noise estimate off, output off
     noise_lo = lower[None]
     P = tns._onepole_frames(psd, 0.7)
@@ -101,9 +95,9 @@ def test_median_of_even_count_is_the_mean_of_the_middle_two(noisy,
     G = torch.clamp_min(snr / (1.0 + snr), 0.1)
     y_lo = tns.istft(tns.stft(torch.from_numpy(noisy)) * G, N)
     if noise_frames % 2 == 0:
-        assert _db(y_lo, yn) > -80.0
+        assert refs.db(y_lo, yn) > -80.0
     else:
-        assert _db(y_lo, yn) <= -80.0
+        assert refs.db(y_lo, yn) <= -80.0
 
 
 def test_suppress_int16_pinned_conversion(noisy):
@@ -118,8 +112,8 @@ def test_suppress_explicit_noise_psd(noisy):
     nz = np.full(257, 0.05, np.float32)
     y = tns.suppress(noisy, noise_psd=nz, device="cpu")
     yj = np.asarray(xns.suppress(jnp.asarray(noisy), noise_psd=jnp.asarray(nz)))
-    assert _db(y, yj) <= -80.0
-    assert _db(y, tns.suppress_np(noisy, noise_psd=nz)) <= -80.0
+    assert refs.db(y, yj) <= -80.0
+    assert refs.db(y, tns.suppress_np(noisy, noise_psd=nz)) <= -80.0
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -172,7 +166,7 @@ def test_stream_block_invariance_and_offline_match(noisy, mode):
     np.testing.assert_array_equal(y1, y2)  # bit-exact block invariance
     off = tns.suppress(x, noise_update=mode, device="cpu").numpy()
     delay, skip = 256, 10 * 256  # after the lead-in, offline delayed
-    assert _db(y1[0, delay + skip:], off[0, skip:N - delay]) <= -100.0
+    assert refs.db(y1[0, delay + skip:], off[0, skip:N - delay]) <= -100.0
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -180,7 +174,7 @@ def test_stream_vs_jax_batched(noisy, mode):
     x = np.stack([noisy, noisy[::-1].copy()])[:, None]  # (B, ch, n)
     y = _stream(x, 1024, mode)
     yj = _stream(x, 1024, mode, mod=xns)
-    assert _db(y, yj) <= -80.0
+    assert refs.db(y, yj) <= -80.0
 
 
 def _reset_item1(st, fresh, cat):
@@ -213,7 +207,7 @@ def test_stream_per_item_reset_reruns_leadin(noisy):
             outs.append(np.asarray(y))
         results.append(np.concatenate(outs, -1))
     y, yj = results
-    assert _db(y, yj) <= -80.0
+    assert refs.db(y, yj) <= -80.0
     # item 1 passes at unity through its new lead-in; item 0 does not
     seg = slice(N // 2 + 256, N // 2 + 256 + 8 * 256 - 256)
     assert not np.allclose(y[0, 0, seg], y[1, 0, seg])
@@ -252,7 +246,7 @@ def test_ns_effect_in_chain_vs_jax(noisy):
              {"name": "volume", "gain_db": -3.0}]
     y = xmtpu_torch.effects(x, SR, chain, device="cpu")
     yj = np.asarray(xfx.apply_chain(x, SR, chain))
-    assert y.shape == x.shape and _db(y, yj) <= -80.0
+    assert y.shape == x.shape and refs.db(y, yj) <= -80.0
     with pytest.raises(tfx.ConfigError, match="offline-only"):
         xmtpu_torch.effects(x, SR, chain, device="cpu", block_size=4096)
 
@@ -270,4 +264,4 @@ def test_ns_effect_streaming_mode(noisy):
     (fj,) = xfx.build_chain(SR, [{"name": "ns"}])
     fj.set_streaming(320)
     yj, _ = fj.apply(jnp.asarray(noisy[None, :3200]), fj.init_state((1,)))
-    assert int(st["count"][0]) == 20 and _db(y, np.asarray(yj)) <= -80.0
+    assert int(st["count"][0]) == 20 and refs.db(y, np.asarray(yj)) <= -80.0

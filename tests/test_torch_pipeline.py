@@ -41,7 +41,7 @@ from xmtpu_torch.ops import convert
 from xmtpu_torch.ops.reverb import synthetic_ir
 from xmtpu_torch.utils.errors import ConfigError, DeviceError
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 SR = 16000
 BGM_SR = 8000
@@ -101,11 +101,6 @@ def _tracks(voice, bgm):
                  gain=0.5, fade_in_ms=200.0)]
 
 
-def _db(got, ref):
-    return rms_db(np.asarray(got, np.float64) - np.asarray(ref, np.float64),
-                  np.asarray(ref, np.float64))
-
-
 def _lsb(got, ref):
     return int(np.abs(np.asarray(got, np.int32)
                       - np.asarray(ref, np.int32)).max())
@@ -122,8 +117,8 @@ def test_mix_vs_jax(sources, files, normalize, target):
     y = api.mix(_tracks(voice, bgm), SR, device="cpu", **kw)
     yj = xmix.mix(_tracks(voice, bgm), SR, **kw)
     assert y.shape == yj.shape == (SR + SR // 2, 2) and y.dtype == np.float32
-    print(f"{normalize}: {_db(y, yj):.1f} dB vs JAX")
-    assert _db(y, yj) <= -80.0
+    print(f"{normalize}: {refs.db(y, yj):.1f} dB vs JAX")
+    assert refs.db(y, yj) <= -80.0
 
 
 def test_mix_int16_within_one_lsb(sources):
@@ -175,7 +170,7 @@ def test_mix_layouts_vs_jax(sources, case):
     y = api.mix(tr, SR, device="cpu", **kw)
     yj = xmix.mix(trj, SR, **kw)
     assert y.shape == yj.shape and y.dtype == yj.dtype
-    assert _db(y, yj) <= -80.0
+    assert refs.db(y, yj) <= -80.0
 
 
 @pytest.mark.parametrize("case,exc,match", [

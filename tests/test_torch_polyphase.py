@@ -45,12 +45,7 @@ from xmtpu_torch.ops import mix as tmix
 from xmtpu_torch.ops import resample as tres
 from xmtpu_torch.utils.errors import ConfigError
 
-from .conftest import rms_db
-
-def _db(a, ref) -> float:
-    a = np.asarray(a, np.float64)
-    ref = np.asarray(ref, np.float64)
-    return rms_db(a - ref, ref)
+from . import torch_refs as refs
 
 
 def _model(tracks, plan, out_len, epilogue, blocks=7):
@@ -160,7 +155,7 @@ def test_resample_vs_pallas(n):
     x = (0.3 * rng.standard_normal((3, n))).astype(np.float32)
     y_j = np.asarray(xres.resample_pallas(x, 44100, 16000, interpret=True))
     y_t = kres.resample(torch.from_numpy(x), 44100, 16000).numpy()
-    db = _db(y_t, y_j)
+    db = refs.db(y_t, y_j)
     print(f"K7 twin vs resample_pallas, 3 x {n}: {db:.1f} dB (gate -120)")
     assert y_t.shape == y_j.shape == (3, -(-n * 160 // 441))
     assert y_t.dtype == np.float32 and db <= -120.0
@@ -175,14 +170,14 @@ def test_resample_rate_pairs():
     x = (0.3 * rng.standard_normal((2, 9600))).astype(np.float32)
     y_j = np.asarray(xres.resample_pallas(x, 48000, 44100, interpret=True))
     y_t = kres.resample(torch.from_numpy(x), 48000, 44100).numpy()
-    db = _db(y_t, y_j)
+    db = refs.db(y_t, y_j)
     print(f"K7 twin vs resample_pallas, 48k -> 44.1k: {db:.1f} dB")
     assert db <= -120.0
     for sr_in, sr_out in ((48000, 16000), (16000, 48000)):
         y_j = np.asarray(xres.resample_pallas(x, sr_in, sr_out,
                                               interpret=True))
         y_t = kres.resample(torch.from_numpy(x), sr_in, sr_out).numpy()
-        db = _db(y_t, y_j)
+        db = refs.db(y_t, y_j)
         print(f"K7 wrapper (strided conv) vs resample_pallas, {sr_in} -> "
               f"{sr_out}: {db:.1f} dB")
         assert y_t.shape == y_j.shape and db <= -120.0
@@ -208,7 +203,7 @@ def test_kernel_model_matches_twin(n, sr_in, sr_out):
     y = _model([x.astype(np.float64)], plan, out_len,
                lambda j, accs: accs[0])
     ref = tres.polyphase_resample(torch.from_numpy(x), sr_in, sr_out)
-    db = _db(y, ref.numpy())
+    db = refs.db(y, ref.numpy())
     print(f"polyphase kernel model {sr_in}->{sr_out}, n={n}: {db:.1f} dB")
     assert db <= -120.0
 
@@ -230,7 +225,7 @@ def test_kernel_model_taps_past_one_register_block(n, sr_in, sr_out):
                lambda j, accs: accs[0])
     ref = tres.polyphase_resample(torch.from_numpy(x), sr_in, sr_out,
                                   taps_per_phase=40)
-    db = _db(y, ref.numpy())
+    db = refs.db(y, ref.numpy())
     print(f"polyphase kernel model {sr_in}->{sr_out}, K2 = 41: {db:.1f} dB")
     assert db <= -120.0
 
@@ -357,7 +352,7 @@ def test_conv_and_window_methods_vs_jax(sr_in, sr_out):
                 jnp.asarray(x), sr_in, sr_out, method=method))
             assert y_t.shape == y_j.shape == (2, tres.resample_output_len(
                 n, sr_out // g, M))
-            assert _db(y_t, y_j) <= -120.0, (n, method)
+            assert refs.db(y_t, y_j) <= -120.0, (n, method)
     with pytest.raises(ValueError, match="method"):
         tres.polyphase_resample(torch.from_numpy(x), sr_in, sr_out,
                                 method="fft")
@@ -380,7 +375,7 @@ def test_plan_rows_and_resample_window_vs_jax():
         y_j = np.asarray(xresample.resample_window(jnp.asarray(xs), xplan,
                                                    nj))
         assert y_t.shape == y_j.shape == (2, nj * L)
-        assert _db(y_t, y_j) <= -120.0
+        assert refs.db(y_t, y_j) <= -120.0
 
 
 def test_conv_resample_owns_its_precision(monkeypatch):
@@ -407,7 +402,7 @@ def test_conv_resample_owns_its_precision(monkeypatch):
         torch.backends.cudnn.allow_tf32 = old
     y_j = xresample.polyphase_resample(jnp.asarray(x), 16000, 48000,
                                        method="conv")
-    assert _db(y_t.numpy(), np.asarray(y_j)) <= -120.0
+    assert refs.db(y_t.numpy(), np.asarray(y_j)) <= -120.0
 
 
 def _nonfinite_rows(n, L, M, rng):
@@ -542,7 +537,7 @@ def test_resample_mix_vs_pallas_and_oracle(B, n, sr_in, sr_out, fade, gb):
     y_t = rsmix.resample_mix(torch.from_numpy(v), torch.from_numpy(b), sr_in,
                              sr_out, bgm_gain=gb, fade=fade).numpy()
     ref = _oracle(v, b, sr_in, sr_out, fade, gb)
-    db_j, db_o = _db(y_t, y_j), _db(y_t, ref)
+    db_j, db_o = refs.db(y_t, y_j), refs.db(y_t, ref)
     print(f"K8 twin ({B}, {n}, {sr_in}->{sr_out}, fade {fade}): {db_j:.1f} "
           f"dB vs resample_mix_pallas (gate -90), {db_o:.1f} dB vs float64 "
           "(gate -120)")
@@ -575,7 +570,7 @@ def test_rsmix_kernel_model_matches_twin(row):
                epilogue)
     ref = rsmix.resample_mix(torch.from_numpy(v), torch.from_numpy(b), sr_in,
                              sr_out, bgm_gain=gb, fade=fade).numpy()
-    db = _db(y, ref)
+    db = refs.db(y, ref)
     print(f"rsmix kernel model {row}: {db:.1f} dB vs twin (gate -120)")
     assert db <= -120.0
 

@@ -36,7 +36,7 @@ from xmtpu_torch.ops import precision as tprec
 from xmtpu_torch.ops import resample as tres
 from xmtpu_torch.utils.errors import ConfigError
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 SR_IN, SR_OUT = 44100, 16000
 N = 44100
@@ -49,12 +49,6 @@ VS_JAX = {"highest": -120.0, "high": -100.0, "default": -45.0}
 def sig():
     rng = np.random.default_rng(2026)
     return (0.5 * rng.standard_normal((2, N))).astype(np.float32)
-
-
-def _db(got, ref) -> float:
-    g = np.asarray(got.float() if torch.is_tensor(got) else got, np.float64)
-    r = np.asarray(ref, np.float64)
-    return rms_db(g - r, r)
 
 
 # ------------------------------------------------------------- resolve
@@ -108,14 +102,14 @@ def test_matmul_rungs_against_an_independent_split(rung):
         model = ah @ bh if rung == "default" else ah @ bl + al @ bh + ah @ bh
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
     got = tprec.matmul(ta, tb, rung)
-    assert got.dtype == torch.float32 and _db(got, model) <= -130.0
+    assert got.dtype == torch.float32 and refs.db(got, model) <= -130.0
     left = tprec.matmul(tb.T.contiguous(), ta.transpose(1, 2), rung)
-    assert _db(left.transpose(1, 2), model) <= -130.0
+    assert refs.db(left.transpose(1, 2), model) <= -130.0
     batched = tprec.matmul(ta, tb.expand(3, 200, 33), rung)
-    assert _db(batched, model) <= -130.0
+    assert refs.db(batched, model) <= -130.0
     exact = a.astype(np.float64) @ b.astype(np.float64)
     lo, hi = WINDOWS[rung]
-    assert lo <= _db(got, exact) <= hi + (20.0 if rung == "highest" else 0)
+    assert lo <= refs.db(got, exact) <= hi + (20.0 if rung == "highest" else 0)
 
 
 def test_matmul_never_touches_tf32_flags():
@@ -145,7 +139,7 @@ def test_polyphase_resample_rungs_vs_jax(sig, method, n, rung):
     y_t = tres.polyphase_resample(torch.from_numpy(x), SR_IN, SR_OUT,
                                   method=method, precision=rung)
     ref = xres.resample_oracle_np(x.astype(np.float64), SR_IN, SR_OUT)
-    d, d64 = _db(y_t, y_j), _db(y_t, ref)
+    d, d64 = refs.db(y_t, y_j), refs.db(y_t, ref)
     print(f"{method} n={n} {rung}: {d:.1f} dB vs JAX, {d64:.1f} vs float64")
     assert y_t.dtype == torch.float32 and y_t.shape == y_j.shape
     lo, hi = WINDOWS[rung]
@@ -162,8 +156,8 @@ def test_polyphase_resample_bf16_vs_jax(sig, method, n):
                                   method=method, dtype=torch.bfloat16)
     assert y_j.dtype == jnp.bfloat16 and y_t.dtype == torch.bfloat16
     ref = xres.resample_oracle_np(x.astype(np.float64), SR_IN, SR_OUT)
-    d = _db(y_t, y_j.astype(np.float32))
-    d64 = _db(y_t, ref)
+    d = refs.db(y_t, y_j.astype(np.float32))
+    d64 = refs.db(y_t, ref)
     print(f"bf16 {method}: {d:.1f} dB vs JAX, {d64:.1f} vs float64")
     assert d <= -80.0 and -60.0 <= d64 <= -45.0
     # the same names the JAX package takes
@@ -188,7 +182,7 @@ def test_resample_window_and_framed_vs_jax(sig, rung):
                                           precision=prec))
     w_t = tres.resample_window(torch.from_numpy(xs), plan_t, nj,
                                precision=rung)
-    assert _db(w_t, w_j) <= VS_JAX[rung]
+    assert refs.db(w_t, w_j) <= VS_JAX[rung]
     A = sig.reshape(2, N // 441, 441)
     Ap = np.pad(A, ((0, 0), (0, 0), (0, 512 - 441)))
     Ap[..., 441:] = 7.0  # pad values must never reach the output
@@ -199,14 +193,14 @@ def test_resample_window_and_framed_vs_jax(sig, rung):
     f_441 = tres.polyphase_resample_framed(torch.from_numpy(A), SR_IN,
                                            SR_OUT, precision=rung)
     assert f_t.shape == f_j.shape == (2, N // 441, 160)
-    assert _db(f_t, f_j) <= VS_JAX[rung]
-    assert _db(f_t, f_441.numpy()) <= -130.0
+    assert refs.db(f_t, f_j) <= VS_JAX[rung]
+    assert refs.db(f_t, f_441.numpy()) <= -130.0
     fb_j = np.asarray(xres.polyphase_resample_framed(
         jnp.asarray(A), SR_IN, SR_OUT, dtype=jnp.bfloat16))
     fb_t = tres.polyphase_resample_framed(torch.from_numpy(A), SR_IN, SR_OUT,
                                           dtype=torch.bfloat16)
     assert fb_t.dtype == torch.bfloat16
-    assert _db(fb_t, fb_j.astype(np.float32)) <= -80.0
+    assert refs.db(fb_t, fb_j.astype(np.float32)) <= -80.0
     with pytest.raises(ValueError, match="< M=441"):
         tres.polyphase_resample_framed(torch.from_numpy(A[..., :400]), SR_IN,
                                        SR_OUT)
@@ -224,7 +218,7 @@ def test_resample_kernel_twin_rungs_vs_jax(sig, rung):
                          precision=jax.lax.Precision(rung))
     ref = xres.resample_oracle_np(sig.astype(np.float64), SR_IN, SR_OUT)
     lo, hi = WINDOWS[rung]
-    assert _db(y_t, y_j) <= VS_JAX[rung] and lo <= _db(y_t, ref) <= hi
+    assert refs.db(y_t, y_j) <= VS_JAX[rung] and lo <= refs.db(y_t, ref) <= hi
 
 
 def test_k7_split_tables():

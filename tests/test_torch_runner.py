@@ -36,7 +36,7 @@ from xmtpu_torch.io.wav import read_wav, write_wav
 from xmtpu_torch.utils.errors import (ConfigError, DeviceError,
                                       KernelBuildError)
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 SR_IN, SR_BUS = 44100, 16000
 LENGTHS = (8000, 12000, 16000, 22050)
@@ -105,7 +105,7 @@ def test_run_batch_vs_jax(manifest, port_run, tmp_path):
     for i, (a, b) in enumerate(zip(outs_t, _outputs(jobs_j))):
         assert a.shape == b.shape, i
         lsb = int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
-        db = rms_db(a.astype(np.float64) - b, b.astype(np.float64))
+        db = refs.db(a, b.astype(np.float64))
         print(f"clip {i} ({a.shape[0]} samples): {lsb} LSB, {db:.1f} dB")
         assert lsb <= 1 and db <= -80.0
     # ceil(n * L / M) per clip

@@ -39,7 +39,7 @@ from xmtpu_torch.kernels import envelope, fftconv, iir
 from xmtpu_torch.ops import biquad, fftmm, limiter, reverb
 from xmtpu_torch.utils.errors import ConfigError
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 N = 8820
 SR = 44100
@@ -51,12 +51,6 @@ CHAIN = [
     {"name": "reverb", "ir_seconds": 0.05, "wet": 0.3, "dry": 0.7},
     {"name": "limiter", "threshold_db": -3.0},
 ]
-
-
-def _db(got, ref) -> float:
-    got = np.asarray(got, np.float64)
-    ref = np.asarray(ref, np.float64)
-    return rms_db(got - ref, ref)
 
 
 @pytest.fixture(scope="module")
@@ -87,14 +81,14 @@ def test_sosfilt_scan_vs_jax(sig, sos):
             sos, torch.from_numpy(sig),
             zi=None if z is None else torch.from_numpy(z))
         assert y_t.dtype == zf_t.dtype == torch.float64
-        assert _db(y_t, y_j) <= -200.0 and _db(zf_t, zf_j) <= -200.0
+        assert refs.db(y_t, y_j) <= -200.0 and refs.db(zf_t, zf_j) <= -200.0
         ref, zf_ref = biquad.sosfilt_np(sos, sig, zi=z)
-        assert _db(y_t, ref) <= -200.0 and _db(zf_t, zf_ref) <= -200.0
+        assert refs.db(y_t, ref) <= -200.0 and refs.db(zf_t, zf_ref) <= -200.0
     x32 = sig.astype(np.float32)
     y_j, _ = xbiquad.sosfilt_scan(sos, jnp.asarray(x32))
     y_t, zf_t = biquad.sosfilt_scan(sos, torch.from_numpy(x32))
     assert y_t.dtype == torch.float32 and zf_t.dtype == torch.float64
-    assert _db(y_t, y_j) <= -120.0
+    assert refs.db(y_t, y_j) <= -120.0
     y_e, zf_e = biquad.sosfilt_scan(np.zeros((0, 6)), torch.from_numpy(x32))
     assert torch.equal(y_e, torch.from_numpy(x32)) and zf_e.shape == (0, 2, 2)
     whole, _ = biquad.sosfilt_scan(sos, torch.from_numpy(sig))
@@ -103,7 +97,7 @@ def test_sosfilt_scan_vs_jax(sig, sos):
         y, z = biquad.sosfilt_scan(sos, torch.from_numpy(sig[..., i:i + 2205]),
                                    zi=z)
         parts.append(y)
-    assert _db(torch.cat(parts, -1), whole) <= -200.0
+    assert refs.db(torch.cat(parts, -1), whole) <= -200.0
 
 
 @pytest.mark.parametrize("k,init", [(0.9995, 0.7), (0.0, 0.4), (0.99, 0.0)])
@@ -112,7 +106,8 @@ def test_decaying_max_scan_vs_jax(sig, k, init):
     env_j, last_j = xlimiter.decaying_max_scan(jnp.asarray(d), k,
                                                jnp.full(2, init))
     env_t, last_t = limiter.decaying_max_scan(torch.from_numpy(d), k, init)
-    assert _db(env_t, env_j) <= -200.0 and _db(last_t, last_j) <= -200.0
+    assert refs.db(env_t, env_j) <= -200.0
+    assert refs.db(last_t, last_j) <= -200.0
 
 
 @pytest.mark.parametrize("c,init", [(0.02, 0.7), (1.0, 0.3), (1.5, 0.2),
@@ -123,7 +118,7 @@ def test_onepole_scan_vs_jax(sig, c, init):
     e_t, last_t = limiter.onepole_scan(torch.from_numpy(u), c,
                                        torch.full((2,), init,
                                                   dtype=torch.float64))
-    assert _db(e_t, e_j) <= -200.0 and _db(last_t, last_j) <= -200.0
+    assert refs.db(e_t, e_j) <= -200.0 and refs.db(last_t, last_j) <= -200.0
 
 
 def test_limiter_scan_vs_jax_and_oracle(sig):
@@ -140,15 +135,15 @@ def test_limiter_scan_vs_jax_and_oracle(sig):
                                state=tuple(torch.from_numpy(s) for s in st),
                                **kw)
     assert y_t.dtype == s_t[0].dtype == torch.float64
-    assert _db(y_t, y_j) <= -200.0
-    assert all(_db(a, b) <= -200.0 for a, b in zip(s_t, s_j))
+    assert refs.db(y_t, y_j) <= -200.0
+    assert all(refs.db(a, b) <= -200.0 for a, b in zip(s_t, s_j))
     ref, _ = limiter.limiter_np(sig, SR, state=st, **kw)
-    assert _db(y_t, ref) <= -100.0
+    assert refs.db(y_t, ref) <= -100.0
     x32 = torch.from_numpy(sig.astype(np.float32))
     y32, _ = limiter.limiter(x32, SR, backend="scan", **kw)
     y32_j, _ = xlimiter.limiter(jnp.asarray(x32.numpy()), SR,
                                 backend="scan", **kw)
-    assert y32.dtype == torch.float32 and _db(y32, y32_j) <= -120.0
+    assert y32.dtype == torch.float32 and refs.db(y32, y32_j) <= -120.0
     whole, _ = limiter.limiter(torch.from_numpy(sig), SR, backend="scan",
                                **kw)
     state, parts = None, []
@@ -156,7 +151,7 @@ def test_limiter_scan_vs_jax_and_oracle(sig):
         y, state = limiter.limiter(torch.from_numpy(sig[..., i:i + 2940]),
                                    SR, backend="scan", state=state, **kw)
         parts.append(y)
-    assert _db(torch.cat(parts, -1), whole) <= -200.0
+    assert refs.db(torch.cat(parts, -1), whole) <= -200.0
     y_nv, _ = limiter.limiter(torch.from_numpy(sig), SR, backend="scan",
                               n_valid=N - 100, **kw)
     assert torch.equal(y_nv, limiter.limiter(
@@ -184,19 +179,20 @@ def test_fir_convolve_xla_forms(sig, ir):
                                                   jnp.asarray(ir)))
     full_t = reverb.fir_convolve_full(torch.from_numpy(x32), ir)
     assert full_t.dtype == torch.float32 and full_t.shape == full_j.shape
-    assert _db(full_t, full_j) <= -120.0
-    ref = np.stack([np.convolve(r, ir.astype(np.float64)) for r in sig[0]])
-    assert _db(full_t, ref) <= -100.0
+    assert refs.db(full_t, full_j) <= -120.0
+    ref = refs.direct_conv(sig[0], ir)
+    assert refs.db(full_t, ref) <= -100.0
     full64 = reverb.fir_convolve_full(torch.from_numpy(sig[0]),
                                       torch.from_numpy(ir))
     assert full64.dtype == torch.float64
-    assert _db(full64, xreverb.fir_convolve_full(
+    assert refs.db(full64, xreverb.fir_convolve_full(
         jnp.asarray(sig[0]), jnp.asarray(ir))) <= -200.0
     for block in (4096, 8192, 16384):  # 3 blocks, 2, the full transform
         os_j = np.asarray(xreverb.fir_convolve_os(jnp.asarray(x32),
                                                   jnp.asarray(ir), block))
         os_t = reverb.fir_convolve_os(torch.from_numpy(x32), ir, block)
-        assert _db(os_t, os_j) <= -120.0 and _db(os_t, ref[:, :N]) <= -100.0
+        assert refs.db(os_t, os_j) <= -120.0
+        assert refs.db(os_t, ref[:, :N]) <= -100.0
 
 
 @pytest.mark.parametrize("backend,block", [("xla", None), ("xla", 8192),
@@ -208,8 +204,8 @@ def test_reverb_xla_and_mxu_vs_jax(sig, ir, backend, block):
         block=block, backend=backend, prescale=0.5))
     y_t = reverb.reverb(torch.from_numpy(x32), ir, block=block,
                         backend=backend, prescale=0.5)
-    db = _db(y_t, y_j)
-    db_o = _db(y_t, 0.5 * reverb.reverb_np(x32, ir))
+    db = refs.db(y_t, y_j)
+    db_o = refs.db(y_t, 0.5 * reverb.reverb_np(x32, ir))
     print(f"reverb {backend} block {block}: {db:.1f} dB vs JAX, "
           f"{db_o:.1f} dB vs float64")
     assert y_t.dtype == torch.float32 and db <= -120.0 and db_o <= -100.0
@@ -231,13 +227,13 @@ def test_reverb_checks_and_block_chain(sig, ir):
         y, tail = reverb.reverb_block(x[:, i:i + 2000], torch.from_numpy(ir),
                                       tail)
         parts.append(y)
-    assert _db(torch.cat(parts, -1), whole) <= -120.0
+    assert refs.db(torch.cat(parts, -1), whole) <= -120.0
     y_j, t_j = xreverb.reverb_block(jnp.asarray(x[:, :2000].numpy()),
                                     jnp.asarray(ir),
                                     xreverb.reverb_tail_init((3,), len(ir)))
     y_t, t_t = reverb.reverb_block(x[:, :2000], torch.from_numpy(ir),
                                    reverb.reverb_tail_init((3,), len(ir)))
-    assert _db(y_t, y_j) <= -120.0 and _db(t_t, t_j) <= -120.0
+    assert refs.db(y_t, y_j) <= -120.0 and refs.db(t_t, t_j) <= -120.0
 
 
 @pytest.mark.parametrize("block", [8192, 32768])  # fused, four_step
@@ -248,7 +244,7 @@ def test_fir_convolve_os_mxu_vs_jax(sig, ir, block):
     y_j = np.asarray(xfftmm.fir_convolve_os_mxu(jnp.asarray(x32), ir, block))
     y_t = fftmm.fir_convolve_os_mxu(torch.from_numpy(x32), ir, block)
     ref = reverb.reverb_np(x32, ir, wet=1.0, dry=0.0)
-    assert _db(y_t, y_j) <= -120.0 and _db(y_t, ref) <= -100.0
+    assert refs.db(y_t, y_j) <= -120.0 and refs.db(y_t, ref) <= -100.0
     with pytest.raises(ValueError, match="too small"):
         fftmm.fir_convolve_os_mxu(torch.from_numpy(x32), ir, 4096)
     with pytest.raises(ValueError, match="power of two"):
@@ -279,7 +275,7 @@ def test_fir_convolve_os_mxu_rungs_vs_jax(sig, ir, variant, gauss, rung):
                                     precision=rung, variant=variant,
                                     gauss=gauss)
     ref = reverb.reverb_np(x32, ir, wet=1.0, dry=0.0)
-    d, d64 = _db(y_t, y_j), _db(y_t, ref)
+    d, d64 = refs.db(y_t, y_j), refs.db(y_t, ref)
     print(f"mxu {variant} gauss={gauss} {rung}: {d:.1f} dB vs JAX, "
           f"{d64:.1f} vs float64")
     lo, hi = MXU_WINDOWS[rung]
@@ -304,8 +300,9 @@ def test_fir_convolve_os_mxu_refusals(sig, ir):
     y_j = np.asarray(xreverb.reverb(jnp.asarray(x.numpy()), ir, block=8192,
                                     backend="mxu", precision="high"))
     y_t = reverb.reverb(x, ir, block=8192, backend="mxu", precision="high")
-    assert _db(y_t, y_j) <= MXU_VS_JAX["high"]
-    assert _db(y_t, reverb.reverb(x, ir, block=8192, backend="mxu")) > -120.0
+    assert refs.db(y_t, y_j) <= MXU_VS_JAX["high"]
+    y_mxu = reverb.reverb(x, ir, block=8192, backend="mxu")
+    assert refs.db(y_t, y_mxu) > -120.0
 
 
 @pytest.fixture(scope="module")
@@ -327,7 +324,7 @@ def test_effects_scan_backends_vs_jax(clip, backend, block_size):
                                      block_size=block_size))
     y_t = xmtpu_torch.effects(clip, SR, CHAIN, backend=backend,
                               block_size=block_size, device="cpu")
-    db = _db(y_t, y_j)
+    db = refs.db(y_t, y_j)
     effects = tfx.build_chain(SR, CHAIN, default_backend=backend,
                               device_type="cpu")
     assert [type(e).__name__ for e in effects] == ["EqualizerFx", "ReverbFx",
@@ -336,7 +333,7 @@ def test_effects_scan_backends_vs_jax(clip, backend, block_size):
     ref, _ = biquad.sosfilt_np(sos, clip.T.astype(np.float64))
     ref = reverb.reverb_np(ref, effects[1].ir, wet=0.3, dry=0.7)
     ref = limiter.limiter_np(ref, SR, threshold_db=-3.0)[0].T
-    db_o = _db(y_t, ref)
+    db_o = refs.db(y_t, ref)
     print(f"effects backend={backend} block {block_size}: {db:.1f} dB vs "
           f"JAX scan chain, {db_o:.1f} dB vs float64 oracle")
     assert y_t.shape == clip.shape and y_t.dtype == np.float32
@@ -367,7 +364,7 @@ def test_auto_on_the_cpu_is_the_scan_engine(clip, layout):
     x = clip if layout == "(n, 2)" else np.stack([clip, clip[::-1].copy()])
     y_j = np.asarray(xfx.apply_chain(x, SR, CHAIN))
     y_t = xmtpu_torch.effects(x, SR, CHAIN, device="cpu")
-    db = _db(y_t, y_j)
+    db = refs.db(y_t, y_j)
     print(f"auto on the CPU {layout}: {db:.1f} dB vs JAX auto (gate -120)")
     assert db <= -120.0
     names = [type(e).__name__ for e in
@@ -381,7 +378,7 @@ def test_auto_on_the_cpu_is_the_scan_engine(clip, layout):
     before = (fftconv.launches, envelope.gain_launches, iir.launches)
     y_l = xmtpu_torch.effects(x, SR, linked, device="cpu")
     assert (fftconv.launches, envelope.gain_launches, iir.launches) == before
-    assert _db(y_l, y_t) <= -100.0
+    assert refs.db(y_l, y_t) <= -100.0
 
 
 @pytest.fixture(scope="module")
@@ -412,9 +409,9 @@ def test_flagship_scan_step_vs_jax(pcm):
         jnp.asarray(v), jnp.asarray(b)))
     assert y_t.shape == y_j.shape and y_t.dtype == np.int16
     diff = np.abs(y_t.astype(np.int32) - y_j.astype(np.int32))
-    db = _db(y_t / 32768.0, y_j / 32768.0)
+    db = refs.db(y_t, y_j)
     ref = tbatch.flagship_oracle_np(v[0], b[0]).astype(np.float64)
-    db_o = _db(y_t[0] / 32768.0, ref / 32768.0)
+    db_o = refs.db(y_t[0], ref)
     print(f"scan step vs JAX scan step: {db:.1f} dB, max {diff.max()} LSB; "
           f"clip 0 vs float64 oracle {db_o:.1f} dB")
     assert diff.max() <= 1 and db <= -80.0 and db_o <= -100.0

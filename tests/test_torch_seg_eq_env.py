@@ -41,7 +41,7 @@ from xmtpu_torch.kernels import _seg, envelope, eq_env
 from xmtpu_torch.kernels._seg import gpu_segments
 from xmtpu_torch.ops.biquad import sosfilt_np
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 SR = 16000
 R, N = 3, 9000
@@ -108,11 +108,6 @@ def pallas(sos, x):
     return out
 
 
-def _db(a, ref) -> float:
-    return rms_db(np.asarray(a, np.float64) - np.asarray(ref, np.float64),
-                  ref)
-
-
 def _oracle(sos, x):
     """float64: the cascade (``sosfilt_np``), then the envelope
     recurrence on |y| in a numpy loop, from zero state."""
@@ -133,8 +128,9 @@ def test_segmented_eq_env_vs_pallas(runs, pallas, S, state):
     y, e2, zf, (el, sl) = runs(S, state)
     y_j, e2_j, zf_j, el_j, sl_j = pallas[state]
     assert y.shape == e2.shape == (R, N) and zf.shape == (5, R, 2)
-    dbs = {"y": _db(y, y_j), "e2": _db(e2, e2_j), "zf": _db(zf, zf_j),
-           "env_last": _db(el, el_j), "e2_last": _db(sl, sl_j)}
+    dbs = {"y": refs.db(y, y_j), "e2": refs.db(e2, e2_j),
+           "zf": refs.db(zf, zf_j), "env_last": refs.db(el, el_j),
+           "e2_last": refs.db(sl, sl_j)}
     print(f"segmented eq_env (S={S}, {state}) vs Pallas (gates: zf -85 dB, "
           "the others -90 dB): "
           + ", ".join(f"{k} {v:.1f}" for k, v in dbs.items()))
@@ -147,7 +143,7 @@ def test_segmented_eq_env_vs_pallas(runs, pallas, S, state):
 def test_segmented_eq_env_vs_oracle(sos, x, runs, S):
     y, e2, zf, (el, sl) = runs(S, "zeros")
     ref = _oracle(sos, x)
-    dbs = [_db(a, b) for a, b in zip((y, e2, zf, el, sl), ref)]
+    dbs = [refs.db(a, b) for a, b in zip((y, e2, zf, el, sl), ref)]
     print(f"segmented eq_env (S={S}) vs float64 oracle (y, e2, zf, "
           f"env_last, e2_last; gate -80 dB): {[round(d, 1) for d in dbs]}")
     assert all(d <= -80.0 for d in dbs), dbs
@@ -253,7 +249,7 @@ def test_segmented_nan_masks(sos, x):
     for a, b in zip((*seg[:3], *seg[3]), (*one[:3], *one[3])):
         assert torch.equal(a.isnan(), b.isnan())
         ok = ~b.isnan()
-        assert _db(a[ok], b[ok]) <= -90.0
+        assert refs.db(a[ok], b[ok]) <= -90.0
 
 
 @pytest.mark.parametrize("R_,n,sms,per_sm", [

@@ -36,7 +36,7 @@ from xmtpu_torch.parallel import (Mesh, sp_biquad, sp_effects_chain,
                                   sp_envelope, sp_fir)
 from xmtpu_torch.utils.errors import ConfigError
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 SR = 48000
 N = 16384
@@ -130,12 +130,6 @@ def mesh():
     return Mesh(["cpu"] * 4, ("sp",))
 
 
-def _db(got, ref) -> float:
-    g = got.double().numpy() if torch.is_tensor(got) else got
-    return rms_db(np.asarray(g, np.float64) - np.asarray(ref, np.float64),
-                  np.asarray(ref, np.float64))
-
-
 def _single_chain(x, sos, ir):
     """The port's single-device chain (float64 scans), as
     tests/test_sp.py builds its reference."""
@@ -151,7 +145,7 @@ def _single_chain(x, sos, ir):
 def test_sp_fir_equals_local_and_halo_crosses(jax_out, z, mesh):
     x = torch.from_numpy(z["x1"])
     ref = reverb.fir_convolve_full(x, z["taps"])[:N]
-    assert _db(sp_fir(x, z["taps"], mesh), ref) <= -100.0
+    assert refs.db(sp_fir(x, z["taps"], mesh), ref) <= -100.0
     # an impulse at the end of shard 0 rings into shard 1
     x = torch.zeros(N)
     x[N // 4 - 1] = 1.0
@@ -167,14 +161,14 @@ def test_sp_biquad_and_envelope_equal_single_device(z, mesh, engine):
     x = torch.from_numpy(z["x1"])
     ref, _ = biquad.sosfilt_scan(z["sos"], x)
     gate = -100.0 if engine == "scan" else -80.0
-    assert _db(sp_biquad(z["sos"], x, mesh, engine=engine), ref) <= gate
+    assert refs.db(sp_biquad(z["sos"], x, mesh, engine=engine), ref) <= gate
     d = torch.from_numpy(z["d"])
     k_rel = limiter._release_coeff(100.0, SR)
     c_att = limiter._attack_coeff(1.0, SR)
     env, _ = limiter.decaying_max_scan(d, k_rel, 0.0)
     e2, _ = limiter.onepole_scan(env, c_att, 0.0)
     dd = d if engine == "scan" else d.float()
-    assert _db(sp_envelope(dd, SR, mesh, engine=engine), e2) <= gate
+    assert refs.db(sp_envelope(dd, SR, mesh, engine=engine), e2) <= gate
 
 
 def test_sp_chain_equals_single_device_and_lands_on_input_device(z, mesh):
@@ -182,7 +176,7 @@ def test_sp_chain_equals_single_device_and_lands_on_input_device(z, mesh):
     got = sp_effects_chain(x, SR, mesh, bands=z["sos"], ir=z["ir"],
                            threshold_db=-6.0)
     assert got.device == x.device and got.dtype == x.dtype
-    assert _db(got, _single_chain(x, z["sos"], z["ir"])) <= -80.0
+    assert refs.db(got, _single_chain(x, z["sos"], z["ir"])) <= -80.0
 
 
 def test_sp_refusals(mesh):
@@ -203,7 +197,7 @@ def test_sp_refusals(mesh):
 
 def test_sp_fir_matches_jax(jax_out, z, mesh):
     got = sp_fir(torch.from_numpy(z["x1"]), z["taps"], mesh)
-    assert _db(got, jax_out.get()["fir"]) <= -100.0
+    assert refs.db(got, jax_out.get()["fir"]) <= -100.0
 
 
 @pytest.mark.parametrize("engine,gate", [("scan", -100.0),
@@ -211,11 +205,11 @@ def test_sp_fir_matches_jax(jax_out, z, mesh):
 def test_sp_biquad_envelope_match_jax(jax_out, z, mesh, engine, gate):
     ref = jax_out.get()
     got = sp_biquad(z["sos"], torch.from_numpy(z["x1"]), mesh, engine=engine)
-    db_b = _db(got, ref["biquad_" + engine])
+    db_b = refs.db(got, ref["biquad_" + engine])
     d = torch.from_numpy(z["d"])
     got = sp_envelope(d if engine == "scan" else d.float(), SR, mesh,
                       engine=engine)
-    db_e = _db(got, ref["env_" + engine])
+    db_e = refs.db(got, ref["env_" + engine])
     print(f"{engine}: biquad {db_b:.1f} dB, envelope {db_e:.1f} dB vs JAX")
     assert db_b <= gate and db_e <= gate
 
@@ -225,7 +219,7 @@ def test_sp_chain_matches_jax(jax_out, z, mesh, engine):
     got = sp_effects_chain(torch.from_numpy(z["x2"]), SR, mesh,
                            bands=z["sos"], ir=z["ir"], threshold_db=-6.0,
                            engine=engine)
-    db = _db(got, jax_out.get()["chain_" + engine])
+    db = refs.db(got, jax_out.get()["chain_" + engine])
     print(f"chain, {engine} engine: {db:.1f} dB vs JAX")
     assert db <= -80.0
 
@@ -236,5 +230,5 @@ def test_sp_2d_mesh_matches_jax_and_single_device(jax_out, z):
     xb = torch.from_numpy(z["xb"])
     got = sp_effects_chain(xb, SR, mesh2, bands=z["sos"], ir=z["ir"],
                            threshold_db=-6.0, dp_axis="dp")
-    assert _db(got, _single_chain(xb, z["sos"], z["ir"])) <= -80.0
-    assert _db(got, jax_out.get()["chain_2d"]) <= -80.0
+    assert refs.db(got, _single_chain(xb, z["sos"], z["ir"])) <= -80.0
+    assert refs.db(got, jax_out.get()["chain_2d"]) <= -80.0

@@ -28,7 +28,7 @@ from xmtpu import batch as xbatch
 from xmtpu_torch import batch as tbatch
 from xmtpu_torch.utils.errors import DeviceError
 
-from .conftest import rms_db
+from . import torch_refs as refs
 
 B, N_IN = 2, 22050
 LENGTHS = (22050, 15000)  # -> 8000 and 5443 bus samples
@@ -42,11 +42,6 @@ def clips():
     return v, b
 
 
-def _db16(y, ref) -> float:
-    return rms_db((np.asarray(y, np.float64) - ref) / 32768.0,
-                  np.asarray(ref, np.float64) / 32768.0)
-
-
 def test_unfolded_fused_branch_vs_jax(clips):
     v, b = clips
     kw = dict(fused=True, lti_fold=False)
@@ -56,9 +51,9 @@ def test_unfolded_fused_branch_vs_jax(clips):
     y_t = tbatch.make_flagship_step(device="cpu", **kw)(
         torch.from_numpy(v), torch.from_numpy(b)).numpy()
     assert y_t.shape == y_j.shape == (B, 8000) and y_t.dtype == np.int16
-    db = _db16(y_t, y_j)
+    db = refs.db(y_t, y_j)
     ref = tbatch.flagship_oracle_np(v, b)
-    dbo = [_db16(y_t[i], ref[i]) for i in range(B)]
+    dbo = [refs.db(y_t[i], ref[i]) for i in range(B)]
     print(f"unfolded fused branch: {db:.1f} dB vs the JAX step, clips "
           + ", ".join(f"{d:.1f}" for d in dbo) + " dB vs float64 (gate -80)")
     assert db <= -80.0 and max(dbo) <= -80.0
@@ -86,7 +81,8 @@ def test_batch_step_vs_jax(clips, fused, lti_fold):
         assert not y_t[i, m:].any() and not y_j[i, m:].any()
         ref = tbatch.flagship_oracle_np(v[i, :n], b[i, :n])
         assert ref.shape == (m,)
-        dbs.append((_db16(y_t[i, :m], y_j[i, :m]), _db16(y_t[i, :m], ref)))
+        dbs.append((refs.db(y_t[i, :m], y_j[i, :m]),
+                    refs.db(y_t[i, :m], ref)))
     print(f"batch step fused={fused} lti_fold={lti_fold}: clips "
           + ", ".join(f"{a:.1f} / {o:.1f}" for a, o in dbs)
           + " dB vs the JAX step / float64 (gate -80)")

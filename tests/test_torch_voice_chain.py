@@ -42,7 +42,7 @@ from xmtpu_torch.graph import fx
 from xmtpu_torch.ops import ns
 from xmtpu_torch.utils import profiling
 
-from .conftest import rms_db
+from . import torch_refs as refs
 from .test_torch_tracing import _ranges, _unranged
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -67,7 +67,7 @@ def _chain():
 def _worst_db(got, ref) -> float:
     """The worst track's RMS error against the reference, in dB."""
     got = np.asarray(got, np.float64)
-    return max(rms_db(g - r, r) for g, r in zip(got, ref))
+    return max(refs.db(g, r) for g, r in zip(got, ref))
 
 
 def test_effects_voice_chain_matches_the_reference(tracks):

@@ -308,14 +308,21 @@ process exits non-zero:
    capped, not a parameter of the card's launch) max abs 0 against
    ``gp=None``, with times; the ``mixfirst_pad`` step against
    ``mixfirst`` (1 LSB, -120 dB);
-32. a JSON line of the kernels (times, bounds, launches; K1 once per
+32. (``ns_phase``) the noise suppressor's Wiener kernel
+   (``csrc/ns_wiener.cu``) alone at the voice cell's spectra (32 x
+   10,337 x 257) against its plain twin (the scan and the elementwise
+   gain; -100 dB), with its launches, its time on fresh spectra, an S
+   sweep, the twin's time, its bytes bound and ``roofline_ns``'s bound
+   of the whole suppressor, and ``suppress()`` at that shape;
+33. a JSON line of the kernels (times, bounds, launches; K1 once per
    branch; the state-chain kernel beside K5; the episode's K5, K1 and
    envelope entries with its launch counts; the streaming entries of
    phases 22-23; the runner's K1, K5 and K3 of phase 25; the IIR and
-   envelope kernels at the hour clip's shard, phase 27), then the
-   contract line ``{"ok": true, "device": {...}}`` last.
+   envelope kernels at the hour clip's shard, phase 27; the Wiener
+   kernel of phase 32), then the contract line ``{"ok": true,
+   "device": {...}}`` last.
 
-Every step run with fresh counters sets all ten launch counters to 0
+Every step run with fresh counters sets all eleven launch counters to 0
 just before it and reads them just after.
 
 ``bound_ms`` is the roofline bound: the larger of the bytes each kernel
@@ -2034,12 +2041,108 @@ def precision_phase(h, n_clips: int = BATCH, seconds: float = CLIP_SECONDS,
     print(f"phase 31: {time.perf_counter() - t31:.1f} s")
 
 
+def ns_phase(h, rows: int = 32, n: int = 2646000, nfft: int = 512,
+             smooth: float = 0.7, floor: float = 0.1) -> None:
+    """Phase 32: the noise suppressor's Wiener kernel alone at the voice
+    cell's spectra (``rows`` tracks of ``n`` samples, 0.3 x Gaussian with
+    a 0.2 x 440 Hz tone past the lead-in at 44.1 kHz, through
+    ``ops.ns.stft``: 32 x 10,337 x 257 complex64) and the frozen
+    estimate, against its plain twin (the scan and the elementwise gain;
+    gate -100 dB); its time on fresh copies of the spectra (it writes
+    over them) at the card's S and across an S sweep; the twin's time;
+    the kernel's bytes bound (the spectra read and written once) and
+    ``roofline_ns``'s bound of the whole suppressor; ``suppress()`` at
+    that shape. ``h`` holds main()'s helpers; on the CPU (``h.dev =
+    torch.device("cpu")``, small sizes) both sides are the twin and the
+    times read nan."""
+    import torch
+
+    from perfbench.roofline_ns import ns_stage
+    from xmtpu_torch.bench import median_ms
+    from xmtpu_torch.kernels import ns as kns
+    from xmtpu_torch.ops import ns as tns
+
+    t32 = time.perf_counter()
+    dev, on_card = h.dev, h.dev.type == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(32)
+    x = 0.3 * torch.randn((rows, n), generator=gen, device=dev)
+    t = torch.arange(n, device=dev, dtype=torch.float32) / 44100.0
+    x[:, 8000:] += 0.2 * torch.sin(2 * np.pi * 440.0 * t[8000:])
+    X0 = tns.stft(x, nfft)
+    del x, t
+    R, T, F = X0.shape
+    noise = tns.median(torch.square(torch.abs(X0[:, :8])), dim=-2)
+    S = kns.wiener_segments(R, T, F, dev)
+    S, L = kns.seg_plan(T, S)
+    want = kns.wiener_plain(X0, noise, smooth, floor)
+    Xw = X0.clone()
+    h.reset_counts()
+    got = kns.wiener(Xw, noise, smooth, floor)
+    launches = h.counts()["ns_wiener"]
+    k = h.compare("ns_wiener", "cuda" if on_card else "cpu",
+                  "xmtpu_torch/csrc/ns_wiener.cu", None,
+                  torch.view_as_real(got), torch.view_as_real(want))
+    del got, want
+    k["launches"] = launches
+    if on_card and launches != (2 if S > 1 else 1):
+        raise SystemExit(f"chip_smoke: the Wiener kernel launched "
+                         f"{launches} passes at S = {S}")
+
+    def kernel_ms(segments, runs: int = 7) -> float:
+        """Median CUDA-event time of the kernel on a fresh copy of X0
+        (the copy just before it, as the STFT writes X just before it on
+        the suppressor's path)."""
+        if not on_card:
+            return float("nan")
+        out = []
+        for _ in range(runs + 2):
+            Xw.copy_(X0)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            kns.wiener(Xw, noise, smooth, floor, segments=segments)
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b))
+        return float(np.median(out[2:]))
+
+    k["ms"] = kernel_ms(S)
+    k["plain_ms"] = (median_ms(lambda: kns.wiener_plain(X0, noise, smooth,
+                                                        floor))
+                     if on_card else float("nan"))
+    # the spectra read once and written once, the estimate read; 14
+    # float32 operations a bin (|X|^2 3, the smoothing 3, snr 3, G 3,
+    # X*G 2: roofline_ns's count for these steps)
+    h.bound(k, 2 * 8 * R * T * F + 4 * R * F, 14 * R * T * F)
+    stage_ms, stage_by = roofline_ms(*ns_stage(R, n, nfft))
+    sweep = sorted({1, 4, 8, 16, S, 2 * S, 4 * S, 8 * S} & set(range(1, T + 1)))
+    swept = {kns.seg_plan(T, s_)[0]: kernel_ms(s_, runs=3) for s_ in sweep}
+    x_in = tns.istft(X0, n, nfft)  # a signal whose suppress() runs here
+    call_ms = (median_ms(lambda: tns.suppress(x_in, nfft, device=dev),
+                         warmup=1, runs=3) if on_card else float("nan"))
+    print(f"phase 32: the Wiener kernel (csrc/ns_wiener.cu) at ({R}, {T}, "
+          f"{F}), S = {S} segments of {L} frames (the last "
+          f"{T - (S - 1) * L}), {launches} launches: {k['rms_db']:.1f} dB "
+          f"vs the twin (gate {GATE_KERNEL_DB:g}), max abs "
+          f"{k['max_abs_err']:.3g}; {k['ms']:.3f} ms on fresh spectra; "
+          f"bound {k['bound_ms']:.3f} ms ({k['bound_by']}: the spectra "
+          f"read and written once), {k['bound_ms'] / k['ms']:.1%} of it; "
+          f"the twin (scan + elementwise gain) {k['plain_ms']:.3f} ms; "
+          f"roofline_ns's bound of the whole suppressor {stage_ms:.3f} ms "
+          f"({stage_by}); suppress() at ({R}, {n}) {call_ms:.3f} ms; "
+          "S sweep (kernel ms): "
+          + ", ".join(f"{s_} {v:.3f}" for s_, v in swept.items())
+          + f" [{h.card}]")
+    del X0, Xw, x_in
+    print(f"phase 32: {time.perf_counter() - t32:.1f} s")
+
+
 def card_helpers() -> types.SimpleNamespace:
     """Phases 1 and 2 (the card, TF32 off, the kernels built) and the
     helpers every later phase takes: ``card`` (name and power limit),
     ``dev``, ``clock_hz``, ``kernels`` (the JSON line's entries),
     ``compare`` (a kernel's output against its twin's, -100 dB, appended
-    to ``kernels``), ``bound``, ``reset_counts`` and ``counts`` (the ten
+    to ``kernels``), ``bound``, ``reset_counts`` and ``counts`` (the eleven
     launch counters)."""
     import torch
 
@@ -2047,6 +2150,7 @@ def card_helpers() -> types.SimpleNamespace:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from xmtpu_torch.bench import rms_db
     from xmtpu_torch.kernels import _build, envelope, eq_env, fftconv, iir
+    from xmtpu_torch.kernels import ns as kns
     from xmtpu_torch.kernels import resample as kresample
     from xmtpu_torch.kernels import rsmix
 
@@ -2067,7 +2171,7 @@ def card_helpers() -> types.SimpleNamespace:
         fftconv.launches = envelope.launches = 0
         iir.launches = envelope.envelope_launches = iir.chain_launches = 0
         eq_env.launches = kresample.launches = rsmix.launches = 0
-        fftconv.long_launches = envelope.gain_launches = 0
+        fftconv.long_launches = envelope.gain_launches = kns.launches = 0
 
     def counts() -> dict:
         return {"fftconv": fftconv.launches, "envelope": envelope.launches,
@@ -2076,7 +2180,7 @@ def card_helpers() -> types.SimpleNamespace:
                 "eq_env": eq_env.launches, "resample": kresample.launches,
                 "rsmix": rsmix.launches,
                 "fftconv_long": fftconv.long_launches,
-                "gain": envelope.gain_launches}
+                "gain": envelope.gain_launches, "ns_wiener": kns.launches}
 
     # 2. build
     t0 = time.perf_counter()
@@ -3753,7 +3857,10 @@ def main() -> None:
     # 31. the precision rungs, K1's trim=False and gp, mixfirst_pad
     precision_phase(h)
 
-    # 32. kernels line, then the contract line last
+    # 32. the noise suppressor's Wiener kernel at the voice cell's spectra
+    ns_phase(h)
+
+    # 33. kernels line, then the contract line last
     print(kernels_line(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,12 @@ non-finite masks at edge shapes of both of its twin's branches; the
 public resample, int16 and float32, on the kernel and on the strided
 conv; the effects chain on its float64 scan engine on the card;
 measure_lufs (the K-weighting on the IIR kernel), suppress and the mixer
-with its voice chain on the card against the CPU; the parallel paths on
+with its voice chain on the card against the CPU; the suppressor's
+Wiener kernel through suppress (a prime frame count over many segments,
+one segment, 2 and 3 frames, 3 rows, a silence around a loud tone, a
+floor that binds, a caller's estimate per bin and per row, int16; the
+adaptive path launching nothing) and alone at forced segment counts
+(T < S, NaN), its launch count and its four ranges; the parallel paths on
 4 virtual shards of the card against their unsharded forms: the SP
 chain on both engines -80 dB, the sharded flagship step -120 dB, a
 sharded pool -80 dB, the dryrun twin; where the sharded step's and the
@@ -74,7 +79,9 @@ through a long memory into 1-LSB flips of the int16 output (measured
 (each branch of the ragged one) likewise: -85 dB. measure_lufs on the
 card against the CPU and the float64 oracle: 0.02 LU; suppress on the
 card against the CPU: -100 dB (two float32 FFT libraries), against its
-float64 oracle -80 dB; the mixer with its voice chain on the card
+float64 oracle -80 dB; the Wiener kernel against its twin -100 dB (the
+same float32 steps, the smoothing sequential against the twin's scan),
+NaN where the twin's is; the mixer with its voice chain on the card
 against the CPU (float64 scans): -80 dB.
 """
 
@@ -1298,6 +1305,159 @@ def test_suppress_on_card_vs_cpu_and_oracle(cuda, mode):
     print(f"suppress {mode}: card vs CPU {db_cpu:.1f} dB, vs float64 "
           f"{db_ref:.1f} dB")
     assert db_cpu <= -100.0 and db_ref <= -80.0
+
+
+def _ns_signal(shape, seed, n_tone=None):
+    """0.03 x Gaussian noise with a 0.15 x 440 Hz tone past the first
+    8,000 samples (at 44.1 kHz), float32 of ``shape`` (..., n)."""
+    rng = np.random.default_rng(seed)
+    n = shape[-1]
+    t = np.arange(n) / 44100
+    x = 0.03 * rng.standard_normal(shape)
+    x[..., 8000:] += 0.15 * np.sin(2 * np.pi * 440 * t[8000:])
+    return x.astype(np.float32)
+
+
+def _ns_case(case):
+    """(x, suppress keywords) of a kernel-path case; the frame count T =
+    ceil(n / 256) + 1 at nfft 512."""
+    if case == "prime":  # T = 1009, prime, 15 segments
+        return _ns_signal((2, 1008 * 256), 1), {}
+    if case == "short":  # T = 40, one segment (S = 1)
+        return _ns_signal((2, 39 * 256), 2), {}
+    if case in ("frames2", "frames3"):  # T = 2 or 3
+        return _ns_signal((2, 100 if case == "frames2" else 400), 3), {}
+    if case == "odd_rows":  # R = 3 of (3, 1, n), T = 1013
+        return _ns_signal((3, 1, 1012 * 256), 4), {}
+    if case == "silence_tone":
+        # silence (1e-7 x noise), a 0.9 tone, silence: P spans 16
+        # decades, the carry holds the tone's P into the quiet
+        rng = np.random.default_rng(5)
+        n = 1008 * 256
+        x = 1e-7 * rng.standard_normal((2, n))
+        x[:, 100000:200000] += 0.9 * np.sin(
+            2 * np.pi * 1000 * np.arange(100000) / 44100)
+        return x.astype(np.float32), {}
+    if case == "floor_binds":
+        # a loud lead-in sets the frozen estimate far above the rest
+        x = _ns_signal((2, 1008 * 256), 6)
+        x[1, :4096] *= 300.0
+        return x, {}
+    # a caller's estimate near the noise's own PSD (0.03^2 x 256 = 0.23)
+    if case == "noise_psd_bins":  # (F,), broadcast over the rows
+        return _ns_signal((2, 1008 * 256), 7), {
+            "noise_psd": np.full(257, 0.2, np.float32)}
+    if case == "noise_psd_rows":  # (R, F)
+        rng = np.random.default_rng(8)
+        return _ns_signal((2, 1008 * 256), 8), {
+            "noise_psd": rng.uniform(0.1, 0.4, (2, 257)).astype(np.float32)}
+    if case == "int16":
+        x = _ns_signal((2, 1008 * 256), 9) * 3.0
+        return np.round(x * 32767.0).astype(np.int16), {}
+    if case == "adaptive":  # the torch path on the card
+        return _ns_signal((2, 1008 * 256), 10), {"noise_update": "adaptive"}
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "prime", "short", "frames2", "frames3", "odd_rows", "silence_tone",
+    "floor_binds", "noise_psd_bins", "noise_psd_rows", "int16", "adaptive"])
+def test_suppress_kernel_path_vs_cpu_and_oracle(cuda, case):
+    """ns.suppress on the card, through the Wiener kernel wherever the
+    noise is fixed per row and bin, against the CPU path (the scan and
+    the elementwise gain) at -100 dB and the float64 oracle at -80 dB;
+    ``kernels.ns.launches`` grows by the kernel's passes (2, or 1 at S =
+    1), and not at all on the adaptive path."""
+    from xmtpu_torch.kernels import ns as kns
+    from xmtpu_torch.ops import ns
+
+    x, kw = _ns_case(case)
+    *lead, n = x.shape
+    T = ns._frame_count(n, 512)
+    S = kns.wiener_segments(int(np.prod(lead)), T, 257, cuda)
+    want = 0 if case == "adaptive" else (2 if S > 1 else 1)
+    before = kns.launches
+    y = ns.suppress(x, device=cuda, **kw)
+    torch.cuda.synchronize()
+    assert kns.launches - before == want
+    assert y.device.type == "cuda" and y.dtype == torch.from_numpy(x).dtype
+    y_cpu = ns.suppress(x, device="cpu", **kw)
+    ref = ns.suppress_np(x.astype(np.float64), **kw)
+    db_cpu, db_ref = refs.db(y, y_cpu), refs.db(y, ref)
+    print(f"suppress {case} {x.shape}, T = {T}, S = {S}: card vs CPU "
+          f"{db_cpu:.1f} dB, vs float64 {db_ref:.1f} dB")
+    assert y.shape == y_cpu.shape == x.shape
+    assert db_cpu <= -100.0 and db_ref <= -80.0
+
+
+@pytest.mark.parametrize("R,T,F,S", [
+    (1, 1, 257, None),  # one frame
+    (3, 2, 257, 5),     # T < S: two segments of one frame
+    (3, 3, 257, 8),
+    (5, 97, 129, 8),    # T prime: 8 segments of 13, the last 6
+    (33, 1009, 9, 15),  # R*F = 297 chains: 3 blocks, the last partial
+    (2, 1009, 257, 1),  # unsegmented
+])
+def test_wiener_kernel_vs_twin(cuda, R, T, F, S):
+    """The kernel on random spectra (a decade of levels a frame, a quiet
+    stretch, NaN in one bin) against its twin at -100 dB, NaN where the
+    twin's is; written over X, the twin's output a new tensor."""
+    from xmtpu_torch.kernels import ns as kns
+
+    rng = np.random.default_rng(R * T + F)
+    scale = 10.0 ** rng.uniform(-1, 1, (R, T, 1))
+    X = ((rng.standard_normal((R, T, F)) + 1j * rng.standard_normal(
+        (R, T, F))) * scale).astype(np.complex64)
+    X[:, T // 2:T // 2 + 5] *= 1e-4
+    X[0, T - 1, F // 2] = np.nan
+    noise = rng.uniform(0.5, 4.0, (R, F)).astype(np.float32)
+    Xc = torch.from_numpy(X).to(cuda)
+    nz = torch.from_numpy(noise).to(cuda)
+    want = kns.wiener_plain(Xc, nz, 0.7, 0.1)
+    got = kns.wiener(Xc, nz, 0.7, 0.1, segments=S)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == Xc.data_ptr()
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    assert torch.equal(nan_g, nan_w) and int(nan_w.sum()) == 1
+    g = torch.view_as_real(got.masked_fill(nan_w, 0))
+    w = torch.view_as_real(want.masked_fill(nan_w, 0))
+    db = refs.db(g, w)
+    print(f"wiener ({R}, {T}, {F}) at S = {S}: {db:.1f} dB vs the twin")
+    assert db <= -100.0
+
+
+def test_suppress_on_card_launches_only_under_its_four_ranges(cuda,
+                                                              tmp_path):
+    """On the kernel's path every device operation of ns.suppress lies
+    under ``ns_stft``, ``ns_noise``, ``ns_wiener`` or ``ns_istft``, each
+    of them holds one, and the CPU path's ``ns_psd`` and ``ns_gain`` do
+    not open."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from perfbench.trace import TraceView
+    from xmtpu_torch.ops import ns
+    from xmtpu_torch.utils import profiling
+
+    x = torch.from_numpy(_ns_signal((2, 1008 * 256), 11)).to(cuda)
+    ns.suppress(x, device=cuda)  # builds and warms up outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("perfbench.traced_window"):
+            with profiling.stage("ns"):
+                ns.suppress(x, device=cuda)
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    view = TraceView.from_file(tmp_path / "trace.json")
+    names = ("ns_stft", "ns_noise", "ns_wiener", "ns_istft")
+    parts = {k: [o for o in view.ops if o.under(f"xmtpu_torch.{k}")]
+             for k in names}
+    print({k: len(v) for k, v in parts.items()})
+    assert view.ops and all(parts.values())
+    assert sum(map(len, parts.values())) == len(view.ops)
+    assert not any(o.under("xmtpu_torch.ns_psd", "xmtpu_torch.ns_gain")
+                   for o in view.ops)
+    assert any("wiener_kernel" in o.name for o in parts["ns_wiener"])
 
 
 def test_mix_on_card_vs_cpu(cuda):

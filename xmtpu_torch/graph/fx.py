@@ -445,8 +445,10 @@ def _pair_conv_limiter(effects):
 class NoiseSuppressFx:
     """STFT Wiener noise suppression (``ops.ns``). params: nfft,
     noise_frames, smooth, floor, noise_update, noise_smooth,
-    presence_thresh, up_leak; no backend (one engine: ``torch.fft`` on
-    the chain's device). Offline chains run the whole clip
+    presence_thresh, up_leak; no backend (``torch.fft`` on the chain's
+    device; on a card the smoothing and gain run on the Wiener kernel
+    where the noise estimate is fixed, ``ops.ns``). Offline chains run
+    the whole clip
     (``ns.suppress``); after :meth:`set_streaming` the effect runs the
     causal frame-carry twin (``ns.stream_suppress``: nfft = the session
     frame, output delayed by nfft/2, unity gain during the lead-in)."""

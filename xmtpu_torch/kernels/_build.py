@@ -61,6 +61,8 @@ _SIGNATURES = {
     "xm_resample_blocks_per_sm": ([_I], _I),
     "xm_rsmix_i16": ([_P] * 5 + [_I] * 12 + [_F, _I, _P], _I),
     "xm_rsmix_blocks_per_sm": ([_I], _I),
+    "xm_ns_wiener_f32": ([_P] * 4 + [_I] * 5 + [_F] * 4 + [_P], _I),
+    "xm_ns_wiener_blocks_per_sm": ([], _I),
     "xm_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -19,8 +19,15 @@
    spectrum; phase untouched).
 
 The transforms are ``torch.fft.rfft``/``irfft``: the JAX package runs
-them in XLA, outside any Pallas kernel. The smoothing is the port's
-log-depth associative scan; the adaptive tracker is a loop over frames,
+them in XLA, outside any Pallas kernel. Items 3 and 4 and the product
+X*G split by what the call can observe. On a CUDA tensor with the noise
+fixed per row and bin (``"frozen"`` or a caller's ``noise_psd``) they
+are one hand-written kernel over the spectra (``kernels.ns.wiener``,
+``csrc/ns_wiener.cu``), which writes Y over X. Elsewhere (a CPU tensor,
+which is the kernel's plain twin and the CPU tests' path, or
+``"adaptive"`` on any device, whose noise is a per-frame nonlinear
+recursion) the smoothing is the port's log-depth associative scan and
+the gain elementwise torch; the adaptive tracker is a loop over frames,
 as the JAX package's ``lax.scan``.
 
 The median of an even count is the mean of the two middle values, as
@@ -30,7 +37,9 @@ the lower one; the default ``noise_frames=8`` is even).
 Under a profiler :func:`suppress` opens one range for each part
 (``utils.profiling.stage``): ``ns_stft`` (item 1's analysis), ``ns_psd``
 (|X|^2 and item 3), ``ns_noise`` (item 2), ``ns_gain`` (item 4 and X*G)
-and ``ns_istft`` (item 5).
+and ``ns_istft`` (item 5); on the kernel's path ``ns_stft``,
+``ns_noise`` (the lead-in frames' |X|^2 and their median),
+``ns_wiener`` (the kernel) and ``ns_istft``.
 """
 
 from __future__ import annotations
@@ -40,8 +49,9 @@ import functools
 import numpy as np
 import torch
 
+from xmtpu_torch.kernels import ns as _kns
+from xmtpu_torch.kernels.ns import onepole_frames as _onepole_frames
 from xmtpu_torch.ops import convert as _convert
-from xmtpu_torch.ops._scan import associative_scan
 from xmtpu_torch.utils.device import to_device
 from xmtpu_torch.utils.profiling import stage
 
@@ -111,22 +121,6 @@ def istft(F: torch.Tensor, n: int, nfft: int = _DEF_NFFT) -> torch.Tensor:
     return out[..., hop:hop + n]
 
 
-def _onepole_combine(lhs, rhs):
-    lv, lp = lhs
-    rv, rp = rhs
-    return rp * lv + rv, lp * rp
-
-
-def _onepole_frames(psd: torch.Tensor, a: float) -> torch.Tensor:
-    """P[t] = a P[t-1] + (1-a) psd[t] over axis -2 (frames), as one
-    associative scan."""
-    v = psd.movedim(-2, -1)
-    a_t = torch.tensor(a, dtype=psd.dtype)
-    out, _ = associative_scan(_onepole_combine,
-                              ((1 - a_t) * v, torch.full_like(v, a)))
-    return out.movedim(-1, -2)
-
-
 def _adaptive_noise_step(noise, psd_t, a_n: float, thresh: float,
                          up_leak: float):
     """One frame of the pinned adaptive noise recursion (the offline
@@ -150,6 +144,11 @@ def _adaptive_noise_track(psd: torch.Tensor, noise_frames: int, a_n: float,
                                          up_leak)
         out[..., t, :] = noise
     return out
+
+
+def _given_noise(noise_psd, X: torch.Tensor) -> torch.Tensor:
+    """A caller's noise estimate (..., F) as float32 on X's device."""
+    return torch.as_tensor(noise_psd, dtype=torch.float32, device=X.device)
 
 
 def _check_mode(noise_update: str) -> None:
@@ -176,29 +175,37 @@ def suppress(x, nfft: int = _DEF_NFFT, noise_frames: int = 8,
     if noise_psd is not None and noise_update == "adaptive":
         raise ValueError("noise_psd pins the estimate; it cannot be "
                          "combined with noise_update='adaptive'")
-    # each device operation lies in one of the five ranges: the int16
+    # each device operation lies in one of the ranges: the int16
     # conversions go with the transforms beside them
     with stage("ns_stft"):
         xf = _convert.pcm16_to_f32(x) if was_i16 else x.to(torch.float32)
         X = stft(xf, nfft)
-    with stage("ns_psd"):
-        psd = torch.square(torch.abs(X))
-        P = _onepole_frames(psd, float(smooth))
-    with stage("ns_noise"):
-        if noise_psd is not None:
-            noise = torch.as_tensor(noise_psd, dtype=torch.float32,
-                                    device=x.device)[..., None, :]
-        elif noise_update == "adaptive":
-            noise = _adaptive_noise_track(psd, noise_frames,
-                                          float(noise_smooth),
-                                          float(presence_thresh),
-                                          float(up_leak))
-        else:
-            noise = median(psd[..., :noise_frames, :], dim=-2)[..., None, :]
-    with stage("ns_gain"):
-        snr = torch.clamp_min(P / torch.clamp_min(noise, 1e-20) - 1.0, 0.0)
-        G = torch.clamp_min(snr / (1.0 + snr), float(floor))
-        Y = X * G
+    if X.device.type == "cuda" and noise_update == "frozen":
+        with stage("ns_noise"):
+            if noise_psd is not None:
+                noise = _given_noise(noise_psd, X)
+            else:
+                lead = torch.square(torch.abs(X[..., :noise_frames, :]))
+                noise = median(lead, dim=-2)
+        with stage("ns_wiener"):
+            Y = _kns.wiener(X, noise, float(smooth), float(floor))
+    else:
+        with stage("ns_psd"):
+            psd = torch.square(torch.abs(X))
+            P = _onepole_frames(psd, float(smooth))
+        with stage("ns_noise"):
+            if noise_psd is not None:
+                noise = _given_noise(noise_psd, X)[..., None, :]
+            elif noise_update == "adaptive":
+                noise = _adaptive_noise_track(psd, noise_frames,
+                                              float(noise_smooth),
+                                              float(presence_thresh),
+                                              float(up_leak))
+            else:
+                noise = median(psd[..., :noise_frames, :],
+                               dim=-2)[..., None, :]
+        with stage("ns_gain"):
+            Y = X * _kns.wiener_gain(P, noise, floor)
     with stage("ns_istft"):
         y = istft(Y, x.shape[-1], nfft)
         return _convert.f32_to_pcm16(y) if was_i16 else y.to(in_dtype)

@@ -19,7 +19,9 @@ non-finite masks at edge shapes of both of its twin's branches; the
 public resample, int16 and float32, on the kernel and on the strided
 conv; the effects chain on its float64 scan engine on the card;
 measure_lufs (the K-weighting on the IIR kernel), suppress and the mixer
-with its voice chain on the card against the CPU; the suppressor's
+with its voice chain on the card against the CPU; the mixer's duck at
+the mix cell's length over speech and pauses against the float64
+reference; the suppressor's
 Wiener kernel through suppress (a prime frame count over many segments,
 one segment, 2 and 3 frames, 3 rows, a silence around a loud tone, a
 floor that binds, a caller's estimate per bin and per row, int16; the
@@ -82,7 +84,8 @@ card against the CPU: -100 dB (two float32 FFT libraries), against its
 float64 oracle -80 dB; the Wiener kernel against its twin -100 dB (the
 same float32 steps, the smoothing sequential against the twin's scan),
 NaN where the twin's is; the mixer with its voice chain on the card
-against the CPU (float64 scans): -80 dB.
+against the CPU (float64 scans): -80 dB; the duck's gain within 1e-4 of
+the reference at every sample, and -80 dB.
 """
 
 from __future__ import annotations
@@ -1488,6 +1491,30 @@ def test_mix_on_card_vs_cpu(cuda):
     db = refs.db(y, y_cpu)
     print(f"mix card vs CPU: {db:.1f} dB")
     assert y.shape == y_cpu.shape == (96000, 2) and db <= -80.0
+
+
+def test_duck_on_card_at_the_episode_length(cuda):
+    """The duck's float64 scans on the card (``ops.mix.duck_gain``) over
+    the mix cell's side-chain shape, 2 x 28.8 M (600 s at 48 kHz), of
+    speech and pauses that cross the knee both ways, against the
+    reference's closed form and ``lfilter``: within 1e-4 of the gain at
+    every sample and -80 dB RMS. The mix cell's check cannot see the
+    duck's recurrences (its voice never pauses), so this is the gate for
+    a rewrite of them."""
+    from perfbench.reference import episode_mix
+    from xmtpu_torch.ops import mix as mixops
+
+    s = refs.speech_with_pauses(600.0, 48000, 95).astype(np.float32)
+    want = episode_mix.duck_gain(s.astype(np.float64), 48000)
+    got = mixops.duck_gain(torch.from_numpy(s).to(cuda), 48000)
+    torch.cuda.synchronize()
+    err = np.max(np.abs(got.cpu().numpy() - want))
+    db = refs.db(got, want)
+    inside = np.mean((want > 0.26) & (want < 0.99))
+    print(f"duck on card, 2 x 28.8 M: max abs {err:.3g}, {db:.1f} dB, "
+          f"{100 * inside:.2f}% of samples inside the knee")
+    assert want.min() < 0.3 and want.max() == 1.0 and inside > 0.01
+    assert err < 1e-4 and db < -80.0
 
 
 def _stream_config(effects=(), master=()):

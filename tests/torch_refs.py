@@ -1,5 +1,5 @@
-"""The port tests' float64 references: the dB gate and the direct
-convolution oracle.
+"""The port tests' float64 references: the dB gate, the direct
+convolution oracle, and a side chain of speech and pauses.
 
 Imports neither JAX nor the reference package, so the card tests
 (``tests/test_torch_gpu.py``, run with ``--noconftest`` on a machine
@@ -47,3 +47,20 @@ def direct_conv(x, h, n: int | None = None) -> np.ndarray:
         y = np.stack([np.convolve(r, h)[:n]
                       for r in x.reshape(-1, x.shape[-1])])
     return y.reshape(x.shape[:-1] + y.shape[-1:])
+
+
+def speech_with_pauses(seconds: float, sr: int, seed: int) -> np.ndarray:
+    """(2, n) float64 side chain: stretches of noise at -10 dB (1-3 s)
+    between pauses at -70 dB (1-4 s), so a side-chain duck releases
+    through its knee (about a second after the voice stops, at a 300 ms
+    release) and attacks again at every turn."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sr)
+    level = np.empty(n)
+    t, talk = 0, True
+    while t < n:
+        d = int(sr * (rng.uniform(1.0, 3.0) if talk
+                      else rng.uniform(1.0, 4.0)))
+        level[t:t + d] = 10.0 ** ((-10.0 if talk else -70.0) / 20.0)
+        t, talk = t + d, not talk
+    return level * rng.standard_normal((2, n))

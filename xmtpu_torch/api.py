@@ -97,7 +97,9 @@ def mix(tracks, sample_rate: int, normalize: str | None = "peak", **kw):
     ``"lufs"`` or None). The output dtype follows the first track
     (int16 in, int16 out). Other keywords: ``target_db``,
     ``duration_ms``, ``duck_params``, ``voice_effects``, ``device``
-    (``cuda`` unless given). See :func:`xmtpu_torch.graph.mixer.mix`."""
+    (``cuda`` unless given), ``device_out`` (return the bus as a tensor
+    on the device, in the same layout and dtype, instead of a numpy
+    array). See :func:`xmtpu_torch.graph.mixer.mix`."""
     from xmtpu_torch.graph import mixer
 
     return mixer.mix(tracks, sample_rate, normalize=normalize, **kw)

@@ -11,6 +11,14 @@ is read after the call returns. A track off the bus rate is resampled by
 ``kernels.resample.resample``: the resample kernel on ``cuda`` (the
 strided convolution for a band wider than 2M), its plain twin
 ``ops.resample.polyphase_resample`` on the CPU.
+
+Every device operation of a call lies under a profiler range
+(``utils.profiling.stage``) inside ``xmtpu_torch.mix``: ``mix_place``
+(conversion, loop, gain and fade, pad and upmix, the bus sums; inside
+it ``mix_resample``), ``voice_fx`` (the voice chain, its effects'
+ranges nested), ``duck``, ``lufs`` (``ops.loudness``), the int16
+conversion's ``to_pcm16`` and ``mix_out`` (the transpose and the copy to
+the host).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from xmtpu_torch.ops import mix as _mix
 from xmtpu_torch.ops import resample as _resample
 from xmtpu_torch.utils.device import resolve_device
 from xmtpu_torch.utils.errors import ConfigError
+from xmtpu_torch.utils.profiling import stage
 
 
 @dataclass(frozen=True)
@@ -105,9 +114,12 @@ def _check_track(t: MixTrack) -> None:
 
 def mix(tracks, sample_rate: int, normalize: str | None = "peak",
         target_db: float = -1.0, duration_ms: float | None = None,
-        duck_params: dict | None = None, voice_effects=None, device=None):
+        duck_params: dict | None = None, voice_effects=None, device=None,
+        device_out: bool = False):
     """Mix tracks onto a common bus at ``sample_rate`` -> numpy (n,) or
-    (n, ch), int16 when the first track is int16, else float32.
+    (n, ch), int16 when the first track is int16, else float32; with
+    ``device_out``, the same layout and dtype as a contiguous tensor on
+    the device, with no copy to the host.
 
     ``tracks``: MixTracks, dicts or ``(pcm, sr)`` pairs. Mono tracks are
     upmixed when any track is multichannel. Loop tracks repeat under the
@@ -120,6 +132,14 @@ def mix(tracks, sample_rate: int, normalize: str | None = "peak",
     ``normalize``: "peak" (``target_db`` dBFS), "lufs" (BS.1770,
     ``target_db`` LUFS), "rms" (or its alias "loudness") or None. Runs on
     ``cuda`` unless ``device`` names another device."""
+    with stage("mix"):
+        return _mix_tracks(tracks, sample_rate, normalize, target_db,
+                           duration_ms, duck_params, voice_effects, device,
+                           device_out)
+
+
+def _mix_tracks(tracks, sample_rate, normalize, target_db, duration_ms,
+                duck_params, voice_effects, device, device_out):
     if not tracks:
         raise ValueError("mix() needs at least one track")
     dev = resolve_device(device)
@@ -165,47 +185,53 @@ def mix(tracks, sample_rate: int, normalize: str | None = "peak",
             _ms_to_samples(t.start_ms, sample_rate) + n_bus
             for (_, _, n_bus, t) in prepared)
 
-    zeros = torch.zeros((nch, total), dtype=torch.float32, device=dev)
-    voice, ducked, other = [], [], []
-    for pcm, sr, _, t in prepared:
-        y = _to_f32_device(pcm, dev)[0]  # (ch, n) f32 at the native rate
-        if sr != sample_rate:
-            y = _kresample.resample(y, sr, sample_rate)
-        start = min(_ms_to_samples(t.start_ms, sample_rate), total)
-        track_len = max(0, min(y.shape[-1], total - start))
-        if t.loop and track_len and y.shape[-1] < total - start:
-            y = y.repeat(1, -(-(total - start) // y.shape[-1]))
-            track_len = total - start
-        if track_len == 0:  # placed at or after the end: silence
-            placed = zeros
-        else:
-            y = _mix.apply_gain_fade(
-                y[..., :track_len], t.gain,
-                _ms_to_samples(t.fade_in_ms, sample_rate),
-                _ms_to_samples(t.fade_out_ms, sample_rate),
-                offset=0, length=track_len)
-            placed = torch.nn.functional.pad(
-                y.expand(nch, track_len), (start, total - start - track_len))
-        # three buses: voice (its effects; drives the duck envelope),
-        # side-ducked, everything else
-        if t.side_duck:
-            ducked.append(placed)
-        elif t.kind == "voice":
-            voice.append(placed)
-        else:
-            other.append(placed)
-        del y
-    voice_bus = _mix.mix_sum(voice) if voice else zeros
-    other_bus = _mix.mix_sum(other) if other else zeros
+    with stage("mix_place"):
+        zeros = torch.zeros((nch, total), dtype=torch.float32, device=dev)
+        voice, ducked, other = [], [], []
+        for pcm, sr, _, t in prepared:
+            y = _to_f32_device(pcm, dev)[0]  # (ch, n) f32, native rate
+            if sr != sample_rate:
+                with stage("mix_resample"):
+                    y = _kresample.resample(y, sr, sample_rate)
+            start = min(_ms_to_samples(t.start_ms, sample_rate), total)
+            track_len = max(0, min(y.shape[-1], total - start))
+            if t.loop and track_len and y.shape[-1] < total - start:
+                y = y.repeat(1, -(-(total - start) // y.shape[-1]))
+                track_len = total - start
+            if track_len == 0:  # placed at or after the end: silence
+                placed = zeros
+            else:
+                y = _mix.apply_gain_fade(
+                    y[..., :track_len], t.gain,
+                    _ms_to_samples(t.fade_in_ms, sample_rate),
+                    _ms_to_samples(t.fade_out_ms, sample_rate),
+                    offset=0, length=track_len)
+                placed = torch.nn.functional.pad(
+                    y.expand(nch, track_len),
+                    (start, total - start - track_len))
+            # three buses: voice (its effects; drives the duck envelope),
+            # side-ducked, everything else
+            if t.side_duck:
+                ducked.append(placed)
+            elif t.kind == "voice":
+                voice.append(placed)
+            else:
+                other.append(placed)
+            del y
+        voice_bus = _mix.mix_sum(voice) if voice else zeros
+        other_bus = _mix.mix_sum(other) if other else zeros
     if voice_effects and has_voice:
         # None states: the whole-clip paths (auto: the kernels on cuda,
         # the float64 scans on the CPU)
-        voice_bus, _ = _fx.chain_apply(effs, voice_bus.contiguous(),
-                                       tuple(None for _ in effs))
-    out = voice_bus + other_bus
+        with stage("voice_fx"):
+            voice_bus, _ = _fx.chain_apply(effs, voice_bus.contiguous(),
+                                           tuple(None for _ in effs))
+    with stage("mix_place"):
+        out = voice_bus + other_bus
     if ducked:
-        g = _mix.duck_gain(out, sample_rate, **(duck_params or {}))
-        out = out + _mix.mix_sum(ducked) * g.to(torch.float32)
+        with stage("duck"):
+            g = _mix.duck_gain(out, sample_rate, **(duck_params or {}))
+            out = out + _mix.mix_sum(ducked) * g.to(torch.float32)
     if normalize == "peak":
         out, _ = _mix.peak_normalize(out, _mix.db_to_amp(target_db))
     elif normalize == "lufs":
@@ -218,7 +244,10 @@ def mix(tracks, sample_rate: int, normalize: str | None = "peak",
         raise ValueError(f"unknown normalize mode: {normalize!r}")
     if out_int16:
         out = _convert.f32_to_pcm16(out)
-    out = out.T.contiguous().cpu().numpy()  # (n, ch)
+    with stage("mix_out"):
+        out = out.T.contiguous()  # (n, ch)
+        if not device_out:
+            out = out.cpu().numpy()
     if first_1d and out.shape[1] == 1:
         out = out[:, 0]
     return out

@@ -20,6 +20,11 @@ rule), its plain twin on the CPU. The block powers come from one float64
 cumulative sum and a strided gather, the gates are masked reductions,
 and the result stays a tensor on the device: nothing is read back.
 :func:`measure_lufs_np` is the float64 scipy oracle.
+
+Profiler ranges (``utils.profiling.stage``): ``lufs`` around all of
+:func:`lufs_normalize`; ``lufs_kweight`` around the K-weighting and
+``lufs_gate`` around the squares, the cumulative sum, the gather, the
+gates and the gain.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 from xmtpu_torch.kernels.iir import sosfilt
 from xmtpu_torch.ops import convert as _convert
 from xmtpu_torch.utils.device import to_device
+from xmtpu_torch.utils.profiling import stage
 
 ABS_GATE_LUFS = -70.0
 REL_GATE_LU = -10.0
@@ -88,27 +94,30 @@ def measure_lufs(x, sr: int, device=None) -> torch.Tensor:
     if x.dim() == 1:
         x = x[None]
     n = x.shape[-1]
-    xw = sosfilt(k_weighting_sos(sr), x.to(torch.float32).contiguous())[0]
+    with stage("lufs_kweight"):
+        xw = sosfilt(k_weighting_sos(sr),
+                     x.to(torch.float32).contiguous())[0]
+    with stage("lufs_gate"):
+        block, hop, nblk = _block_geometry(n, sr)
+        cs = torch.cat([
+            x.new_zeros(x.shape[:-1] + (1,), dtype=torch.float64),
+            torch.cumsum(torch.square(xw.to(torch.float64)), dim=-1)], dim=-1)
+        starts = torch.arange(nblk, device=x.device) * hop
+        z = (cs[..., starts + block] - cs[..., starts]) / block  # (ch, nblk)
+        power = torch.sum(z, dim=0)  # channel weights G=1 (mono/stereo)
+        l_blk = -0.691 + 10.0 * torch.log10(torch.clamp_min(power, 1e-30))
 
-    block, hop, nblk = _block_geometry(n, sr)
-    cs = torch.cat([
-        x.new_zeros(x.shape[:-1] + (1,), dtype=torch.float64),
-        torch.cumsum(torch.square(xw.to(torch.float64)), dim=-1)], dim=-1)
-    starts = torch.arange(nblk, device=x.device) * hop
-    z = (cs[..., starts + block] - cs[..., starts]) / block  # (ch, nblk)
-    power = torch.sum(z, dim=0)  # channel weights G=1 (mono/stereo)
-    l_blk = -0.691 + 10.0 * torch.log10(torch.clamp_min(power, 1e-30))
-
-    abs_mask = l_blk > ABS_GATE_LUFS
-    n_abs = torch.clamp_min(torch.sum(abs_mask), 1)
-    p_abs = torch.sum(torch.where(abs_mask, power, 0.0)) / n_abs
-    rel_thresh = (-0.691 + 10.0 * torch.log10(torch.clamp_min(p_abs, 1e-30))
-                  + REL_GATE_LU)
-    mask = abs_mask & (l_blk > rel_thresh)
-    n_g = torch.clamp_min(torch.sum(mask), 1)
-    p_g = torch.sum(torch.where(mask, power, 0.0)) / n_g
-    lufs = -0.691 + 10.0 * torch.log10(torch.clamp_min(p_g, 1e-30))
-    return torch.where(torch.any(abs_mask), lufs, -math.inf)
+        abs_mask = l_blk > ABS_GATE_LUFS
+        n_abs = torch.clamp_min(torch.sum(abs_mask), 1)
+        p_abs = torch.sum(torch.where(abs_mask, power, 0.0)) / n_abs
+        rel_thresh = (-0.691
+                      + 10.0 * torch.log10(torch.clamp_min(p_abs, 1e-30))
+                      + REL_GATE_LU)
+        mask = abs_mask & (l_blk > rel_thresh)
+        n_g = torch.clamp_min(torch.sum(mask), 1)
+        p_g = torch.sum(torch.where(mask, power, 0.0)) / n_g
+        lufs = -0.691 + 10.0 * torch.log10(torch.clamp_min(p_g, 1e-30))
+        return torch.where(torch.any(abs_mask), lufs, -math.inf)
 
 
 def lufs_normalize(x, sr: int, target_lufs: float = -23.0, device=None):
@@ -118,17 +127,19 @@ def lufs_normalize(x, sr: int, target_lufs: float = -23.0, device=None):
     gain of 0.03 would truncate to int16 zero); int16 input gives the
     pinned-converted int16 back. Runs on ``cuda`` unless ``device``
     names another device."""
-    x = to_device(x, device)
-    was_i16 = x.dtype == torch.int16
-    xf = _convert.pcm16_to_f32(x) if was_i16 else x
-    lufs = measure_lufs(xf, sr, device=x.device)
-    gain = torch.where(torch.isfinite(lufs),
-                       torch.pow(10.0, (target_lufs - lufs) / 20.0),
-                       1.0).to(torch.float32)
-    y = xf * gain
-    if was_i16:
-        y = _convert.f32_to_pcm16(y)
-    return y, gain
+    with stage("lufs"):
+        x = to_device(x, device)
+        was_i16 = x.dtype == torch.int16
+        xf = _convert.pcm16_to_f32(x) if was_i16 else x
+        lufs = measure_lufs(xf, sr, device=x.device)
+        with stage("lufs_gate"):
+            gain = torch.where(torch.isfinite(lufs),
+                               torch.pow(10.0, (target_lufs - lufs) / 20.0),
+                               1.0).to(torch.float32)
+        y = xf * gain
+        if was_i16:
+            y = _convert.f32_to_pcm16(y)
+        return y, gain
 
 
 # ---------------------------------------------------------------------------

@@ -166,7 +166,8 @@ process exits non-zero:
    EQ and the reverb from the IR file on the voice bus; LUFS
    normalization to -16; a -1 dB limiter on the master in blocks of
    65,536. Counters set to 0 just before: K7 (the voice's 44.1k ->
-   48k), K5 (the K-weighting), K1 and the envelope kernel must launch.
+   48k), K5 (the K-weighting), K1, the envelope kernel and the block
+   powers' kernel must launch.
    The file read back: its length, channels, finite samples, peak at
    most the limiter's ceiling. Then a
    timed run (audio-seconds per second, wall clock with WAV I/O; the
@@ -174,7 +175,12 @@ process exits non-zero:
    ``torch.profiler`` (the card's busy share, the kernels that take the
    most time); ``api.mix`` alone
    (its rate), whose bus must read within 0.02 LU of ``measure_lufs_np``
-   and 0.05 LU of -16 on the card; the voice chain and
+   and 0.05 LU of -16 on the card; (``lufs_phase``) the block-power
+   kernel (``csrc/lufs_blocks.cu``) alone on that bus's K-weighting,
+   counters at 0 just before: one launch, its powers within 1e-11 of the
+   largest against the float64 cumulative sum (float32 sums must miss
+   that), a second run bit for bit, its time, the cumulative sum's and
+   its bound; the voice chain and
    ``lufs_normalize`` each alone; ``suppress`` on the whole voice at 48
    kHz <= -80 dB against ``suppress_np``; the first 20 s on the card
    against the CPU, <= -80 dB; K7 (the whole voice, 1 x 26.46 M at
@@ -319,10 +325,10 @@ process exits non-zero:
    envelope entries with its launch counts; the streaming entries of
    phases 22-23; the runner's K1, K5 and K3 of phase 25; the IIR and
    envelope kernels at the hour clip's shard, phase 27; the Wiener
-   kernel of phase 32), then the contract line ``{"ok": true,
-   "device": {...}}`` last.
+   kernel of phase 32, the block-power kernel of phase 21), then the
+   contract line ``{"ok": true, "device": {...}}`` last.
 
-Every step run with fresh counters sets all eleven launch counters to 0
+Every step run with fresh counters sets all twelve launch counters to 0
 just before it and reads them just after.
 
 ``bound_ms`` is the roofline bound: the larger of the bytes each kernel
@@ -369,6 +375,10 @@ OP_LATENCY_CYCLES = 4  # one dependent float32 add / multiply / max
 REPO = Path(__file__).resolve().parent
 # the podcast episode (phase 21)
 EPISODE_S, EPISODE_BGM_S, EPISODE_CPU_S = 600.0, 60.0, 20.0
+# phase 21, the block-power kernel against the float64 cumulative sum:
+# max abs over the largest power (float32 sums of a 400 ms block miss by
+# about 1e-8 of it and more; the two float64 orders by about 1e-13)
+GATE_LUFS_BLOCKS = 1e-11
 VOICE_SR, BUS_SR = 44100, 48000
 GATE_LU_ORACLE, GATE_LU_TARGET = 0.02, 0.05
 
@@ -2041,6 +2051,60 @@ def precision_phase(h, n_clips: int = BATCH, seconds: float = CLIP_SECONDS,
     print(f"phase 31: {time.perf_counter() - t31:.1f} s")
 
 
+def lufs_phase(h, bus, sr: int) -> None:
+    """Phase 21's block-power kernel (``csrc/lufs_blocks.cu``) alone on
+    the K-weighting of the episode bus ``bus`` (2 x 28.8 M float32 at
+    48 kHz: 5,997 blocks of 19,200 every 4,800) with fresh counters: one
+    launch; its powers against ``block_powers_plain``'s (the float64
+    cumulative sum and gather) of the same tensor, max abs within
+    ``GATE_LUFS_BLOCKS`` of the largest power, a gate that float32 sums of
+    the same blocks must fail (their error printed beside it); a second
+    run bit for bit; the kernel's time (CUDA events, median of 7 after
+    2) and the twin's; the bound: the bus read once and the powers
+    written once, the squares and sums over the float64 peak."""
+    import torch
+
+    from xmtpu_torch.bench import median_ms
+    from xmtpu_torch.kernels import iir, lufs
+    from xmtpu_torch.ops import loudness
+
+    xw = iir.sosfilt(loudness.k_weighting_sos(sr), bus.contiguous())[0]
+    ch, n = xw.shape
+    block, hop, nblk = geo = loudness._block_geometry(n, sr)
+    want = lufs.block_powers_plain(xw, *geo)
+    h.reset_counts()
+    got = lufs.block_powers(xw, *geo)
+    launches = h.counts()["lufs"]
+    k = h.compare("lufs_blocks", "cuda", "xmtpu_torch/csrc/lufs_blocks.cu",
+                  None, got, want)
+    k["launches"] = launches
+    top = float(want.abs().max())
+    rel = k["max_abs_err"] / top
+    f32 = torch.sum(torch.square(xw.unfold(-1, block, hop)), dim=-1)
+    rel32 = float((torch.sum(f32, dim=0) / block - want).abs().max()) / top
+    del f32
+    same = torch.equal(lufs.block_powers(xw, *geo), got)
+    k["ms"] = median_ms(lambda: lufs.block_powers(xw, *geo))
+    k["plain_ms"] = median_ms(lambda: lufs.block_powers_plain(xw, *geo),
+                              warmup=1, runs=3)
+    # a multiply and an add a sample a block
+    k["bound_ms"], k["bound_by"] = roofline_ms(
+        4 * ch * n + 8 * nblk, 2 * ch * block * nblk, F64_OPS_PER_S)
+    print(f"phase 21: the block-power kernel (csrc/lufs_blocks.cu) on the "
+          f"bus's K-weighting ({ch}, {n}), {nblk} blocks of {block} every "
+          f"{hop}: {launches} launch(es); max abs {k['max_abs_err']:.3g} = "
+          f"{rel:.3g} of the largest power against the float64 cumulative "
+          f"sum (gate {GATE_LUFS_BLOCKS:g}; float32 sums of the same blocks "
+          f"{rel32:.3g}); a second run bit for bit: {same}; kernel "
+          f"{k['ms']:.4f} ms (CUDA events, median of 7), the twin (cast, "
+          f"square, cumsum, cat, gather) {k['plain_ms']:.3f} ms; bound "
+          f"{k['bound_ms']:.4f} ms ({k['bound_by']}: the bus read once), "
+          f"{k['bound_ms'] / k['ms']:.1%} of it [{h.card}]")
+    gate(launches == 1 and same and rel <= GATE_LUFS_BLOCKS < rel32,
+         "the block-power kernel against the float64 cumulative sum")
+    del xw, want, got
+
+
 def ns_phase(h, rows: int = 32, n: int = 2646000, nfft: int = 512,
              smooth: float = 0.7, floor: float = 0.1) -> None:
     """Phase 32: the noise suppressor's Wiener kernel alone at the voice
@@ -2142,7 +2206,7 @@ def card_helpers() -> types.SimpleNamespace:
     helpers every later phase takes: ``card`` (name and power limit),
     ``dev``, ``clock_hz``, ``kernels`` (the JSON line's entries),
     ``compare`` (a kernel's output against its twin's, -100 dB, appended
-    to ``kernels``), ``bound``, ``reset_counts`` and ``counts`` (the eleven
+    to ``kernels``), ``bound``, ``reset_counts`` and ``counts`` (the twelve
     launch counters)."""
     import torch
 
@@ -2150,6 +2214,7 @@ def card_helpers() -> types.SimpleNamespace:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from xmtpu_torch.bench import rms_db
     from xmtpu_torch.kernels import _build, envelope, eq_env, fftconv, iir
+    from xmtpu_torch.kernels import lufs as klufs
     from xmtpu_torch.kernels import ns as kns
     from xmtpu_torch.kernels import resample as kresample
     from xmtpu_torch.kernels import rsmix
@@ -2172,6 +2237,7 @@ def card_helpers() -> types.SimpleNamespace:
         iir.launches = envelope.envelope_launches = iir.chain_launches = 0
         eq_env.launches = kresample.launches = rsmix.launches = 0
         fftconv.long_launches = envelope.gain_launches = kns.launches = 0
+        klufs.launches = 0
 
     def counts() -> dict:
         return {"fftconv": fftconv.launches, "envelope": envelope.launches,
@@ -2180,7 +2246,8 @@ def card_helpers() -> types.SimpleNamespace:
                 "eq_env": eq_env.launches, "resample": kresample.launches,
                 "rsmix": rsmix.launches,
                 "fftconv_long": fftconv.long_launches,
-                "gain": envelope.gain_launches, "ns_wiener": kns.launches}
+                "gain": envelope.gain_launches, "ns_wiener": kns.launches,
+                "lufs": klufs.launches}
 
     # 2. build
     t0 = time.perf_counter()
@@ -3582,10 +3649,10 @@ def main() -> None:
         print(f"episode: launches {got_ep}; launched "
               f"{sorted(k for k, v_ in got_ep.items() if v_)}")
         if not all(got_ep[k] for k in ("resample", "iir", k1_key,
-                                       "envelope_seg")):
+                                       "envelope_seg", "lufs")):
             raise SystemExit("chip_smoke: the episode did not launch K7 "
-                             "(resample), K5 (iir), K1 and the envelope "
-                             f"kernel: {got_ep}")
+                             "(resample), K5 (iir), K1, the envelope "
+                             f"kernel and the block powers' kernel: {got_ep}")
         marks = []
 
         def mark(p_):
@@ -3658,6 +3725,7 @@ def main() -> None:
         lufs_ms = median_ms(lambda: loudness.measure_lufs(bus, BUS_SR),
                             warmup=1, runs=3)
         lufs_ref = loudness.measure_lufs_np(mixed.T, BUS_SR)
+        lufs_phase(h, bus, BUS_SR)
         (ns_fx, lti) = tfx.get_compiled_chain(BUS_SR, list(cfg.effects))
         # K7 on the whole voice, as the mixer gives it: the kernel against
         # its twin, the dense banded matmul as the library yardstick

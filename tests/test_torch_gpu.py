@@ -18,8 +18,14 @@ linked_limiter() at the card's segment rule; the resample kernel's
 non-finite masks at edge shapes of both of its twin's branches; the
 public resample, int16 and float32, on the kernel and on the strided
 conv; the effects chain on its float64 scan engine on the card;
-measure_lufs (the K-weighting on the IIR kernel), suppress and the mixer
-with its voice chain on the card against the CPU; the mixer's duck at
+measure_lufs (the K-weighting on the IIR kernel, the block powers on
+their kernel), suppress and the mixer with its voice chain on the card
+against the CPU; BS.1770's block-power kernel against a direct float64
+sum of each block at 8 to 48 kHz, one to three channels, around a
+block's length, off a 16-byte boundary, over silence and at the mix
+cell's 2 x 28.8 M (the same powers on a second run, the gates' blocks
+and loudness as on the cumulative-sum twin), and a NaN and an inf each
+confined to the blocks that hold them; the mixer's duck at
 the mix cell's length over speech and pauses against the float64
 reference; the suppressor's
 Wiener kernel through suppress (a prime frame count over many segments,
@@ -79,7 +85,10 @@ card-vs-CPU differences (the resample matmuls sum in another order)
 through a long memory into 1-LSB flips of the int16 output (measured
 -89.5 dB on an H100); the unfolded, "pallas", "rsmix" and ragged steps
 (each branch of the ragged one) likewise: -85 dB. measure_lufs on the
-card against the CPU and the float64 oracle: 0.02 LU; suppress on the
+card against the CPU and the float64 oracle: 0.02 LU; the block powers
+against the direct float64 sum: rtol 1e-12 in every block (float64
+sums in two orders), against the twin at the cell's length the gates
+keep the same blocks and the loudness agrees within 1e-9 LU; suppress on the
 card against the CPU: -100 dB (two float32 FFT libraries), against its
 float64 oracle -80 dB; the Wiener kernel against its twin -100 dB (the
 same float32 steps, the smoothing sequential against the twin's scan),
@@ -98,7 +107,7 @@ import xmtpu_torch
 from xmtpu_torch import batch as tbatch
 from xmtpu_torch.bench import config3_chain, config3_inputs
 from xmtpu_torch.kernels import (_build, _seg, envelope, eq_env, fftconv,
-                                  iir, resample, rsmix)
+                                  iir, lufs, resample, rsmix)
 from xmtpu_torch.ops import resample as tres
 from xmtpu_torch.utils.errors import ConfigError
 
@@ -685,7 +694,7 @@ def _counts() -> dict:
             "envelope_seg": envelope.envelope_launches,
             "eq_env": eq_env.launches, "resample": resample.launches,
             "rsmix": rsmix.launches, "fftconv_long": fftconv.long_launches,
-            "gain": envelope.gain_launches}
+            "gain": envelope.gain_launches, "lufs": lufs.launches}
 
 
 def _launched(before: dict) -> set:
@@ -1266,8 +1275,9 @@ def test_linked_limiter_at_the_card_rule_vs_twin_path(cuda):
 
 
 def test_measure_lufs_on_card_vs_cpu(cuda):
-    """measure_lufs on the card (the K-weighting on the IIR kernel) and
-    on the CPU (the kernel's plain twin), 5 s of stereo at 48 kHz: within
+    """measure_lufs on the card (the K-weighting on the IIR kernel, the
+    block powers on theirs) and on the CPU (the kernels' plain twins), 5 s
+    of stereo at 48 kHz: within
     0.02 LU of each other and of the float64 oracle; lufs_normalize on
     the card lands on its target."""
     from xmtpu_torch.ops import loudness
@@ -1278,7 +1288,8 @@ def test_measure_lufs_on_card_vs_cpu(cuda):
     before = _counts()
     got = loudness.measure_lufs(x, 48000)  # cuda by default
     torch.cuda.synchronize()
-    assert got.device.type == "cuda" and "iir" in _launched(before)
+    assert got.device.type == "cuda"
+    assert {"iir", "lufs"} <= _launched(before)
     cpu = float(loudness.measure_lufs(x, 48000, device="cpu"))
     ref = loudness.measure_lufs_np(x, 48000)
     print(f"LUFS card {float(got):.5f}, CPU {cpu:.5f}, float64 {ref:.5f}")
@@ -1286,6 +1297,142 @@ def test_measure_lufs_on_card_vs_cpu(cuda):
     y, g = loudness.lufs_normalize(torch.from_numpy(x).to(cuda), 48000, -16.0)
     assert g.dtype == torch.float32 and y.device.type == "cuda"
     assert abs(float(loudness.measure_lufs(y, 48000)) + 16.0) <= 0.02
+
+
+def _on_card_at(x: np.ndarray, offset: int) -> torch.Tensor:
+    """``x`` as a contiguous card tensor whose data start ``offset``
+    floats past its allocation's (256-byte aligned) start."""
+    buf = torch.zeros(offset + x.size, device="cuda")
+    return buf[offset:].view(x.shape).copy_(torch.from_numpy(x))
+
+
+def _block_powers_on_card(x, xt, sr: int):
+    from xmtpu_torch.ops import loudness
+
+    geo = loudness._block_geometry(x.shape[-1], sr)
+    before = _counts()
+    got = lufs.block_powers(xt, *geo)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"lufs"} and got.dtype == torch.float64
+    return got.cpu().numpy(), refs.block_powers(x, *geo), geo
+
+
+@pytest.mark.parametrize("sr", [48000, 44100, 11025, 8000])
+@pytest.mark.parametrize("ch", [1, 2, 3])
+@pytest.mark.parametrize("which", range(4))
+def test_block_powers_kernel_vs_direct_sum(cuda, sr, ch, which):
+    """The block-power kernel against the direct float64 sum of each
+    block, rtol 1e-12: one sample short of a block (one block of
+    everything), a block, and a block and three hops without and with
+    their last sample (11,025 Hz: a 4,410-sample block over 1,102-sample
+    hops); rows of n % 4 != 0 start off a 16-byte boundary."""
+    from xmtpu_torch.ops import loudness
+
+    block, hop, _ = loudness._block_geometry(10**9, sr)
+    n = [block - 1, block, block + 3 * hop - 1, block + 3 * hop][which]
+    x = refs.loud_stretch(ch, n, sr + 10 * ch + which)
+    got, want, _ = _block_powers_on_card(x, _on_card_at(x, 0), sr)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("sr", [48000, 44100])
+def test_block_powers_kernel_off_a_boundary_over_silence(cuda, sr, offset):
+    """Stereo whose data start 1-3 floats past a 16-byte boundary, with
+    four whole blocks of silence: rtol 1e-12, those blocks exactly 0."""
+    from xmtpu_torch.ops import loudness
+
+    block, hop, _ = loudness._block_geometry(10**9, sr)
+    n = block + 12 * hop
+    x = refs.loud_stretch(2, n, sr + offset)
+    x[:, 2 * hop: 2 * hop + block + 3 * hop] = 0.0
+    got, want, _ = _block_powers_on_card(x, _on_card_at(x, offset), sr)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+    assert np.sum(got == 0.0) == 4
+
+
+def test_block_powers_kernel_confines_nan_and_inf(cuda):
+    """A NaN in one channel and an inf in the other, 48 kHz stereo: each
+    reaches only the four blocks that hold it (the twin's running sum
+    carries the NaN into every later block); elsewhere rtol 1e-12."""
+    from xmtpu_torch.ops import loudness
+
+    block, hop, _ = loudness._block_geometry(10**9, 48000)
+    x = refs.loud_stretch(2, block + 12 * hop, 94)
+    x[0, 5 * hop + 10] = np.nan
+    x[1, 10 * hop + 7] = np.inf
+    xt = torch.from_numpy(x).to(cuda)
+    got, want, geo = _block_powers_on_card(x, xt, 48000)
+    j = np.arange(len(got))
+    assert np.array_equal(np.isnan(got), (j >= 2) & (j <= 5))
+    assert np.array_equal(np.isposinf(got), (j >= 7) & (j <= 10))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+    plain = lufs.block_powers_plain(xt, *geo).cpu().numpy()
+    assert np.isnan(plain[2:]).all()
+
+
+def test_block_powers_kernel_at_the_mix_cell_length(cuda):
+    """The K-weighted bus of a 600 s stereo episode at 48 kHz (2 x 28.8
+    M; talk and pauses, so both gates drop blocks): the kernel against
+    the direct float64 sum of every block, rtol 1e-12; a second run bit
+    for bit; the gates on its powers and on the cumulative-sum twin's
+    keep the same blocks, their loudness within 1e-9 LU."""
+    from xmtpu_torch.ops import loudness
+
+    sr = 48000
+    s = refs.speech_with_pauses(600.0, sr, 96).astype(np.float32)
+    xw = iir.sosfilt(loudness.k_weighting_sos(sr),
+                     torch.from_numpy(s).to(cuda))[0].contiguous()
+    got, want, geo = _block_powers_on_card(xw.cpu().numpy(), xw, sr)
+    assert geo == (19200, 4800, 5997)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+    again = lufs.block_powers(xw, *geo)
+    assert torch.equal(again, torch.from_numpy(got).to(cuda))
+    plain = lufs.block_powers_plain(xw, *geo)
+    kept = _gated(got)
+    print(f"block powers at 2 x 28.8 M: gates keep {int(kept.sum())} of "
+          f"{geo[2]} blocks; LUFS kernel {float(loudness._gates(again)):.12f}"
+          f", twin {float(loudness._gates(plain)):.12f}")
+    assert 0 < kept.sum() < geo[2]
+    assert np.array_equal(kept, _gated(plain.cpu().numpy()))
+    assert abs(float(loudness._gates(again))
+               - float(loudness._gates(plain))) <= 1e-9
+
+
+def _gated(power: np.ndarray) -> np.ndarray:
+    """The blocks BS.1770's two gates keep, in float64 numpy."""
+    from xmtpu_torch.ops import loudness
+
+    level = -0.691 + 10.0 * np.log10(np.maximum(power, 1e-30))
+    keep = level > loudness.ABS_GATE_LUFS
+    rel = (-0.691 + 10.0 * np.log10(max(np.mean(power[keep]), 1e-30))
+           + loudness.REL_GATE_LU)
+    return keep & (level > rel)
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+def test_measure_lufs_on_card_past_a_non_finite_sample(cuda, bad):
+    """A NaN or inf at 2.3 s of 5 s of 48 kHz, 3 channels, 20 dB louder
+    after it: the card's loudness (the kernel confines the sample to the
+    blocks that hold it) within 0.02 LU of the CPU's (the twin carries it
+    on), as the K-weighting has carried it into every later sample; an
+    empty signal is refused on the card too, before any launch."""
+    from xmtpu_torch.ops import loudness
+
+    sr, t = 48000, int(2.3 * 48000)
+    x = refs.quiet_then_loud(sr, 5.0, t, bad)
+    before = _counts()
+    got = float(loudness.measure_lufs(x, sr))
+    assert "lufs" in _launched(before)
+    cpu = float(loudness.measure_lufs(x, sr, device="cpu"))
+    print(f"LUFS past a {bad}: card {got:.6f}, CPU {cpu:.6f}")
+    assert abs(got - cpu) <= 0.02
+    before = _counts()
+    with pytest.raises(ValueError):
+        loudness.measure_lufs(torch.zeros(2, 0, device=cuda), sr)
+    with pytest.raises(ValueError):
+        lufs.block_powers(torch.zeros(2, 0, device=cuda), 0, 1, 1)
+    assert not _launched(before)
 
 
 @pytest.mark.parametrize("mode", ["frozen", "adaptive"])
@@ -1469,8 +1616,8 @@ def test_mix_on_card_vs_cpu(cuda):
     side-ducked BGM at another rate and LUFS normalization: the card
     against the CPU (the chain on the float64 scans, the resample and the
     K-weighting on their kernels' twins) at -80 dB; the resample (the
-    voice's 44.1k -> 48k), IIR (K-weighting) and fftconv kernels
-    launch."""
+    voice's 44.1k -> 48k), IIR (K-weighting), block-power and fftconv
+    kernels launch."""
     from xmtpu_torch.batch import DEFAULT_BANDS
 
     rng = np.random.default_rng(93)
@@ -1486,7 +1633,7 @@ def test_mix_on_card_vs_cpu(cuda):
     before = _counts()
     y = xmtpu_torch.mix(tracks, 48000, **kw)
     torch.cuda.synchronize()
-    assert {"resample", "iir", "fftconv_long"} <= _launched(before)
+    assert {"resample", "iir", "fftconv_long", "lufs"} <= _launched(before)
     y_cpu = xmtpu_torch.mix(tracks, 48000, device="cpu", **kw)
     db = refs.db(y, y_cpu)
     print(f"mix card vs CPU: {db:.1f} dB")

@@ -1,5 +1,6 @@
 """The port tests' float64 references: the dB gate, the direct
-convolution oracle, and a side chain of speech and pauses.
+convolution oracle, BS.1770's block powers summed block by block and two
+signals to take them of, and a side chain of speech and pauses.
 
 Imports neither JAX nor the reference package, so the card tests
 (``tests/test_torch_gpu.py``, run with ``--noconftest`` on a machine
@@ -47,6 +48,35 @@ def direct_conv(x, h, n: int | None = None) -> np.ndarray:
         y = np.stack([np.convolve(r, h)[:n]
                       for r in x.reshape(-1, x.shape[-1])])
     return y.reshape(x.shape[:-1] + y.shape[-1:])
+
+
+def block_powers(x, block: int, hop: int, nblk: int) -> np.ndarray:
+    """BS.1770's block powers of ``x`` (ch, n) summed directly in
+    float64, block by block, as ``ops.loudness.measure_lufs_np`` sums
+    them: the mean square of samples [j * hop, j * hop + block) of each
+    channel, summed over the channels, for j = 0 .. nblk-1."""
+    x = _f64(x)
+    return np.array([np.sum(np.mean(x[:, j * hop: j * hop + block] ** 2,
+                                    axis=-1)) for j in range(nblk)])
+
+
+def loud_stretch(ch: int, n: int, seed: int) -> np.ndarray:
+    """(ch, n) float32 noise at 0.003 with samples [n // 5, n // 2) 40 dB
+    louder, so quiet blocks of BS.1770 follow loud ones."""
+    rng = np.random.default_rng(seed)
+    x = 0.003 * rng.standard_normal((ch, n))
+    x[:, n // 5: n // 2] *= 100.0
+    return x.astype(np.float32)
+
+
+def quiet_then_loud(sr: int, seconds: float, t: int, bad) -> np.ndarray:
+    """(3, seconds * sr) float32 noise, 20 dB louder from sample ``t``
+    on, where a ``bad`` sample sits in channel 1."""
+    rng = np.random.default_rng(sr)
+    x = 0.01 * rng.standard_normal((3, int(seconds * sr)))
+    x[:, t:] *= 10.0
+    x[1, t] = bad
+    return x.astype(np.float32)
 
 
 def speech_with_pauses(seconds: float, sr: int, seed: int) -> np.ndarray:

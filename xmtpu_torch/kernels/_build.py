@@ -63,6 +63,7 @@ _SIGNATURES = {
     "xm_rsmix_blocks_per_sm": ([_I], _I),
     "xm_ns_wiener_f32": ([_P] * 4 + [_I] * 5 + [_F] * 4 + [_P], _I),
     "xm_ns_wiener_blocks_per_sm": ([], _I),
+    "xm_lufs_blocks_f32": ([_P, _P, _I, _L] + [_I] * 3 + [_P], _I),
     "xm_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

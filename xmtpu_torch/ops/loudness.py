@@ -16,15 +16,18 @@ Algorithm (BS.1770-4):
 
 The K-weighting runs on ``kernels.iir.sosfilt``, as the JAX package's
 on its IIR kernel: the kernel on ``cuda`` (time-segmented by the card's
-rule), its plain twin on the CPU. The block powers come from one float64
-cumulative sum and a strided gather, the gates are masked reductions,
-and the result stays a tensor on the device: nothing is read back.
+rule), its plain twin on the CPU. The block powers come from
+``kernels.lufs.block_powers``: on ``cuda`` one launch of the
+hand-written float64 reduction ``csrc/lufs_blocks.cu`` (a block of
+threads per 400 ms block), on the CPU its twin, a float64 cumulative sum
+and a strided gather. The gates are masked reductions, and the result
+stays a tensor on the device: nothing is read back.
 :func:`measure_lufs_np` is the float64 scipy oracle.
 
 Profiler ranges (``utils.profiling.stage``): ``lufs`` around all of
 :func:`lufs_normalize`; ``lufs_kweight`` around the K-weighting and
-``lufs_gate`` around the squares, the cumulative sum, the gather, the
-gates and the gain.
+``lufs_gate`` around the block powers (the kernel on ``cuda``, the
+cumulative sum and gather on the CPU), the gates and the gain.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from xmtpu_torch.kernels.iir import sosfilt
+from xmtpu_torch.kernels.lufs import block_powers
 from xmtpu_torch.ops import convert as _convert
 from xmtpu_torch.utils.device import to_device
 from xmtpu_torch.utils.profiling import stage
@@ -98,26 +102,27 @@ def measure_lufs(x, sr: int, device=None) -> torch.Tensor:
         xw = sosfilt(k_weighting_sos(sr),
                      x.to(torch.float32).contiguous())[0]
     with stage("lufs_gate"):
-        block, hop, nblk = _block_geometry(n, sr)
-        cs = torch.cat([
-            x.new_zeros(x.shape[:-1] + (1,), dtype=torch.float64),
-            torch.cumsum(torch.square(xw.to(torch.float64)), dim=-1)], dim=-1)
-        starts = torch.arange(nblk, device=x.device) * hop
-        z = (cs[..., starts + block] - cs[..., starts]) / block  # (ch, nblk)
-        power = torch.sum(z, dim=0)  # channel weights G=1 (mono/stereo)
-        l_blk = -0.691 + 10.0 * torch.log10(torch.clamp_min(power, 1e-30))
+        # channel weights G=1 (mono/stereo)
+        return _gates(block_powers(xw, *_block_geometry(n, sr)))
 
-        abs_mask = l_blk > ABS_GATE_LUFS
-        n_abs = torch.clamp_min(torch.sum(abs_mask), 1)
-        p_abs = torch.sum(torch.where(abs_mask, power, 0.0)) / n_abs
-        rel_thresh = (-0.691
-                      + 10.0 * torch.log10(torch.clamp_min(p_abs, 1e-30))
-                      + REL_GATE_LU)
-        mask = abs_mask & (l_blk > rel_thresh)
-        n_g = torch.clamp_min(torch.sum(mask), 1)
-        p_g = torch.sum(torch.where(mask, power, 0.0)) / n_g
-        lufs = -0.691 + 10.0 * torch.log10(torch.clamp_min(p_g, 1e-30))
-        return torch.where(torch.any(abs_mask), lufs, -math.inf)
+
+def _gates(power: torch.Tensor) -> torch.Tensor:
+    """Integrated loudness, 0-d float64, of the block powers ``power``
+    (nblk,) float64: -inf where no block passes the absolute gate.
+    Masked reductions on ``power``'s device, nothing read back."""
+    l_blk = -0.691 + 10.0 * torch.log10(torch.clamp_min(power, 1e-30))
+
+    abs_mask = l_blk > ABS_GATE_LUFS
+    n_abs = torch.clamp_min(torch.sum(abs_mask), 1)
+    p_abs = torch.sum(torch.where(abs_mask, power, 0.0)) / n_abs
+    rel_thresh = (-0.691
+                  + 10.0 * torch.log10(torch.clamp_min(p_abs, 1e-30))
+                  + REL_GATE_LU)
+    mask = abs_mask & (l_blk > rel_thresh)
+    n_g = torch.clamp_min(torch.sum(mask), 1)
+    p_g = torch.sum(torch.where(mask, power, 0.0)) / n_g
+    lufs = -0.691 + 10.0 * torch.log10(torch.clamp_min(p_g, 1e-30))
+    return torch.where(torch.any(abs_mask), lufs, -math.inf)
 
 
 def lufs_normalize(x, sr: int, target_lufs: float = -23.0, device=None):

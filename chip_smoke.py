@@ -320,16 +320,25 @@ process exits non-zero:
    gain; -100 dB), with its launches, its time on fresh spectra, an S
    sweep, the twin's time, its bytes bound and ``roofline_ns``'s bound
    of the whole suppressor, and ``suppress()`` at that shape;
-33. a JSON line of the kernels (times, bounds, launches; K1 once per
+33. (``ns_track_phase``) the adaptive noise estimate's tracker kernel
+   (``csrc/ns_track.cu``) alone at the ``voice44k_adaptive`` cell's
+   float64 spectra (32 x 10,337 x 257) against its plain twin on the
+   card (a loop over frames; max abs 0 expected, gate -100 dB), with
+   its launches, its time, its bytes bound (``roofline_ns_track``), the
+   twin's time and the time of the float32 loop over frames it replaced
+   (``ops.ns._adaptive_noise_track``), and the adaptive ``suppress()``
+   at that shape;
+34. a JSON line of the kernels (times, bounds, launches; K1 once per
    branch; the state-chain kernel beside K5; the episode's K5, K1 and
    envelope entries with its launch counts; the streaming entries of
    phases 22-23; the runner's K1, K5 and K3 of phase 25; the IIR and
    envelope kernels at the hour clip's shard, phase 27; the Wiener
-   kernel of phase 32, the block-power kernel of phase 21), then the
-   contract line ``{"ok": true, "device": {...}}`` last.
+   kernel of phase 32, the tracker kernel of phase 33, the block-power
+   kernel of phase 21), then the contract line ``{"ok": true,
+   "device": {...}}`` last.
 
-Every step run with fresh counters sets all twelve launch counters to 0
-just before it and reads them just after.
+Every step run with fresh counters sets all thirteen launch counters to
+0 just before it and reads them just after.
 
 ``bound_ms`` is the roofline bound: the larger of the bytes each kernel
 must move (inputs read once, outputs written once) over the memory
@@ -2201,13 +2210,105 @@ def ns_phase(h, rows: int = 32, n: int = 2646000, nfft: int = 512,
     print(f"phase 32: {time.perf_counter() - t32:.1f} s")
 
 
+def ns_track_phase(h, rows: int = 32, n: int = 2646000,
+                   nfft: int = 512) -> None:
+    """Phase 33: the adaptive noise estimate's tracker kernel alone at
+    the ``voice44k_adaptive`` cell's spectra (``rows`` tracks of ``n``
+    samples, 0.3 x Gaussian at 44.1 kHz, through ``ops.ns.stft`` in
+    float64: 32 x 10,337 x 257 complex128) and the lead-in median,
+    against its plain twin on the same device (gate -100 dB; the two
+    round alike, so max abs 0 is expected); its time (CUDA events around
+    one call of its two passes, median of 7) and an S sweep, its bytes
+    bound (``roofline_ns_track``: the complex64 spectra read and Y
+    written once), the twin's time, the time of the float32 loop over
+    frames it replaced (``ops.ns._adaptive_noise_track`` on float32
+    PSDs, one run) and the adaptive ``suppress()`` at that shape. ``h``
+    holds main()'s helpers; on the CPU (``h.dev = torch.device("cpu")``,
+    small sizes) both sides are the twin and the times read nan."""
+    import torch
+
+    from perfbench.roofline_ns_track import track_stage
+    from xmtpu_torch.bench import median_ms
+    from xmtpu_torch.kernels import ns as kns
+    from xmtpu_torch.ops import ns as tns
+
+    t33 = time.perf_counter()
+    dev, on_card = h.dev, h.dev.type == "cuda"
+    kw = dict(smooth=0.7, floor=0.1, noise_frames=8, noise_smooth=0.95,
+              presence_thresh=4.0, up_leak=1.02)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    x = 0.3 * torch.randn((rows, n), generator=gen, device=dev)
+    X = tns.stft(x.double(), nfft)
+    R, T, F = X.shape
+    psd = X.real * X.real + X.imag * X.imag
+    seed = tns.median(psd[..., :8, :], dim=-2)
+    del psd
+    S = kns.track_segments(R, T, F, dev)
+    S, L = kns.track_plan(T, S)
+    h.reset_counts()
+    got = kns.track(X, seed, **kw)
+    launches = h.counts()["ns_track"]
+    want = kns.track_plain(X, seed, **kw)
+    k = h.compare("ns_track", "cuda" if on_card else "cpu",
+                  "xmtpu_torch/csrc/ns_track.cu", None,
+                  torch.view_as_real(got), torch.view_as_real(want))
+    del got, want
+    k["launches"] = launches
+    if on_card and launches != (2 if S > 1 else 1):
+        raise SystemExit(f"chip_smoke: the tracker kernel launched "
+                         f"{launches} passes at S = {S}")
+
+    def events_ms(fn, runs: int = 7) -> float:
+        if not on_card:
+            return float("nan")
+        out = []
+        for _ in range(runs + 2):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b))
+        return float(np.median(out[2:]))
+
+    k["ms"] = events_ms(lambda: kns.track(X, seed, **kw))
+    k["plain_ms"] = events_ms(lambda: kns.track_plain(X, seed, **kw), runs=1)
+    h.bound(k, *track_stage(R, n, nfft))
+    sweep = sorted({1, 2, 8, S // 2, S, 2 * S, 4 * S} & set(range(1, T + 1)))
+    swept = {kns.track_plan(T, s_)[0]: events_ms(
+        lambda: kns.track(X, seed, **kw, segments=s_), runs=3)
+        for s_ in sweep}
+    p32 = torch.square(torch.abs(tns.stft(x, nfft)))
+    loop_ms = events_ms(lambda: tns._adaptive_noise_track(
+        p32, 8, 0.95, 4.0, 1.02), runs=1)
+    del p32, X
+    call_ms = (median_ms(lambda: tns.suppress(x, nfft, device=dev,
+                                              noise_update="adaptive"),
+                         warmup=1, runs=3) if on_card else float("nan"))
+    print(f"phase 33: the tracker kernel (csrc/ns_track.cu) at ({R}, {T}, "
+          f"{F}) float64, {launches} launches: {k['rms_db']:.1f} dB vs the "
+          f"twin (gate {GATE_KERNEL_DB:g}), max abs {k['max_abs_err']:.3g}; "
+          f"{k['ms']:.3f} ms; bound {k['bound_ms']:.3f} ms "
+          f"({k['bound_by']}: complex64 spectra read and Y written once), "
+          f"{k['bound_ms'] / k['ms']:.1%} of it; the twin (a loop over "
+          f"frames) {k['plain_ms']:.1f} ms; the float32 loop it replaced "
+          f"{loop_ms:.1f} ms; suppress(noise_update='adaptive') at ({R}, "
+          f"{n}) {call_ms:.3f} ms; S = {S} segments of {L} frames; S "
+          "sweep (kernel ms): "
+          + ", ".join(f"{s_} {v:.3f}" for s_, v in swept.items())
+          + f" [{h.card}]")
+    del x
+    print(f"phase 33: {time.perf_counter() - t33:.1f} s")
+
+
 def card_helpers() -> types.SimpleNamespace:
     """Phases 1 and 2 (the card, TF32 off, the kernels built) and the
     helpers every later phase takes: ``card`` (name and power limit),
     ``dev``, ``clock_hz``, ``kernels`` (the JSON line's entries),
     ``compare`` (a kernel's output against its twin's, -100 dB, appended
-    to ``kernels``), ``bound``, ``reset_counts`` and ``counts`` (the twelve
-    launch counters)."""
+    to ``kernels``), ``bound``, ``reset_counts`` and ``counts`` (the
+    thirteen launch counters)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2237,7 +2338,7 @@ def card_helpers() -> types.SimpleNamespace:
         iir.launches = envelope.envelope_launches = iir.chain_launches = 0
         eq_env.launches = kresample.launches = rsmix.launches = 0
         fftconv.long_launches = envelope.gain_launches = kns.launches = 0
-        klufs.launches = 0
+        klufs.launches = kns.track_launches = 0
 
     def counts() -> dict:
         return {"fftconv": fftconv.launches, "envelope": envelope.launches,
@@ -2247,7 +2348,7 @@ def card_helpers() -> types.SimpleNamespace:
                 "rsmix": rsmix.launches,
                 "fftconv_long": fftconv.long_launches,
                 "gain": envelope.gain_launches, "ns_wiener": kns.launches,
-                "lufs": klufs.launches}
+                "lufs": klufs.launches, "ns_track": kns.track_launches}
 
     # 2. build
     t0 = time.perf_counter()
@@ -3928,7 +4029,10 @@ def main() -> None:
     # 32. the noise suppressor's Wiener kernel at the voice cell's spectra
     ns_phase(h)
 
-    # 33. kernels line, then the contract line last
+    # 33. the adaptive estimate's tracker kernel at its cell's spectra
+    ns_track_phase(h)
+
+    # 34. kernels line, then the contract line last
     print(kernels_line(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

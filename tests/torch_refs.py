@@ -1,6 +1,7 @@
 """The port tests' float64 references: the dB gate, the direct
 convolution oracle, BS.1770's block powers summed block by block and two
-signals to take them of, and a side chain of speech and pauses.
+signals to take them of, a side chain of speech and pauses, and the
+adaptive noise estimate's state sequence and branch decisions.
 
 Imports neither JAX nor the reference package, so the card tests
 (``tests/test_torch_gpu.py``, run with ``--noconftest`` on a machine
@@ -94,3 +95,48 @@ def speech_with_pauses(seconds: float, sr: int, seed: int) -> np.ndarray:
         level[t:t + d] = 10.0 ** ((-10.0 if talk else -70.0) / 20.0)
         t, talk = t + d, not talk
     return level * rng.standard_normal((2, n))
+
+
+def adaptive_noise(x, nfft: int = 512, noise_frames: int = 8,
+                   noise_smooth: float = 0.95, presence_thresh: float = 4.0,
+                   up_leak: float = 1.02) -> tuple[np.ndarray, np.ndarray]:
+    """The noise suppressor's adaptive estimate of (..., n) ``x`` from
+    its float64 definition (``ops.ns.suppress_np``'s frames, window and
+    numpy FFT): each frame's estimate (..., T, F) and where the update
+    branch was taken (bool, False in the lead-in), frame after frame."""
+    x = _f64(x)
+    hop = nfft // 2
+    n = x.shape[-1]
+    T = -(-n // hop) + 1
+    xp = np.pad(x, [(0, 0)] * (x.ndim - 1)
+                + [(hop, (T - 1) * hop + nfft - (n + hop))])
+    w = np.sqrt(0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(nfft) / nfft))
+    frames = np.lib.stride_tricks.sliding_window_view(xp, nfft, axis=-1)
+    X = np.fft.rfft(frames[..., ::hop, :][..., :T, :] * w, axis=-1)
+    psd = X.real ** 2 + X.imag ** 2
+    del X, frames
+    nz = np.median(psd[..., :noise_frames, :], axis=-2)
+    noise = np.empty_like(psd)
+    upd = np.zeros(psd.shape, bool)
+    for t in range(T):
+        if t >= noise_frames:
+            p = psd[..., t, :]
+            take = p / np.maximum(nz, 1e-20) < presence_thresh
+            nz = np.where(take, noise_smooth * nz + (1.0 - noise_smooth) * p,
+                          nz * up_leak)
+            upd[..., t, :] = take
+        noise[..., t, :] = nz
+    return noise, upd
+
+
+def leak_taken(noise, noise_frames: int = 8,
+               up_leak: float = 1.02) -> np.ndarray:
+    """Where a tracker's estimate sequence (..., T, F) took the leak
+    branch: each frame's estimate equals the one before it times
+    ``up_leak`` as float64 rounds that product (False in the lead-in)."""
+    noise = _f64(noise)
+    out = np.zeros(noise.shape, bool)
+    out[..., noise_frames:, :] = (noise[..., noise_frames:, :]
+                                  == noise[..., noise_frames - 1:-1, :]
+                                  * up_leak)
+    return out

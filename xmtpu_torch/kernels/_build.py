@@ -40,6 +40,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 # C interface of csrc/*.cu: name -> (argtypes, restype)
 _SIGNATURES = {
     "xm_fir_convolve_f32": ([_P] * 6 + [_I] * 5 + [_P], _I),
@@ -63,6 +64,8 @@ _SIGNATURES = {
     "xm_rsmix_blocks_per_sm": ([_I], _I),
     "xm_ns_wiener_f32": ([_P] * 4 + [_I] * 5 + [_F] * 4 + [_P], _I),
     "xm_ns_wiener_blocks_per_sm": ([], _I),
+    "xm_ns_track_f64": ([_P] * 5 + [_I] * 6 + [_D] * 9 + [_P], _I),
+    "xm_ns_track_blocks_per_sm": ([], _I),
     "xm_lufs_blocks_f32": ([_P, _P, _I, _L] + [_I] * 3 + [_P], _I),
     "xm_cuda_error_string": ([_I], ctypes.c_char_p),
 }

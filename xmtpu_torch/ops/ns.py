@@ -23,12 +23,19 @@ them in XLA, outside any Pallas kernel. Items 3 and 4 and the product
 X*G split by what the call can observe. On a CUDA tensor with the noise
 fixed per row and bin (``"frozen"`` or a caller's ``noise_psd``) they
 are one hand-written kernel over the spectra (``kernels.ns.wiener``,
-``csrc/ns_wiener.cu``), which writes Y over X. Elsewhere (a CPU tensor,
-which is the kernel's plain twin and the CPU tests' path, or
-``"adaptive"`` on any device, whose noise is a per-frame nonlinear
-recursion) the smoothing is the port's log-depth associative scan and
-the gain elementwise torch; the adaptive tracker is a loop over frames,
-as the JAX package's ``lax.scan``.
+``csrc/ns_wiener.cu``), which writes Y over X; on a CPU tensor (the
+kernel's plain twin and the CPU tests' path) the smoothing is the port's
+log-depth associative scan and the gain elementwise torch.
+
+``"adaptive"`` analyses in float64 and runs items 2 to 4 and X*G in
+float64 over the float64 spectra, on any device: one hand-written kernel
+on a CUDA tensor (``kernels.ns.track``, ``csrc/ns_track.cu``), its plain
+twin, a loop over frames, on a CPU tensor; Y comes back as complex64 for
+the float32 synthesis. The tracker's branch decisions jump (its two
+branches differ by about 12% at the threshold), so they have to be the
+float64 definition's: from float32 spectra, two of three batches of 32
+minute-long tracks (H100) held a track that flipped one and read -67 to
+-69 dB against :func:`suppress_np`. The JAX package analyses in float32.
 
 The median of an even count is the mean of the two middle values, as
 ``jnp.median`` and ``np.median`` give it (``torch.median`` would give
@@ -37,9 +44,11 @@ the lower one; the default ``noise_frames=8`` is even).
 Under a profiler :func:`suppress` opens one range for each part
 (``utils.profiling.stage``): ``ns_stft`` (item 1's analysis), ``ns_psd``
 (|X|^2 and item 3), ``ns_noise`` (item 2), ``ns_gain`` (item 4 and X*G)
-and ``ns_istft`` (item 5); on the kernel's path ``ns_stft``,
+and ``ns_istft`` (item 5); on the Wiener kernel's path ``ns_stft``,
 ``ns_noise`` (the lead-in frames' |X|^2 and their median),
-``ns_wiener`` (the kernel) and ``ns_istft``.
+``ns_wiener`` (the kernel) and ``ns_istft``; with ``"adaptive"``
+``ns_stft``, ``ns_noise`` (the median, the tracker's seed), ``ns_track``
+(the kernel or its twin) and ``ns_istft``.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ import numpy as np
 import torch
 
 from xmtpu_torch.kernels import ns as _kns
+from xmtpu_torch.kernels.ns import adaptive_noise_step as _adaptive_noise_step
 from xmtpu_torch.kernels.ns import onepole_frames as _onepole_frames
 from xmtpu_torch.ops import convert as _convert
 from xmtpu_torch.utils.device import to_device
@@ -121,21 +131,14 @@ def istft(F: torch.Tensor, n: int, nfft: int = _DEF_NFFT) -> torch.Tensor:
     return out[..., hop:hop + n]
 
 
-def _adaptive_noise_step(noise, psd_t, a_n: float, thresh: float,
-                         up_leak: float):
-    """One frame of the pinned adaptive noise recursion (the offline
-    loop and the streaming step both run it)."""
-    ratio = psd_t / torch.clamp_min(noise, 1e-20)
-    upd = a_n * noise + (1.0 - a_n) * psd_t
-    return torch.where(ratio < thresh, upd, noise * up_leak)
-
-
 def _adaptive_noise_track(psd: torch.Tensor, noise_frames: int, a_n: float,
                           thresh: float, up_leak: float) -> torch.Tensor:
     """Per-frame noise estimates (..., T, F): seeded by the lead-in
     median; the recursion starts at frame ``noise_frames`` (lead frames
     hold the seed), so a streaming session runs the same state sequence
-    from there. A loop over frames, as the JAX package's ``lax.scan``."""
+    from there. A loop over frames, as the JAX package's ``lax.scan``:
+    the definition's state sequence, to which the tests hold the
+    tracker (``kernels.ns.track``)."""
     noise = median(psd[..., :noise_frames, :], dim=-2)
     out = torch.empty_like(psd)
     for t in range(psd.shape[-2]):
@@ -175,12 +178,26 @@ def suppress(x, nfft: int = _DEF_NFFT, noise_frames: int = 8,
     if noise_psd is not None and noise_update == "adaptive":
         raise ValueError("noise_psd pins the estimate; it cannot be "
                          "combined with noise_update='adaptive'")
+    adaptive = noise_update == "adaptive"
     # each device operation lies in one of the ranges: the int16
     # conversions go with the transforms beside them
     with stage("ns_stft"):
-        xf = _convert.pcm16_to_f32(x) if was_i16 else x.to(torch.float32)
+        if adaptive:  # float64 analysis (module docstring)
+            xf = (_convert.pcm16_to_f32(x) if was_i16 else x).to(
+                torch.float64)
+        else:
+            xf = _convert.pcm16_to_f32(x) if was_i16 else x.to(torch.float32)
         X = stft(xf, nfft)
-    if X.device.type == "cuda" and noise_update == "frozen":
+    if adaptive:
+        with stage("ns_noise"):
+            lead = X[..., :noise_frames, :]
+            seed = median(lead.real * lead.real + lead.imag * lead.imag,
+                          dim=-2)
+        with stage("ns_track"):
+            Y = _kns.track(X, seed, float(smooth), float(floor),
+                           int(noise_frames), float(noise_smooth),
+                           float(presence_thresh), float(up_leak))
+    elif X.device.type == "cuda":
         with stage("ns_noise"):
             if noise_psd is not None:
                 noise = _given_noise(noise_psd, X)
@@ -196,11 +213,6 @@ def suppress(x, nfft: int = _DEF_NFFT, noise_frames: int = 8,
         with stage("ns_noise"):
             if noise_psd is not None:
                 noise = _given_noise(noise_psd, X)[..., None, :]
-            elif noise_update == "adaptive":
-                noise = _adaptive_noise_track(psd, noise_frames,
-                                              float(noise_smooth),
-                                              float(presence_thresh),
-                                              float(up_leak))
             else:
                 noise = median(psd[..., :noise_frames, :],
                                dim=-2)[..., None, :]

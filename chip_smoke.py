@@ -166,8 +166,9 @@ process exits non-zero:
    EQ and the reverb from the IR file on the voice bus; LUFS
    normalization to -16; a -1 dB limiter on the master in blocks of
    65,536. Counters set to 0 just before: K7 (the voice's 44.1k ->
-   48k), K5 (the K-weighting), K1, the envelope kernel and the block
-   powers' kernel must launch.
+   48k), K5 (the K-weighting), K1, the envelope kernel, the block
+   powers' kernel and the duck kernel must launch, the duck's five
+   passes for the one ``api.mix`` call.
    The file read back: its length, channels, finite samples, peak at
    most the limiter's ceiling. Then a
    timed run (audio-seconds per second, wall clock with WAV I/O; the
@@ -328,16 +329,26 @@ process exits non-zero:
    twin's time and the time of the float32 loop over frames it replaced
    (``ops.ns._adaptive_noise_track``), and the adaptive ``suppress()``
    at that shape;
-34. a JSON line of the kernels (times, bounds, launches; K1 once per
+34. (``duck_phase``) the mixer's duck kernel (``csrc/duck.cu``) alone
+   at the mix cell's side chain (2 x 28.8 M of speech and pauses at 48
+   kHz) and a bed: the gain form against its twin on the card (the
+   float64 scans; -100 dB), the mix form bit for bit the gain form's
+   product and sum, each form's launches there (the kernels line takes
+   the episode's, phase 21: the mixer's own call), both forms' times
+   with and without the shortcut past the knee's ends, the twin's and the mixer's old
+   expression's times, ``roofline_mix.duck_stage``'s bound and the
+   kernel's own bytes, the passes' ptxas lines;
+35. a JSON line of the kernels (times, bounds, launches; K1 once per
    branch; the state-chain kernel beside K5; the episode's K5, K1 and
    envelope entries with its launch counts; the streaming entries of
    phases 22-23; the runner's K1, K5 and K3 of phase 25; the IIR and
    envelope kernels at the hour clip's shard, phase 27; the Wiener
    kernel of phase 32, the tracker kernel of phase 33, the block-power
-   kernel of phase 21), then the contract line ``{"ok": true,
+   kernel of phase 21, the duck kernel of phase 34), then the contract
+   line ``{"ok": true,
    "device": {...}}`` last.
 
-Every step run with fresh counters sets all thirteen launch counters to
+Every step run with fresh counters sets all fourteen launch counters to
 0 just before it and reads them just after.
 
 ``bound_ms`` is the roofline bound: the larger of the bytes each kernel
@@ -2258,29 +2269,18 @@ def ns_track_phase(h, rows: int = 32, n: int = 2646000,
         raise SystemExit(f"chip_smoke: the tracker kernel launched "
                          f"{launches} passes at S = {S}")
 
-    def events_ms(fn, runs: int = 7) -> float:
-        if not on_card:
-            return float("nan")
-        out = []
-        for _ in range(runs + 2):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            out.append(a.elapsed_time(b))
-        return float(np.median(out[2:]))
+    def card_ms(fn, runs: int = 7) -> float:
+        return events_ms(fn, runs) if on_card else float("nan")
 
-    k["ms"] = events_ms(lambda: kns.track(X, seed, **kw))
-    k["plain_ms"] = events_ms(lambda: kns.track_plain(X, seed, **kw), runs=1)
+    k["ms"] = card_ms(lambda: kns.track(X, seed, **kw))
+    k["plain_ms"] = card_ms(lambda: kns.track_plain(X, seed, **kw), runs=1)
     h.bound(k, *track_stage(R, n, nfft))
     sweep = sorted({1, 2, 8, S // 2, S, 2 * S, 4 * S} & set(range(1, T + 1)))
-    swept = {kns.track_plan(T, s_)[0]: events_ms(
+    swept = {kns.track_plan(T, s_)[0]: card_ms(
         lambda: kns.track(X, seed, **kw, segments=s_), runs=3)
         for s_ in sweep}
     p32 = torch.square(torch.abs(tns.stft(x, nfft)))
-    loop_ms = events_ms(lambda: tns._adaptive_noise_track(
+    loop_ms = card_ms(lambda: tns._adaptive_noise_track(
         p32, 8, 0.95, 4.0, 1.02), runs=1)
     del p32, X
     call_ms = (median_ms(lambda: tns.suppress(x, nfft, device=dev,
@@ -2302,19 +2302,144 @@ def ns_track_phase(h, rows: int = 32, n: int = 2646000,
     print(f"phase 33: {time.perf_counter() - t33:.1f} s")
 
 
+def ptxas_line(entry):
+    """The ptxas summary (stack, spills, registers) of the kernels whose
+    mangled name contains ``entry``, from the build's log."""
+    from xmtpu_torch.kernels import _build
+
+    log = (_build.library_path().parent / "build.log").read_text()
+    out, lines = [], log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and entry in ln:
+            out.append(" ".join(x.strip() for x in lines[i + 2:i + 4]))
+    if not out:
+        raise SystemExit(f"chip_smoke: no ptxas line for {entry}")
+    return " | ".join(out)
+
+
+def events_ms(fn, runs: int = 7, warmup: int = 2) -> float:
+    """Median CUDA-event time of ``fn()`` on the current stream, ms."""
+    import torch
+
+    out = []
+    for _ in range(runs + warmup):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return float(np.median(out[warmup:]))
+
+
+def duck_phase(h, seconds: float = 600.0, sr: int = 48000) -> None:
+    """Phase 34: the duck kernel (``csrc/duck.cu``) alone at the mix
+    cell's side-chain shape (2 x 28.8 M at 48 kHz: 600 s of speech and
+    pauses, ``tests/torch_refs.speech_with_pauses``) and a bed: the gain
+    form against its twin on the card (the float64 scans and the knee;
+    gate -100 dB, max abs printed), the mix form bit for bit the gain
+    form's ``s + bed * g.to(float32)``, each form's launches (the
+    kernels line's entry takes the episode's, ``h.episode_duck_launches``
+    of phase 21); their times by CUDA events (median of 7 after 2), each
+    also with no knee bounds (the knee at every sample); the twin's gain and the mixer's
+    old expression (the twin's gain, the product and the sum) timed the
+    same way; the stage's bound (``roofline_mix.duck_stage``: 12 bytes a
+    sample and channel) and the kernel's own bytes (s read three times);
+    the passes' registers and spills (ptxas)."""
+    import torch
+
+    from perfbench.roofline_mix import duck_stage
+    from tests.torch_refs import speech_with_pauses
+    from xmtpu_torch.kernels import duck as kduck
+    from xmtpu_torch.ops import limiter
+    from xmtpu_torch.ops import mix as mixops
+
+    t34 = time.perf_counter()
+    dev = h.dev
+    side = torch.from_numpy(
+        speech_with_pauses(seconds, sr, 34).astype(np.float32)).to(dev)
+    R, n = side.shape
+    t = torch.arange(n, device=dev, dtype=torch.float32)
+    bed = (0.5 * torch.sin(t / 37.0)).expand(R, n).contiguous()
+    del t
+    k_rel = limiter._release_coeff(300.0, sr)
+    c_att = limiter._attack_coeff(10.0, sr)
+    kw = dict(threshold_db=-40.0, depth_db=12.0, knee_db=10.0)
+    h.reset_counts()
+    g, _ = kduck.gain(side, k_rel, c_att, **kw)
+    launches = h.counts()["duck"]
+    want, _ = kduck.gain_plain(side, k_rel, c_att, **kw)
+    k = h.compare("duck", "cuda", "xmtpu_torch/csrc/duck.cu", None, g, want)
+    k["launches"] = h.episode_duck_launches
+    inside = float(((want > 0.26) & (want < 0.99)).double().mean())
+    del want
+    h.reset_counts()
+    y = kduck.apply(side, bed, k_rel, c_att, **kw)
+    mix_launches = h.counts()["duck"]
+    same = torch.equal(y, side + bed * g.to(torch.float32))
+    del g, y
+
+    def timed(fn, fast: bool, runs: int = 7) -> float:
+        # without the bounds the kernel takes the knee at every sample
+        bounds = kduck.knee_bounds
+        if not fast:
+            kduck.knee_bounds = lambda *a: (math.nan, math.nan)
+        try:
+            return events_ms(fn, runs)
+        finally:
+            kduck.knee_bounds = bounds
+
+    gain_ms = {f: timed(lambda: kduck.gain(side, k_rel, c_att, **kw), f)
+               for f in (True, False)}
+    mix_ms = {f: timed(lambda: kduck.apply(side, bed, k_rel, c_att, **kw), f)
+              for f in (True, False)}
+    k["ms"] = mix_ms[True]
+    k["plain_ms"] = events_ms(lambda: side + bed * kduck.gain_plain(
+        side, k_rel, c_att, **kw)[0].to(torch.float32), runs=3, warmup=1)
+    twin_gain_ms = events_ms(lambda: kduck.gain_plain(side, k_rel, c_att,
+                                                      **kw), runs=3, warmup=1)
+    h.bound(k, *duck_stage(R, n))
+    own_ms = roofline_ms(20.0 * R * n, 0.0)[0]
+    ptx = {e: ptxas_line(e) for e in ("max_tiles_kernel",
+                                      "onepole_tiles_kernel",
+                                      "duck_chain_kernel", "duck_kernel")}
+    print(f"phase 34: the duck kernel (csrc/duck.cu) at ({R}, {n}), "
+          f"{kduck.tiles(n)} tiles a row, {100 * inside:.2f}% of samples "
+          f"inside the knee: gain form {launches} launches, "
+          f"{k['rms_db']:.1f} dB vs the twin (the float64 scans on the card; "
+          f"gate {GATE_KERNEL_DB:g}), max abs {k['max_abs_err']:.3g}; mix "
+          f"form {mix_launches} launches, bit for bit s + bed * g: {same}; "
+          f"mix form {mix_ms[True]:.4f} ms ({mix_ms[False]:.4f} with the "
+          f"knee at every sample), gain form {gain_ms[True]:.4f} ms "
+          f"({gain_ms[False]:.4f}); the twin's gain {twin_gain_ms:.2f} ms, "
+          f"the mixer's old expression {k['plain_ms']:.2f} ms; bound "
+          f"{k['bound_ms']:.4f} ms ({k['bound_by']}: roofline_mix."
+          f"duck_stage, 12 bytes a sample), {k['bound_ms'] / k['ms']:.1%} "
+          f"of it; the kernel's own bytes (s read three times, 20 a sample) "
+          f"{own_ms:.4f} ms [{h.card}]")
+    for e, line in ptx.items():
+        print(f"phase 34 ptxas {e}: {line}")
+    gate(same and launches == mix_launches == 5,
+         "the duck kernel's forms and launches")
+    del side, bed
+    print(f"phase 34: {time.perf_counter() - t34:.1f} s")
+
+
 def card_helpers() -> types.SimpleNamespace:
     """Phases 1 and 2 (the card, TF32 off, the kernels built) and the
     helpers every later phase takes: ``card`` (name and power limit),
     ``dev``, ``clock_hz``, ``kernels`` (the JSON line's entries),
     ``compare`` (a kernel's output against its twin's, -100 dB, appended
     to ``kernels``), ``bound``, ``reset_counts`` and ``counts`` (the
-    thirteen launch counters)."""
+    fourteen launch counters)."""
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from xmtpu_torch.bench import rms_db
     from xmtpu_torch.kernels import _build, envelope, eq_env, fftconv, iir
+    from xmtpu_torch.kernels import duck as kduck
     from xmtpu_torch.kernels import lufs as klufs
     from xmtpu_torch.kernels import ns as kns
     from xmtpu_torch.kernels import resample as kresample
@@ -2338,7 +2463,7 @@ def card_helpers() -> types.SimpleNamespace:
         iir.launches = envelope.envelope_launches = iir.chain_launches = 0
         eq_env.launches = kresample.launches = rsmix.launches = 0
         fftconv.long_launches = envelope.gain_launches = kns.launches = 0
-        klufs.launches = kns.track_launches = 0
+        klufs.launches = kns.track_launches = kduck.launches = 0
 
     def counts() -> dict:
         return {"fftconv": fftconv.launches, "envelope": envelope.launches,
@@ -2348,7 +2473,8 @@ def card_helpers() -> types.SimpleNamespace:
                 "rsmix": rsmix.launches,
                 "fftconv_long": fftconv.long_launches,
                 "gain": envelope.gain_launches, "ns_wiener": kns.launches,
-                "lufs": klufs.launches, "ns_track": kns.track_launches}
+                "lufs": klufs.launches, "ns_track": kns.track_launches,
+                "duck": kduck.launches}
 
     # 2. build
     t0 = time.perf_counter()
@@ -2426,18 +2552,6 @@ def main() -> None:
               f"window pitch {geo.pitch} words, tile pitch "
               f"{geo.tile_pitch}, {geo.smem} shared bytes a block, "
               f"{per_sm} blocks per SM x {sms} SMs")
-
-    def ptxas_line(entry):
-        """The ptxas summary (stack, spills, registers) of the kernels
-        whose mangled name contains ``entry``, from the build's log."""
-        log = (_build.library_path().parent / "build.log").read_text()
-        out, lines = [], log.splitlines()
-        for i, ln in enumerate(lines):
-            if "Compiling entry function" in ln and entry in ln:
-                out.append(" ".join(x.strip() for x in lines[i + 2:i + 4]))
-        if not out:
-            raise SystemExit(f"chip_smoke: no ptxas line for {entry}")
-        return " | ".join(out)
 
     def check_k1(name, x, h, pre_row, pre_col):
         """K1 against its twin on these operands; times; conv1d of the
@@ -3750,10 +3864,15 @@ def main() -> None:
         print(f"episode: launches {got_ep}; launched "
               f"{sorted(k for k, v_ in got_ep.items() if v_)}")
         if not all(got_ep[k] for k in ("resample", "iir", k1_key,
-                                       "envelope_seg", "lufs")):
+                                       "envelope_seg", "lufs", "duck")):
             raise SystemExit("chip_smoke: the episode did not launch K7 "
                              "(resample), K5 (iir), K1, the envelope "
-                             f"kernel and the block powers' kernel: {got_ep}")
+                             "kernel, the block powers' kernel and the "
+                             f"duck kernel: {got_ep}")
+        # process_file runs api.mix once: the duck's mix form, five passes
+        gate(got_ep["duck"] == 5, "the episode's duck: five launches a "
+             f"mix call, got {got_ep['duck']}")
+        h.episode_duck_launches = got_ep["duck"]
         marks = []
 
         def mark(p_):
@@ -4032,7 +4151,10 @@ def main() -> None:
     # 33. the adaptive estimate's tracker kernel at its cell's spectra
     ns_track_phase(h)
 
-    # 34. kernels line, then the contract line last
+    # 34. the duck kernel at the mix cell's side chain
+    duck_phase(h)
+
+    # 35. kernels line, then the contract line last
     print(kernels_line(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -105,7 +105,12 @@ adaptive suppress on the card against the CPU -100 dB (the float64
 analyses through two FFT libraries, the float32 synthesis); the mixer
 with its voice chain on the card against the CPU (float64 scans): -80
 dB; the duck's gain within 1e-4 of the reference at every sample, and
--80 dB.
+-80 dB; the duck kernel, float64 like its twin (the scans) but composed
+in another order: its gain within 1e-9 of the reference at the mix
+cell's length, within 1e-12 of the twin at edge lengths and 1e-11 across
+carried blocks (states rtol 1e-12), NaN where the twin's is; its mix
+form bit for bit its gain form's ``s + bed * g.to(float32)``, and the
+shortcut past the knee's ends bit for bit the knee itself.
 """
 
 from __future__ import annotations
@@ -117,8 +122,8 @@ import torch
 import xmtpu_torch
 from xmtpu_torch import batch as tbatch
 from xmtpu_torch.bench import config3_chain, config3_inputs
-from xmtpu_torch.kernels import (_build, _seg, envelope, eq_env, fftconv,
-                                  iir, lufs, resample, rsmix)
+from xmtpu_torch.kernels import (_build, _seg, duck, envelope, eq_env,
+                                  fftconv, iir, lufs, resample, rsmix)
 from xmtpu_torch.ops import resample as tres
 from xmtpu_torch.utils.errors import ConfigError
 
@@ -705,7 +710,8 @@ def _counts() -> dict:
             "envelope_seg": envelope.envelope_launches,
             "eq_env": eq_env.launches, "resample": resample.launches,
             "rsmix": rsmix.launches, "fftconv_long": fftconv.long_launches,
-            "gain": envelope.gain_launches, "lufs": lufs.launches}
+            "gain": envelope.gain_launches, "lufs": lufs.launches,
+            "duck": duck.launches}
 
 
 def _launched(before: dict) -> set:
@@ -1644,7 +1650,8 @@ def test_mix_on_card_vs_cpu(cuda):
     before = _counts()
     y = xmtpu_torch.mix(tracks, 48000, **kw)
     torch.cuda.synchronize()
-    assert {"resample", "iir", "fftconv_long", "lufs"} <= _launched(before)
+    assert {"resample", "iir", "fftconv_long", "lufs",
+            "duck"} <= _launched(before)
     y_cpu = xmtpu_torch.mix(tracks, 48000, device="cpu", **kw)
     db = refs.db(y, y_cpu)
     print(f"mix card vs CPU: {db:.1f} dB")
@@ -1652,20 +1659,23 @@ def test_mix_on_card_vs_cpu(cuda):
 
 
 def test_duck_on_card_at_the_episode_length(cuda):
-    """The duck's float64 scans on the card (``ops.mix.duck_gain``) over
-    the mix cell's side-chain shape, 2 x 28.8 M (600 s at 48 kHz), of
-    speech and pauses that cross the knee both ways, against the
-    reference's closed form and ``lfilter``: within 1e-4 of the gain at
-    every sample and -80 dB RMS. The mix cell's check cannot see the
-    duck's recurrences (its voice never pauses), so this is the gate for
-    a rewrite of them."""
+    """The duck kernel's gain form (``ops.mix.duck_gain`` on the card:
+    five launches) over the mix cell's side-chain shape, 2 x 28.8 M (600
+    s at 48 kHz), of speech and pauses that cross the knee both ways,
+    against the reference's closed form and ``lfilter``: within 1e-4 of
+    the gain at every sample and -80 dB RMS, and within 1e-9, as both
+    are float64. The mix cell's check cannot see the duck's recurrences
+    (its voice never pauses), so this is the gate for a rewrite of
+    them."""
     from perfbench.reference import episode_mix
     from xmtpu_torch.ops import mix as mixops
 
     s = refs.speech_with_pauses(600.0, 48000, 95).astype(np.float32)
     want = episode_mix.duck_gain(s.astype(np.float64), 48000)
+    before = duck.launches
     got = mixops.duck_gain(torch.from_numpy(s).to(cuda), 48000)
     torch.cuda.synchronize()
+    assert duck.launches == before + 5
     err = np.max(np.abs(got.cpu().numpy() - want))
     db = refs.db(got, want)
     inside = np.mean((want > 0.26) & (want < 0.99))
@@ -1673,6 +1683,152 @@ def test_duck_on_card_at_the_episode_length(cuda):
           f"{100 * inside:.2f}% of samples inside the knee")
     assert want.min() < 0.3 and want.max() == 1.0 and inside > 0.01
     assert err < 1e-4 and db < -80.0
+    assert err < 1e-9
+
+
+def test_duck_mix_form_at_the_episode_length(cuda, monkeypatch):
+    """The mix form (``ops.mix.duck_apply``, as the mixer calls it, over
+    ``side`` in place) at 2 x 28.8 M of speech and pauses with a bed:
+    against ``side + bed * float32(reference gain)`` within an ulp of
+    the output where float32 rounds the two gains apart, -120 dB; bit
+    for bit the gain form's ``side + bed * g.to(float32)`` (the product
+    and the sum rounded as torch rounds them, no FMA); one launch of
+    five passes; with no knee bounds (``knee_bounds`` NaN, the knee at
+    every sample): the same bits."""
+    from perfbench.reference import episode_mix
+    from xmtpu_torch.ops import mix as mixops
+
+    s = refs.speech_with_pauses(600.0, 48000, 96).astype(np.float32)
+    rng = np.random.default_rng(96)
+    bed = (0.5 * np.sin(np.arange(s.shape[-1]) / 37.0)
+           + 0.01 * rng.standard_normal(s.shape)).astype(np.float32)
+    g_ref = episode_mix.duck_gain(s.astype(np.float64), 48000)
+    want = s + bed * g_ref.astype(np.float32)
+    side, bed_d = torch.from_numpy(s).to(cuda), torch.from_numpy(bed).to(cuda)
+    g = mixops.duck_gain(side, 48000)
+    same = side + bed_d * g.to(torch.float32)
+    del g
+    before = duck.launches
+    got = mixops.duck_apply(side, bed_d, 48000, overwrite=True)
+    torch.cuda.synchronize()
+    assert duck.launches == before + 5
+    assert got.data_ptr() == side.data_ptr() and got.dtype == torch.float32
+    assert torch.equal(got, same)
+    err = np.abs(got.cpu().numpy() - want)
+    print(f"duck mix form, 2 x 28.8 M: max abs {err.max():.3g} against "
+          f"the reference's gain, {np.mean(err > 0):.2e} of samples apart")
+    assert err.max() <= 2.0**-23 * np.abs(want).max()  # an ulp
+    assert refs.db(got, want) < -120.0
+    side = torch.from_numpy(s).to(cuda)
+    monkeypatch.setattr(duck, "knee_bounds",
+                        lambda *a: (float("nan"), float("nan")))
+    slow = mixops.duck_apply(side, bed_d, 48000)
+    assert torch.equal(slow, same)
+
+
+@pytest.mark.parametrize("R,n", [
+    (1, 1), (2, 7), (3, 320), (2, 997), (1, duck.TILE - 1), (2, duck.TILE),
+    (2, duck.TILE + 1), (3, 65537), (2, 1_000_003)])
+def test_duck_kernel_vs_twin_at_edge_lengths(cuda, R, n):
+    """The gain form against its twin (the float64 scans on the CPU) at
+    prime and odd lengths, one sample, a 20 ms frame at 16 kHz (one tile:
+    one launch), around a tile, over the knee's band with a carried
+    state: the gain within 1e-12, the final state rtol 1e-12; launches 1
+    at one tile a row, 5 past it. The mix form beside it against the
+    twin's product and sum."""
+    rng = np.random.default_rng(n)
+    s = (refs.speech_with_pauses(n / 8000 + 1.0, 8000, R)[:1].repeat(R, 0)
+         [:, :n] * rng.uniform(0.01, 1.0, (R, 1))).astype(np.float32)
+    bed = rng.standard_normal((R, n)).astype(np.float32)
+    kw = dict(threshold_db=-30.0, depth_db=9.0, knee_db=12.0, attack_ms=5.0,
+              release_ms=120.0)
+    from xmtpu_torch.ops import mix as mixops
+
+    state = (torch.full((R,), 0.05, dtype=torch.float64),
+             torch.full((R,), 0.02, dtype=torch.float64))
+    g_p, st_p = mixops.duck_gain_block(torch.from_numpy(s), 8000, state, **kw)
+    before = duck.launches
+    g_k, st_k = mixops.duck_gain_block(
+        torch.from_numpy(s).to(cuda), 8000,
+        tuple(t.to(cuda) for t in state), **kw)
+    torch.cuda.synchronize()
+    assert duck.launches - before == (1 if n <= duck.TILE else 5)
+    assert g_k.shape == (R, n) and st_k[0].shape == (R,)
+    assert torch.max(torch.abs(g_k.cpu() - g_p)) <= 1e-12
+    for a, b in zip(st_k, st_p):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-12, atol=0.0)
+    y_k = mixops.duck_apply(torch.from_numpy(s).to(cuda),
+                            torch.from_numpy(bed).to(cuda), 8000, **kw)
+    y_p = mixops.duck_apply(torch.from_numpy(s), torch.from_numpy(bed),
+                            8000, **kw)
+    assert refs.db(y_k, y_p) < -140.0
+
+
+def test_duck_gain_block_carried_on_card(cuda):
+    """``duck_gain_block`` on the card over 20 ms blocks (960 samples at
+    48 kHz: one tile) and over uneven blocks past a tile, the state
+    carried, against the CPU twin's blocks and the card's whole signal:
+    the gain within 1e-11 (1.3e-12 on an H100: the two sides compose
+    the blocks' float64 powers in other orders), the final states rtol
+    1e-12."""
+    from xmtpu_torch.ops import mix as mixops
+
+    s = refs.speech_with_pauses(6.0, 48000, 44).astype(np.float32)
+    x = torch.from_numpy(s)
+    whole, _ = mixops.duck_gain_block(x.to(cuda), 48000, None)
+    for cuts in (list(range(0, s.shape[-1], 960)),
+                 [0, 5, 4101, 40000, 150001, 200000]):
+        st_k = st_p = None
+        parts_k, parts_p = [], []
+        for a, b in zip(cuts, cuts[1:] + [s.shape[-1]]):
+            g, st_k = mixops.duck_gain_block(x[:, a:b].to(cuda), 48000, st_k)
+            parts_k.append(g)
+            g, st_p = mixops.duck_gain_block(x[:, a:b], 48000, st_p)
+            parts_p.append(g)
+        g_k = torch.cat(parts_k, -1).cpu()
+        d_twin = float(torch.max(torch.abs(g_k - torch.cat(parts_p, -1))))
+        d_whole = float(torch.max(torch.abs(g_k - whole.cpu())))
+        print(f"duck carried over {len(cuts)} blocks: max abs {d_twin:.3g} "
+              f"vs the twin's blocks, {d_whole:.3g} vs the whole signal")
+        assert d_twin <= 1e-11 and d_whole <= 1e-11
+        for a, b in zip(st_k, st_p):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-12, atol=0.0)
+
+
+def test_duck_kernel_nan_where_the_twin_s(cuda):
+    """A NaN in the side chain: the kernel's gain (and the mix form's
+    output) NaN exactly where the twin's ``torch.maximum`` carries it,
+    in that row from the NaN on, in a middle tile and in the last; the
+    other samples within 1e-12."""
+    from xmtpu_torch.ops import mix as mixops
+
+    s = refs.speech_with_pauses(2.0, 48000, 8).astype(np.float32)
+    s = np.concatenate([s, s[:1]])
+    s[0, 50_000] = np.nan
+    s[2, s.shape[-1] - 3] = np.nan
+    g_p = mixops.duck_gain(torch.from_numpy(s), 48000)
+    g_k = mixops.duck_gain(torch.from_numpy(s).to(cuda), 48000).cpu()
+    nan = torch.isnan(g_p)
+    assert nan[0, 50_000:].all() and not nan[0, :50_000].any()
+    assert torch.equal(torch.isnan(g_k), nan) and not nan[1].any()
+    assert torch.max(torch.abs(g_k[~nan] - g_p[~nan])) <= 1e-12
+    bed = torch.ones(s.shape)
+    y_k = mixops.duck_apply(torch.from_numpy(s).to(cuda), bed.to(cuda),
+                            48000).cpu()
+    y_p = mixops.duck_apply(torch.from_numpy(s), bed, 48000)
+    assert torch.equal(torch.isnan(y_k), torch.isnan(y_p))
+
+
+def test_duck_kernel_refuses_what_it_cannot_take(cuda):
+    """A float64 side chain and a bed of another shape raise on the
+    card; there is no fallback."""
+    from xmtpu_torch.ops import mix as mixops
+
+    x = torch.zeros((2, 100), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        mixops.duck_gain(x.double(), 48000)
+    with pytest.raises(ValueError, match="shape"):
+        mixops.duck_apply(x, x[:1], 48000)
 
 
 def _stream_config(effects=(), master=()):

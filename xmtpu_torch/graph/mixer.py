@@ -128,7 +128,8 @@ def mix(tracks, sample_rate: int, normalize: str | None = "peak",
     ``duration_ms``. ``voice_effects``: an effect chain applied to the
     summed voice bus (kind "voice", not ducked) at the bus rate, after
     placement, gain and fades and before ducking. Side-ducked tracks are
-    attenuated by ``ops.mix.duck_gain`` of the other buses' sum.
+    attenuated by ``ops.mix.duck_gain`` of the other buses' sum
+    (``ops.mix.duck_apply``: one kernel call on ``cuda``).
     ``normalize``: "peak" (``target_db`` dBFS), "lufs" (BS.1770,
     ``target_db`` LUFS), "rms" (or its alias "loudness") or None. Runs on
     ``cuda`` unless ``device`` names another device."""
@@ -230,8 +231,9 @@ def _mix_tracks(tracks, sample_rate, normalize, target_db, duration_ms,
         out = voice_bus + other_bus
     if ducked:
         with stage("duck"):
-            g = _mix.duck_gain(out, sample_rate, **(duck_params or {}))
-            out = out + _mix.mix_sum(ducked) * g.to(torch.float32)
+            bed = ducked[0] if len(ducked) == 1 else _mix.mix_sum(ducked)
+            out = _mix.duck_apply(out, bed, sample_rate, overwrite=True,
+                                  **(duck_params or {}))
     if normalize == "peak":
         out, _ = _mix.peak_normalize(out, _mix.db_to_amp(target_db))
     elif normalize == "lufs":

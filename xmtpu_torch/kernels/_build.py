@@ -67,6 +67,8 @@ _SIGNATURES = {
     "xm_ns_track_f64": ([_P] * 5 + [_I] * 6 + [_D] * 9 + [_P], _I),
     "xm_ns_track_blocks_per_sm": ([], _I),
     "xm_lufs_blocks_f32": ([_P, _P, _I, _L] + [_I] * 3 + [_P], _I),
+    "xm_duck_f32": ([_P] * 9 + [_I, _L, _I] + [_D] * 3 + [_I] + [_D] * 5
+                    + [_P], _I),
     "xm_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

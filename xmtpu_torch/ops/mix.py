@@ -18,7 +18,9 @@ the peak and the mean (the ragged rule).
 Ducking (:func:`duck_gain`): the limiter's detector on the voice bus,
 float64 scans (``ops.limiter``), then a soft-edged gate: ``x =
 clip((env_db - threshold_db)/knee_db + 0.5, 0, 1)``, gain ``10^(-depth_db
-* x / 20)``.
+* x / 20)``; on a CUDA tensor the hand-written kernel ``kernels.duck``
+computes the same in float64, and :func:`duck_apply` the ducked bus with
+it in one call.
 """
 
 from __future__ import annotations
@@ -117,20 +119,15 @@ def duck_gain_block(voice_bus: torch.Tensor, sr: int, state,
                     release_ms: float = 300.0):
     """Stateful ducking gain for one block (..., n) -> (gain float64,
     state). ``state``: (env_last, smooth_last) shaped (...,) float64, or
-    None for zeros; a stream that carries it gets the offline gain."""
+    None for zeros; a stream that carries it gets the offline gain. On a
+    CUDA tensor (float32) the duck kernel's gain form
+    (``kernels.duck.gain``), elsewhere its twin, the float64 scans."""
+    from xmtpu_torch.kernels import duck as _kduck
     from xmtpu_torch.ops import limiter as _lim
 
-    d = voice_bus.to(torch.float64).abs()
-    k_rel = _lim._release_coeff(release_ms, sr)
-    c_att = _lim._attack_coeff(attack_ms, sr)
-    if state is None:
-        z = torch.zeros(d.shape[:-1], dtype=d.dtype, device=d.device)
-        state = (z, z)
-    env, env_last = _lim.decaying_max_scan(d, k_rel, state[0])
-    e2, sm_last = _lim.onepole_scan(env, c_att, state[1])
-    env_db = 20.0 * torch.log10(torch.clamp_min(e2, 1e-12))
-    x = torch.clamp((env_db - threshold_db) / knee_db + 0.5, 0.0, 1.0)
-    return torch.pow(10.0, -depth_db * x / 20.0), (env_last, sm_last)
+    return _kduck.gain(voice_bus, _lim._release_coeff(release_ms, sr),
+                       _lim._attack_coeff(attack_ms, sr), threshold_db,
+                       depth_db, knee_db, state)
 
 
 def duck_gain(voice_bus: torch.Tensor, sr: int, threshold_db: float = -40.0,
@@ -142,6 +139,30 @@ def duck_gain(voice_bus: torch.Tensor, sr: int, threshold_db: float = -40.0,
     g, _ = duck_gain_block(voice_bus, sr, None, threshold_db, depth_db,
                            knee_db, attack_ms, release_ms)
     return g
+
+
+def duck_apply(side: torch.Tensor, ducked: torch.Tensor, sr: int,
+               threshold_db: float = -40.0, depth_db: float = 12.0,
+               knee_db: float = 10.0, attack_ms: float = 10.0,
+               release_ms: float = 300.0,
+               overwrite: bool = False) -> torch.Tensor:
+    """The ducked bus ``side + ducked * duck_gain(side).to(float32)``,
+    float32 of side's shape (``ducked`` the same shape). On a CUDA tensor
+    one call of the duck kernel's mix form (``kernels.duck.apply``), the
+    gain never stored; elsewhere that expression, through
+    :func:`duck_gain`. With ``overwrite`` the result may be written over
+    ``side``, which the caller then gives up."""
+    kw = dict(threshold_db=threshold_db, depth_db=depth_db, knee_db=knee_db,
+              attack_ms=attack_ms, release_ms=release_ms)
+    if side.device.type != "cuda":
+        prod = ducked * duck_gain(side, sr, **kw).to(torch.float32)
+        return side.add_(prod) if overwrite else side + prod
+    from xmtpu_torch.kernels import duck as _kduck
+    from xmtpu_torch.ops import limiter as _lim
+
+    return _kduck.apply(side, ducked, _lim._release_coeff(release_ms, sr),
+                        _lim._attack_coeff(attack_ms, sr), threshold_db,
+                        depth_db, knee_db, overwrite=overwrite)
 
 
 def duck_gain_np(voice_bus, sr, threshold_db=-40.0, depth_db=12.0,
